@@ -41,3 +41,9 @@ jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips where there is none"
+    )
