@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Bring-up check of fidget_tpu_torch on one CUDA card.
 
-Builds the three CUDA kernels of the 2D MPR frame from the sources in
+Builds the five CUDA kernels of the port from the sources in
 fidget_tpu_torch/csrc, holds each against its plain PyTorch version on
-the card, drives the port's main path (`PixelRenderer.render()` at
-1024^2 on a 7,203-op procedural shape) and holds every frame against
-the numpy oracle `render_brute`. Run from the root of the repository:
+the card, and drives the port's two main paths: the 2D frame
+(`PixelRenderer.render()` at 1024^2 on a 7,203-op procedural shape) and
+the 3D heightmap + normals renderer (`VoxelRenderer.render()` at 512^3
+on the 28-op gyroid sphere, and at 128^3 on a 3,303-op union of 300
+spheres), holding every frame against the numpy oracles. Run from the
+root of the repository:
 
     python3 chip_smoke.py
 
@@ -14,21 +17,38 @@ Phases (any failure exits non-zero and prints no result):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: one nvcc per kernel source, all started together;
 3. op matrix: every unary and binary op over special values (NaN,
-   +-inf, +-0, pi multiples, halves, integers past 2^23) in float mode through interp_float (K3)
-   and interval mode through interp_interval (K1), then the liveness
-   pass (K2) over the captured choices, each against its plain version
-   at rtol = atol = 2e-5 (2e-4 for EXP and LN; bit-equal for the ops
-   IEEE rounds correctly), choices and codes exact; once with the shared-memory register file and once with a
-   register file too large for it (global scratch);
-4. main path: a few frames through `PixelRenderer.render()` under
+   +-inf, +-0, pi multiples, halves, integers past 2^23) in float mode
+   through interp_float (K3), interval mode through interp_interval
+   (K1) and grad mode through interp_grad (K4), then the liveness pass
+   (K2) over the captured choices, each against its plain version;
+   float and interval at rtol = atol = 2e-5 (2e-4 for EXP and LN;
+   bit-equal for the ops IEEE rounds correctly), grad values the same
+   and derivatives at 1e-4, choices and codes exact; once with the
+   shared-memory register files and once with register files too large
+   for them (global scratch);
+4. 2D main path: a few frames through `PixelRenderer.render()` under
    different pans, with the launch counts set to 0 just before and
    read just after; each frame's occupancy must equal `render_brute`,
    distances allclose (rtol 1e-5, atol 1e-6) where evaluated, fills
    conservative;
-5. one phase per kernel on the inputs the main path gave it
+5. one phase per 2D kernel on the inputs the main path gave it
    (L = 8192, nf = 64, CW = 128; S0 = 8 for K1/K2, 128 for K3): kernel
    against plain version, CUDA-event times, and the bound;
-6. per-stage times of warm frames (CUDA events).
+6. per-stage times of warm 2D frames (CUDA events, profiler);
+7. 3D main path: the gyroid sphere at 512^3 (tile 64, subtile 16)
+   under three views in normals mode and one heightmap frame, then the
+   sphere union at 128^3 (tile 32, subtile 16), launch counts set to 0
+   before and read after each; depth equal to `render_brute` (the
+   union's exactly; a gyroid column may differ only at a voxel whose
+   float64 distance is within f32 rounding of 0, see `check_depth`),
+   normals allclose (rtol = atol = 1e-4) to the numpy GradMode oracle
+   `brute_normals` where depth > 0, [0, 0, 1] where saturated; ten
+   warm union frames timed;
+8. one phase per 3D kernel shape on the inputs the 3D path gave it:
+   K4 and K5 against their plain versions (K5 exact, also through the
+   global-scratch register file), K1 and K2 at their 3D shapes; times
+   and bounds over the real lanes and live instances only;
+9. per-stage times of a warm 512^3 normals frame.
 
 The last two lines of standard output are the `kernels` JSON line and
 the device JSON line.
@@ -87,7 +107,43 @@ KERNEL_INFO = {
         "fidget_tpu_torch/csrc/interp_float.cu",
         "fidget_tpu/eval/pallas_interp.py:179",
     ),
+    "interp_grad": (
+        "fidget_tpu_torch/csrc/interp_grad.cu",
+        "fidget_tpu/eval/pallas_interp.py:820",
+    ),
+    "interp_voxel_depth": (
+        "fidget_tpu_torch/csrc/interp_voxel_depth.cu",
+        "fidget_tpu/eval/pallas_interp.py:337",
+    ),
 }
+
+#: kernels of each main path
+KERNELS_2D = ("interp_interval", "liveness_codes", "interp_float")
+KERNELS_3D = ("interp_interval", "liveness_codes", "interp_grad",
+              "interp_voxel_depth")
+
+SIZE3 = 512
+
+
+def _rot(axis, a):
+    c, s = math.cos(a), math.sin(a)
+    m = np.eye(4)
+    i, j = {"x": (1, 2), "y": (2, 0)}[axis]
+    m[i, i], m[i, j], m[j, i], m[j, j] = c, -s, s, c
+    return m
+
+
+def _perspective():
+    m = np.eye(4)
+    m[3, 2] = 0.3
+    return m
+
+
+#: views of the 3D main path: identity, a rotation (0.4 rad about y,
+#: then 0.3 rad about x), and a perspective camera
+VIEWS3 = [("identity", None),
+          ("rotated", _rot("x", 0.3) @ _rot("y", 0.4)),
+          ("perspective", _perspective())]
 
 
 class Failed(Exception):
@@ -96,34 +152,6 @@ class Failed(Exception):
 
 def log(*args):
     print(*args, flush=True)
-
-
-def standin_shape(ctx, n=800, seed=0):
-    """Seeded procedural stand-in of prospero's size: n circles (radii
-    0.01-0.06, centres in [-1, 1]), every third clipped to a horizontal
-    band by a `max`, reduced by a balanced tree of `min`s. Lowered:
-    7,203 ops, 13 registers, 1,066 choices."""
-    rng = np.random.default_rng(seed)
-    c = rng.uniform(-1, 1, size=(n, 2))
-    r = rng.uniform(0.01, 0.06, size=n)
-    x, y = ctx.x(), ctx.y()
-    parts = []
-    for i in range(n):
-        dx = ctx.sub(x, float(c[i, 0]))
-        dy = ctx.sub(y, float(c[i, 1]))
-        d = ctx.sub(
-            ctx.sqrt(ctx.add(ctx.square(dx), ctx.square(dy))), float(r[i])
-        )
-        if i % 3 == 0:
-            d = ctx.max(d, ctx.sub(ctx.abs(dy), float(r[i]) * 0.5))
-        parts.append(d)
-    while len(parts) > 1:
-        nxt = [ctx.min(parts[i], parts[i + 1])
-               for i in range(0, len(parts) - 1, 2)]
-        if len(parts) % 2:
-            nxt.append(parts[-1])
-        parts = nxt
-    return parts[0]
 
 
 def compare(got, want, rtol, atol):
@@ -261,8 +289,15 @@ def phase_op_matrix(port, dev):
     tol = torch.tensor(
         [_matrix_tolerance(name) for name, _ in cases], device=dev
     )[:, None, None, None]
+    # grad values at the matrix's tolerance of the transcendentals
+    grad_tol = torch.tensor(
+        [2e-4 if name in ("EXP", "LN") else 2e-5 for name, _ in cases],
+        device=dev,
+    )[:, None, None, None]
     errs = {}
-    for nf in (packed.nf, 256):  # shared-memory file, then global scratch
+    # shared-memory register files, then global scratch for every kernel
+    # (K4's four files leave shared memory above nf = 48)
+    for nf in (packed.nf, 256):
         kw = dict(nf=nf, n_inputs=2, n_outputs=1, s0=s0)
         got = interp.interp_float(*arena, pts, **kw)
         want = interp.interp_float_plain(*arena, pts, **kw)
@@ -288,32 +323,56 @@ def phase_op_matrix(port, dev):
         )
         if not torch.equal(codes, codes_plain):
             raise Failed(f"op matrix liveness codes differ (nf={nf})")
+        # grad mode: x seeded d/dx, y seeded d/dy
+        duals = torch.zeros((T, 2, 4, s0, 128), device=dev)
+        duals[:, :, 0] = pts
+        for t_i, (_, tape) in enumerate(cases):
+            for v, i in tape.var_map.items():
+                duals[t_i, i, 1 if v.kind == "x" else 2] = 1.0
+        got = interp.interp_grad(*arena, duals, **kw)
+        want = interp.interp_grad_plain(*arena, duals, **kw)
+        errs["grad", nf] = check(
+            f"op matrix grad value (nf={nf})", got[:, :, 0], want[:, :, 0],
+            grad_tol, grad_tol,
+        )
+        errs["d/dxyz", nf] = check(
+            f"op matrix grad derivatives (nf={nf})", got[:, :, 1:],
+            want[:, :, 1:], 1e-4, 1e-4,
+        )
     torch.cuda.synchronize()
-    log(f"op matrix: {T} tapes x {ns * ns} value pairs agree in float and "
-        f"interval mode, choices and codes exact; max abs err "
+    log(f"op matrix: {T} tapes x {ns * ns} value pairs agree in float, "
+        f"interval and grad mode, choices and codes exact; max abs err "
         + ", ".join(f"{k[0]}@nf{k[1]}={v:.3g}" for k, v in errs.items()))
 
 
 @contextlib.contextmanager
-def capture_kernel_inputs(render2d, store):
-    """Records the arguments of the first call of each kernel wrapper
-    that the frame makes (the wrappers themselves run unchanged)."""
-    names = ("interp_interval", "liveness_codes", "interp_float")
-    saved = {n: getattr(render2d, n) for n in names}
+def capture_kernel_inputs(targets, store):
+    """Records, per key, the arguments of the call of each kernel
+    wrapper with the most tape steps that the frames make (the first
+    of equals; the wrappers themselves run unchanged). targets:
+    (module, wrapper name, key function of the call's args and
+    kwargs)."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
 
-    def wrap(name, fn):
+    def steps(args, name):
+        lens = args[2] if name == "liveness_codes" else args[3]
+        return int(lens.clamp(min=0).sum())
+
+    def wrap(fn, name, keyfn):
         def recorder(*args, **kwargs):
-            store.setdefault(name, (args, kwargs))
+            key = keyfn(args, kwargs)
+            if key not in store or steps(args, name) > steps(store[key][0], name):
+                store[key] = (args, kwargs)
             return fn(*args, **kwargs)
         return recorder
 
-    for n in names:
-        setattr(render2d, n, wrap(n, saved[n]))
+    for (mod, name, keyfn), (_, _, fn) in zip(targets, saved):
+        setattr(mod, name, wrap(fn, name, keyfn))
     try:
         yield
     finally:
-        for n, fn in saved.items():
-            setattr(render2d, n, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def check_frame(r, img, view):
@@ -338,117 +397,199 @@ def check_frame(r, img, view):
     return float(occ.mean()), float(ev.mean())
 
 
-def _bound(name, args, out):
+def _bound(name, args, kwargs, out, lanes=None):
     """(bound_ms, bound_by): the larger of the bytes the call must move
     over HBM bandwidth and the operations it does over the float32
-    rate, from this call's inputs. A tape step counts one operation per
-    lane per value plane (float: 1, interval: 2, liveness: 1); tape
-    words count only up to each instance's length."""
-    lens = args[2] if name == "liveness_codes" else args[3]
+    rate, counting only the work this call's data needs. A tape step
+    counts one operation per real lane per value plane (float: 1,
+    interval: 2, liveness: 1, grad: 4; the voxel pass one per voxel
+    plus one per voxel of a live instance for its depth epilogue). Tape
+    words count up to each instance's length; per-lane inputs count
+    only for instances that have a tape (length > 0); inputs and
+    outputs count only the `lanes` real lanes of an instance (the root
+    and subtile passes pad theirs to a multiple of 128; None: every
+    lane is real), and the voxel pass's output only its sub^2 depth
+    columns."""
+    liveness = name == "liveness_codes"
+    lens = args[2] if liveness else args[3]
     steps = int(lens.clamp(min=0).sum())
+    planes = args[3] if liveness else args[4]
+    B = planes.shape[0]
+    width = planes.shape[-2] * 128
+    real = width if lanes is None else lanes
+    frac = real / width
+    shared = liveness and args[0].shape[0] == 1
+    n_live = B * int(int(lens[0]) > 0) if shared else int((lens > 0).sum())
+    in_bytes = planes[0].nbytes * n_live * frac
+    tape_bytes = (8 if liveness else 12) * steps
     if name == "interp_interval":
-        lo, hi = args[4:6]
-        nbytes = 12 * steps + lo.nbytes + hi.nbytes + sum(o.nbytes for o in out)
-        ops = 2 * steps * lo.shape[2] * 128
-    elif name == "liveness_codes":
-        w1, ch = args[0], args[3]
-        B, _, s0, _ = ch.shape
-        reps = B if w1.shape[0] == 1 else 1
-        nbytes = 8 * steps + ch.nbytes + out.nbytes
-        ops = steps * reps * s0 * 128
+        in_bytes *= 2  # lo and hi
+        out_bytes = sum(o.nbytes for o in out) * frac
+        ops = 2 * steps * real
+    elif liveness:
+        out_bytes = out.nbytes * frac
+        ops = steps * (B if shared else 1) * real
+    elif name == "interp_grad":
+        out_bytes = out.nbytes * frac
+        ops = 4 * steps * real
+    elif name == "interp_voxel_depth":
+        out_bytes = B * kwargs["sub"] ** 2 * out.element_size()
+        ops = steps * width + n_live * width
     else:
-        vars_ = args[4]
-        lanes = vars_.shape[2] * 128
-        nbytes = 12 * steps + vars_.nbytes + out.nbytes
-        ops = steps * lanes
+        out_bytes = out.nbytes * frac
+        ops = steps * real
+    nbytes = int(tape_bytes + in_bytes + out_bytes)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     log(f"  {name}: {steps} tape steps over {lens.numel()} tapes, "
+        f"{n_live} instances with a tape, {real} of {width} lanes real; "
         f"{nbytes} bytes, {ops} operations")
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernels(captured, launches):
+def _time_plain(plain, args, kwargs):
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    want = plain(*args, **kwargs)
+    t1.record()
+    torch.cuda.synchronize()
+    return want, t0.elapsed_time(t1)
+
+
+def _kernel_pairs():
     from fidget_tpu_torch.eval import interp, simplify_device
 
-    kernels = {
+    return {
         "interp_interval": (interp.interp_interval, interp.interp_interval_plain),
         "liveness_codes": (
             simplify_device.liveness_codes,
             simplify_device.liveness_codes_plain,
         ),
         "interp_float": (interp.interp_float, interp.interp_float_plain),
+        "interp_grad": (interp.interp_grad, interp.interp_grad_plain),
+        "interp_voxel_depth": (
+            interp.interp_voxel_depth, interp.interp_voxel_depth_plain,
+        ),
     }
-    rows = []
-    for name, (fn, plain) in kernels.items():
+
+
+def measure_kernel(name, args, kwargs, lanes=None):
+    """One kernel on one captured call: kernel against its plain
+    version on the card, CUDA-event ms, plain ms and the bound (`lanes`:
+    the real lanes of an instance, as `_bound` takes them)."""
+    fn, plain = _kernel_pairs()[name]
+    got = fn(*args, **kwargs)
+    want, plain_ms = _time_plain(plain, args, kwargs)
+    if name == "interp_interval":
+        err = max(check(f"{name} {p}", g, w, 2e-5, 2e-5)
+                  for p, g, w in zip(("lo", "hi"), got[:2], want[:2]))
+        if not torch.equal(got[2], want[2]):
+            raise Failed("interp_interval choices differ from plain")
+    elif name in ("liveness_codes", "interp_voxel_depth"):
+        if not torch.equal(got, want):
+            raise Failed(f"{name} differs from plain")
+        err = 0.0
+    elif name == "interp_grad":
+        err = max(check(f"{name} values", got[:, :, 0], want[:, :, 0],
+                        2e-5, 2e-5),
+                  check(f"{name} derivatives", got[:, :, 1:], want[:, :, 1:],
+                        1e-4, 1e-4))
+    else:
+        err = check(name, got, want, 2e-5, 2e-5)
+    ms = time_cuda(lambda: fn(*args, **kwargs), reps=20)
+    bound_ms, bound_by = _bound(name, args, kwargs, got, lanes)
+    shape = tuple((args[4] if name != "liveness_codes" else args[3]).shape)
+    log(f"kernel {name}: {kwargs}, inputs {shape}, max abs err {err:.3g}, "
+        f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.5f} ms "
+        f"({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_kernels(captured, launches, n_frames, n_tiles):
+    """K1-K3 on the inputs the 2D path gave them; the root passes (K1,
+    K2) hold one real lane per root tile."""
+    rows = {}
+    for name in KERNELS_2D:
         args, kwargs = captured[name]
-        got = fn(*args, **kwargs)
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0.record()
-        want = plain(*args, **kwargs)
-        t1.record()
-        torch.cuda.synchronize()
-        plain_ms = t0.elapsed_time(t1)
-        if name == "interp_interval":
-            err = max(check(f"{name} {p}", g, w, 2e-5, 2e-5)
-                      for p, g, w in zip(("lo", "hi"), got[:2], want[:2]))
-            if not torch.equal(got[2], want[2]):
-                raise Failed("interp_interval choices differ from plain")
-        elif name == "liveness_codes":
-            if not torch.equal(got, want):
-                raise Failed("liveness codes differ from plain")
-            err = 0.0
-        else:
-            err = check(name, got, want, 2e-5, 2e-5)
-        ms = time_cuda(lambda: fn(*args, **kwargs), reps=20)
-        bound_ms, bound_by = _bound(name, args, got)
-        log(f"kernel {name}: {kwargs}, instances {args[0].shape[0]}, "
-            f"max abs err {err:.3g}, {ms:.4f} ms, plain {plain_ms:.1f} ms, "
-            f"bound {bound_ms:.5f} ms ({bound_by})")
         src, replaces = KERNEL_INFO[name]
-        rows.append({
+        lanes = None if name == "interp_float" else n_tiles
+        rows[name] = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
-            "launches_per_frame": launches[name] / len(FRAMES),
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        })
+            "launches_per_frame": launches[name] / n_frames,
+            **measure_kernel(name, args, kwargs, lanes), "library_ms": None,
+        }
     return rows
 
 
-def phase_stages(r, view, reps=10):
-    """Where a warm frame's time goes: `render()` wall time on the host
-    clock; per-stage times from CUDA events recorded as each stage of
-    `_frame_core` is enqueued (a stage that waits on the host to
-    enqueue its work shows that wait too); and the device's busy time
-    per frame from the profiler, summed over every kernel."""
-    names = ["root", "codes", "reconstruct", "leaf", "assemble"]
+def phase_kernels3d(r, captured, launches3d, n_frames, rows):
+    """K4 and K5 on the inputs the 3D path gave them (K5 also through
+    its global-scratch register file), and K1/K2 at their 3D shapes:
+    one real lane per root tile at the root, per subtile of a root tile
+    at the subtiles."""
+    from fidget_tpu_torch.eval import interp
+
+    for name in ("interp_grad", "interp_voxel_depth"):
+        args, kwargs = captured[name]
+        src, replaces = KERNEL_INFO[name]
+        rows[name] = {
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches3d[name],
+            "launches_per_frame": launches3d[name] / n_frames,
+            **measure_kernel(name, args, kwargs), "library_ms": None,
+        }
+    args, kwargs = captured["interp_voxel_depth"]
+    wide = interp.interp_voxel_depth(*args, **{**kwargs, "nf": 256})
+    if not torch.equal(wide, interp.interp_voxel_depth(*args, **kwargs)):
+        raise Failed("interp_voxel_depth differs through global scratch")
+    log("kernel interp_voxel_depth: global-scratch register file (nf 256) "
+        "equals the shared-memory one")
+    real = {"root": r.geo.nt, "subtile": r.geo.m, "instances": r.geo.m}
+    for key in ("interp_interval@root", "interp_interval@subtile",
+                "liveness_codes@root", "liveness_codes@instances"):
+        name, where = key.split("@")
+        args, kwargs = captured[key]
+        m = measure_kernel(name, args, kwargs, real[where])
+        rows[name].setdefault("at_3d", {})[where] = {
+            k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")
+        }
+    for name in rows:
+        rows[name]["launches_3d"] = launches3d[name]
+        rows[name]["launches_3d_per_frame"] = launches3d[name] / n_frames
+
+
+def _stage_profile(render, frame, names, reps=10):
+    """Where a warm frame's time goes: `render()` wall time on the
+    host clock; per-stage times from CUDA events recorded as each stage
+    is enqueued (`frame(hook)` runs one frame with a stage hook; a stage
+    that waits on the host to enqueue its work shows that wait too, and
+    stages that repeat are summed); and the device's busy time per frame
+    from the profiler, summed over every kernel."""
     sums = dict.fromkeys(names, 0.0)
     wall = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r.render(view)
+        render()
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
-    mat, vec = r._mat4(view), r._var_vec(None)
     for _ in range(reps):
-        events = {}
+        events = []
 
         def hook(stage):
-            events[stage] = torch.cuda.Event(enable_timing=True)
-            events[stage].record()
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((stage, ev))
 
         torch.cuda.synchronize()
         hook("start")
-        r._frame(mat, 0.0, vec, stage_hook=hook)
+        frame(hook)
         torch.cuda.synchronize()
-        prev = "start"
-        for n in names:
-            sums[n] += events[prev].elapsed_time(events[n])
-            prev = n
+        for (_, e0), (stage, e1) in zip(events, events[1:]):
+            sums[stage] += e0.elapsed_time(e1)
     log(f"render() wall time (host clock, synchronized): median "
         f"{float(np.median(wall)):.3f} ms, min {min(wall):.3f} ms over "
         f"{reps} warm frames")
@@ -461,7 +602,7 @@ def phase_stages(r, view, reps=10):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            r.render(view)
+            render()
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3 / reps
     # device-side entries only: a host op's entry repeats its kernels' time
@@ -475,11 +616,239 @@ def phase_stages(r, view, reps=10):
         return
     events.sort(key=lambda e: -e.self_device_time_total)
     log(f"profiler: device busy {busy:.3f} ms per frame of {prof_wall:.3f} "
-        f"ms wall under the profiler ({100 * busy / prof_wall:.1f}% busy); "
-        f"{sum(e.count for e in events) / reps:.0f} device ops per frame")
+        f"ms wall under the profiler ({100 * busy / prof_wall:.1f}% busy; "
+        f"{100 * busy / float(np.median(wall)):.1f}% of the unprofiled "
+        f"median); {sum(e.count for e in events) / reps:.0f} device ops "
+        f"per frame")
     for e in events[:8]:
         log(f"  {e.self_device_time_total / 1e3 / reps:8.3f} ms/frame "
             f"{e.count / reps:5.0f}x  {e.key[:70]}")
+
+
+def phase_stages(r, view):
+    mat, vec = r._mat4(view), r._var_vec(None)
+    _stage_profile(
+        lambda: r.render(view),
+        lambda hook: r._frame(mat, 0.0, vec, stage_hook=hook),
+        ["root", "codes", "reconstruct", "leaf", "assemble"],
+    )
+
+
+def phase_stages3d(r, view):
+    mat, vec = r._mat4(view), r._var_vec(None)
+    _stage_profile(
+        lambda: r.render(view),
+        lambda hook: r._frame(mat, vec, stage_hook=hook),
+        ["root", "simplify", "proofs", "compact", "respecialize", "voxel",
+         "fold", "normals"],
+    )
+
+
+# ----------------------------------------------------------------------
+# 3D main path
+
+
+class _Peak:
+    """A value mode around `mode` that records, per point, the largest
+    magnitude of any value the tape makes: the scale of its f32
+    rounding errors there."""
+
+    def __init__(self, mode):
+        self.mode, self.peak = mode, 0.0
+
+    def _seen(self, v):
+        self.peak = np.fmax(self.peak, np.abs(v))
+        return v
+
+    def const(self, imm, like):
+        return self.mode.const(imm, like)
+
+    def unary(self, op, a):
+        return self._seen(self.mode.unary(op, a))
+
+    def binary(self, op, a, b):
+        return self._seen(self.mode.binary(op, a, b))
+
+    def choice_binary(self, op, a, b):
+        v, c = self.mode.choice_binary(op, a, b)
+        return self._seen(v), c
+
+
+#: how close to the surface, in f32 ulps of the tape's largest value at
+#: the point, a voxel must lie for the card and numpy to disagree on it
+SURFACE_ULPS = 4
+
+
+def check_depth(r, depth, brute, view):
+    """Depth equal to render_brute. A column may differ only where the
+    voxel the two disagree on lies on the surface to within f32
+    rounding: numpy's f32 distance there gives render_brute's verdict,
+    and the distance evaluated in float64 at the same f32 coordinates
+    is within SURFACE_ULPS f32 ulps of the largest value the tape makes
+    there (transcendentals round differently on the card and in numpy).
+    The witness is numpy alone, independent of the port's kernels.
+    Returns one reading per differing column."""
+    from fidget_tpu_torch.eval.arith import FloatMode
+    from fidget_tpu_torch.eval.unrolled import eval_tape
+    from fidget_tpu_torch.render.transform import transform_points
+
+    bad = np.argwhere(depth != brute)
+    if not len(bad):
+        return []
+    rows, cols = bad[:, 0], bad[:, 1]
+    dp, db = depth[rows, cols], brute[rows, cols]
+    z = np.maximum(dp, db) - 1  # the voxel the two sides disagree on
+    f32 = np.float32
+    mat = r._screen_mat(r._mat4(view))
+    pts = transform_points(mat, cols.astype(f32), rows.astype(f32), z.astype(f32))
+    inputs = r._brute_inputs(r._var_vec(None), pts, pts[0])
+    peak = _Peak(FloatMode(np))
+    with np.errstate(all="ignore"):
+        (d32,), _ = eval_tape(r.tape, FloatMode(np), inputs)
+        (d64,), _ = eval_tape(r.tape, peak, [a.astype(np.float64) for a in inputs])
+    band = SURFACE_ULPS * np.spacing(np.asarray(peak.peak, f32))
+    ok = ((d32 < 0) == (db > dp)) & (np.abs(d64) <= band)
+    readings = list(zip(rows.tolist(), cols.tolist(), dp.tolist(),
+                        db.tolist(), d32.tolist(), d64.tolist(),
+                        band.tolist()))
+    for row, col, a, b, x32, x64, w in readings[:8]:
+        log(f"    column ({row}, {col}): depth {a}, brute {b}; distance of "
+            f"voxel {max(a, b) - 1}: numpy f32 {x32!r}, float64 {x64!r}, "
+            f"band {w!r}")
+    if not ok.all():
+        raise Failed(f"depth differs from render_brute at {len(bad)} "
+                     f"columns, {int((~ok).sum())} of them off the surface")
+    return readings
+
+
+def check_frame3d(r, img, view, brute, label, exact=False):
+    """Depth against render_brute (`exact`: no column may differ, else
+    as `check_depth` allows), normals against the numpy oracle."""
+    depth = img.depth.cpu().numpy()
+    if depth.shape != (r.H, r.W) or depth.dtype != np.int32:
+        raise Failed(f"{label}: depth has shape {depth.shape} {depth.dtype}")
+    if exact and not np.array_equal(depth, brute):
+        raise Failed(f"{label}: depth differs from render_brute at "
+                     f"{int((depth != brute).sum())} columns")
+    rounding = len(check_depth(r, depth, brute, view))
+    msg = (f"{label}: depth equals render_brute "
+           f"({(depth > 0).mean():.4f} of pixels hit, "
+           f"{(depth == r.D).mean():.4f} saturated")
+    msg += (f"; {rounding} columns differ at a voxel on the surface to "
+            "within f32 rounding)" if rounding else ")")
+    if img.normal is not None:
+        normal = img.normal.cpu().numpy()
+        if normal.shape != (r.H, r.W, 3) or not np.isfinite(normal).all():
+            raise Failed(f"{label}: normals have the wrong shape or non-finite"
+                         " values")
+        want = r.brute_normals(depth, view)
+        hit = (depth > 0) & (depth < r.D)
+        bad = ~np.isclose(normal, want, rtol=1e-4, atol=1e-4).all(-1) & hit
+        if bad.any():
+            k = np.argwhere(bad)[:4]
+            raise Failed(f"{label}: normals differ from the oracle at "
+                         f"{int(bad.sum())} px, e.g. {k.tolist()}: "
+                         f"{normal[tuple(k.T)].tolist()} vs "
+                         f"{want[tuple(k.T)].tolist()}")
+        if not (normal[depth == r.D] == (0.0, 0.0, 1.0)).all():
+            raise Failed(f"{label}: a saturated pixel is not [0, 0, 1]")
+        if not (normal[depth == 0] == 0.0).all():
+            raise Failed(f"{label}: an empty pixel has a normal")
+        err = float(np.abs(normal - want)[hit].max()) if hit.any() else 0.0
+        msg += f"; normals agree with the oracle (max abs err {err:.3g})"
+    log(msg)
+
+
+def phase_main3d(port, cuda, render3d, render2d, simplify_device):
+    from fidget_tpu_torch.scenes import gyroid_sphere
+
+    shape = gyroid_sphere(port)
+    tape = shape.tape()
+    if (len(tape), tape.reg_count, tape.choice_count) != (28, 6, 1):
+        raise Failed(f"gyroid sphere lowered to {len(tape)} ops")
+    r = port.VoxelRenderer(shape, port.VoxelSize(SIZE3, SIZE3, SIZE3),
+                           tile_size=64, sub_size=16)
+    log(f"3D main path: gyroid sphere, {len(tape)}-op tape; buckets Lcap "
+        f"{r.Lcap_b}, nf {r.nf_b}, cw {r.cw_b}; {SIZE3}^3 in tiles of "
+        f"{r.ts} and subtiles of {r.sub}, worklist {r.cap} slots")
+    captured = {}
+    targets = [
+        (render3d, "interp_interval",
+         lambda a, k: "interp_interval@" + ("root" if a[0].shape[0] == 1
+                                            else "subtile")),
+        (render3d, "interp_voxel_depth", lambda a, k: "interp_voxel_depth"),
+        (render3d, "interp_grad", lambda a, k: "interp_grad"),
+        (render2d, "liveness_codes", lambda a, k: "liveness_codes@root"),
+        (simplify_device, "liveness_codes",
+         lambda a, k: "liveness_codes@instances"),
+    ]
+    with capture_kernel_inputs(targets, captured):
+        r.render(VIEWS3[0][1])  # warm-up; its inputs feed the kernel phase
+    torch.cuda.synchronize()
+
+    cuda.reset_launches()
+    images = [r.render(view) for _, view in VIEWS3]
+    images.append(r.render(VIEWS3[0][1], mode="heightmap"))
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    n_frames = len(images)
+    log(f"3D main path launches over {n_frames} frames: {launches}")
+    missing = [k for k in KERNELS_3D if launches[k] == 0]
+    if missing:
+        raise Failed(f"3D main path never launched {missing}")
+    brutes = {}
+    for (label, view), img in zip(VIEWS3 + [("heightmap", VIEWS3[0][1])],
+                                  images):
+        t0 = time.time()
+        key = label if label != "heightmap" else "identity"
+        if key not in brutes:
+            brutes[key] = r.render_brute(view).depth.numpy()
+        if label == "heightmap" and img.normal is not None:
+            raise Failed("heightmap frame returned normals")
+        check_frame3d(r, img, view, brutes[key], label)
+        log(f"  oracle {time.time() - t0:.1f} s")
+    if not np.array_equal(images[-1].depth.cpu().numpy(),
+                          images[0].depth.cpu().numpy()):
+        raise Failed("heightmap and normals frames disagree on depth")
+    return r, captured, launches, n_frames
+
+
+def phase_union3d(port, cuda, reps=10):
+    from fidget_tpu_torch.scenes import sphere_union_shape
+
+    ctx = port.Context()
+    tape = port.lower(ctx, [sphere_union_shape(ctx)])
+    if (len(tape), tape.reg_count, tape.choice_count) != (3303, 13, 299):
+        raise Failed(f"sphere union lowered to {len(tape)} ops, "
+                     f"{tape.reg_count} registers, {tape.choice_count} choices")
+    r = port.VoxelRenderer(tape, port.VoxelSize(128, 128, 128), tile_size=32,
+                           sub_size=16)
+    r.render()
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    img = r.render()
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    missing = [k for k in KERNELS_3D if launches[k] == 0]
+    if missing:
+        raise Failed(f"sphere union frame never launched {missing}")
+    wall = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.render()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    log(f"3D tape-heavy scene: {len(tape)}-op sphere union, buckets Lcap "
+        f"{r.Lcap_b}, nf {r.nf_b}, cw {r.cw_b}; 128^3 in tiles of 32, "
+        f"worklist {r.cap}; launches {launches}; render() wall time (host "
+        f"clock, synchronized): median {float(np.median(wall)):.3f} ms, min "
+        f"{min(wall):.3f} ms over {reps} warm frames")
+    t0 = time.time()
+    # sub, square, add, sqrt and min round correctly in f32 on both sides
+    check_frame3d(r, img, None, r.render_brute().depth.numpy(), "union",
+                  exact=True)
+    log(f"  oracle {time.time() - t0:.1f} s")
 
 
 def main() -> int:
@@ -488,8 +857,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     import fidget_tpu_torch as port
-    from fidget_tpu_torch.eval import cuda
-    from fidget_tpu_torch.render import render2d
+    from fidget_tpu_torch.eval import cuda, simplify_device
+    from fidget_tpu_torch.render import render2d, render3d
+    from fidget_tpu_torch.scenes import standin_shape
 
     dev = torch.device("cuda")
     smi = phase_device()
@@ -506,7 +876,8 @@ def main() -> int:
         f"{tape.choice_count} choices; buckets Lcap {r.Lcap_b}, nf "
         f"{r.nf_b}, cw {r.cw_b}; {SIZE}^2 in {r.n0} tiles of {r.T0} px")
     captured = {}
-    with capture_kernel_inputs(render2d, captured):
+    targets = [(render2d, n, lambda a, k, n=n: n) for n in KERNELS_2D]
+    with capture_kernel_inputs(targets, captured):
         r.render(FRAMES[0])  # warm-up; its inputs feed the kernel phase
     torch.cuda.synchronize()
 
@@ -515,7 +886,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(cuda.LAUNCHES)
     log(f"main path launches over {len(FRAMES)} frames: {launches}")
-    missing = [k for k in cuda.KERNELS if launches[k] == 0]
+    missing = [k for k in KERNELS_2D if launches[k] == 0]
     if missing:
         raise Failed(f"main path never launched {missing}")
     for k, (img, view) in enumerate(zip(images, FRAMES)):
@@ -525,11 +896,18 @@ def main() -> int:
             f"{evaluated:.3f} of pixels evaluated; brute "
             f"{time.time() - t0:.1f} s)")
 
-    rows = phase_kernels(captured, launches)
+    rows = phase_kernels(captured, launches, len(FRAMES), r.n0)
     phase_stages(r, FRAMES[1])
 
+    r3, captured3, launches3, n3 = phase_main3d(
+        port, cuda, render3d, render2d, simplify_device
+    )
+    phase_union3d(port, cuda)
+    phase_kernels3d(r3, captured3, launches3, n3, rows)
+    phase_stages3d(r3, VIEWS3[1][1])
+
     log(smi)
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

@@ -2,9 +2,11 @@
 
 Expression graphs are deduplicated and lowered to fidget's register
 tapes (host-side numpy, bit-identical to `fidget_tpu`), then evaluated
-in point and interval modes across pixel lanes by hand-written CUDA
-kernels for Hopper (csrc/), with a plain PyTorch version of each kernel
-for the CPU. Entry points run on the card unless the caller passes
+in point, interval and dual-number modes across pixel and voxel lanes
+by hand-written CUDA kernels for Hopper (csrc/), with a plain PyTorch
+version of each kernel for the CPU. The 2D renderer (`PixelRenderer`)
+and the 3D heightmap + normals renderer (`VoxelRenderer`) are built on
+them. Entry points run on the card unless the caller passes
 `device="cpu"`.
 
 This package imports neither JAX nor `fidget_tpu`.
@@ -16,9 +18,12 @@ from .core.context import Context
 from .core.ops import BinaryOp, UnaryOp
 from .core.tree import Tree, tree_max, tree_min
 from .core.var import Var, VarMap
-from .render.region import ImageSize
+from .render.region import ImageSize, VoxelSize
 from .render.render2d import Image2D, PixelRenderer
 from .render.render2d import render as render2d
+from .render.render3d import Image3D, VoxelRenderer
+from .render.render3d import render as render3d
+from .shape import Shape, ShapeVars
 
 __version__ = "0.1.0"
 
@@ -26,16 +31,22 @@ __all__ = [
     "BinaryOp",
     "Context",
     "Image2D",
+    "Image3D",
     "ImageSize",
     "PixelRenderer",
+    "Shape",
+    "ShapeVars",
     "Tape",
     "TapeOp",
     "Tree",
     "UnaryOp",
     "Var",
     "VarMap",
+    "VoxelRenderer",
+    "VoxelSize",
     "lower",
     "render2d",
+    "render3d",
     "tree_max",
     "tree_min",
     "__version__",

@@ -1,5 +1,6 @@
 // Tape opcodes, packed-word decoding and the per-op arithmetic of the
-// float and interval value modes, shared by the interpreter kernels.
+// float, interval and grad value modes, shared by the interpreter
+// kernels.
 //
 // Every function transcribes the matching branch of
 // fidget_tpu_torch/eval/arith.py (itself fidget_tpu/eval/arith.py),
@@ -347,6 +348,85 @@ __device__ Ival i_choice(int op, Ival a, Ival b, int* code) {
   }
   *code = nan ? CHOICE_BOTH : c;
   return poison(nan, lo, hi);
+}
+
+// ---------------------------------------------------------------------
+// grad mode (GradMode): forward duals (v, dx, dy, dz)
+
+struct Dual {
+  float v, dx, dy, dz;
+};
+
+__device__ __forceinline__ Dual d_scale(float f, Dual a, float s) {
+  return Dual{f, a.dx * s, a.dy * s, a.dz * s};
+}
+
+__device__ __forceinline__ Dual d_const(float f) {
+  return Dual{f, 0.f, 0.f, 0.f};
+}
+
+__device__ Dual g_unary(int op, Dual a) {
+  const float v = a.v;
+  switch (op) {
+    case OP_NEG: return Dual{-v, -a.dx, -a.dy, -a.dz};
+    case OP_ABS: return v < 0.f ? Dual{-v, -a.dx, -a.dy, -a.dz} : a;
+    case OP_RECIP: return d_scale(1.0f / v, a, -1.0f / (v * v));
+    case OP_SQRT: {
+      float r = sqrtf(v);
+      return d_scale(r, a, 0.5f / r);
+    }
+    case OP_SQUARE: return d_scale(v * v, a, 2.0f * v);
+    case OP_FLOOR: case OP_CEIL: case OP_ROUND: case OP_NOT:
+      return d_const(f_unary(op, v));
+    case OP_SIN: return d_scale(sinf(v), a, cosf(v));
+    case OP_COS: return d_scale(cosf(v), a, -sinf(v));
+    case OP_TAN: {
+      float c = cosf(v);
+      return d_scale(tanf(v), a, 1.0f / (c * c));
+    }
+    case OP_ASIN: return d_scale(asinf(v), a, 1.0f / sqrtf(1.0f - v * v));
+    case OP_ACOS: return d_scale(acosf(v), a, -1.0f / sqrtf(1.0f - v * v));
+    case OP_ATAN: return d_scale(atanf(v), a, 1.0f / (v * v + 1.0f));
+    case OP_EXP: {
+      float e = expf(v);
+      return d_scale(e, a, e);
+    }
+    case OP_LN: return d_scale(logf(v), a, 1.0f / v);
+    default: return a;
+  }
+}
+
+// every binary op, choice ops included: MIN/MAX/AND/OR pick a whole
+// dual by strict comparison of the values (grad.rs:169), not by the
+// NaN rules of float mode
+__device__ Dual g_binary(int op, Dual a, Dual b) {
+  switch (op) {
+    case OP_ADD: return Dual{a.v + b.v, a.dx + b.dx, a.dy + b.dy, a.dz + b.dz};
+    case OP_SUB: return Dual{a.v - b.v, a.dx - b.dx, a.dy - b.dy, a.dz - b.dz};
+    case OP_MUL:
+      return Dual{a.v * b.v, a.v * b.dx + b.v * a.dx, a.v * b.dy + b.v * a.dy,
+                  a.v * b.dz + b.v * a.dz};
+    case OP_DIV: case OP_ATAN2: {
+      float v = op == OP_DIV ? a.v / b.v : atan2f(a.v, b.v);
+      float d = op == OP_DIV ? b.v * b.v : a.v * a.v + b.v * b.v;
+      return Dual{v, (b.v * a.dx - a.v * b.dx) / d,
+                  (b.v * a.dy - a.v * b.dy) / d, (b.v * a.dz - a.v * b.dz) / d};
+    }
+    case OP_COMPARE: return d_const(f_binary(OP_COMPARE, a.v, b.v));
+    case OP_MOD: {
+      // grad.rs:186-196: d = da - db * div_euclid(a, b)
+      float q = truncf(a.v / b.v);
+      float r = fmodf(a.v, b.v);
+      float e = r < 0.f ? (b.v > 0.f ? q - 1.0f : q + 1.0f) : q;
+      return Dual{f_mod(a.v, b.v), a.dx - b.dx * e, a.dy - b.dy * e,
+                  a.dz - b.dz * e};
+    }
+    case OP_MIN: return a.v < b.v ? a : b;
+    case OP_MAX: return a.v > b.v ? a : b;
+    case OP_AND: return a.v == 0.f ? a : b;
+    case OP_OR: return a.v != 0.f ? a : b;
+    default: return a;
+  }
 }
 
 }  // namespace fidget

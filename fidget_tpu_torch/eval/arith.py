@@ -1,14 +1,15 @@
 """Value-mode arithmetic for tape evaluation.
 
-Two value modes, each defined over an array namespace `xp` that is
+Three value modes, each defined over an array namespace `xp` that is
 either `torch` (the plain versions of the interpreter kernels) or
-`numpy` (the host oracle behind `render_brute`):
+`numpy` (the host oracles behind `render_brute` and the normals check):
 
 - **float**: plain f32 arrays (point + bulk float-slice evaluation).
 - **interval**: `(lower, upper)` array pairs with conservative range
   semantics matching fidget-core/src/types/interval.rs exactly,
   including NaN poisoning, quadrant-aware sin/cos, and 2-bit `Choice`
   capture for min/max/and/or (interval.rs:295-381).
+- **grad**: forward-mode duals `(v, dx, dy, dz)` (grad.rs), for normals.
 
 This is `fidget_tpu.eval.arith` with the numpy-only idioms (`astype`,
 scalar-only `where`) replaced by forms both namespaces share. The CUDA
@@ -416,3 +417,137 @@ class IntervalMode:
             )
             return self._poison(nan, lo, hi), choice
         raise ValueError(op)
+
+
+# ======================================================================
+# grad mode (forward duals)
+
+
+class GradMode:
+    """Forward-mode dual numbers (v, dx, dy, dz): `fidget_tpu`'s
+    GradMode, the arithmetic of the grad interpreter (K4) and of the
+    host normals oracle. MIN/MAX/AND/OR select a whole dual by strict
+    comparison of the values (fidget-core/src/types/grad.rs:169), not
+    by FloatMode's NaN rules; FLOOR/CEIL/ROUND/NOT/COMPARE carry zero
+    derivatives."""
+
+    planes = 4
+
+    def __init__(self, xp):
+        self.xp = xp
+
+    def const(self, imm, like):
+        z = self.xp.zeros_like(like[0])
+        return (self.xp.full_like(like[0], imm), z, z, z)
+
+    def unary(self, op: TapeOp, a):
+        xp = self.xp
+        U = TapeOp
+        v, dx, dy, dz = a
+
+        def scale(f, s):
+            return (f, dx * s, dy * s, dz * s)
+
+        if op == U.NEG:
+            return (-v, -dx, -dy, -dz)
+        if op == U.ABS:
+            neg = v < 0
+            return (
+                xp.where(neg, -v, v),
+                xp.where(neg, -dx, dx),
+                xp.where(neg, -dy, dy),
+                xp.where(neg, -dz, dz),
+            )
+        if op == U.RECIP:
+            return scale(1.0 / v, -1.0 / (v * v))
+        if op == U.SQRT:
+            r = xp.sqrt(v)
+            return scale(r, 0.5 / r)
+        if op == U.SQUARE:
+            return scale(v * v, 2.0 * v)
+        if op in (U.FLOOR, U.CEIL, U.ROUND, U.NOT):
+            z = xp.zeros_like(v)
+            return (FloatMode(xp).unary(op, v), z, z, z)
+        if op == U.SIN:
+            return scale(xp.sin(v), xp.cos(v))
+        if op == U.COS:
+            return scale(xp.cos(v), -xp.sin(v))
+        if op == U.TAN:
+            c = xp.cos(v)
+            return scale(xp.tan(v), 1.0 / (c * c))
+        if op == U.ASIN:
+            return scale(xp.arcsin(v), 1.0 / xp.sqrt(1.0 - v * v))
+        if op == U.ACOS:
+            return scale(xp.arccos(v), -1.0 / xp.sqrt(1.0 - v * v))
+        if op == U.ATAN:
+            return scale(xp.arctan(v), 1.0 / (v * v + 1.0))
+        if op == U.EXP:
+            e = xp.exp(v)
+            return scale(e, e)
+        if op == U.LN:
+            return scale(xp.log(v), 1.0 / v)
+        raise ValueError(op)
+
+    def binary(self, op: TapeOp, a, b):
+        xp = self.xp
+        B = TapeOp
+        av, ax, ay, az = a
+        bv, bx, by, bz = b
+        if op == B.ADD:
+            return (av + bv, ax + bx, ay + by, az + bz)
+        if op == B.SUB:
+            return (av - bv, ax - bx, ay - by, az - bz)
+        if op == B.MUL:
+            return (
+                av * bv,
+                av * bx + bv * ax,
+                av * by + bv * ay,
+                av * bz + bv * az,
+            )
+        if op in (B.DIV, B.ATAN2):
+            # d(a/b) = (b da - a db) / b^2;
+            # d(atan2(a, b)) = (b da - a db) / (a^2 + b^2)
+            if op == B.DIV:
+                v, d = av / bv, bv * bv
+            else:
+                v, d = xp.arctan2(av, bv), av * av + bv * bv
+            return (
+                v,
+                (bv * ax - av * bx) / d,
+                (bv * ay - av * by) / d,
+                (bv * az - av * bz) / d,
+            )
+        if op == B.COMPARE:
+            z = xp.zeros_like(av)
+            return (FloatMode(xp).binary(B.COMPARE, av, bv), z, z, z)
+        if op == B.MOD:
+            # grad.rs:186-196: d = da - db * div_euclid(a, b)
+            q = xp.trunc(av / bv)
+            r = xp.fmod(av, bv)
+            e = xp.where(r < 0, xp.where(bv > 0, q - 1, q + 1), q)
+            return (
+                FloatMode(xp).binary(B.MOD, av, bv),
+                ax - bx * e,
+                ay - by * e,
+                az - bz * e,
+            )
+        raise ValueError(op)
+
+    def choice_binary(self, op: TapeOp, a, b):
+        """Choice ops: the left dual where the value comparison holds,
+        else the right one; returns (value, choice codes)."""
+        xp = self.xp
+        B = TapeOp
+        av, bv = a[0], b[0]
+        if op == B.MIN:
+            left = av < bv
+        elif op == B.MAX:
+            left = av > bv
+        elif op == B.AND:
+            left = av == 0.0
+        elif op == B.OR:
+            left = av != 0.0
+        else:
+            raise ValueError(op)
+        value = tuple(xp.where(left, ac, bc) for ac, bc in zip(a, b))
+        return value, _codes(xp, av, (left, CHOICE_LEFT), CHOICE_RIGHT)

@@ -37,6 +37,8 @@ KERNELS = {
     "interp_interval": ("interp_interval", "fidget_interp_interval"),
     "liveness_codes": ("liveness", "fidget_liveness_codes"),
     "interp_float": ("interp_float", "fidget_interp_float"),
+    "interp_grad": ("interp_grad", "fidget_interp_grad"),
+    "interp_voxel_depth": ("interp_voxel_depth", "fidget_interp_voxel_depth"),
 }
 
 #: launches per kernel name since the last `reset_launches()`
@@ -55,6 +57,10 @@ _ARGTYPES = {
     "fidget_interp_interval": [_P] * 10 + [_I] * 7 + [_P],
     # w1s w2s lengths choices codes scratch | B Tt L nf CW lanes
     "fidget_liveness_codes": [_P] * 6 + [_I] * 6 + [_P],
+    # w1 w2 imm lengths vars out scratch | T L nf V O lanes
+    "fidget_interp_grad": [_P] * 7 + [_I] * 6 + [_P],
+    # w1 w2 imm lengths vars out scratch | T L nf V sub pp_out
+    "fidget_interp_voxel_depth": [_P] * 7 + [_I] * 6 + [_P],
 }
 
 _LOCK = threading.Lock()

@@ -1,24 +1,31 @@
-"""Tape-interpreter kernels: float mode (K3) and interval mode with
-2-bit choice capture (K1).
+"""Tape-interpreter kernels: float mode (K3), interval mode with 2-bit
+choice capture (K1), grad mode (K4) and float mode fused with the voxel
+depth reduction (K5).
 
-The counterparts of `fidget_tpu.eval.pallas_interp.interp_float` and
-`interp_interval`, with the same packed arenas (compiler/pack.py) and
-the same lane layout: inputs and outputs are `[T, V, S0, 128]` planes,
-one packed tape per instance t.
+The counterparts of `fidget_tpu.eval.pallas_interp.interp_float`,
+`interp_interval`, `interp_grad` and `interp_voxel_depth`, with the
+same packed arenas (compiler/pack.py) and the same lane layout: inputs
+and outputs are `[T, V, S0, 128]` planes (`[T, V, 4, S0, 128]` dual
+planes in grad mode), one packed tape per instance t.
 
 Each public function dispatches on the device of its tensors alone:
 on CUDA it launches the hand-written kernel (csrc/interp_float.cu,
-csrc/interp_interval.cu); on the CPU it runs the plain PyTorch version
-beside it (`*_plain`), which walks the same tape with the arithmetic
-of eval/arith.py. The plain versions take tensors on any device, so
-the kernels can be held against them on the card.
+csrc/interp_interval.cu, csrc/interp_grad.cu,
+csrc/interp_voxel_depth.cu); on the CPU it runs the plain PyTorch
+version beside it (`*_plain`), which walks the same tape with the
+arithmetic of eval/arith.py. The plain versions take tensors on any
+device, so the kernels can be held against them on the card.
 
 The TPU kernels truncate their opcode switch to a tape's vocabulary
 (`tape_n_ops`) and must never let an out-of-vocabulary op fall onto a
 live branch (fidget_tpu/eval/pallas_interp.py:105-111). The CUDA
 kernels dispatch through a full `switch` over the canonical op order,
 so that hazard cannot arise; `tape_n_ops` is kept for callers that
-size such a vocabulary.
+size such a vocabulary. The TPU wrappers of K1 and K4 split the lane
+axis to fit their VMEM budget; lanes are independent on the card, so
+the port has no split. K5 drops the TPU's `tiles_per_step`, which
+amortized a per-grid-step cost the card does not have (the bucketed 3D
+path ran it at 1).
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import torch
 from ..compiler.pack import IMM12
 from ..compiler.tape import CHOICE_TAPE_OPS, TapeOp
 from . import cuda
-from .arith import FloatMode, IntervalMode
+from .arith import FloatMode, GradMode, IntervalMode
 
 #: ops 0..30 are kernel-dispatchable (MEM/LOAD/STORE are packed away)
 N_OPS = 31
@@ -270,3 +277,164 @@ def interp_interval_plain(
             rlo[min(o, nf - 1)] = r[0]
             rhi[min(o, nf - 1)] = r[1]
     return olo, ohi, ch
+
+
+# ======================================================================
+# grad mode (K4)
+
+
+def interp_grad(
+    w1, w2, imm, lengths, vars_, *, nf: int, n_inputs: int, n_outputs: int,
+    s0: int,
+):
+    """Evaluates packed tapes with forward-mode duals.
+
+    Args:
+      vars_: [T, V, 4, S0, 128] f32 dual planes (v, dx, dy, dz).
+    Returns:
+      [T, O, 4, S0, 128] f32 dual outputs; 0 where the tape wrote none.
+    """
+    T, L = _check_arena(w1, w2, imm, lengths)
+    if vars_.shape != (T, n_inputs, 4, s0, 128) or vars_.dtype != torch.float32:
+        raise ValueError(
+            f"dual planes must be f32 [{T}, {n_inputs}, 4, {s0}, 128], got "
+            f"{vars_.dtype} {tuple(vars_.shape)}"
+        )
+    if vars_.device.type == "cpu":
+        return interp_grad_plain(
+            w1, w2, imm, lengths, vars_, nf=nf, n_inputs=n_inputs,
+            n_outputs=n_outputs, s0=s0,
+        )
+    cuda.check_cuda(w1, w2, imm, lengths, vars_)
+    dev = vars_.device
+    lanes = s0 * 128
+    out = torch.empty((T, n_outputs, 4, s0, 128), dtype=torch.float32, device=dev)
+    scratch = None
+    if 4 * nf * cuda.BLOCK * 4 > cuda.SMEM_LIMIT:
+        scratch = torch.empty((T, 4, nf, lanes), dtype=torch.float32, device=dev)
+    cuda.launch(
+        "interp_grad", w1, w2, imm, lengths, vars_, out, scratch,
+        T, L, nf, n_inputs, n_outputs, lanes,
+    )
+    return out
+
+
+def interp_grad_plain(
+    w1, w2, imm, lengths, vars_, *, nf: int, n_inputs: int, n_outputs: int,
+    s0: int,
+):
+    """Plain PyTorch version of `interp_grad` (same contract)."""
+    T, L = w1.shape
+    dev = vars_.device
+    gm = GradMode(torch)
+    out = torch.zeros(
+        (T, n_outputs, 4, s0, 128), dtype=torch.float32, device=dev
+    )
+    w1h, w2h, immh, lensh = _host_tape(w1, w2, imm, lengths)
+    for t in range(T):
+        regs = torch.zeros((4, nf, s0, 128), dtype=torch.float32, device=dev)
+        for j in range(min(int(lensh[t]), L)):
+            op, o, a, b, aux = _decode(int(w1h[t, j]), int(w2h[t, j]))
+            iv = float(immh[t, j])
+            va = gm.const(iv, regs[:, 0]) if a == IMM12 else regs[:, min(a, nf - 1)]
+            vb = gm.const(iv, regs[:, 0]) if b == IMM12 else regs[:, min(b, nf - 1)]
+            op = TapeOp(op)
+            if op == TapeOp.OUTPUT:
+                out[t, min(aux, n_outputs - 1)] = torch.stack(tuple(va))
+                r = va
+            elif op == TapeOp.INPUT:
+                r = vars_[t, min(aux, n_inputs - 1)]
+            elif op == TapeOp.COPY:
+                r = va
+            elif op in CHOICE_TAPE_OPS:
+                r = gm.choice_binary(op, tuple(va), tuple(vb))[0]
+            elif op in _UNARY:
+                r = gm.unary(op, tuple(va))
+            else:
+                r = gm.binary(op, tuple(va), tuple(vb))
+            regs[:, min(o, nf - 1)] = torch.stack(tuple(r))
+    return out
+
+
+# ======================================================================
+# float mode fused with the per-column voxel depth reduction (K5)
+
+
+def interp_voxel_depth(
+    w1, w2, imm, lengths, vars_, *, nf: int, n_inputs: int, s0: int,
+    sub: int,
+):
+    """Float-evaluates packed tapes over one subtile's voxels and
+    reduces to per-column local surface depths.
+
+    Lanes are the subtile's voxels in (vz, vy, vx) row-major order
+    (sub**3 == s0 * 128; sub**2 % 128 == 0). Returns int32
+    [T, max(8, sub**2 / 128), 128]: column c = vy * sub + vx holds
+    max over vz of (dist < 0 ? vz + 1 : 0), where dist is the tape's
+    output (+1.0 if the tape writes none, so a length-0 instance is
+    empty; a NaN distance is not inside). Padding planes are 0.
+    """
+    T, L = _check_arena(w1, w2, imm, lengths)
+    _check_planes(vars_, T, n_inputs, s0)
+    if (sub * sub) % 128 or sub**3 != s0 * 128:
+        raise ValueError(f"sub={sub} needs sub^2 % 128 == 0 and sub^3 == s0*128")
+    if vars_.device.type == "cpu":
+        return interp_voxel_depth_plain(
+            w1, w2, imm, lengths, vars_, nf=nf, n_inputs=n_inputs, s0=s0,
+            sub=sub,
+        )
+    cuda.check_cuda(w1, w2, imm, lengths, vars_)
+    dev = vars_.device
+    pp_out = max(8, (sub * sub) // 128)
+    out = torch.empty((T, pp_out, 128), dtype=torch.int32, device=dev)
+    scratch = None
+    if nf * cuda.BLOCK * 4 > cuda.SMEM_LIMIT:
+        scratch = torch.empty((T, nf, sub * sub), dtype=torch.float32, device=dev)
+    cuda.launch(
+        "interp_voxel_depth", w1, w2, imm, lengths, vars_, out, scratch,
+        T, L, nf, n_inputs, sub, pp_out,
+    )
+    return out
+
+
+def interp_voxel_depth_plain(
+    w1, w2, imm, lengths, vars_, *, nf: int, n_inputs: int, s0: int,
+    sub: int,
+):
+    """Plain PyTorch version of `interp_voxel_depth` (same contract)."""
+    T, L = w1.shape
+    dev = vars_.device
+    pp = (sub * sub) // 128
+    fm = FloatMode(torch)
+    out = torch.zeros((T, max(8, pp), 128), dtype=torch.int32, device=dev)
+    vz = torch.arange(1, sub + 1, dtype=torch.int32, device=dev)[:, None, None]
+    w1h, w2h, immh, lensh = _host_tape(w1, w2, imm, lengths)
+    for t in range(T):
+        n = min(int(lensh[t]), L)
+        if n <= 0:
+            continue
+        regs = torch.zeros((nf, s0, 128), dtype=torch.float32, device=dev)
+        dist = torch.ones((s0, 128), dtype=torch.float32, device=dev)
+        for j in range(n):
+            op, o, a, b, aux = _decode(int(w1h[t, j]), int(w2h[t, j]))
+            iv = float(immh[t, j])
+            va = fm.const(iv, regs[0]) if a == IMM12 else regs[min(a, nf - 1)]
+            vb = fm.const(iv, regs[0]) if b == IMM12 else regs[min(b, nf - 1)]
+            op = TapeOp(op)
+            if op == TapeOp.OUTPUT:
+                dist = va.clone()
+                r = va
+            elif op == TapeOp.INPUT:
+                r = vars_[t, min(aux, n_inputs - 1)]
+            elif op == TapeOp.COPY:
+                r = va
+            elif op in CHOICE_TAPE_OPS:
+                r = fm.choice_binary(op, va, vb)[0]
+            elif op in _UNARY:
+                r = fm.unary(op, va)
+            else:
+                r = fm.binary(op, va, vb)
+            regs[min(o, nf - 1)] = r
+        inside = (dist < 0).reshape(sub, pp, 128)
+        out[t, :pp] = torch.where(inside, vz, 0).amax(dim=0).to(torch.int32)
+    return out

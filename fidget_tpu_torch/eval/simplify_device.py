@@ -14,7 +14,8 @@ per-lane specialized child tapes entirely on the device, in two steps:
    ops, then stably partition the kept rows to the front.
 
 The counterparts of `fidget_tpu.eval.simplify_device._liveness_codes`,
-`DeviceSimplifier.unpack_codes` and `DynamicSimplifier.reconstruct`.
+`DeviceSimplifier.unpack_codes`, `DynamicSimplifier.codes` and
+`DynamicSimplifier.reconstruct`.
 Because a child tape is always a subsequence of its parent, the child
 arena capacity equals the parent's and overflow cannot occur.
 """
@@ -122,6 +123,21 @@ def per_lane_to_rows(perlane, n: int):
     B, lw, s0, _ = perlane.shape
     rows = perlane.reshape(B, lw, s0 * 128).transpose(1, 2)
     return rows.reshape(B * s0 * 128, lw)[:n]
+
+
+def per_instance_codes(w1s, w2s, lengths, packed_choices, *, nf: int):
+    """Per-lane action codes of per-instance tapes (the counterpart of
+    `DynamicSimplifier.codes`): K2 with tape row t for instance t.
+
+    w1s/w2s: [T, L] int32 tapes; lengths: [T]; packed_choices:
+    [T, CW, S0, 128] from `interp_interval` over the same tapes.
+    Returns per-lane packed words [T, S0*128, LW] (a view)."""
+    T, L = w1s.shape
+    s0 = packed_choices.shape[2]
+    codes = liveness_codes(
+        w1s, w2s, lengths, packed_choices, nf=nf, L=L, shared_tape=False
+    )
+    return codes.reshape(T, -(-L // 16), s0 * 128).transpose(1, 2)
 
 
 def unpack_codes(per_tile, L: int):

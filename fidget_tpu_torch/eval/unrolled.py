@@ -15,9 +15,9 @@ from ..compiler.tape import (
     Tape,
     TapeOp,
 )
-from .arith import FloatMode, IntervalMode
+from .arith import FloatMode, GradMode, IntervalMode
 
-MODES = {"float": FloatMode, "interval": IntervalMode}
+MODES = {"float": FloatMode, "interval": IntervalMode, "grad": GradMode}
 
 
 def eval_tape(tape: Tape, mode, inputs: list, *, trace: bool = False):
@@ -25,9 +25,10 @@ def eval_tape(tape: Tape, mode, inputs: list, *, trace: bool = False):
 
     Args:
       tape: the register tape.
-      mode: a FloatMode / IntervalMode instance.
+      mode: a FloatMode / IntervalMode / GradMode instance.
       inputs: one mode-value per tape input index (float mode: array;
-        interval mode: (lo, hi)). All arrays must share a common shape.
+        interval mode: (lo, hi); grad mode: (v, dx, dy, dz)). All
+        arrays must share a common shape.
       trace: when True, also capture per-lane 2-bit choice codes for
         every choice op (min/max/and/or), in evaluation order.
 

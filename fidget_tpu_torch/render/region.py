@@ -45,6 +45,37 @@ class ImageSize:
         )
 
 
+@dataclass(frozen=True)
+class VoxelSize:
+    """3D render target size; (col, row, slice) voxels map into the ±1
+    world cube over the shortest axis, with the Y flip of `ImageSize`
+    and +z toward the viewer (fidget-core/src/render/region.rs:59-108).
+
+    >>> import numpy as np
+    >>> m = VoxelSize(4, 4, 4).screen_to_world()
+    >>> (m @ np.array([2.0, 1.0, 2.0, 1.0]))[:3].tolist()
+    [0.0, 0.0, 0.0]
+    """
+
+    width: int
+    height: int
+    depth: int
+
+    def screen_to_world(self) -> np.ndarray:
+        """4x4 homogeneous matrix: (col, row, slice, 1) -> world."""
+        c = np.array([self.width / 2.0, self.height / 2.0 - 1.0,
+                      self.depth / 2.0])
+        s = 2.0 / min(self.width, self.height, self.depth)
+        m = np.eye(4)
+        m[0, 0] = s
+        m[1, 1] = -s
+        m[2, 2] = s
+        m[0, 3] = -c[0] * s
+        m[1, 3] = c[1] * s
+        m[2, 3] = -c[2] * s
+        return m
+
+
 def mat3_to_mat4(m3: np.ndarray) -> np.ndarray:
     """Embeds a 2D homogeneous 3x3 (acting on (x, y, 1)) into a 4x4
     acting on (x, y, z, 1), passing z through unchanged."""

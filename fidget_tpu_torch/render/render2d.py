@@ -17,9 +17,10 @@ a (capacity, register-file, choice-words) bucket. A frame is:
 
 On CUDA every kernel is hand-written (fidget_tpu_torch/csrc); on the
 CPU the plain PyTorch versions run instead. The choice is made by the
-renderer's device alone. Two-level tiles, per-shape specialization
-(`_ConstBind`), the unrolled and dense modes and `Shape` inputs of the
-reference are not ported yet.
+renderer's device alone. `_TracedBind` is shared with the 3D renderer
+(render3d.py). Two-level tiles, per-shape specialization
+(`_ConstBind`), the unrolled and dense modes and `Shape` inputs to the
+2D renderer are not ported yet.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Homogeneous 4x4 transform helpers for point and interval planes.
+"""Homogeneous 4x4 transform helpers for point, interval and dual planes.
 
 The analog of the reference's `Transformable` input wrapper
 (fidget-core/src/shape/mod.rs:894-948): coordinates are transformed
@@ -40,3 +40,28 @@ def transform_intervals(im, mat, xi, yi, zi):
 
     wr = row(3)
     return tuple(im.binary(TapeOp.DIV, row(r), wr) for r in range(3))
+
+
+def transform_duals(mat, x, y, z):
+    """Transforms points and returns dual seeds with respect to the
+    *input* coordinate frame, through the perspective divide.
+
+    Returns three 4-tuples (v, d/dx, d/dy, d/dz): the model-space
+    coordinates of (x, y, z) and their Jacobian with respect to
+    (x, y, z), by the quotient rule m_i = r_i / w:
+        dm_i/dp_j = (M[i,j] * w - r_i * M[3,j]) / w^2
+    """
+
+    def row(r):
+        return mat[r, 0] * x + mat[r, 1] * y + mat[r, 2] * z + mat[r, 3]
+
+    rs = [row(i) for i in range(3)]
+    w = row(3)
+    inv_w2 = 1.0 / (w * w)
+    out = []
+    for i in range(3):
+        duals = tuple(
+            (mat[i, j] * w - rs[i] * mat[3, j]) * inv_w2 for j in range(3)
+        )
+        out.append((rs[i] / w,) + duals)
+    return tuple(out)

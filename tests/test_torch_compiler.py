@@ -23,6 +23,7 @@ import fidget_tpu_torch.core.tree
 import fidget_tpu_torch.core.var
 import fidget_tpu_torch.eval.unrolled
 import fidget_tpu_torch.render.region
+import fidget_tpu_torch.shape
 
 
 def _circle(ctx):
@@ -170,6 +171,7 @@ DOC_MODULES = [
     fidget_tpu_torch.compiler.tape,
     fidget_tpu_torch.eval.unrolled,
     fidget_tpu_torch.render.region,
+    fidget_tpu_torch.shape,
 ]
 
 
@@ -185,7 +187,8 @@ def test_port_doctests(mod):
 def test_port_imports_no_jax():
     code = (
         "import sys, fidget_tpu_torch, fidget_tpu_torch.render.render2d, "
-        "fidget_tpu_torch.eval.cuda\n"
+        "fidget_tpu_torch.render.render3d, fidget_tpu_torch.shape, "
+        "fidget_tpu_torch.scenes, fidget_tpu_torch.eval.cuda\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fidget_tpu' or m.startswith('fidget_tpu.')]\n"
         "assert not bad, bad\n"
@@ -228,17 +231,17 @@ def test_renderer_without_device_raises_without_card(monkeypatch):
 
 
 def test_prospero_standin_lowers_identically():
-    """The main path's procedural stand-in (chip_smoke.py): 7,203 ops,
-    13 registers and 1,066 choices built directly in either package,
-    identical tapes packed bit-identically into its 8192-row bucket, and
-    identical tapes through the .vm route too."""
-    import chip_smoke
+    """The 2D main path's procedural stand-in: 7,203 ops, 13 registers
+    and 1,066 choices built directly in either package, identical tapes
+    packed bit-identically into its 8192-row bucket, and identical tapes
+    through the .vm route too."""
+    from fidget_tpu_torch.scenes import standin_shape
 
     ctx = ref.Context()
-    root = chip_smoke.standin_shape(ctx)
+    root = standin_shape(ctx)
     t_ref = ref.lower(ctx, [root])
     pc = port.Context()
-    t_port = port.lower(pc, [chip_smoke.standin_shape(pc)])
+    t_port = port.lower(pc, [standin_shape(pc)])
     assert (len(t_ref), t_ref.reg_count, t_ref.choice_count) == (7203, 13, 1066)
     _assert_same_tape(t_port, t_ref)
     _assert_same_pack(

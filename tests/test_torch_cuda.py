@@ -19,14 +19,19 @@ from fidget_tpu_torch.eval import cuda
 from fidget_tpu_torch.eval.interp import (
     interp_float,
     interp_float_plain,
+    interp_grad,
+    interp_grad_plain,
     interp_interval,
     interp_interval_plain,
+    interp_voxel_depth,
+    interp_voxel_depth_plain,
 )
 from fidget_tpu_torch.eval.simplify_device import (
     liveness_codes,
     liveness_codes_plain,
 )
 from fidget_tpu_torch.render.render2d import FILL_NONE
+from fidget_tpu_torch.scenes import gyroid_sphere, sphere_union_shape
 
 S0 = 8
 
@@ -109,6 +114,60 @@ def test_kernels_match_plain(card, nf_pad):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nf_pad", [0, 256])
+def test_grad_and_voxel_kernels_match_plain(card, nf_pad):
+    """K4 and K5 against their plain versions; nf_pad = 256 takes both
+    to their global-scratch register files (K4 already goes there at
+    nf > 48)."""
+    tapes = [gyroid_sphere(port).tape()] + _tapes()
+    packed = pack_tapes(tapes, capacity=512)
+    nf = max(packed.nf, nf_pad)
+    arena = [torch.from_numpy(np.ascontiguousarray(a)).to(card)
+             for a in (packed.w1, packed.w2, packed.imm, packed.lengths)]
+    arena[3][-1] = 0  # a culled instance
+    T = len(tapes)
+    rng = np.random.default_rng(2)
+    duals = torch.from_numpy(
+        rng.uniform(-1, 1, size=(T, 3, 4, S0, 128)).astype(np.float32)
+    ).to(card)
+    kw = dict(nf=nf, n_inputs=3, n_outputs=1, s0=S0)
+    got, want = interp_grad(*arena, duals, **kw), interp_grad_plain(*arena, duals, **kw)
+    torch.testing.assert_close(got[:, :, 0], want[:, :, 0], rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got[:, :, 1:], want[:, :, 1:], rtol=1e-4, atol=1e-4)
+    pts = torch.from_numpy(
+        rng.uniform(-1, 1, size=(T, 3, 32, 128)).astype(np.float32)
+    ).to(card)
+    kw = dict(nf=nf, n_inputs=3, s0=32, sub=16)
+    got = interp_voxel_depth(*arena, pts, **kw)
+    assert torch.equal(got, interp_voxel_depth_plain(*arena, pts, **kw))
+    assert (got[0] > 0).any() and (got[-1] == 0).all()
+
+
+@pytest.mark.cuda
+def test_voxel_render_on_card_matches_brute(card):
+    """A union of spheres, whose ops f32 rounds correctly on the card and
+    in numpy alike, so depth equals numpy's `render_brute` exactly."""
+    ctx = port.Context()
+    tape = port.lower(ctx, [sphere_union_shape(ctx, n=60)])
+    r = port.VoxelRenderer(tape, port.VoxelSize(128, 128, 128), tile_size=32,
+                           sub_size=16)
+    assert r.device.type == "cuda"
+    cuda.reset_launches()
+    img = r.render()
+    torch.cuda.synchronize()
+    assert {k for k, n in cuda.LAUNCHES.items() if n} == {
+        "interp_interval", "liveness_codes", "interp_grad",
+        "interp_voxel_depth",
+    }
+    depth = img.depth.cpu().numpy()
+    np.testing.assert_array_equal(depth, r.render_brute().depth.numpy())
+    hit = depth > 0
+    np.testing.assert_allclose(img.normal.cpu().numpy()[hit],
+                               r.brute_normals(depth)[hit], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_render_on_card_matches_brute(card):
     tape = _union_tape(40)
     r = port.PixelRenderer(tape, port.ImageSize(256, 256), tile_size=32)
@@ -116,7 +175,10 @@ def test_render_on_card_matches_brute(card):
     cuda.reset_launches()
     img = r.render()
     torch.cuda.synchronize()
-    assert cuda.LAUNCHES == {k: 1 for k in cuda.KERNELS}
+    assert cuda.LAUNCHES == {
+        k: int(k in ("interp_interval", "liveness_codes", "interp_float"))
+        for k in cuda.KERNELS
+    }
     brute = r.render_brute()
     dist, fill = img.distance.cpu().numpy(), img.fill.cpu().numpy()
     ev = fill == FILL_NONE
