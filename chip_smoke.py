@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Bring-up check of fidget_tpu_torch on one CUDA card.
 
-Builds the five CUDA kernels of the port from the sources in
+Builds the six CUDA kernels of the port from the sources in
 fidget_tpu_torch/csrc, holds each against its plain PyTorch version on
-the card, and drives the port's two main paths: the 2D frame
-(`PixelRenderer.render()` at 1024^2 on a 7,203-op procedural shape) and
-the 3D heightmap + normals renderer (`VoxelRenderer.render()` at 512^3
-on the 28-op gyroid sphere, and at 128^3 on a 3,303-op union of 300
-spheres), holding every frame against the numpy oracles. Run from the
-root of the repository:
+the card, and drives the port's main paths: the 2D frame
+(`PixelRenderer.render()` at 1024^2 on a 7,203-op procedural shape)
+under each of its tape bindings (bucketed, coded leaf, per-shape
+arena, two tile levels) and the 3D heightmap + normals renderer
+(`VoxelRenderer.render()` at 512^3 on the 28-op gyroid sphere, and at
+128^3 on a 3,303-op union of 300 spheres), holding every frame against
+the numpy oracles. Run from the root of the repository:
 
     python3 chip_smoke.py
 
@@ -25,7 +26,12 @@ Phases (any failure exits non-zero and prints no result):
    bit-equal for the ops IEEE rounds correctly), grad values the same
    and derivatives at 1e-4, choices and codes exact; once with the
    shared-memory register files and once with register files too large
-   for them (global scratch);
+   for them (global scratch); interp_float_coded (K6) over the same
+   tapes with seeded action codes that mix all four values, against
+   its plain version, on both register-file routes; and K1, K2, K3 once
+   more on each tape packed under its own `frequency_op_order`, against
+   the plain versions with the same order and bit-equal to their own
+   canonical results;
 4. 2D main path: a few frames through `PixelRenderer.render()` under
    different pans, with the launch counts set to 0 just before and
    read just after; each frame's occupancy must equal `render_brute`,
@@ -35,6 +41,21 @@ Phases (any failure exits non-zero and prints no result):
    (L = 8192, nf = 64, CW = 128; S0 = 8 for K1/K2, 128 for K3): kernel
    against plain version, CUDA-event times, and the bound;
 6. per-stage times of warm 2D frames (CUDA events, profiler);
+6a. coded frames: the same views through `_frame(..., leaf_coded=True)`,
+   launch counts set to 0 before and read after (K1, K2, K6 and no K3);
+   each frame held to `render_brute` as in phase 4 and bit-equal to the
+   standard frame where evaluated; then K6 on the inputs the coded
+   frame gave it (kernel against plain, both register-file routes,
+   CUDA-event time, bound) and the stages of a warm coded frame;
+6b. per-shape frames: `PixelRenderer(specialize=True)` and two-level
+   `tile_sizes=(128, 32)` over the same views, each held to
+   `render_brute`; the specialized frame equal to the bucketed one;
+   level tags on the zoomed-out view; K1, K2 and K3 on the inputs each
+   of the two paths gave them (per-shape arena under its op_order; at
+   the second level K1 over the per-tile arenas, K2 per instance, K3
+   over the 32-px leaves): kernel against plain version with the same
+   order, CUDA-event time and bound; stages of a warm frame of each;
+   then warm frames of all four bindings timed in turns;
 7. 3D main path: the gyroid sphere at 512^3 (tile 64, subtile 16)
    under three views in normals mode and one heightmap frame, then the
    sphere union at 128^3 (tile 32, subtile 16), launch counts set to 0
@@ -115,10 +136,15 @@ KERNEL_INFO = {
         "fidget_tpu_torch/csrc/interp_voxel_depth.cu",
         "fidget_tpu/eval/pallas_interp.py:337",
     ),
+    "interp_float_coded": (
+        "fidget_tpu_torch/csrc/interp_float_coded.cu",
+        "fidget_tpu/eval/pallas_interp.py:518",
+    ),
 }
 
 #: kernels of each main path
 KERNELS_2D = ("interp_interval", "liveness_codes", "interp_float")
+KERNELS_2D_CODED = ("interp_interval", "liveness_codes", "interp_float_coded")
 KERNELS_3D = ("interp_interval", "liveness_codes", "interp_grad",
               "interp_voxel_depth")
 
@@ -343,6 +369,115 @@ def phase_op_matrix(port, dev):
     log(f"op matrix: {T} tapes x {ns * ns} value pairs agree in float, "
         f"interval and grad mode, choices and codes exact; max abs err "
         + ", ".join(f"{k[0]}@nf{k[1]}={v:.3g}" for k, v in errs.items()))
+    _op_matrix_coded(cases, packed, arena, pts, dev)
+    _op_matrix_op_order(cases, packed, arena, pts, lo, hi, dev)
+
+
+def _op_matrix_coded(cases, packed, arena, pts, dev):
+    """K6 over every op-matrix tape as the shared tape of six tiles:
+    tile 0 runs every row, tiles 1-4 carry seeded codes that rewrite
+    rows to copies of either operand and skip what that leaves dead,
+    tile 5 is culled; kernel against plain on both register routes."""
+    from fidget_tpu_torch.eval import interp
+    from fidget_tpu_torch.scenes import pack_action_codes, seeded_action_codes
+
+    w1, w2, imm, _ = arena
+    rng = np.random.default_rng(11)
+    tiles, seen, worst = 6, set(), 0.0
+    L = w1.shape[1]
+    for t_i, (name, _) in enumerate(cases):
+        n = int(packed.lengths[t_i])
+        codes = np.zeros((tiles, L), np.uint32)
+        codes[0, :n] = 1
+        for k in range(1, 5):
+            codes[k] = seeded_action_codes(
+                packed.w1[t_i], packed.w2[t_i], n, packed.nf, rng
+            )
+        codes[5] = codes[0]
+        seen |= set(np.unique(codes[1:5, :n]).tolist())
+        words = torch.from_numpy(pack_action_codes(codes)).to(dev)
+        lengths = torch.full((tiles,), n, dtype=torch.int32, device=dev)
+        lengths[5] = 0
+        vars_ = pts[t_i:t_i + 1].expand(tiles, -1, -1, -1).contiguous()
+        tol = _matrix_tolerance(name)
+        shared = (w1[t_i:t_i + 1], w2[t_i:t_i + 1], imm[t_i:t_i + 1])
+        for nf in (packed.nf, 256):
+            kw = dict(nf=nf, n_inputs=2, n_outputs=1, s0=pts.shape[2])
+            got = interp.interp_float_coded(*shared, lengths, words, vars_, **kw)
+            want = interp.interp_float_coded_plain(
+                *shared, lengths, words, vars_, **kw
+            )
+            worst = max(worst, check(
+                f"op matrix coded {name} (nf={nf})", got, want, tol, tol
+            ))
+            if not (got[5] == 0).all():
+                raise Failed(f"op matrix coded {name}: a culled tile wrote")
+    if seen != {0, 1, 2, 3}:
+        raise Failed(f"op matrix coded: seeded codes hold only {seen}")
+    torch.cuda.synchronize()
+    log(f"op matrix coded: interp_float_coded over {len(cases)} shared tapes "
+        f"x {tiles} tiles with seeded codes 0-3 agrees with its plain version "
+        f"on both register-file routes; max abs err {worst:.3g}")
+
+
+def _op_matrix_op_order(cases, packed, arena, pts, lo, hi, dev):
+    """K1, K2, K3 on each tape packed under its own frequency order:
+    against the plain versions with the same order, and bit-equal to
+    the same kernels on the canonical arena."""
+    from fidget_tpu_torch.compiler.pack import frequency_op_order, pack_tapes
+    from fidget_tpu_torch.eval import interp, simplify_device
+
+    L = arena[0].shape[1]
+    kw = dict(nf=packed.nf, n_inputs=2, n_outputs=1, s0=pts.shape[2])
+    c_float = interp.interp_float(*arena, pts, **kw)
+    c_ival = interp.interp_interval(*arena, lo, hi, c_words=1, **kw)
+    c_codes = simplify_device.liveness_codes(
+        arena[0], arena[1], arena[3], c_ival[2], nf=packed.nf, L=L,
+        shared_tape=False,
+    )
+    moved, worst = 0, 0.0
+    for t_i, (name, tape) in enumerate(cases):
+        order = frequency_op_order(tape)
+        moved += order != tuple(range(len(order)))
+        p = pack_tapes([tape], capacity=L, op_order=order)
+        a = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+             for x in (p.w1, p.w2, p.imm, p.lengths)]
+        one = slice(t_i, t_i + 1)
+        tol = _matrix_tolerance(name)
+        got = interp.interp_float(*a, pts[one], op_order=order, **kw)
+        want = interp.interp_float_plain(*a, pts[one], op_order=order, **kw)
+        worst = max(worst, check(f"op_order float {name}", got, want, tol, tol))
+        if not torch.equal(got.view(torch.int32), c_float[one].view(torch.int32)):
+            raise Failed(f"op_order float {name} differs from canonical")
+        got = interp.interp_interval(
+            *a, lo[one], hi[one], c_words=1, op_order=order, **kw
+        )
+        want = interp.interp_interval_plain(
+            *a, lo[one], hi[one], c_words=1, op_order=order, **kw
+        )
+        for k in range(2):
+            worst = max(worst, check(
+                f"op_order interval {name}", got[k], want[k], tol, tol
+            ))
+        if not torch.equal(got[2], want[2]):
+            raise Failed(f"op_order interval choices {name} differ from plain")
+        for g, c in zip(got, c_ival):
+            if not torch.equal(g.view(torch.int32), c[one].view(torch.int32)):
+                raise Failed(f"op_order interval {name} differs from canonical")
+        lk = dict(nf=packed.nf, L=L, shared_tape=False, op_order=order)
+        codes = simplify_device.liveness_codes(a[0], a[1], a[3], got[2], **lk)
+        plain = simplify_device.liveness_codes_plain(
+            a[0], a[1], a[3], got[2], **lk
+        )
+        if not (torch.equal(codes, plain) and torch.equal(codes, c_codes[one])):
+            raise Failed(f"op_order liveness codes {name} differ")
+    if moved < len(cases) // 2:
+        raise Failed(f"only {moved} frequency orders differ from canonical")
+    torch.cuda.synchronize()
+    log(f"op matrix op_order: K1, K2, K3 on {len(cases)} tapes under their "
+        f"own frequency orders ({moved} of them not the canonical order) "
+        f"agree with their plain versions (max abs err {worst:.3g}) and "
+        f"are bit-equal to the canonical kernels")
 
 
 @contextlib.contextmanager
@@ -375,8 +510,11 @@ def capture_kernel_inputs(targets, store):
             setattr(mod, name, fn)
 
 
-def check_frame(r, img, view):
-    brute = r.render_brute(view)
+def check_frame(r, img, view, brute=None):
+    """One 2D frame against `render_brute` (computed here unless the
+    caller has it already)."""
+    if brute is None:
+        brute = r.render_brute(view)
     dist = img.distance.cpu().numpy()
     fill = img.fill.cpu().numpy()
     if dist.shape != brute.shape or not np.isfinite(dist).all():
@@ -388,8 +526,9 @@ def check_frame(r, img, view):
     ev = fill == FILL_NONE
     if not np.allclose(dist[ev], brute[ev], rtol=1e-5, atol=1e-6):
         raise Failed("evaluated distances differ from render_brute")
-    if not ((brute[fill == FILL_INSIDE] < 0).all()
-            and (brute[fill == FILL_OUTSIDE] > 0).all()):
+    cls = img.fill_class().cpu().numpy()
+    if not ((brute[cls == FILL_INSIDE] < 0).all()
+            and (brute[cls == FILL_OUTSIDE] > 0).all()):
         raise Failed("a fill is not conservative")
     occ = img.inside().cpu().numpy()
     if not np.array_equal(occ, brute < 0):
@@ -409,7 +548,9 @@ def _bound(name, args, kwargs, out, lanes=None):
     outputs count only the `lanes` real lanes of an instance (the root
     and subtile passes pad theirs to a multiple of 128; None: every
     lane is real), and the voxel pass's output only its sub^2 depth
-    columns."""
+    columns. The coded leaf is counted by `_bound_coded`."""
+    if name == "interp_float_coded":
+        return _bound_coded(args, out)
     liveness = name == "liveness_codes"
     lens = args[2] if liveness else args[3]
     steps = int(lens.clamp(min=0).sum())
@@ -447,6 +588,34 @@ def _bound(name, args, kwargs, out, lanes=None):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _bound_coded(args, out):
+    """The bound of one `interp_float_coded` call: bytes are the rows of
+    the shared tape that some tile executes, once each, the code words of
+    the live tiles (length > 0) up to their length, their input planes
+    and every tile's output plane; operations are one per lane per row
+    whose code is non-zero within the tile's length."""
+    from fidget_tpu_torch.eval.simplify_device import unpack_codes
+
+    w1, _, _, lengths, codes, vars_ = args
+    L = w1.shape[1]
+    lens = lengths.clamp(min=0, max=L)
+    n_live = int((lens > 0).sum())
+    width = vars_.shape[-2] * 128
+    rows = torch.arange(L, device=lens.device)[None, :] < lens[:, None]
+    executed = (unpack_codes(codes, L) > 0) & rows
+    steps = int(executed.sum())
+    tape_bytes = 12 * int(executed.any(dim=0).sum())
+    code_bytes = 4 * int(((lens + 15) // 16).sum())
+    nbytes = int(tape_bytes + code_bytes + vars_[0].nbytes * n_live + out.nbytes)
+    ops = steps * width
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    log(f"  interp_float_coded: {steps} executed rows of {int(lens.sum())} "
+        f"walked over {lens.numel()} tiles, {n_live} of them live, {width} "
+        f"lanes each; {nbytes} bytes, {ops} operations")
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def _time_plain(plain, args, kwargs):
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -471,6 +640,9 @@ def _kernel_pairs():
         "interp_grad": (interp.interp_grad, interp.interp_grad_plain),
         "interp_voxel_depth": (
             interp.interp_voxel_depth, interp.interp_voxel_depth_plain,
+        ),
+        "interp_float_coded": (
+            interp.interp_float_coded, interp.interp_float_coded_plain,
         ),
     }
 
@@ -500,7 +672,8 @@ def measure_kernel(name, args, kwargs, lanes=None):
         err = check(name, got, want, 2e-5, 2e-5)
     ms = time_cuda(lambda: fn(*args, **kwargs), reps=20)
     bound_ms, bound_by = _bound(name, args, kwargs, got, lanes)
-    shape = tuple((args[4] if name != "liveness_codes" else args[3]).shape)
+    planes = {"liveness_codes": 3, "interp_float_coded": 5}.get(name, 4)
+    shape = tuple(args[planes].shape)
     log(f"kernel {name}: {kwargs}, inputs {shape}, max abs err {err:.3g}, "
         f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.5f} ms "
         f"({bound_by})")
@@ -632,6 +805,187 @@ def phase_stages(r, view):
         lambda hook: r._frame(mat, 0.0, vec, stage_hook=hook),
         ["root", "codes", "reconstruct", "leaf", "assemble"],
     )
+
+
+def _same_where_evaluated(label, img, fill, std):
+    """Fills equal to the standard frame's, distances bit-equal where
+    evaluated."""
+    if not torch.equal(fill, std.fill):
+        raise Failed(f"{label}: fills differ from the standard frame")
+    ev = std.fill == 0
+    if not torch.equal(img[ev].view(torch.int32),
+                       std.distance[ev].view(torch.int32)):
+        raise Failed(f"{label}: evaluated distances are not bit-equal to the "
+                     f"standard frame's")
+
+
+def phase_coded(r, std_images, brutes, cuda, render2d):
+    """The coded-leaf frames (K1, K2, K6; no child tapes, no K3), K6 on
+    the inputs they gave it, and the stages of a warm coded frame.
+    Returns K6's row of the `kernels` line."""
+    from fidget_tpu_torch.eval import interp
+
+    vec = r._var_vec(None)
+    frame = lambda view, **kw: r._frame(
+        r._mat4(view), 0.0, vec, leaf_coded=True, **kw
+    )
+    captured = {}
+    name = "interp_float_coded"
+    with capture_kernel_inputs([(render2d, name, lambda a, k: name)], captured):
+        frame(FRAMES[0])  # warm-up; its inputs feed the kernel phase
+    torch.cuda.synchronize()
+
+    cuda.reset_launches()
+    frames = [frame(view) for view in FRAMES]
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    log(f"coded frames: launches over {len(FRAMES)} frames: {launches}")
+    missing = [k for k in KERNELS_2D_CODED if launches[k] == 0]
+    if missing or launches["interp_float"]:
+        raise Failed(f"coded frames launched {launches}")
+    for k, ((img, fill), view) in enumerate(zip(frames, FRAMES)):
+        img, fill = img[: r.H, : r.W], fill[: r.H, : r.W]
+        ink, evaluated = check_frame(
+            r, render2d.Image2D(img, fill), view, brutes[k]
+        )
+        _same_where_evaluated(f"coded frame {k}", img, fill, std_images[k])
+        log(f"coded frame {k}: occupancy equals render_brute ({ink:.4f} "
+            f"inside, {evaluated:.3f} of pixels evaluated), bit-equal to the "
+            f"standard frame where evaluated")
+
+    args, kwargs = captured[name]
+    src, replaces = KERNEL_INFO[name]
+    row = {
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": launches[name],
+        "launches_per_frame": launches[name] / len(FRAMES),
+        **measure_kernel(name, args, kwargs), "library_ms": None,
+    }
+    wide = interp.interp_float_coded(*args, **{**kwargs, "nf": 256})
+    if not torch.equal(wide, interp.interp_float_coded(*args, **kwargs)):
+        raise Failed("interp_float_coded differs through global scratch")
+    wide_ms = time_cuda(
+        lambda: interp.interp_float_coded(*args, **{**kwargs, "nf": 256}), 10
+    )
+    log(f"kernel interp_float_coded: global-scratch register file (nf 256) "
+        f"equals the shared-memory one; {wide_ms:.4f} ms")
+    log("coded frame stages:")
+    _stage_profile(
+        lambda: frame(FRAMES[1]),
+        lambda hook: frame(FRAMES[1], stage_hook=hook),
+        ["root", "codes", "reconstruct", "leaf", "assemble"],
+    )
+    return row
+
+
+def phase_per_shape(port, tape, std_images, brutes, cuda, render2d,
+                    simplify_device, rows):
+    """The per-shape arena (`specialize=True`) and the two-level frame
+    (`tile_sizes=(128, 32)`): the main path's views against
+    `render_brute`; K1, K2 and K3 on the inputs these paths gave them
+    under the shape's op_order (kernel against plain version, time and
+    bound, kept in `rows` under `at_specialized` / `at_two_level`); and
+    the stages of a warm frame of each. Returns the two renderers by
+    label."""
+    renderers = {}
+    for label, opts in (("specialized", dict(specialize=True)),
+                        ("two-level", dict(tile_sizes=(128, 32)))):
+        r = port.PixelRenderer(tape, port.ImageSize(SIZE, SIZE), **opts)
+        renderers[label] = r
+        log(f"{label} frames: arena of {r.packed.capacity} rows under op_order "
+            f"{r.op_order[:8]}..., nf {r.nf}, cw {r.c_words}; tiles "
+            f"{r.tile_sizes}, {r.nc} leaf instances")
+        captured = {}
+        where = lambda a: "root" if a[0].shape[0] == 1 else "subtiles"
+        targets = [
+            (render2d, "interp_interval",
+             lambda a, k: "interp_interval@" + where(a)),
+            (render2d, "interp_float", lambda a, k: "interp_float@leaf"),
+            (simplify_device, "liveness_codes",
+             lambda a, k: "liveness_codes@" + where(a)),
+        ]
+        with capture_kernel_inputs(targets, captured):
+            r.render(FRAMES[0])  # warm-up; its inputs feed the timings
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        images = [r.render(view) for view in FRAMES]
+        torch.cuda.synchronize()
+        launches = dict(cuda.LAUNCHES)
+        log(f"{label} frames: launches over {len(FRAMES)} frames: {launches}")
+        missing = [k for k in KERNELS_2D if launches[k] == 0]
+        if missing or launches["interp_float_coded"]:
+            raise Failed(f"{label} frames launched {launches}")
+        for k, (img, view) in enumerate(zip(images, FRAMES)):
+            ink, evaluated = check_frame(r, img, view, brutes[k])
+            levels = img.fill_level()
+            shares = ", ".join(
+                f"level {lv} {float((levels == lv).float().mean()):.3f}"
+                for lv in (0, 1)
+            )
+            log(f"{label} frame {k}: occupancy equals render_brute "
+                f"({ink:.4f} inside, {evaluated:.3f} of pixels evaluated; "
+                f"filled at {shares})")
+            if not r.two_level:
+                _same_where_evaluated(f"{label} frame {k}", img.distance,
+                                      img.fill, std_images[k])
+        if r.two_level:
+            if not (images[2].fill_level() == 1).any():
+                raise Failed("two-level: no level-1 fill on the zoomed-out view")
+            if not (images[2].fill_level() == 0).any():
+                raise Failed("two-level: no level-0 fill on the zoomed-out view")
+        else:
+            log(f"{label} frames equal the bucketed frames (fills equal, "
+                f"distances bit-equal where evaluated)")
+        real = {"root": r.n0, "subtiles": r.m, "leaf": None}
+        for key in sorted(captured):
+            name, where = key.split("@")
+            args, kwargs = captured[key]
+            log(f"kernel {key} ({label}): {tuple(args[0].shape)} arena, "
+                f"op_order {'set' if kwargs.get('op_order') else 'none'}")
+            at = rows[name].setdefault("at_" + label.replace("-", "_"), {})
+            at[where] = measure_kernel(name, args, kwargs, real[where])
+        for name in KERNELS_2D:
+            at = rows[name]["at_" + label.replace("-", "_")]
+            at["launches"] = launches[name]
+        mat, vec = r._mat4(FRAMES[1]), r._var_vec(None)
+        log(f"{label} frame stages:")
+        names = ["root", "codes", "reconstruct", "leaf", "assemble"]
+        if r.two_level:
+            names.insert(3, "subtiles")
+        _stage_profile(
+            lambda: r.render(FRAMES[1]),
+            lambda hook: r._frame(mat, 0.0, vec, stage_hook=hook),
+            names,
+        )
+    return renderers
+
+
+def phase_compare_frames(r, per_shape, view, rounds=20):
+    """Warm frames of the four tape bindings in turns on this card
+    (standard, coded, specialized, two-level, `rounds` times over), so
+    that drift of the host's clock falls on all alike: host-clock wall
+    time of a synchronized frame, median and min per binding."""
+    mat, vec = r._mat4(view), r._var_vec(None)
+    frames = {
+        "standard": lambda: r.render(view),
+        "coded": lambda: r._frame(mat, 0.0, vec, leaf_coded=True),
+        "specialized": lambda: per_shape["specialized"].render(view),
+        "two-level": lambda: per_shape["two-level"].render(view),
+    }
+    wall = {k: [] for k in frames}
+    for fn in frames.values():
+        fn()
+    for _ in range(rounds):
+        for label, fn in frames.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall[label].append((time.perf_counter() - t0) * 1e3)
+    log(f"frames in turns ({rounds} rounds, host clock, synchronized), ms "
+        "median / min: " + "; ".join(
+            f"{k} {float(np.median(v)):.3f} / {min(v):.3f}"
+            for k, v in wall.items()))
 
 
 def phase_stages3d(r, view):
@@ -889,15 +1243,22 @@ def main() -> int:
     missing = [k for k in KERNELS_2D if launches[k] == 0]
     if missing:
         raise Failed(f"main path never launched {missing}")
+    brutes = []
     for k, (img, view) in enumerate(zip(images, FRAMES)):
         t0 = time.time()
-        ink, evaluated = check_frame(r, img, view)
+        brutes.append(r.render_brute(view))
+        ink, evaluated = check_frame(r, img, view, brutes[k])
         log(f"frame {k}: occupancy equals render_brute ({ink:.4f} inside, "
             f"{evaluated:.3f} of pixels evaluated; brute "
             f"{time.time() - t0:.1f} s)")
 
     rows = phase_kernels(captured, launches, len(FRAMES), r.n0)
+    log("standard frame stages:")
     phase_stages(r, FRAMES[1])
+    rows["interp_float_coded"] = phase_coded(r, images, brutes, cuda, render2d)
+    per_shape = phase_per_shape(port, tape, images, brutes, cuda, render2d,
+                                simplify_device, rows)
+    phase_compare_frames(r, per_shape, FRAMES[1])
 
     r3, captured3, launches3, n3 = phase_main3d(
         port, cuda, render3d, render2d, simplify_device

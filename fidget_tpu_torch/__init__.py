@@ -13,6 +13,7 @@ This package imports neither JAX nor `fidget_tpu`.
 """
 
 from .compiler.lower import lower
+from .compiler.simplify import simplify
 from .compiler.tape import Tape, TapeOp
 from .core.context import Context
 from .core.ops import BinaryOp, UnaryOp
@@ -47,6 +48,7 @@ __all__ = [
     "lower",
     "render2d",
     "render3d",
+    "simplify",
     "tree_max",
     "tree_min",
     "__version__",

@@ -7,7 +7,9 @@
 // min(lengths[t], L) steps; OUTPUT writes its `a` operand to
 // out[t, min(aux, O-1)]; INPUT reads vars[t, min(aux, V-1)]; register
 // reads clamp to nf - 1. Outputs not written by the tape (all of them
-// for a length-0 instance, i.e. a culled tile) are 0.
+// for a length-0 instance, i.e. a culled tile) are 0. `order`, when not
+// null, is the position -> canonical opcode table of a renumbered arena
+// (ops.cuh `decode`).
 //
 // Design. One thread per lane, grid (instance, lane block). All threads
 // of a block share a tape, so tape words are warp-uniform loads and the
@@ -27,11 +29,13 @@
 
 using namespace fidget;
 
+template <bool ORDERED>
 __global__ void __launch_bounds__(BLOCK) interp_float_kernel(
     const int32_t* __restrict__ w1, const int32_t* __restrict__ w2,
     const float* __restrict__ imm, const int32_t* __restrict__ lengths,
     const float* __restrict__ vars, float* __restrict__ out,
-    float* __restrict__ scratch, int L, int nf, int V, int O, int lanes) {
+    float* __restrict__ scratch, const int32_t* __restrict__ order, int L,
+    int nf, int V, int O, int lanes) {
   extern __shared__ float smem[];
   const int t = blockIdx.x;
   const int lane = blockIdx.y * BLOCK + threadIdx.x;
@@ -55,7 +59,7 @@ __global__ void __launch_bounds__(BLOCK) interp_float_kernel(
   for (int o = 0; o < O; ++o) tout[(size_t)o * lanes] = 0.f;
   const int n = min(lengths[t], L);
   for (int j = 0; j < n; ++j) {
-    const Word w = decode(tw1[j], tw2[j]);
+    const Word w = decode<ORDERED>(tw1[j], tw2[j], order);
     const float iv = timm[j];
     const float va = w.a == IMM12 ? iv : regs[(size_t)min(w.a, nf - 1) * stride];
     const float vb = w.b == IMM12 ? iv : regs[(size_t)min(w.b, nf - 1) * stride];
@@ -88,13 +92,20 @@ __global__ void __launch_bounds__(BLOCK) interp_float_kernel(
 extern "C" int fidget_interp_float(
     const int32_t* w1, const int32_t* w2, const float* imm,
     const int32_t* lengths, const float* vars, float* out, float* scratch,
-    int T, int L, int nf, int V, int O, int lanes, cudaStream_t stream) {
+    const int32_t* order, int T, int L, int nf, int V, int O, int lanes,
+    cudaStream_t stream) {
   if (T <= 0 || lanes <= 0) return (int)cudaSuccess;
   size_t smem = scratch ? 0 : (size_t)nf * BLOCK * sizeof(float);
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  FIDGET_SET_SMEM(interp_float_kernel, (int)smem);
   dim3 grid(T, (lanes + BLOCK - 1) / BLOCK);
-  interp_float_kernel<<<grid, BLOCK, smem, stream>>>(
-      w1, w2, imm, lengths, vars, out, scratch, L, nf, V, O, lanes);
+  if (order != nullptr) {
+    FIDGET_SET_SMEM(interp_float_kernel<true>, (int)smem);
+    interp_float_kernel<true><<<grid, BLOCK, smem, stream>>>(
+        w1, w2, imm, lengths, vars, out, scratch, order, L, nf, V, O, lanes);
+  } else {
+    FIDGET_SET_SMEM(interp_float_kernel<false>, (int)smem);
+    interp_float_kernel<false><<<grid, BLOCK, smem, stream>>>(
+        w1, w2, imm, lengths, vars, out, scratch, order, L, nf, V, O, lanes);
+  }
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,9 @@
 // (lo, hi) pairs; each MIN/MAX/AND/OR ORs its choice code into word
 // min(aux / 16, CW - 1) of its lane at bit (aux % 16) * 2, so indices
 // past 16 * CW fold into the last word (over-approximate, never wrong).
-// Outputs not written by the tape are 0.
+// Outputs not written by the tape are 0. `order`, when not null, is the
+// position -> canonical opcode table of a renumbered arena (ops.cuh
+// `decode`).
 //
 // Design. One thread per lane, grid (instance, lane block), tape words
 // warp-uniform. Two register files (lo, hi), each [nf][BLOCK] in
@@ -24,13 +26,15 @@
 
 using namespace fidget;
 
+template <bool ORDERED>
 __global__ void __launch_bounds__(BLOCK) interp_interval_kernel(
     const int32_t* __restrict__ w1, const int32_t* __restrict__ w2,
     const float* __restrict__ imm, const int32_t* __restrict__ lengths,
     const float* __restrict__ var_lo, const float* __restrict__ var_hi,
     float* __restrict__ out_lo, float* __restrict__ out_hi,
-    int32_t* __restrict__ choices, float* __restrict__ scratch, int T, int L,
-    int nf, int V, int O, int CW, int lanes) {
+    int32_t* __restrict__ choices, float* __restrict__ scratch,
+    const int32_t* __restrict__ order, int T, int L, int nf, int V, int O,
+    int CW, int lanes) {
   extern __shared__ float smem[];
   const int t = blockIdx.x;
   const int lane = blockIdx.y * BLOCK + threadIdx.x;
@@ -62,7 +66,7 @@ __global__ void __launch_bounds__(BLOCK) interp_interval_kernel(
 
   const int n = min(lengths[t], L);
   for (int j = 0; j < n; ++j) {
-    const Word w = decode(tw1[j], tw2[j]);
+    const Word w = decode<ORDERED>(tw1[j], tw2[j], order);
     const float iv = timm[j];
     const size_t ia = (size_t)min(w.a, nf - 1) * stride;
     const size_t ib = (size_t)min(w.b, nf - 1) * stride;
@@ -111,15 +115,23 @@ __global__ void __launch_bounds__(BLOCK) interp_interval_kernel(
 extern "C" int fidget_interp_interval(
     const int32_t* w1, const int32_t* w2, const float* imm,
     const int32_t* lengths, const float* var_lo, const float* var_hi,
-    float* out_lo, float* out_hi, int32_t* choices, float* scratch, int T,
-    int L, int nf, int V, int O, int CW, int lanes, cudaStream_t stream) {
+    float* out_lo, float* out_hi, int32_t* choices, float* scratch,
+    const int32_t* order, int T, int L, int nf, int V, int O, int CW,
+    int lanes, cudaStream_t stream) {
   if (T <= 0 || lanes <= 0) return (int)cudaSuccess;
   size_t smem = scratch ? 0 : (size_t)2 * nf * BLOCK * sizeof(float);
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  FIDGET_SET_SMEM(interp_interval_kernel, (int)smem);
   dim3 grid(T, (lanes + BLOCK - 1) / BLOCK);
-  interp_interval_kernel<<<grid, BLOCK, smem, stream>>>(
-      w1, w2, imm, lengths, var_lo, var_hi, out_lo, out_hi, choices, scratch,
-      T, L, nf, V, O, CW, lanes);
+  if (order != nullptr) {
+    FIDGET_SET_SMEM(interp_interval_kernel<true>, (int)smem);
+    interp_interval_kernel<true><<<grid, BLOCK, smem, stream>>>(
+        w1, w2, imm, lengths, var_lo, var_hi, out_lo, out_hi, choices,
+        scratch, order, T, L, nf, V, O, CW, lanes);
+  } else {
+    FIDGET_SET_SMEM(interp_interval_kernel<false>, (int)smem);
+    interp_interval_kernel<false><<<grid, BLOCK, smem, stream>>>(
+        w1, w2, imm, lengths, var_lo, var_hi, out_lo, out_hi, choices,
+        scratch, order, T, L, nf, V, O, CW, lanes);
+  }
   return (int)cudaGetLastError();
 }

@@ -11,7 +11,9 @@
 // word, op j at bit (j % 16) * 2 of word j / 16. Immediate operands
 // carry the IMM12 marker and are clamped to nf - 1 before the liveness
 // plane is indexed (their use bit is 0 then): the unclamped index was
-// the reference's out-of-bounds write (BUGREPORT.md).
+// the reference's out-of-bounds write (BUGREPORT.md). `order`, when not
+// null, is the position -> canonical opcode table of a renumbered arena
+// (ops.cuh `decode`); the choice and operand masks stay canonical.
 //
 // Design. One thread per lane, grid (instance, lane block); with a
 // shared tape every block reads the same warp-uniform words. The
@@ -28,11 +30,13 @@
 
 using namespace fidget;
 
+template <bool ORDERED>
 __global__ void __launch_bounds__(BLOCK) liveness_kernel(
     const int32_t* __restrict__ w1s, const int32_t* __restrict__ w2s,
     const int32_t* __restrict__ lengths, const int32_t* __restrict__ choices,
-    int32_t* __restrict__ codes, uint8_t* __restrict__ scratch, int Tt, int L,
-    int nf, int CW, int lanes) {
+    int32_t* __restrict__ codes, uint8_t* __restrict__ scratch,
+    const int32_t* __restrict__ order, int Tt, int L, int nf, int CW,
+    int lanes) {
   extern __shared__ uint8_t smem_live[];
   const int bi = blockIdx.x;
   const int lane = blockIdx.y * BLOCK + threadIdx.x;
@@ -66,7 +70,7 @@ __global__ void __launch_bounds__(BLOCK) liveness_kernel(
       acc = 0;
       cur = j >> 4;
     }
-    const Word w = decode(tw1[j], tw2[j]);
+    const Word w = decode<ORDERED>(tw1[j], tw2[j], order);
     const bool is_output = w.op == OP_OUTPUT;
     const bool known = w.op < 32;
     const bool is_choice = known && ((CHOICE_MASK >> w.op) & 1u);
@@ -98,14 +102,23 @@ __global__ void __launch_bounds__(BLOCK) liveness_kernel(
 
 extern "C" int fidget_liveness_codes(
     const int32_t* w1s, const int32_t* w2s, const int32_t* lengths,
-    const int32_t* choices, int32_t* codes, uint8_t* scratch, int B, int Tt,
-    int L, int nf, int CW, int lanes, cudaStream_t stream) {
+    const int32_t* choices, int32_t* codes, uint8_t* scratch,
+    const int32_t* order, int B, int Tt, int L, int nf, int CW, int lanes,
+    cudaStream_t stream) {
   if (B <= 0 || lanes <= 0) return (int)cudaSuccess;
   size_t smem = scratch ? 0 : (size_t)nf * BLOCK;
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  FIDGET_SET_SMEM(liveness_kernel, (int)smem);
   dim3 grid(B, (lanes + BLOCK - 1) / BLOCK);
-  liveness_kernel<<<grid, BLOCK, smem, stream>>>(
-      w1s, w2s, lengths, choices, codes, scratch, Tt, L, nf, CW, lanes);
+  if (order != nullptr) {
+    FIDGET_SET_SMEM(liveness_kernel<true>, (int)smem);
+    liveness_kernel<true><<<grid, BLOCK, smem, stream>>>(
+        w1s, w2s, lengths, choices, codes, scratch, order, Tt, L, nf, CW,
+        lanes);
+  } else {
+    FIDGET_SET_SMEM(liveness_kernel<false>, (int)smem);
+    liveness_kernel<false><<<grid, BLOCK, smem, stream>>>(
+        w1s, w2s, lengths, choices, codes, scratch, order, Tt, L, nf, CW,
+        lanes);
+  }
   return (int)cudaGetLastError();
 }

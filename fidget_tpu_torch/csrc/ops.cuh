@@ -67,6 +67,21 @@ __device__ __forceinline__ Word decode(int32_t w1, int32_t w2) {
   return w;
 }
 
+// The same for an arena packed under an opcode renumbering
+// (compiler/pack.py `pack_tapes(op_order=...)`): `order` maps the 31
+// positions of the op field back to canonical opcodes, so the kernels
+// keep one switch over the canonical numbering. ORDERED is a template
+// parameter of the kernels, so the canonical path (no table) compiles
+// to the plain decode.
+constexpr int N_OPS = 31;
+template <bool ORDERED>
+__device__ __forceinline__ Word decode(int32_t w1, int32_t w2,
+                                       const int32_t* __restrict__ order) {
+  Word w = decode(w1, w2);
+  if (ORDERED && w.op < N_OPS) w.op = __ldg(order + w.op);
+  return w;
+}
+
 __device__ __forceinline__ float f_nan() { return __int_as_float(0x7fc00000); }
 
 // f32(pi) and f32(2 pi), and the f32 of 2 / f32(pi), as numpy forms them

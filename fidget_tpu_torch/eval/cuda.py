@@ -39,6 +39,7 @@ KERNELS = {
     "interp_float": ("interp_float", "fidget_interp_float"),
     "interp_grad": ("interp_grad", "fidget_interp_grad"),
     "interp_voxel_depth": ("interp_voxel_depth", "fidget_interp_voxel_depth"),
+    "interp_float_coded": ("interp_float_coded", "fidget_interp_float_coded"),
 }
 
 #: launches per kernel name since the last `reset_launches()`
@@ -51,20 +52,51 @@ NVCC_FLAGS = [
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    # w1 w2 imm lengths vars out scratch | T L nf V O lanes | stream
-    "fidget_interp_float": [_P] * 7 + [_I] * 6 + [_P],
-    # w1 w2 imm lengths lo hi olo ohi choices scratch | T L nf V O CW lanes
-    "fidget_interp_interval": [_P] * 10 + [_I] * 7 + [_P],
-    # w1s w2s lengths choices codes scratch | B Tt L nf CW lanes
-    "fidget_liveness_codes": [_P] * 6 + [_I] * 6 + [_P],
+    # w1 w2 imm lengths vars out scratch order | T L nf V O lanes | stream
+    "fidget_interp_float": [_P] * 8 + [_I] * 6 + [_P],
+    # w1 w2 imm lengths lo hi olo ohi choices scratch order | T L nf V O CW lanes
+    "fidget_interp_interval": [_P] * 11 + [_I] * 7 + [_P],
+    # w1s w2s lengths choices codes scratch order | B Tt L nf CW lanes
+    "fidget_liveness_codes": [_P] * 7 + [_I] * 6 + [_P],
     # w1 w2 imm lengths vars out scratch | T L nf V O lanes
     "fidget_interp_grad": [_P] * 7 + [_I] * 6 + [_P],
     # w1 w2 imm lengths vars out scratch | T L nf V sub pp_out
     "fidget_interp_voxel_depth": [_P] * 7 + [_I] * 6 + [_P],
+    # w1 w2 imm lengths codes vars out scratch | T L LW nf V O lanes
+    "fidget_interp_float_coded": [_P] * 8 + [_I] * 7 + [_P],
 }
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+_ORDER_TABLES: dict[tuple, torch.Tensor] = {}
+
+
+def resolve_device(device) -> torch.device:
+    """The device of an entry point: CUDA unless the caller names
+    another. With no card and no explicit device this raises; it never
+    falls back."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to render on the CPU"
+            )
+        device = "cuda"
+    return torch.device(device)
+
+
+def order_table(op_order, device) -> torch.Tensor | None:
+    """The kernels' position -> canonical opcode table for an arena
+    packed under `op_order` (compiler/pack.py), as an int32 tensor on
+    `device`, made once per (order, device); None for the canonical
+    order."""
+    if op_order is None:
+        return None
+    key = (tuple(int(o) for o in op_order), str(device))
+    table = _ORDER_TABLES.get(key)
+    if table is None:
+        table = torch.tensor(key[0], dtype=torch.int32, device=device)
+        _ORDER_TABLES[key] = table
+    return table
 
 
 def reset_launches() -> None:

@@ -1,17 +1,20 @@
 """Tape-interpreter kernels: float mode (K3), interval mode with 2-bit
-choice capture (K1), grad mode (K4) and float mode fused with the voxel
-depth reduction (K5).
+choice capture (K1), grad mode (K4), float mode fused with the voxel
+depth reduction (K5) and float mode over one shared tape specialized
+per tile by action codes (K6).
 
 The counterparts of `fidget_tpu.eval.pallas_interp.interp_float`,
-`interp_interval`, `interp_grad` and `interp_voxel_depth`, with the
-same packed arenas (compiler/pack.py) and the same lane layout: inputs
-and outputs are `[T, V, S0, 128]` planes (`[T, V, 4, S0, 128]` dual
-planes in grad mode), one packed tape per instance t.
+`interp_interval`, `interp_grad`, `interp_voxel_depth` and
+`interp_float_coded`, with the same packed arenas (compiler/pack.py)
+and the same lane layout: inputs and outputs are `[T, V, S0, 128]`
+planes (`[T, V, 4, S0, 128]` dual planes in grad mode), one packed
+tape per instance t (K6: one tape for all).
 
 Each public function dispatches on the device of its tensors alone:
 on CUDA it launches the hand-written kernel (csrc/interp_float.cu,
 csrc/interp_interval.cu, csrc/interp_grad.cu,
-csrc/interp_voxel_depth.cu); on the CPU it runs the plain PyTorch
+csrc/interp_voxel_depth.cu, csrc/interp_float_coded.cu); on the CPU it
+runs the plain PyTorch
 version beside it (`*_plain`), which walks the same tape with the
 arithmetic of eval/arith.py. The plain versions take tensors on any
 device, so the kernels can be held against them on the card.
@@ -21,7 +24,12 @@ The TPU kernels truncate their opcode switch to a tape's vocabulary
 live branch (fidget_tpu/eval/pallas_interp.py:105-111). The CUDA
 kernels dispatch through a full `switch` over the canonical op order,
 so that hazard cannot arise; `tape_n_ops` is kept for callers that
-size such a vocabulary. The TPU wrappers of K1 and K4 split the lane
+size such a vocabulary. An arena packed under a per-shape opcode
+renumbering (`pack_tapes(op_order=...)`) is evaluated by passing the
+same `op_order` to K1, K3 and the simplifier: the kernels map the op
+field back to canonical opcodes through a 31-entry table instead of
+being compiled per order. Results are silently wrong if the orders
+differ. The TPU wrappers of K1 and K4 split the lane
 axis to fit their VMEM budget; lanes are independent on the card, so
 the port has no split. K5 drops the TPU's `tiles_per_step`, which
 amortized a per-grid-step cost the card does not have (the bucketed 3D
@@ -42,9 +50,13 @@ from .arith import FloatMode, GradMode, IntervalMode
 N_OPS = 31
 
 
-def _decode(w1: int, w2: int):
-    """(op, out, a, b, aux) of one packed row (compiler/pack.py)."""
+def _decode(w1: int, w2: int, op_order=None):
+    """(op, out, a, b, aux) of one packed row (compiler/pack.py); the
+    op is canonical, mapped back through `op_order` (position ->
+    canonical opcode) when the arena was packed under one."""
     op = w1 & 127
+    if op_order is not None and op < N_OPS:
+        op = int(op_order[op])
     out = (w1 >> 7) & 0xFFF
     a = (w1 >> 19) & 0xFFF
     b = w2 & 0xFFF
@@ -107,7 +119,7 @@ def _check_planes(x, T, V, s0):
 
 def interp_float(
     w1, w2, imm, lengths, vars_, *, nf: int, n_inputs: int, n_outputs: int,
-    s0: int,
+    s0: int, op_order: tuple | None = None,
 ):
     """Evaluates packed tapes in bulk float mode.
 
@@ -115,6 +127,8 @@ def interp_float(
       w1/w2/imm: [T, L] packed arena (compiler/pack.py).
       lengths: [T] ops per tape (0 = skip the instance).
       vars_: [T, V, S0, 128] f32 input planes (V = n_inputs).
+      op_order: the opcode renumbering the arena was packed with
+        (pack.frequency_op_order); None for the canonical order.
     Returns:
       [T, O, S0, 128] f32 outputs; 0 where the tape wrote none.
     """
@@ -123,7 +137,7 @@ def interp_float(
     if vars_.device.type == "cpu":
         return interp_float_plain(
             w1, w2, imm, lengths, vars_, nf=nf, n_inputs=n_inputs,
-            n_outputs=n_outputs, s0=s0,
+            n_outputs=n_outputs, s0=s0, op_order=op_order,
         )
     cuda.check_cuda(w1, w2, imm, lengths, vars_)
     lanes = s0 * 128
@@ -137,6 +151,7 @@ def interp_float(
         )
     cuda.launch(
         "interp_float", w1, w2, imm, lengths, vars_, out, scratch,
+        cuda.order_table(op_order, vars_.device),
         T, L, nf, n_inputs, n_outputs, lanes,
     )
     return out
@@ -144,7 +159,7 @@ def interp_float(
 
 def interp_float_plain(
     w1, w2, imm, lengths, vars_, *, nf: int, n_inputs: int, n_outputs: int,
-    s0: int,
+    s0: int, op_order: tuple | None = None,
 ):
     """Plain PyTorch version of `interp_float` (same contract)."""
     T, L = w1.shape
@@ -155,7 +170,9 @@ def interp_float_plain(
     for t in range(T):
         regs = torch.zeros((nf, s0, 128), dtype=torch.float32, device=dev)
         for j in range(min(int(lensh[t]), L)):
-            op, o, a, b, aux = _decode(int(w1h[t, j]), int(w2h[t, j]))
+            op, o, a, b, aux = _decode(
+                int(w1h[t, j]), int(w2h[t, j]), op_order
+            )
             iv = float(immh[t, j])
             va = fm.const(iv, regs[0]) if a == IMM12 else regs[min(a, nf - 1)]
             vb = fm.const(iv, regs[0]) if b == IMM12 else regs[min(b, nf - 1)]
@@ -191,7 +208,7 @@ _UNARY = frozenset({
 
 def interp_interval(
     w1, w2, imm, lengths, var_lo, var_hi, *, nf: int, n_inputs: int,
-    n_outputs: int, s0: int, c_words: int,
+    n_outputs: int, s0: int, c_words: int, op_order: tuple | None = None,
 ):
     """Evaluates packed tapes in interval mode, capturing choices.
 
@@ -200,6 +217,8 @@ def interp_interval(
       c_words: choice words per lane (16 two-bit choices per int32).
         Choice ops carry their choice index in `aux`; indices
         >= 16*c_words fold into the last word OR-wise.
+      op_order: the opcode renumbering the arena was packed with; None
+        for the canonical order.
     Returns:
       (out_lo [T,O,S0,128], out_hi [T,O,S0,128], choices [T,CW,S0,128]
       int32)
@@ -210,7 +229,7 @@ def interp_interval(
     if var_lo.device.type == "cpu":
         return interp_interval_plain(
             w1, w2, imm, lengths, var_lo, var_hi, nf=nf, n_inputs=n_inputs,
-            n_outputs=n_outputs, s0=s0, c_words=c_words,
+            n_outputs=n_outputs, s0=s0, c_words=c_words, op_order=op_order,
         )
     cuda.check_cuda(w1, w2, imm, lengths, var_lo, var_hi)
     dev = var_lo.device
@@ -225,14 +244,15 @@ def interp_interval(
         )
     cuda.launch(
         "interp_interval", w1, w2, imm, lengths, var_lo, var_hi, olo, ohi,
-        ch, scratch, T, L, nf, n_inputs, n_outputs, c_words, lanes,
+        ch, scratch, cuda.order_table(op_order, dev),
+        T, L, nf, n_inputs, n_outputs, c_words, lanes,
     )
     return olo, ohi, ch
 
 
 def interp_interval_plain(
     w1, w2, imm, lengths, var_lo, var_hi, *, nf: int, n_inputs: int,
-    n_outputs: int, s0: int, c_words: int,
+    n_outputs: int, s0: int, c_words: int, op_order: tuple | None = None,
 ):
     """Plain PyTorch version of `interp_interval` (same contract)."""
     T, L = w1.shape
@@ -246,7 +266,9 @@ def interp_interval_plain(
         rlo = torch.zeros((nf, s0, 128), dtype=torch.float32, device=dev)
         rhi = torch.zeros_like(rlo)
         for j in range(min(int(lensh[t]), L)):
-            op, o, a, b, aux = _decode(int(w1h[t, j]), int(w2h[t, j]))
+            op, o, a, b, aux = _decode(
+                int(w1h[t, j]), int(w2h[t, j]), op_order
+            )
             iv = float(immh[t, j])
             if a == IMM12:
                 va = im.const(iv, (rlo[0],))
@@ -437,4 +459,120 @@ def interp_voxel_depth_plain(
             regs[min(o, nf - 1)] = r
         inside = (dist < 0).reshape(sub, pp, 128)
         out[t, :pp] = torch.where(inside, vz, 0).amax(dim=0).to(torch.int32)
+    return out
+
+
+# ======================================================================
+# float mode over one shared tape with per-tile action codes (K6)
+
+
+def interp_float_coded(
+    w1, w2, imm, lengths, codes, vars_, *, nf: int, n_inputs: int,
+    n_outputs: int, s0: int,
+):
+    """Bulk float evaluation of ONE shared tape, specialized per tile by
+    packed action codes instead of materialized child tapes.
+
+    The 2-bit codes of the liveness pass (simplify_device.py) annotate
+    every parent row per tile: 0 = skip, 1 = execute, 2/3 = execute as
+    COPY from operand a/b. A skipped row reads no tape word.
+
+    Args:
+      w1/w2/imm: [1, L] packed parent tape (canonical op order).
+      lengths: [T] rows of the tape a tile walks; 0 disables a tile
+        entirely (culled).
+      codes: [T, LW] int32, 16 two-bit codes per word (LW >= L / 16).
+      vars_: [T, V, S0, 128] f32 input planes.
+    Returns:
+      [T, O, S0, 128] f32 outputs; 0 where a tile wrote none.
+    """
+    T = vars_.shape[0]
+    L = w1.shape[1]
+    if w1.shape != (1, L) or w2.shape != (1, L) or imm.shape != (1, L):
+        raise ValueError("the coded leaf takes one shared tape [1, L]")
+    if lengths.shape != (T,) or codes.ndim != 2 or codes.shape[0] != T:
+        raise ValueError("lengths must be [T] and codes [T, LW]")
+    LW = codes.shape[1]
+    if LW * 16 < L:
+        raise ValueError(f"{LW} code words do not cover {L} tape rows")
+    for t, dt in ((w1, torch.int32), (w2, torch.int32), (lengths, torch.int32),
+                  (codes, torch.int32), (imm, torch.float32)):
+        if t.dtype != dt:
+            raise ValueError(f"arena dtype {t.dtype}, expected {dt}")
+    _check_planes(vars_, T, n_inputs, s0)
+    if vars_.device.type == "cpu":
+        return interp_float_coded_plain(
+            w1, w2, imm, lengths, codes, vars_, nf=nf, n_inputs=n_inputs,
+            n_outputs=n_outputs, s0=s0,
+        )
+    cuda.check_cuda(w1, w2, imm, lengths, codes, vars_)
+    lanes = s0 * 128
+    out = torch.empty(
+        (T, n_outputs, s0, 128), dtype=torch.float32, device=vars_.device
+    )
+    scratch = None
+    if nf * cuda.BLOCK * 4 > cuda.SMEM_LIMIT:
+        scratch = torch.empty(
+            (T, nf, lanes), dtype=torch.float32, device=vars_.device
+        )
+    cuda.launch(
+        "interp_float_coded", w1, w2, imm, lengths, codes, vars_, out,
+        scratch, T, L, LW, nf, n_inputs, n_outputs, lanes,
+    )
+    return out
+
+
+def interp_float_coded_plain(
+    w1, w2, imm, lengths, codes, vars_, *, nf: int, n_inputs: int,
+    n_outputs: int, s0: int,
+):
+    """Plain PyTorch version of `interp_float_coded` (same contract):
+    walks the shared tape on the host and applies each row only to the
+    tiles whose code for it is non-zero."""
+    T = vars_.shape[0]
+    L = w1.shape[1]
+    dev = vars_.device
+    fm = FloatMode(torch)
+    out = torch.zeros((T, n_outputs, s0, 128), dtype=torch.float32, device=dev)
+    regs = torch.zeros((T, nf, s0, 128), dtype=torch.float32, device=dev)
+    w1h, w2h, immh, lensh = _host_tape(w1, w2, imm, lengths)
+    words = codes.detach().cpu().numpy()
+    idx = np.arange(L)
+    codes_h = (words[:, idx // 16] >> ((idx % 16) * 2)) & 3  # [T, L]
+    codes_h = np.where(idx[None, :] < lensh[:, None], codes_h, 0)
+    for j in np.nonzero(codes_h.any(axis=0))[0]:
+        op, o, a, b, aux = _decode(int(w1h[0, j]), int(w2h[0, j]))
+        iv = float(immh[0, j])
+        oc = min(o, nf - 1)
+        for code in (1, 2, 3):
+            tiles = np.nonzero(codes_h[:, j] == code)[0]
+            if tiles.size == 0:
+                continue
+            ti = torch.from_numpy(tiles).to(dev)
+            # codes 2/3: the row runs as COPY from operand a/b
+            src = b if code == 3 else a
+            if src == IMM12:
+                va = fm.const(iv, regs[ti, 0])
+            else:
+                va = regs[ti, min(src, nf - 1)]
+            top = TapeOp.COPY if code > 1 else TapeOp(op)
+            if top == TapeOp.OUTPUT:
+                out[ti, min(aux, n_outputs - 1)] = va
+                r = va
+            elif top == TapeOp.INPUT:
+                r = vars_[ti, min(aux, n_inputs - 1)]
+            elif top == TapeOp.COPY:
+                r = va
+            elif top in _UNARY:
+                r = fm.unary(top, va)
+            else:
+                if b == IMM12:
+                    vb = fm.const(iv, regs[ti, 0])
+                else:
+                    vb = regs[ti, min(b, nf - 1)]
+                if top in CHOICE_TAPE_OPS:
+                    r = fm.choice_binary(top, va, vb)[0]
+                else:
+                    r = fm.binary(top, va, vb)
+            regs[ti, oc] = r
     return out

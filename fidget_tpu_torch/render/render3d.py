@@ -47,6 +47,7 @@ import torch
 from ..compiler.pack import pack_tapes
 from ..compiler.tape import Tape
 from ..eval.arith import FloatMode, GradMode, IntervalMode
+from ..eval.cuda import resolve_device
 from ..eval.interp import (
     interp_float,
     interp_grad,
@@ -58,7 +59,7 @@ from ..eval.unrolled import eval_tape
 from ..shape import Shape, ShapeVars
 from .config import check_cancel
 from .region import VoxelSize
-from .render2d import _ceil_to, _pad_plane, _resolve_device, _TracedBind
+from .render2d import _ceil_to, _pad_plane, _TracedBind
 from .transform import transform_duals, transform_intervals, transform_points
 
 
@@ -494,7 +495,7 @@ class VoxelRenderer:
         cap: int | None = None,
         device=None,
     ):
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.shape_transform = None
         if isinstance(tape, Shape):
             self.shape_transform = tape.transform

@@ -5,6 +5,8 @@
 is a tape-heavy 3D union. Every builder uses only the graph API that
 this package and the reference package share, so a test can build the
 same scene in both and compare the tapes they lower to.
+`seeded_action_codes` makes per-tile action codes for the coded leaf
+kernel without an interval pass.
 """
 
 from __future__ import annotations
@@ -76,3 +78,49 @@ def sphere_union_shape(ctx, n=300, seed=1):
         )
         parts.append(ctx.sub(ctx.sqrt(d2), float(r[i])))
     return _min_tree(ctx, parts)
+
+
+def seeded_action_codes(w1, w2, n, nf, rng):
+    """Seeded 2-bit action codes [L] for the first n rows of one packed
+    tape (canonical op order) that mix all four values and keep the
+    dataflow valid, so that no executed row reads a register a skipped
+    row should have written: a reverse liveness walk that picks keep /
+    COPY-from-a / COPY-from-b at random for every executed row,
+    whatever its op, and skips the rows that leaves dead."""
+    from .compiler.pack import IMM12
+    from .compiler.tape import BINARY_MASK, TapeOp
+
+    codes = np.zeros(len(w1), np.uint32)
+    live = np.zeros(nf, bool)
+    for j in reversed(range(n)):
+        op = int(w1[j]) & 127
+        out = (int(w1[j]) >> 7) & 0xFFF
+        a = (int(w1[j]) >> 19) & 0xFFF
+        b = int(w2[j]) & 0xFFF
+        if op != int(TapeOp.OUTPUT) and not live[out]:
+            continue
+        binary = (BINARY_MASK >> op) & 1 == 1
+        if op in (int(TapeOp.OUTPUT), int(TapeOp.INPUT)):
+            c = 1
+        else:
+            c = int(rng.choice([1, 2, 3] if binary else [1, 2]))
+        codes[j] = c
+        live[out] = False
+        if op != int(TapeOp.INPUT):
+            if c in (1, 2) and a != IMM12:
+                live[a] = True
+            if binary and c in (1, 3) and b != IMM12:
+                live[b] = True
+    return codes
+
+
+def pack_action_codes(codes):
+    """[T, L] action codes -> [T, ceil(L/16)] int32 words, 16 per word,
+    row j at bits (j % 16) * 2 of word j / 16."""
+    T, L = codes.shape
+    lw = -(-L // 16)
+    padded = np.zeros((T, lw * 16), np.uint32)
+    padded[:, :L] = codes
+    shifts = (np.arange(16, dtype=np.uint32) * 2)[None, None, :]
+    words = (padded.reshape(T, lw, 16) << shifts).sum(axis=2, dtype=np.uint32)
+    return words.view(np.int32)

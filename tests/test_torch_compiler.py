@@ -188,7 +188,9 @@ def test_port_imports_no_jax():
     code = (
         "import sys, fidget_tpu_torch, fidget_tpu_torch.render.render2d, "
         "fidget_tpu_torch.render.render3d, fidget_tpu_torch.shape, "
-        "fidget_tpu_torch.scenes, fidget_tpu_torch.eval.cuda\n"
+        "fidget_tpu_torch.scenes, fidget_tpu_torch.eval.cuda, "
+        "fidget_tpu_torch.compiler.simplify, "
+        "fidget_tpu_torch.eval.simplify_device\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fidget_tpu' or m.startswith('fidget_tpu.')]\n"
         "assert not bad, bad\n"

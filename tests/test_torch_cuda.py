@@ -14,10 +14,12 @@ import pytest
 import torch
 
 import fidget_tpu_torch as port
-from fidget_tpu_torch.compiler.pack import pack_tapes
+from fidget_tpu_torch.compiler.pack import frequency_op_order, pack_tapes
 from fidget_tpu_torch.eval import cuda
 from fidget_tpu_torch.eval.interp import (
     interp_float,
+    interp_float_coded,
+    interp_float_coded_plain,
     interp_float_plain,
     interp_grad,
     interp_grad_plain,
@@ -29,8 +31,11 @@ from fidget_tpu_torch.eval.interp import (
 from fidget_tpu_torch.eval.simplify_device import (
     liveness_codes,
     liveness_codes_plain,
+    per_lane_to_rows,
+    reconstruct,
+    unpack_codes,
 )
-from fidget_tpu_torch.render.render2d import FILL_NONE
+from fidget_tpu_torch.render.render2d import FILL_INSIDE, FILL_NONE, FILL_OUTSIDE
 from fidget_tpu_torch.scenes import gyroid_sphere, sphere_union_shape
 
 S0 = 8
@@ -185,3 +190,119 @@ def test_render_on_card_matches_brute(card):
     np.testing.assert_allclose(dist[ev], brute[ev], rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(img.inside().cpu().numpy(), brute < 0)
     assert (~ev).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf_pad", [0, 256])
+def test_coded_kernel_matches_plain(card, nf_pad):
+    """K6 on real codes (K1 over seeded boxes as lanes, K2 over the
+    shared tape) with the tape packed at its own length, so the last
+    code word is ragged: the kernel equals its plain version and
+    reconstruct + K3 bit for bit, through the shared-memory register
+    file and (nf_pad = 256) the global scratch."""
+    tape = _union_tape(40)
+    packed = pack_tapes([tape])
+    L = packed.w1.shape[1]
+    assert L % 16
+    nf = max(packed.nf, nf_pad)
+    w1, w2, imm, lens = (
+        torch.from_numpy(np.ascontiguousarray(a)).to(card)
+        for a in (packed.w1, packed.w2, packed.imm, packed.lengths)
+    )
+    n = 48
+    rng = np.random.default_rng(3)
+    c = rng.uniform(-1, 1, size=(n, 2)).astype(np.float32)
+    half = rng.uniform(0.05, 0.4, size=(n, 1)).astype(np.float32)
+    lo = np.zeros((1, 2, S0, 128), np.float32)
+    hi = np.zeros_like(lo)
+    lo.reshape(2, -1)[:, :n] = (c - half).T
+    hi.reshape(2, -1)[:, :n] = (c + half).T
+    kw = dict(nf=nf, n_inputs=2, n_outputs=1)
+    ch = interp_interval(
+        w1, w2, imm, lens, torch.from_numpy(lo).to(card),
+        torch.from_numpy(hi).to(card), s0=S0, c_words=4, **kw,
+    )[2]
+    words = per_lane_to_rows(
+        liveness_codes(w1, w2, lens, ch, nf=nf, L=L, shared_tape=True), n
+    ).contiguous()
+    u = rng.uniform(-1, 1, size=(n, 2, S0, 128)).astype(np.float32)
+    pts = torch.from_numpy(c[:, :, None, None] + half[:, :, None, None] * u)
+    pts = pts.to(card)
+    lengths = lens.expand(n).clone()
+    lengths[5] = 0  # a culled tile
+    cuda.reset_launches()
+    got = interp_float_coded(w1, w2, imm, lengths, words, pts, s0=S0, **kw)
+    assert cuda.LAUNCHES["interp_float_coded"] == 1
+    want = interp_float_coded_plain(w1, w2, imm, lengths, words, pts, s0=S0, **kw)
+    assert torch.equal(got, want)
+    assert (got[5] == 0).all() and (got[0] != 0).any()
+    w1c, w2c, immc, lensc, _ = reconstruct(w1, w2, imm, unpack_codes(words, L))
+    lensc = torch.where(lengths > 0, lensc, 0)
+    leaf = interp_float(w1c, w2c, immc, lensc, pts, s0=S0, **kw)
+    assert torch.equal(got, leaf)
+
+
+@pytest.mark.cuda
+def test_kernels_under_op_order_match_plain_and_canonical(card):
+    """K1, K2 and K3 on an arena packed under a frequency order: equal
+    to their plain versions with the same order and bit-equal to their
+    own results on the canonical arena."""
+    tapes = _tapes()
+    order = frequency_op_order(tapes[-1])
+    assert order != tuple(range(31))
+    to = lambda p: [torch.from_numpy(np.ascontiguousarray(a)).to(card)
+                    for a in (p.w1, p.w2, p.imm, p.lengths)]
+    canon = to(pack_tapes(tapes, capacity=512))
+    arena = to(pack_tapes(tapes, capacity=512, op_order=order))
+    nf = pack_tapes(tapes).nf
+    rng = np.random.default_rng(4)
+    lo = rng.uniform(-1.5, 1.5, size=(len(tapes), 2, S0, 128)).astype(np.float32)
+    hi = lo + rng.uniform(0, 0.5, size=lo.shape).astype(np.float32)
+    lo, hi = torch.from_numpy(lo).to(card), torch.from_numpy(hi).to(card)
+    kw = dict(nf=nf, n_inputs=2, n_outputs=1, s0=S0)
+    got = interp_float(*arena, lo, op_order=order, **kw)
+    torch.testing.assert_close(
+        got, interp_float_plain(*arena, lo, op_order=order, **kw),
+        rtol=2e-5, atol=2e-5,
+    )
+    assert torch.equal(got, interp_float(*canon, lo, **kw))
+    got = interp_interval(*arena, lo, hi, c_words=4, op_order=order, **kw)
+    want = interp_interval_plain(*arena, lo, hi, c_words=4, op_order=order, **kw)
+    same = interp_interval(*canon, lo, hi, c_words=4, **kw)
+    for g, w, c in zip(got[:2], want[:2], same[:2]):
+        torch.testing.assert_close(g, w, rtol=2e-5, atol=2e-5, equal_nan=True)
+        assert torch.equal(g, c)
+    assert torch.equal(got[2], want[2]) and torch.equal(got[2], same[2])
+    w1, w2, _, lens = arena
+    lk = dict(nf=nf, L=512, shared_tape=False)
+    codes = liveness_codes(w1, w2, lens, got[2], op_order=order, **lk)
+    assert torch.equal(codes, liveness_codes_plain(
+        w1, w2, lens, got[2], op_order=order, **lk))
+    assert torch.equal(codes, liveness_codes(
+        canon[0], canon[1], canon[3], got[2], **lk))
+
+
+@pytest.mark.cuda
+def test_two_level_render_on_card_matches_brute(card):
+    """`tile_sizes=(128, 32)`: the per-shape arena under its op_order
+    through K1 (root and subtiles), K2 (shared and per instance) and
+    K3, against `render_brute`; subtile proofs carry level tag 1."""
+    tape = _union_tape(40)
+    r = port.PixelRenderer(tape, port.ImageSize(256, 256), tile_sizes=(128, 32))
+    assert r.device.type == "cuda"
+    cuda.reset_launches()
+    img = r.render()
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES == {
+        "interp_interval": 2, "liveness_codes": 2, "interp_float": 1,
+        "interp_grad": 0, "interp_voxel_depth": 0, "interp_float_coded": 0,
+    }
+    brute = r.render_brute()
+    dist, fill = img.distance.cpu().numpy(), img.fill.cpu().numpy()
+    ev = fill == FILL_NONE
+    np.testing.assert_allclose(dist[ev], brute[ev], rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(img.inside().cpu().numpy(), brute < 0)
+    cls = img.fill_class().cpu().numpy()
+    assert (brute[cls == FILL_INSIDE] < 0).all()
+    assert (brute[cls == FILL_OUTSIDE] > 0).all()
+    assert (img.fill_level() == 1).any()
