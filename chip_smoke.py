@@ -26,20 +26,30 @@ Phases (any failure exits non-zero and prints no result):
    bit-equal for the ops IEEE rounds correctly), grad values the same
    and derivatives at 1e-4, choices and codes exact; once with the
    shared-memory register files and once with register files too large
-   for them (global scratch); interp_float_coded (K6) over the same
+   for them (nf 512, global scratch); interp_float_coded (K6) over the same
    tapes with seeded action codes that mix all four values, against
    its plain version, on both register-file routes; and K1, K2, K3 once
    more on each tape packed under its own `frequency_op_order`, against
    the plain versions with the same order and bit-equal to their own
-   canonical results;
+   canonical results; then hand-packed tapes built to break the tape
+   staging of K3 and K1 (`scenes.adversarial_arena`: lengths 0, 1, chunk
+   - 1, chunk, chunk + 1, 3 chunks + 5 and a length past L; a chain in
+   which every row reads the row before it and one in which none does;
+   both operands immediate; two OUTPUT rows; a register past nf)
+   through both kernels on both register-file routes, at S0 = 8, 2 and
+   1 (4, 2 and 1 lanes a thread in K3), with choices that fold into the
+   last word and with choice words too many for shared memory, against
+   the plain versions bit for bit;
 4. 2D main path: a few frames through `PixelRenderer.render()` under
    different pans, with the launch counts set to 0 just before and
    read just after; each frame's occupancy must equal `render_brute`,
    distances allclose (rtol 1e-5, atol 1e-6) where evaluated, fills
    conservative;
 5. one phase per 2D kernel on the inputs the main path gave it
-   (L = 8192, nf = 64, CW = 128; S0 = 8 for K1/K2, 128 for K3): kernel
-   against plain version, CUDA-event times, and the bound;
+   (L = 8192, CW = 128; S0 = 8 for K1/K2, 128 for K3; nf = 64 for K2 and
+   the tape's 13 registers for K1 and K3): kernel against plain version,
+   CUDA-event times, the bound, and for K1 and K3 the launch geometry
+   (lanes a thread, shared-memory bytes, register-file route);
 6. per-stage times of warm 2D frames (CUDA events, profiler);
 6a. coded frames: the same views through `_frame(..., leaf_coded=True)`,
    launch counts set to 0 before and read after (K1, K2, K6 and no K3);
@@ -94,6 +104,13 @@ ROOT = pathlib.Path(__file__).resolve().parent
 #: HBM bytes/s, and float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+#: warp schedulers of the card (132 SMs x 4) and the instructions a tape
+#: row cannot do without per value plane: two operand loads, the op, the
+#: store. With the SM clock they give the scheduler-slot bound of a kernel.
+SCHEDULERS = 132 * 4
+ROW_INSTRUCTIONS = 4
+#: SM clock in Hz, read from nvidia-smi by `phase_device`
+SM_CLOCK_HZ = None
 
 SIZE = 1024
 #: world_to_model views of the main path's frames: identity, a small
@@ -227,6 +244,14 @@ def phase_device():
         raise Failed(f"nvidia-smi failed: {smi.stderr.strip()}")
     log(f"device: {name}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    global SM_CLOCK_HZ
+    SM_CLOCK_HZ = float(clock.stdout.strip().splitlines()[0]) * 1e6
+    log(f"SM clock (nvidia-smi clocks.max.sm): {SM_CLOCK_HZ / 1e6:.0f} MHz")
     return smi.stdout.strip().splitlines()[0]
 
 
@@ -322,8 +347,15 @@ def phase_op_matrix(port, dev):
     )[:, None, None, None]
     errs = {}
     # shared-memory register files, then global scratch for every kernel
-    # (K4's four files leave shared memory above nf = 48)
-    for nf in (packed.nf, 256):
+    # (K4's four files leave shared memory above nf = 48; K3's single
+    # file of one lane a thread only above nf = 428)
+    from fidget_tpu_torch.eval import cuda
+
+    for nf in (packed.nf, 512):
+        for kernel in ("interp_float", "interp_interval"):
+            g = cuda.launch_geometry(kernel, nf=nf, lanes=lanes, T=T, cw=1)
+            if g.regs_shared != (nf == packed.nf):
+                raise Failed(f"op matrix: {kernel} at nf {nf} took {g}")
         kw = dict(nf=nf, n_inputs=2, n_outputs=1, s0=s0)
         got = interp.interp_float(*arena, pts, **kw)
         want = interp.interp_float_plain(*arena, pts, **kw)
@@ -371,6 +403,68 @@ def phase_op_matrix(port, dev):
         + ", ".join(f"{k[0]}@nf{k[1]}={v:.3g}" for k, v in errs.items()))
     _op_matrix_coded(cases, packed, arena, pts, dev)
     _op_matrix_op_order(cases, packed, arena, pts, lo, hi, dev)
+    phase_adversarial(dev)
+
+
+def phase_adversarial(dev):
+    """K3 and K1 on the hand-packed tapes of `scenes.adversarial_arena`
+    against their plain versions, bit for bit: at S0 = 8, 2 and 1 (so K3
+    runs 4, 2 and 1 lanes a thread), with the register file in shared
+    memory and (nf 512) in the global scratch, with 2 choice words (272
+    choices fold into the last), and with 512 (too many for shared
+    memory: OR-reduced into device memory)."""
+    from fidget_tpu_torch.eval import cuda, interp
+    from fidget_tpu_torch.scenes import adversarial_arena
+
+    A = adversarial_arena(cuda.TAPE_CHUNK)
+    arena = [torch.from_numpy(A[k]).to(dev)
+             for k in ("w1", "w2", "imm", "lengths")]
+    T = len(A["names"])
+    if A["n_choices"] <= 32:
+        raise Failed("adversarial tapes: too few choices to fold")
+    rng = np.random.default_rng(5)
+    seen = set()
+    for s0, nf, cw in ((8, A["nf"], 2), (2, A["nf"], 2), (1, A["nf"], 2),
+                       (8, 512, 2), (1, 512, 512), (8, A["nf"], 512)):
+        lo = rng.uniform(-1.5, 1.5, size=(T, 2, s0, 128)).astype(np.float32)
+        hi = lo + rng.uniform(0, 0.5, size=lo.shape).astype(np.float32)
+        lo, hi = torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev)
+        kw = dict(nf=nf, n_inputs=A["n_inputs"], n_outputs=A["n_outputs"],
+                  s0=s0)
+        gf = cuda.launch_geometry("interp_float", nf=nf, lanes=s0 * 128, T=T)
+        gi = cuda.launch_geometry("interp_interval", nf=nf, lanes=s0 * 128,
+                                  T=T, cw=cw)
+        seen |= {("r", gf.r), ("float shared", gf.regs_shared),
+                 ("interval shared", gi.regs_shared),
+                 ("choices shared", gi.choices_shared)}
+        got = interp.interp_float(*arena, lo, **kw)
+        want = interp.interp_float_plain(*arena, lo, **kw)
+        pairs = [("float", got, want)]
+        got = interp.interp_interval(*arena, lo, hi, c_words=cw, **kw)
+        want = interp.interp_interval_plain(*arena, lo, hi, c_words=cw, **kw)
+        pairs += list(zip(("interval lo", "interval hi", "choices"), got, want))
+        for what, g, w in pairs:
+            same = g.view(torch.int32) == w.view(torch.int32)
+            if not same.all():
+                t_bad = sorted({A["names"][t] for t in
+                                (~same).reshape(T, -1).any(1).nonzero()[:, 0]})
+                raise Failed(f"adversarial tapes: {what} differs from plain at "
+                             f"s0 {s0}, nf {nf}, cw {cw} on {t_bad}")
+        if not (want[2] != 0).any() or (got[0][0] != 0).any():
+            raise Failed("adversarial tapes: no choices, or a length-0 tape "
+                         "wrote an output")
+    want_seen = {("r", 4), ("r", 2), ("r", 1)} | {
+        (k, v) for k in ("float shared", "interval shared", "choices shared")
+        for v in (True, False)
+    }
+    if seen != want_seen:
+        raise Failed(f"adversarial tapes: geometries covered only {seen}")
+    torch.cuda.synchronize()
+    log(f"adversarial tapes: {T} tapes ({', '.join(A['names'])}) through "
+        f"interp_float and interp_interval equal their plain versions bit for "
+        f"bit at 4, 2 and 1 lanes a thread, on the shared-memory and the "
+        f"global-scratch register files, with choices folded into 2 words and "
+        f"with 512 words OR-reduced into device memory")
 
 
 def _op_matrix_coded(cases, packed, arena, pts, dev):
@@ -537,9 +631,10 @@ def check_frame(r, img, view, brute=None):
 
 
 def _bound(name, args, kwargs, out, lanes=None):
-    """(bound_ms, bound_by): the larger of the bytes the call must move
-    over HBM bandwidth and the operations it does over the float32
-    rate, counting only the work this call's data needs. A tape step
+    """(bound_ms, bound_by, slot_bound_ms): the larger of the bytes the
+    call must move over HBM bandwidth and the operations it does over
+    the float32 rate, counting only the work this call's data needs, and
+    beside it the scheduler-slot bound of those operations. A tape step
     counts one operation per real lane per value plane (float: 1,
     interval: 2, liveness: 1, grad: 4; the voxel pass one per voxel
     plus one per voxel of a live instance for its depth epilogue). Tape
@@ -585,7 +680,18 @@ def _bound(name, args, kwargs, out, lanes=None):
     log(f"  {name}: {steps} tape steps over {lens.numel()} tapes, "
         f"{n_live} instances with a tape, {real} of {width} lanes real; "
         f"{nbytes} bytes, {ops} operations")
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, _slot_bound_ms(ops)
+
+
+def _slot_bound_ms(ops):
+    """The scheduler-slot bound of an interpreter kernel: its operations
+    (one per real lane, executed tape row and value plane, as `_bound`
+    counts them) are `ops / 32` warp-rows, each at least
+    ROW_INSTRUCTIONS warp instructions, over the card's schedulers at
+    the SM clock. No interpreter comes near the float32 rate, which
+    counts a row as one operation; this counts the instructions a row cannot do without."""
+    return ops / 32 * ROW_INSTRUCTIONS / (SCHEDULERS * SM_CLOCK_HZ) * 1e3
 
 
 def _bound_coded(args, out):
@@ -613,7 +719,8 @@ def _bound_coded(args, out):
     log(f"  interp_float_coded: {steps} executed rows of {int(lens.sum())} "
         f"walked over {lens.numel()} tiles, {n_live} of them live, {width} "
         f"lanes each; {nbytes} bytes, {ops} operations")
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, _slot_bound_ms(ops)
 
 
 def _time_plain(plain, args, kwargs):
@@ -671,14 +778,27 @@ def measure_kernel(name, args, kwargs, lanes=None):
     else:
         err = check(name, got, want, 2e-5, 2e-5)
     ms = time_cuda(lambda: fn(*args, **kwargs), reps=20)
-    bound_ms, bound_by = _bound(name, args, kwargs, got, lanes)
+    bound_ms, bound_by, slot_ms = _bound(name, args, kwargs, got, lanes)
     planes = {"liveness_codes": 3, "interp_float_coded": 5}.get(name, 4)
     shape = tuple(args[planes].shape)
     log(f"kernel {name}: {kwargs}, inputs {shape}, max abs err {err:.3g}, "
         f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.5f} ms "
-        f"({bound_by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+        f"({bound_by}), scheduler-slot bound {slot_ms:.5f} ms")
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, slot_bound_ms=slot_ms)
+    if name in ("interp_float", "interp_interval"):
+        from fidget_tpu_torch.eval import cuda
+
+        g = cuda.launch_geometry(
+            name, nf=kwargs["nf"], lanes=shape[-2] * 128, T=shape[0],
+            cw=kwargs.get("c_words", 0),
+        )
+        row["geometry"] = {
+            "lanes_per_thread": g.r, "smem_bytes": g.smem, "blocks": g.blocks,
+            "regs_shared": g.regs_shared, "choices_shared": g.choices_shared,
+        }
+        log(f"  geometry: {row['geometry']}")
+    return row
 
 
 def phase_kernels(captured, launches, n_frames, n_tiles):
@@ -727,7 +847,8 @@ def phase_kernels3d(r, captured, launches3d, n_frames, rows):
         args, kwargs = captured[key]
         m = measure_kernel(name, args, kwargs, real[where])
         rows[name].setdefault("at_3d", {})[where] = {
-            k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")
+            k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "slot_bound_ms")
         }
     for name in rows:
         rows[name]["launches_3d"] = launches3d[name]

@@ -22,8 +22,9 @@
 // taken from it by find-first-set, so a skipped row costs no instruction
 // and a zero word costs one load. The last word is masked to the tile's
 // length (L need not be a multiple of 16). The register file is
-// [nf][BLOCK] in dynamic shared memory when that fits SMEM_LIMIT, else a
-// global scratch [t][reg][lane]. What bounds it: as the float kernel, the
+// [nf][BLOCK] in dynamic shared memory when the wrapper finds room for
+// it (SMEM_LIMIT, eval/cuda.py), else a global scratch [t][reg][lane].
+// What bounds it: as the one-lane-a-thread float kernel before it, the
 // dependent chain of each executed row (two register-file reads, one op,
 // one write); the executed rows of a tile are what its child tape would
 // hold, so the lane-steps are those of reconstruct + interp_float, with
@@ -114,7 +115,6 @@ extern "C" int fidget_interp_float_coded(
   if (T <= 0 || lanes <= 0) return (int)cudaSuccess;
   if (LW * 16 < L) return (int)cudaErrorInvalidValue;
   size_t smem = scratch ? 0 : (size_t)nf * BLOCK * sizeof(float);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   FIDGET_SET_SMEM(interp_float_coded_kernel, (int)smem);
   dim3 grid(T, (lanes + BLOCK - 1) / BLOCK);
   interp_float_coded_kernel<<<grid, BLOCK, smem, stream>>>(

@@ -14,7 +14,7 @@
 // Design. One thread per lane, grid (instance, lane block), as in
 // interp_float.cu, with four register files instead of one. They take
 // 4 * nf * BLOCK floats of dynamic shared memory when that fits
-// SMEM_LIMIT (nf <= 48), else a global scratch laid out
+// SMEM_LIMIT of eval/cuda.py (nf <= 48), else a global scratch laid out
 // [t][plane][reg][lane], coalesced across the warp; every register
 // bucket of the renderers has nf >= 64, so the normals pass takes the
 // global route. The TPU wrapper split the lanes (s0) to fit its VMEM
@@ -114,7 +114,6 @@ extern "C" int fidget_interp_grad(
     int T, int L, int nf, int V, int O, int lanes, cudaStream_t stream) {
   if (T <= 0 || lanes <= 0) return (int)cudaSuccess;
   size_t smem = scratch ? 0 : (size_t)4 * nf * BLOCK * sizeof(float);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   FIDGET_SET_SMEM(interp_grad_kernel, (int)smem);
   dim3 grid(T, (lanes + BLOCK - 1) / BLOCK);
   interp_grad_kernel<<<grid, BLOCK, smem, stream>>>(

@@ -20,8 +20,8 @@
 // register, so the reduction over vz needs no shared memory and no
 // second pass; the lane-steps are those of one walk per voxel, as in
 // the float kernel. The register file ([nf][BLOCK] floats) sits in
-// dynamic shared memory when that fits SMEM_LIMIT, else in a global
-// scratch [t][reg][column]; it is reused by the sub walks of a column.
+// dynamic shared memory when that fits SMEM_LIMIT (eval/cuda.py), else
+// in a global scratch [t][reg][column]; it is reused by the sub walks of a column.
 // The TPU kernel's tiles_per_step batching amortized a per-grid-step
 // cost the card does not have and is dropped.
 // What bounds it: the dependent chain of register-file reads, one op
@@ -114,7 +114,6 @@ extern "C" int fidget_interp_voxel_depth(
   if ((sub * sub) % BLOCK != 0 || pp_out * BLOCK < sub * sub)
     return (int)cudaErrorInvalidValue;
   size_t smem = scratch ? 0 : (size_t)nf * BLOCK * sizeof(float);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   FIDGET_SET_SMEM(interp_voxel_depth_kernel, (int)smem);
   dim3 grid(T, pp_out);
   interp_voxel_depth_kernel<<<grid, BLOCK, smem, stream>>>(

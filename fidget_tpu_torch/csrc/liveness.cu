@@ -18,8 +18,8 @@
 // Design. One thread per lane, grid (instance, lane block); with a
 // shared tape every block reads the same warp-uniform words. The
 // liveness plane is one byte per (register, lane): [nf][BLOCK] in
-// dynamic shared memory when it fits SMEM_LIMIT, else a global scratch
-// [b][reg][lane]. The code word under construction stays in a thread
+// dynamic shared memory when it fits SMEM_LIMIT (eval/cuda.py), else a
+// global scratch [b][reg][lane]. The code word under construction stays in a thread
 // register and is stored once per 16 ops. What bounds it: the serial
 // chain over the tape (read one choice word, update three liveness
 // bytes per op), per thread, with only S0 * 128 lanes in flight.
@@ -107,7 +107,6 @@ extern "C" int fidget_liveness_codes(
     cudaStream_t stream) {
   if (B <= 0 || lanes <= 0) return (int)cudaSuccess;
   size_t smem = scratch ? 0 : (size_t)nf * BLOCK;
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   dim3 grid(B, (lanes + BLOCK - 1) / BLOCK);
   if (order != nullptr) {
     FIDGET_SET_SMEM(liveness_kernel<true>, (int)smem);

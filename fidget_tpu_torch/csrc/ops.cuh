@@ -18,6 +18,7 @@
 // that the plain PyTorch version would round differently.
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 
 namespace fidget {
@@ -45,12 +46,10 @@ constexpr int CHOICE_LEFT = 1;
 constexpr int CHOICE_RIGHT = 2;
 constexpr int CHOICE_BOTH = 3;
 
-// threads per block of every interpreter kernel (one thread per lane)
+// threads per block of every interpreter kernel; launch geometry beyond
+// that (lanes per thread, shared-memory bytes, tape chunk, register-file
+// route) is decided in fidget_tpu_torch/eval/cuda.py and passed in
 constexpr int BLOCK = 128;
-// dynamic shared memory a register file may take before the launcher
-// is handed a global-memory scratch instead (mirrors SMEM_LIMIT in
-// fidget_tpu_torch/eval/cuda.py)
-constexpr int SMEM_LIMIT = 96 * 1024;
 
 struct Word {
   int op, out, a, b, aux;
@@ -81,6 +80,118 @@ __device__ __forceinline__ Word decode(int32_t w1, int32_t w2,
   if (ORDERED && w.op < N_OPS) w.op = __ldg(order + w.op);
   return w;
 }
+
+// ---------------------------------------------------------------------
+// Staged tape rows (interp_float.cu, interp_interval.cu). A block copies
+// its tape chunk by chunk into shared memory with cp.async, one chunk
+// ahead of the one it executes, and decodes every row once per block
+// instead of once per warp: the opcode mapped back through the order
+// table, operands as byte offsets into the register file (already
+// clamped to nf - 1 and scaled by the row stride), the payload of aux
+// already clamped. The row loop then reads one 16-byte broadcast word
+// and an immediate per row.
+
+struct alignas(16) Row {
+  int32_t op_pay;  // op | payload << 8
+  int32_t a, b;    // operand byte offsets, or OPND_IMM
+  int32_t out;     // result byte offset
+};
+
+// operand is the row's immediate (also set for operands the op ignores)
+constexpr int OPND_IMM = -1;
+
+// Payload by op: OUTPUT min(aux, O - 1); INPUT min(aux, V - 1); choice
+// ops (CW > 0) min(aux / 16, CW - 1) << 5 | (aux % 16) * 2; else 0.
+__device__ __forceinline__ Row stage_row(int32_t w1, int32_t w2,
+                                         const int32_t* __restrict__ order,
+                                         int nf, int stride, int V, int O,
+                                         int CW) {
+  int op = w1 & 127;
+  if (op >= N_OPS) op = OP_COPY;  // the value modes' default: pass a through
+  else if (order != nullptr) op = __ldg(order + op);
+  const int a = (w1 >> 19) & 0xFFF, b = w2 & 0xFFF, out = (w1 >> 7) & 0xFFF;
+  const int aux = (int)((uint32_t)w2 >> 12);
+  int pay = 0;
+  if (op == OP_OUTPUT) pay = min(aux, O - 1);
+  else if (op == OP_INPUT) pay = min(aux, V - 1);
+  else if (CW > 0 && ((CHOICE_MASK >> op) & 1))
+    pay = (min(aux >> 4, CW - 1) << 5) | ((aux & 15) * 2);
+  Row r;
+  r.op_pay = op | (pay << 8);
+  r.a = (op == OP_INPUT || a == IMM12) ? OPND_IMM : min(a, nf - 1) * stride;
+  r.b = (!((BINARY_MASK >> op) & 1) || b == IMM12) ? OPND_IMM
+                                                   : min(b, nf - 1) * stride;
+  r.out = min(out, nf - 1) * stride;
+  return r;
+}
+
+__device__ __forceinline__ void cp_async4(void* smem_dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The ring of one block: raw words as cp.async lands them (each thread
+// reads back only the slots it copied itself, so no barrier lies
+// between the wait and the decode), and two buffers of decoded rows and
+// immediates, one executing and one being filled. `chunk` rows each,
+// plus one slot so that the loop may read one row ahead.
+__host__ __device__ constexpr size_t tape_ring_bytes(int chunk) {
+  return ((size_t)(chunk + 1) * 2 * (sizeof(Row) + sizeof(float)) +
+          (size_t)chunk * 3 * sizeof(int32_t) + 15) / 16 * 16;
+}
+
+struct TapeRing {
+  unsigned char* base;  // 16-byte aligned shared memory
+  int chunk;
+
+  // buffers are addressed by arithmetic on `base`, so that the compiler
+  // keeps them in the shared address space and in registers
+  __device__ __forceinline__ Row* rows(int buf) const {
+    return reinterpret_cast<Row*>(base) + buf * (chunk + 1);
+  }
+  __device__ __forceinline__ float* imms(int buf) const {
+    return reinterpret_cast<float*>(rows(2)) + buf * (chunk + 1);
+  }
+  __device__ __forceinline__ int32_t* raw(int word) const {
+    return reinterpret_cast<int32_t*>(imms(2)) + word * chunk;
+  }
+  // the first byte behind the ring
+  __device__ __forceinline__ unsigned char* end() const {
+    return base + tape_ring_bytes(chunk);
+  }
+
+  // starts the copy of rows [j0, j0 + count) of one tape
+  __device__ __forceinline__ void fetch(const int32_t* w1, const int32_t* w2,
+                                        const float* imm, int j0,
+                                        int count) const {
+    for (int k = threadIdx.x; k < count; k += BLOCK) {
+      cp_async4(raw(0) + k, w1 + j0 + k);
+      cp_async4(raw(1) + k, w2 + j0 + k);
+      cp_async4(raw(2) + k, imm + j0 + k);
+    }
+    cp_async_commit();
+  }
+
+  // waits for this thread's copies and decodes them into buffer `buf`
+  __device__ __forceinline__ void decode(int buf, int count,
+                                         const int32_t* __restrict__ order,
+                                         int nf, int stride, int V, int O,
+                                         int CW) const {
+    cp_async_wait_all();
+    for (int k = threadIdx.x; k < count; k += BLOCK) {
+      rows(buf)[k] =
+          stage_row(raw(0)[k], raw(1)[k], order, nf, stride, V, O, CW);
+      imms(buf)[k] = __int_as_float(raw(2)[k]);
+    }
+  }
+};
 
 __device__ __forceinline__ float f_nan() { return __int_as_float(0x7fc00000); }
 
@@ -181,7 +292,7 @@ __device__ __forceinline__ float quadrant(float v) {
 }
 
 // interval.rs:109-204
-__device__ Ival i_sin_cos(Ival a, bool is_sin) {
+__device__ __forceinline__ Ival i_sin_cos(Ival a, bool is_sin) {
   float al = a.lo, au = a.hi;
   float fl = is_sin ? sinf(al) : cosf(al);
   float fu = is_sin ? sinf(au) : cosf(au);
@@ -222,7 +333,7 @@ __device__ Ival i_sin_cos(Ival a, bool is_sin) {
   return poison(has_nan(a), lo, hi);
 }
 
-__device__ Ival i_unary(int op, Ival a) {
+__device__ __forceinline__ Ival i_unary(int op, Ival a) {
   float al = a.lo, au = a.hi;
   switch (op) {
     case OP_NEG: return Ival{-au, -al};
@@ -281,7 +392,7 @@ __device__ __forceinline__ float rmax4(float a, float b, float c, float d) {
 }
 
 // non-choice binary ops
-__device__ Ival i_binary(int op, Ival a, Ival b) {
+__device__ __forceinline__ Ival i_binary(int op, Ival a, Ival b) {
   float al = a.lo, au = a.hi, bl = b.lo, bu = b.hi;
   bool nan = has_nan(a) || has_nan(b);
   switch (op) {
@@ -328,7 +439,7 @@ __device__ Ival i_binary(int op, Ival a, Ival b) {
 }
 
 // choice ops (interval.rs:295-381): value and 2-bit choice code
-__device__ Ival i_choice(int op, Ival a, Ival b, int* code) {
+__device__ __forceinline__ Ival i_choice(int op, Ival a, Ival b, int* code) {
   float al = a.lo, au = a.hi, bl = b.lo, bu = b.hi;
   bool nan = has_nan(a) || has_nan(b);
   float lo, hi;
@@ -446,9 +557,8 @@ __device__ Dual g_binary(int op, Dual a, Dual b) {
 
 }  // namespace fidget
 
-// Launch helpers shared by the three sources: a kernel whose register
-// file fits SMEM_LIMIT takes it from dynamic shared memory, which
-// needs the opt-in attribute above 48 KB.
+// Launch helper shared by the sources: dynamic shared memory above
+// 48 KB needs the opt-in attribute.
 #define FIDGET_SET_SMEM(kernel, bytes)                                     \
   do {                                                                     \
     if ((bytes) > 48 * 1024) {                                             \

@@ -15,6 +15,8 @@ the counts, run a frame, and see which kernels the frame went through.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
 import pathlib
@@ -27,10 +29,97 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent / "_build"
 
-#: threads per block and the shared-memory budget of a register file;
-#: must match BLOCK / SMEM_LIMIT in csrc/ops.cuh
+#: threads per block of every kernel; must match BLOCK in csrc/ops.cuh
 BLOCK = 128
+#: shared-memory budget of a register file of K2, K4, K5 and K6 (several
+#: blocks an SM); above it their wrappers hand the kernel a global scratch
 SMEM_LIMIT = 96 * 1024
+#: dynamic shared memory one block may opt in to on an H100, the shared
+#: memory of one SM, and what the card reserves of it per block
+SMEM_BLOCK_MAX = 232448
+SMEM_SM = 233472
+SMEM_BLOCK_RESERVED = 1024
+N_SM = 132
+#: tape rows per ring buffer of K1 and K3 (csrc/ops.cuh `TapeRing`)
+TAPE_CHUNK = 256
+
+
+def tape_ring_bytes(chunk: int) -> int:
+    """Shared memory of one block's tape ring: two buffers of `chunk` + 1
+    decoded rows (16 bytes and a 4-byte immediate each) and the raw
+    words of one chunk, rounded up to 16 bytes (csrc/ops.cuh
+    `tape_ring_bytes`)."""
+    return -(-((chunk + 1) * 2 * 20 + chunk * 12) // 16) * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """How one launch of K1 or K3 is laid out.
+
+    r: lanes a thread owns (K3: 4, 2 or 1; K1: 1).
+    chunk: tape rows per ring buffer.
+    smem: bytes of dynamic shared memory of a block.
+    regs_shared: the register file lies in shared memory; else the
+      wrapper allocates a global scratch.
+    choices_shared: K1's choice words accumulate in shared memory; else
+      the wrapper hands the kernel zeroed device memory to OR into.
+    blocks: blocks of the grid."""
+
+    r: int
+    chunk: int
+    smem: int
+    regs_shared: bool
+    choices_shared: bool
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def launch_geometry(kernel: str, *, nf: int, lanes: int, T: int,
+                    cw: int = 0) -> Geometry:
+    """The launch geometry of `interp_float` (K3) or `interp_interval`
+    (K1) for T instances of `lanes` lanes, an `nf`-register file and
+    `cw` choice words a lane. Everything stays in shared memory as long
+    as one block's 227 KB hold it.
+
+    K3 takes the most lanes a thread (4, 2, 1) that divide the lanes
+    into whole blocks and whose register file `[nf][BLOCK * r]` leaves
+    room for two blocks an SM, or for one where the grid has no more
+    blocks than the card has SMs; failing that the most that fit one
+    block; and the global scratch only when not even one lane a thread
+    fits. K1 keeps one lane a thread (its passes are short of lanes, not
+    of scheduler slots); its register file `[nf][BLOCK]` of (lo, hi) pairs
+    goes to shared memory if it fits beside the ring, and its choice
+    words `[cw][BLOCK]` if they fit beside that."""
+    if lanes <= 0 or lanes % BLOCK:
+        raise ValueError(f"lanes must be a positive multiple of {BLOCK}")
+    chunk = TAPE_CHUNK
+    ring = tape_ring_bytes(chunk)
+    if kernel == "interp_interval":
+        blocks = T * (lanes // BLOCK)
+        smem = ring
+        regs_shared = smem + nf * BLOCK * 8 <= SMEM_BLOCK_MAX
+        if regs_shared:
+            smem += nf * BLOCK * 8
+        choices_shared = smem + cw * BLOCK * 4 <= SMEM_BLOCK_MAX
+        if choices_shared:
+            smem += cw * BLOCK * 4
+        return Geometry(1, chunk, smem, regs_shared, choices_shared, blocks)
+    if kernel != "interp_float":
+        raise ValueError(f"no launch geometry for {kernel}")
+    rs = [r for r in (4, 2, 1) if lanes % (BLOCK * r) == 0]
+    two_an_sm = SMEM_SM // 2 - SMEM_BLOCK_RESERVED
+    for roomy in (True, False):
+        for r in rs:
+            blocks = T * (lanes // (BLOCK * r))
+            smem = ring + nf * BLOCK * r * 4
+            budget = SMEM_BLOCK_MAX
+            if roomy and blocks > N_SM:
+                budget = two_an_sm
+            if smem <= budget:
+                return Geometry(r, chunk, smem, True, False, blocks)
+    r = rs[0]
+    return Geometry(r, chunk, ring, False, False, T * (lanes // (BLOCK * r)))
+
 
 #: kernel name -> (source stem, C entry point)
 KERNELS = {
@@ -52,10 +141,12 @@ NVCC_FLAGS = [
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    # w1 w2 imm lengths vars out scratch order | T L nf V O lanes | stream
-    "fidget_interp_float": [_P] * 8 + [_I] * 6 + [_P],
-    # w1 w2 imm lengths lo hi olo ohi choices scratch order | T L nf V O CW lanes
-    "fidget_interp_interval": [_P] * 11 + [_I] * 7 + [_P],
+    # w1 w2 imm lengths vars out scratch order | T L nf V O lanes r chunk
+    # smem | stream
+    "fidget_interp_float": [_P] * 8 + [_I] * 9 + [_P],
+    # w1 w2 imm lengths lo hi olo ohi choices scratch order | T L nf V O CW
+    # lanes chunk choices_shared smem
+    "fidget_interp_interval": [_P] * 11 + [_I] * 10 + [_P],
     # w1s w2s lengths choices codes scratch order | B Tt L nf CW lanes
     "fidget_liveness_codes": [_P] * 7 + [_I] * 6 + [_P],
     # w1 w2 imm lengths vars out scratch | T L nf V O lanes

@@ -34,6 +34,14 @@ axis to fit their VMEM budget; lanes are independent on the card, so
 the port has no split. K5 drops the TPU's `tiles_per_step`, which
 amortized a per-grid-step cost the card does not have (the bucketed 3D
 path ran it at 1).
+
+K1 and K3 stage their tape through shared memory and, in K3, give a
+thread up to four lanes; how a launch is laid out (lanes per thread,
+shared-memory bytes, tape chunk, register file and choice words in
+shared or in device memory) is decided by `cuda.launch_geometry` from
+(nf, lanes, c_words, T), so `nf` should be the registers the tapes can
+name, not a padded bucket: a small file is what lets K3 run four lanes
+a thread.
 """
 
 from __future__ import annotations
@@ -144,17 +152,24 @@ def interp_float(
     out = torch.empty(
         (T, n_outputs, s0, 128), dtype=torch.float32, device=vars_.device
     )
+    g = cuda.launch_geometry("interp_float", nf=nf, lanes=lanes, T=T)
     scratch = None
-    if nf * cuda.BLOCK * 4 > cuda.SMEM_LIMIT:
-        scratch = torch.empty(
-            (T, nf, lanes), dtype=torch.float32, device=vars_.device
-        )
+    if not g.regs_shared:
+        scratch = _scratch((T, nf, lanes), vars_.device)
     cuda.launch(
         "interp_float", w1, w2, imm, lengths, vars_, out, scratch,
         cuda.order_table(op_order, vars_.device),
-        T, L, nf, n_inputs, n_outputs, lanes,
+        T, L, nf, n_inputs, n_outputs, lanes, g.r, g.chunk, g.smem,
     )
     return out
+
+
+def _scratch(shape, device):
+    """A global-memory register file for a kernel whose file no shared
+    memory holds; the kernels address it with 32-bit byte offsets."""
+    if 8 * shape[-2] * shape[-1] >= 2**31:
+        raise ValueError(f"register file {shape} is too large to address")
+    return torch.empty(shape, dtype=torch.float32, device=device)
 
 
 def interp_float_plain(
@@ -236,16 +251,21 @@ def interp_interval(
     lanes = s0 * 128
     olo = torch.empty((T, n_outputs, s0, 128), dtype=torch.float32, device=dev)
     ohi = torch.empty_like(olo)
-    ch = torch.empty((T, c_words, s0, 128), dtype=torch.int32, device=dev)
+    g = cuda.launch_geometry(
+        "interp_interval", nf=nf, lanes=lanes, T=T, cw=c_words
+    )
+    # the kernel writes every choice word from shared memory, or ORs
+    # into zeroed device memory where the words do not fit there
+    alloc = torch.empty if g.choices_shared else torch.zeros
+    ch = alloc((T, c_words, s0, 128), dtype=torch.int32, device=dev)
     scratch = None
-    if 2 * nf * cuda.BLOCK * 4 > cuda.SMEM_LIMIT:
-        scratch = torch.empty(
-            (2, T, nf, lanes), dtype=torch.float32, device=dev
-        )
+    if not g.regs_shared:
+        scratch = _scratch((2 * T, nf, lanes), dev)
     cuda.launch(
         "interp_interval", w1, w2, imm, lengths, var_lo, var_hi, olo, ohi,
         ch, scratch, cuda.order_table(op_order, dev),
-        T, L, nf, n_inputs, n_outputs, c_words, lanes,
+        T, L, nf, n_inputs, n_outputs, c_words, lanes, g.chunk,
+        g.choices_shared, g.smem,
     )
     return olo, ohi, ch
 

@@ -145,7 +145,10 @@ def _interval_vars(b, im, mat, z, var_vec, xi, yi, s0, lead):
 class _Bind:
     """What `_frame_core` needs of a tape binding: the root arena, the
     x/y/z input indices (-1 = unused), the register-file, input and
-    choice-word dims, and the opcode order of its arenas."""
+    choice-word dims, and the opcode order of its arenas. `nf` is the
+    register-file size of the binding's bucket; `nf_regs` is the one the
+    value kernels (K1, K3) are launched with, which need hold only the
+    registers the tape can name."""
 
     two_level = False
     op_order = None
@@ -171,10 +174,11 @@ class _TracedBind(_Bind):
     the coded leaf (K6) over the shared tape."""
 
     def __init__(self, w1, w2, imm, lens, axis_idx, Lcap, nf, V, c_words,
-                 leaf_coded=False):
+                 leaf_coded=False, nf_regs=None):
         self.arena = (w1, w2, imm, lens)
         self.axis_idx = [int(i) for i in axis_idx]
         self.Lcap, self.nf, self.V = Lcap, nf, V
+        self.nf_regs = nf if nf_regs is None else nf_regs
         self.c_words = c_words
         self.leaf_coded = leaf_coded
         self._per_tile = None
@@ -215,7 +219,7 @@ class _TracedBind(_Bind):
             )[:, 0]
         return interp_float(
             w1c, w2c, immc, lensc, vars_,
-            nf=self.nf, n_inputs=self.V, n_outputs=1, s0=s0l,
+            nf=self.nf_regs, n_inputs=self.V, n_outputs=1, s0=s0l,
         )[:, 0]
 
 
@@ -233,6 +237,7 @@ class _ConstBind(_Bind):
             for k in ("x", "y", "z")
         ]
         self.nf, self.V = r.nf, r.n_inputs
+        self.nf_regs = r._nf_regs
         self.c_words = r.c_words
         self.op_order = r.op_order
         self.two_level = r.two_level
@@ -247,7 +252,7 @@ class _ConstBind(_Bind):
     def leaf_eval(self, w1c, w2c, immc, lensc, vars_, s0l):
         return interp_float(
             w1c, w2c, immc, lensc, vars_,
-            nf=self.nf, n_inputs=self.V, n_outputs=1, s0=s0l,
+            nf=self.nf_regs, n_inputs=self.V, n_outputs=1, s0=s0l,
             op_order=self.op_order,
         )[:, 0]
 
@@ -271,7 +276,7 @@ class _ConstBind(_Bind):
         )
         olo1, ohi1, choices1 = interp_interval(
             w1s, w2s, imms, lens0a, var_lo1, var_hi1,
-            nf=self.nf, n_inputs=self.V, n_outputs=1, s0=r.s0s,
+            nf=self.nf_regs, n_inputs=self.V, n_outputs=1, s0=r.s0s,
             c_words=self.c_words, op_order=self.op_order,
         )
         slo = olo1[:, 0].reshape(n0, -1)[:, :m]
@@ -339,7 +344,7 @@ def _frame_core(
     w1r, w2r, immr, lensr = b.arena
     olo, ohi, choices0 = interp_interval(
         w1r, w2r, immr, lensr, var_lo, var_hi,
-        nf=b.nf, n_inputs=V, n_outputs=1, s0=s0r, c_words=b.c_words,
+        nf=b.nf_regs, n_inputs=V, n_outputs=1, s0=s0r, c_words=b.c_words,
         op_order=b.op_order,
     )
     rlo = olo[0, 0].reshape(-1)[:n0]
@@ -487,6 +492,11 @@ class PixelRenderer:
         self.s0l = (T1 * T1) // 128
 
         self.nf = tape.reg_count + tape.mem_count
+        # The register file K1 and K3 get: the registers the tape can
+        # name. The bucket's nf (nf_b) sizes only what the reference
+        # compiles per bucket; on the card nf is a launch argument, and
+        # a small file lets a thread of K3 own four lanes.
+        self._nf_regs = self.nf
         # the per-shape arena and simplifier are built lazily: the
         # bucketed single-level render() path never needs them
         self._packed = None
@@ -586,7 +596,7 @@ class PixelRenderer:
             return _ConstBind(self)
         return _TracedBind(
             *self._arena, self.axis_idx, self.Lcap_b, self.nf_b,
-            self.n_inputs, self.cw_b, leaf_coded,
+            self.n_inputs, self.cw_b, leaf_coded, nf_regs=self._nf_regs,
         )
 
     def _frame(self, mat, z, var_vec, *, pixel_perfect=False,

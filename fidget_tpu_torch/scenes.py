@@ -124,3 +124,112 @@ def pack_action_codes(codes):
     shifts = (np.arange(16, dtype=np.uint32) * 2)[None, None, :]
     words = (padded.reshape(T, lw, 16) << shifts).sum(axis=2, dtype=np.uint32)
     return words.view(np.int32)
+
+
+#: canonical opcodes the adversarial tapes use (compiler/tape.py TapeOp)
+_OUTPUT, _INPUT, _COPY, _MAX, _SUB, _ADD, _MIN, _NEG = range(8)
+_MUL, _ABS = 10, 12
+_IMM12 = 0xFFF
+
+
+def adversarial_arena(chunk):
+    """Hand-packed tapes built to break the staging of the float and
+    interval kernels, which copy a tape through shared memory `chunk`
+    rows at a time. Returns a dict: `w1`, `w2`, `imm` ([T, L] with L =
+    3 * chunk + 5) and `lengths` ([T]) in the layout of
+    compiler/pack.py, canonical opcode order; `names` ([T]); `nf` = 6
+    registers, `n_inputs` = 2, `n_outputs` = 2; `n_choices`, the most
+    choice rows of any tape.
+
+    The tapes, every op of which f32 rounds correctly:
+
+    - `len0`: no rows (both outputs stay 0); `len1`: one OUTPUT of an
+      immediate;
+    - `chain<n>` for n = chunk - 1, chunk, chunk + 1, 3 * chunk + 5 and
+      `over`, whose length claims 7 rows more than L holds: two INPUT
+      rows, then a chain in which every row reads the result of the row
+      before it (ADD, MIN, MUL, MAX, ABS, SUB, NEG by turns, against an
+      immediate or the second input; every 17th row restarts the chain
+      from immediate + immediate), then OUTPUT 0 of the chain. The MIN
+      and MAX rows are choices 0, 1, 2, ... of one lane, sixteen to a
+      word, and past 16 * c_words they fold into the last word;
+    - `apart`: three accumulators by turns, so that no row reads the
+      result of the row before it; OUTPUT 0, then OUTPUT 1 of another
+      accumulator (two OUTPUT rows);
+    - `clamp`: names register 9 of a 6-register file, which reads and
+      writes register 5.
+    """
+    L = 3 * chunk + 5
+    tapes = {}
+
+    def row(op, out=0, a=0, b=0, aux=0, imm=0.0):
+        return (op | out << 7 | a << 19, b | aux << 12, imm)
+
+    def chain(n):
+        """n rows: INPUT x -> r0, INPUT y -> r1, a dependent chain on
+        r2..r5, OUTPUT 0 last."""
+        rows = [row(_INPUT, out=0, aux=0), row(_INPUT, out=1, aux=1)]
+        prev, choice = 0, 0
+        steps = (
+            (_ADD, None, 0.37), (_MIN, 1, 0.0), (_MUL, None, 0.83),
+            (_MAX, None, -1.25), (_ABS, None, 0.0), (_SUB, 1, 0.0),
+            (_NEG, None, 0.0), (_MIN, None, 0.6),
+        )
+        j = 0
+        while len(rows) < n - 1:
+            out = 2 + j % 4
+            if j % 17 == 16:
+                rows.append(row(_ADD, out, _IMM12, _IMM12, imm=0.21))
+            else:
+                op, b, imm = steps[j % len(steps)]
+                aux = 0
+                if op in (_MIN, _MAX):
+                    aux, choice = choice, choice + 1
+                rows.append(row(op, out, prev, _IMM12 if b is None else b,
+                                aux, imm))
+            prev, j = out, j + 1
+        rows.append(row(_OUTPUT, out=prev, a=prev, aux=0))
+        return rows, choice
+
+    n_choices = 0
+    tapes["len0"] = ([], 0)
+    tapes["len1"] = ([row(_OUTPUT, a=_IMM12, aux=0, imm=1.5)], 1)
+    for n in (chunk - 1, chunk, chunk + 1, L):
+        rows, c = chain(n)
+        n_choices = max(n_choices, c)
+        tapes[f"chain{n}"] = (rows, n)
+    tapes["over"] = (chain(L)[0], L + 7)
+
+    rows = [row(_INPUT, out=0, aux=0), row(_INPUT, out=1, aux=1),
+            row(_COPY, out=2, a=0), row(_COPY, out=3, a=1),
+            row(_SUB, out=4, a=0, b=1)]
+    choice = 0
+    for j in range(2 * chunk):
+        acc = 2 + j % 3
+        if j % 5 == 4:
+            rows.append(row(_MAX, acc, acc, 0, aux=choice))
+            choice += 1
+        else:
+            rows.append(row(_MUL if j % 2 else _ADD, acc, acc, _IMM12,
+                            imm=0.91 if j % 2 else 0.13))
+    n_choices = max(n_choices, choice)
+    rows += [row(_OUTPUT, out=2, a=2, aux=0), row(_OUTPUT, out=3, a=3, aux=1)]
+    tapes["apart"] = (rows, len(rows))
+
+    tapes["clamp"] = ([
+        row(_INPUT, out=0, aux=0), row(_INPUT, out=9, aux=1),
+        row(_ADD, out=5, a=5, b=0), row(_SUB, out=2, a=9, b=_IMM12, imm=0.5),
+        row(_OUTPUT, out=2, a=2, aux=0), row(_OUTPUT, out=9, a=9, aux=1),
+    ], 6)
+
+    T = len(tapes)
+    w1 = np.zeros((T, L), np.int32)
+    w2 = np.zeros((T, L), np.int32)
+    imm = np.zeros((T, L), np.float32)
+    lengths = np.zeros(T, np.int32)
+    for t, (rows, n) in enumerate(tapes.values()):
+        for j, (a, b, c) in enumerate(rows):
+            w1[t, j], w2[t, j], imm[t, j] = a, b, c
+        lengths[t] = n
+    return dict(w1=w1, w2=w2, imm=imm, lengths=lengths, names=list(tapes),
+                nf=6, n_inputs=2, n_outputs=2, n_choices=n_choices)

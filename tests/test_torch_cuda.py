@@ -36,7 +36,11 @@ from fidget_tpu_torch.eval.simplify_device import (
     unpack_codes,
 )
 from fidget_tpu_torch.render.render2d import FILL_INSIDE, FILL_NONE, FILL_OUTSIDE
-from fidget_tpu_torch.scenes import gyroid_sphere, sphere_union_shape
+from fidget_tpu_torch.scenes import (
+    adversarial_arena,
+    gyroid_sphere,
+    sphere_union_shape,
+)
 
 S0 = 8
 
@@ -86,13 +90,18 @@ def _union_tape(n, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nf_pad", [0, 256])
+@pytest.mark.parametrize("nf_pad", [0, 512])
 def test_kernels_match_plain(card, nf_pad):
-    """nf_pad = 256 oversizes the register file past the shared-memory
-    budget, so the kernels take their global-memory scratch path."""
+    """nf_pad = 512 oversizes the register file past what shared memory
+    holds (K3's single file of one lane a thread fits up to nf 428), so
+    the kernels take their global-memory scratch path."""
     tapes = _tapes()
     packed = pack_tapes(tapes, capacity=512)
     nf = max(packed.nf, nf_pad)
+    for kernel in ("interp_float", "interp_interval"):
+        g = cuda.launch_geometry(kernel, nf=nf, lanes=S0 * 128, T=len(tapes),
+                                 cw=4)
+        assert g.regs_shared == (nf_pad == 0)
     arena = [torch.from_numpy(np.ascontiguousarray(a)).to(card)
              for a in (packed.w1, packed.w2, packed.imm, packed.lengths)]
     rng = np.random.default_rng(1)
@@ -116,6 +125,52 @@ def test_kernels_match_plain(card, nf_pad):
         w1, w2, lens, want[2], nf=nf, L=L, shared_tape=False
     )
     assert torch.equal(codes, plain)
+
+
+#: (s0, nf_pad, c_words): 4, 2 and 1 lanes a thread of K3 on the
+#: shared-memory register file; the global scratch; choice words too many
+#: for shared memory, beside either register file
+ADVERSARIAL_CASES = [
+    (8, 0, 2), (2, 0, 2), (1, 0, 2), (8, 512, 2), (1, 512, 512), (8, 0, 512),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s0,nf_pad,cw", ADVERSARIAL_CASES)
+def test_adversarial_tapes_match_plain(card, s0, nf_pad, cw):
+    """The hand-packed tapes of `scenes.adversarial_arena` (lengths
+    around the staging chunk, past L and 0; dependent and independent
+    chains; immediate-only rows; two OUTPUT rows; a register past nf)
+    through K3 and K1 against the plain versions, bit for bit; with 2
+    choice words the 272 choices of the long chains fold into the last."""
+    A = adversarial_arena(cuda.TAPE_CHUNK)
+    arena = [torch.from_numpy(A[k]).to(card)
+             for k in ("w1", "w2", "imm", "lengths")]
+    T = len(A["names"])
+    nf = max(A["nf"], nf_pad)
+    gf = cuda.launch_geometry("interp_float", nf=nf, lanes=s0 * 128, T=T)
+    gi = cuda.launch_geometry("interp_interval", nf=nf, lanes=s0 * 128, T=T,
+                              cw=cw)
+    assert gf.r == min(4, s0)
+    assert gf.regs_shared == gi.regs_shared == (nf_pad == 0)
+    assert gi.choices_shared == (cw == 2)
+    rng = np.random.default_rng(5)
+    lo = rng.uniform(-1.5, 1.5, size=(T, 2, s0, 128)).astype(np.float32)
+    hi = lo + rng.uniform(0, 0.5, size=lo.shape).astype(np.float32)
+    lo, hi = torch.from_numpy(lo).to(card), torch.from_numpy(hi).to(card)
+    kw = dict(nf=nf, n_inputs=2, n_outputs=2, s0=s0)
+    cuda.reset_launches()
+    got = interp_float(*arena, lo, **kw)
+    want = interp_float_plain(*arena, lo, **kw)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (got[0] == 0).all() and (got[1, 0] == 1.5).all()
+    got = interp_interval(*arena, lo, hi, c_words=cw, **kw)
+    want = interp_interval_plain(*arena, lo, hi, c_words=cw, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert (got[2] != 0).any() and (got[2][0] == 0).all()
+    assert cuda.LAUNCHES["interp_float"] == 1
+    assert cuda.LAUNCHES["interp_interval"] == 1
 
 
 @pytest.mark.cuda

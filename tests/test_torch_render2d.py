@@ -465,3 +465,68 @@ def test_tile_size_checks():
     r = port.PixelRenderer(tape, size, tile_sizes=(64, 16), device="cpu")
     with pytest.raises(ValueError, match="coded leaf"):
         r._frame(r._mat4(None), 0.0, r._var_vec(None), leaf_coded=True)
+
+
+@pytest.mark.parametrize("name", ["spiky", "union"])
+@pytest.mark.parametrize(
+    "binding", ["bucketed", "coded", "two-level"],
+)
+def test_register_file_sized_by_the_tape_equals_the_bucket(binding, name,
+                                                           monkeypatch):
+    """K1 and K3 are launched with the registers the tape can name, not
+    the bucket's 64: the frame is the same bit for bit (fills, distances,
+    every stage the binding exposes), K2 and K6 keep the bucket's nf, and
+    the value kernels really are handed the small file."""
+    from fidget_tpu_torch.render import render2d
+
+    ctx = port.Context()
+    tape = port.lower(ctx, [SHAPES[name](ctx)])
+    opts = dict(tile_sizes=(64, 16)) if binding == "two-level" else dict(
+        tile_size=32)
+    seen = {}
+    for fn in ("interp_interval", "interp_float", "interp_float_coded"):
+        def spy(*a, _fn=getattr(render2d, fn), _name=fn, **kw):
+            seen.setdefault(_name, set()).add(kw["nf"])
+            return _fn(*a, **kw)
+        monkeypatch.setattr(render2d, fn, spy)
+
+    def frames(nf_regs):
+        r = port.PixelRenderer(tape, port.ImageSize(128, 128), device="cpu",
+                               **opts)
+        assert r._nf_regs == r.nf == tape.reg_count + tape.mem_count < r.nf_b
+        if nf_regs == "bucket":
+            r._nf_regs = r.nf_b
+        mat, vec = r._mat4(PAN), r._var_vec(None)
+        stages = ["root", "codes", "leaf", None]
+        if binding != "coded":
+            stages.insert(2, "simplify")
+        seen.clear()
+        out = {
+            stage: tuple(
+                None if a is None else a.numpy()
+                for a in r._frame(mat, 0.0, vec, stop_after=stage,
+                                  leaf_coded=binding == "coded")
+            )
+            for stage in stages
+        }
+        return r, out, {k: set(v) for k, v in seen.items()}
+
+    r, small, nf_small = frames("tape")
+    _, large, nf_large = frames("bucket")
+    leaf = "interp_float_coded" if binding == "coded" else "interp_float"
+    assert nf_small["interp_interval"] == {r.nf}
+    assert nf_large["interp_interval"] == {r.nf_b}
+    if binding == "coded":
+        assert nf_small[leaf] == nf_large[leaf] == {r.nf_b}
+    else:
+        assert nf_small[leaf] == {r.nf} and nf_large[leaf] == {r.nf_b}
+    for stage, got in small.items():
+        for g, w in zip(got, large[stage]):
+            if g is None:
+                assert w is None
+                continue
+            same = g.view(np.uint32) == w.view(np.uint32) if (
+                g.dtype == np.float32) else g == w
+            assert same.all(), (stage, binding)
+    img, fill = small[None]
+    _check_against_brute(r, PAN, img, fill)
