@@ -32,14 +32,20 @@ Phases (any failure exits non-zero and prints no result):
    more on each tape packed under its own `frequency_op_order`, against
    the plain versions with the same order and bit-equal to their own
    canonical results; then hand-packed tapes built to break the tape
-   staging of K3 and K1 (`scenes.adversarial_arena`: lengths 0, 1, chunk
-   - 1, chunk, chunk + 1, 3 chunks + 5 and a length past L; a chain in
-   which every row reads the row before it and one in which none does;
-   both operands immediate; two OUTPUT rows; a register past nf)
-   through both kernels on both register-file routes, at S0 = 8, 2 and
-   1 (4, 2 and 1 lanes a thread in K3), with choices that fold into the
-   last word and with choice words too many for shared memory, against
-   the plain versions bit for bit;
+   staging (`scenes.adversarial_arena`: lengths 0, 1, chunk - 1, chunk,
+   chunk + 1, 3 chunks + 5 and a length past L; a chain in which every
+   row reads the row before it and one in which none does; both
+   operands immediate; two OUTPUT rows; a register past nf) through K3
+   and K1 on both register-file routes, at S0 = 8, 2 and 1 (4, 2 and 1
+   lanes a thread in K3), with choices that fold into the last word and
+   with choice words too many for shared memory; through K2 (with
+   opcodes 31, 40 and 127 and raw-field elisions that clamping would
+   change) on its four routes (one or two mask words, the byte plane in
+   shared or device memory) with choice words in shared and in device
+   memory, per instance and as a shared tape; and through K6 as shared
+   tapes under seeded and random codes (lengths 0, past L and cut inside
+   a word) at 4, 2 and 1 lanes a thread and through the global scratch;
+   all against the plain versions bit for bit;
 4. 2D main path: a few frames through `PixelRenderer.render()` under
    different pans, with the launch counts set to 0 just before and
    read just after; each frame's occupancy must equal `render_brute`,
@@ -48,15 +54,17 @@ Phases (any failure exits non-zero and prints no result):
 5. one phase per 2D kernel on the inputs the main path gave it
    (L = 8192, CW = 128; S0 = 8 for K1/K2, 128 for K3; nf = 64 for K2 and
    the tape's 13 registers for K1 and K3): kernel against plain version,
-   CUDA-event times, the bound, and for K1 and K3 the launch geometry
-   (lanes a thread, shared-memory bytes, register-file route);
+   CUDA-event times, the bound (for K2 also the bound of its serial
+   chain), and the launch geometry (lanes a thread, shared-memory bytes,
+   register-file, liveness and choice-word routes);
 6. per-stage times of warm 2D frames (CUDA events, profiler);
 6a. coded frames: the same views through `_frame(..., leaf_coded=True)`,
    launch counts set to 0 before and read after (K1, K2, K6 and no K3);
    each frame held to `render_brute` as in phase 4 and bit-equal to the
    standard frame where evaluated; then K6 on the inputs the coded
-   frame gave it (kernel against plain, both register-file routes,
-   CUDA-event time, bound) and the stages of a warm coded frame;
+   frame gave it (the tape's 13 registers: kernel against plain, equal
+   to K6 at the bucket's nf 64 and through the global scratch, their
+   CUDA-event times, bound) and the stages of a warm coded frame;
 6b. per-shape frames: `PixelRenderer(specialize=True)` and two-level
    `tile_sizes=(128, 32)` over the same views, each held to
    `render_brute`; the specialized frame equal to the bucketed one;
@@ -109,6 +117,11 @@ F32_OPS_PER_S = 67e12
 #: store. With the SM clock they give the scheduler-slot bound of a kernel.
 SCHEDULERS = 132 * 4
 ROW_INSTRUCTIONS = 4
+#: the liveness pass's serial chain: per row the dependent integer
+#: instructions it cannot do without (AND the destination's bit, test,
+#: update the mask) at the dependent-issue latency of one, in SM cycles
+CHAIN_INSTRUCTIONS = 3
+CHAIN_LATENCY = 4
 #: SM clock in Hz, read from nvidia-smi by `phase_device`
 SM_CLOCK_HZ = None
 
@@ -412,7 +425,7 @@ def phase_adversarial(dev):
     runs 4, 2 and 1 lanes a thread), with the register file in shared
     memory and (nf 512) in the global scratch, with 2 choice words (272
     choices fold into the last), and with 512 (too many for shared
-    memory: OR-reduced into device memory)."""
+    memory: OR-reduced into device memory); then K2 and K6."""
     from fidget_tpu_torch.eval import cuda, interp
     from fidget_tpu_torch.scenes import adversarial_arena
 
@@ -465,6 +478,118 @@ def phase_adversarial(dev):
         f"bit at 4, 2 and 1 lanes a thread, on the shared-memory and the "
         f"global-scratch register files, with choices folded into 2 words and "
         f"with 512 words OR-reduced into device memory")
+    _adversarial_liveness(dev)
+    _adversarial_coded(dev)
+
+
+def _adversarial_liveness(dev):
+    """K2 on `adversarial_arena(liveness=True)` with seeded choice words
+    (all four codes), per instance and with the longest chain as the
+    shared tape of three instances, on every route: nf 6 and 13 (one
+    mask word), 64 (two), 512 (byte plane in shared memory) and 2048
+    (in device memory), with 2 choice words in shared memory and 512 in
+    device memory; bit for bit against the plain version."""
+    from fidget_tpu_torch.eval import cuda, simplify_device
+    from fidget_tpu_torch.scenes import adversarial_arena
+
+    A = adversarial_arena(cuda.TAPE_CHUNK, liveness=True)
+    w1, w2, lens = (torch.from_numpy(A[k]).to(dev)
+                    for k in ("w1", "w2", "lengths"))
+    T, L = w1.shape
+    t = A["names"].index(f"chain{L}")
+    rng = np.random.default_rng(6)
+    seen = set()
+    for nf, cw in ((6, 2), (13, 2), (64, 2), (6, 512), (512, 2), (512, 512),
+                   (2048, 2)):
+        g = cuda.launch_geometry("liveness_codes", nf=nf, lanes=128, T=T,
+                                 cw=cw)
+        seen |= {("mask words", g.mask_words), ("plane shared", g.regs_shared),
+                 ("choices shared", g.choices_shared)}
+        ch = torch.from_numpy(rng.integers(
+            -2**31, 2**31, size=(T, cw, 1, 128)).astype(np.int32)).to(dev)
+        for shared, args in ((False, (w1, w2, lens, ch)),
+                             (True, (w1[t:t + 1], w2[t:t + 1], lens[t:t + 1],
+                                     ch[:3]))):
+            kw = dict(nf=nf, L=L, shared_tape=shared)
+            got = simplify_device.liveness_codes(*args, **kw)
+            want = simplify_device.liveness_codes_plain(*args, **kw)
+            if not torch.equal(got, want):
+                bad = (got != want).reshape(got.shape[0], -1).any(1)
+                names = [A["names"][i] for i in bad.nonzero()[:, 0].tolist()]
+                raise Failed(f"adversarial liveness codes differ from plain at "
+                             f"nf {nf}, cw {cw}, shared tape {shared}: "
+                             f"{names if not shared else 'chain'}")
+    want_seen = {("mask words", k) for k in (0, 1, 2)} | {
+        (k, v) for k in ("plane shared", "choices shared") for v in (True, False)
+    }
+    if seen != want_seen:
+        raise Failed(f"adversarial liveness: routes covered only {seen}")
+    torch.cuda.synchronize()
+    log(f"adversarial liveness: {T} tapes ({', '.join(A['names'])}) through "
+        f"liveness_codes equal its plain version bit for bit per instance and "
+        f"as a shared tape, with liveness in one and two mask words and in the "
+        f"byte plane in shared and in device memory, choice words in shared "
+        f"and in device memory")
+
+
+def _adversarial_coded(dev):
+    """K6 with each adversarial tape as the shared tape of seven tiles:
+    every row run; seeded codes that keep the dataflow, COPY from b on
+    unary rows and from immediates included; random codes (a register
+    nothing wrote reads 0); the seeded codes under a length past L; a
+    culled tile; random codes beyond a length cut inside a word (masked);
+    at S0 = 8, 2 and 1 (4, 2, 1 lanes a thread) and through the global
+    scratch (nf 512); bit for bit against the plain version."""
+    from fidget_tpu_torch.eval import cuda, interp
+    from fidget_tpu_torch.scenes import (
+        adversarial_arena, pack_action_codes, seeded_action_codes,
+    )
+
+    A = adversarial_arena(cuda.TAPE_CHUNK)
+    L = A["w1"].shape[1]
+    tiles = 7
+    rng = np.random.default_rng(8)
+    seen = set()
+    for s0, nf in ((8, A["nf"]), (2, A["nf"]), (1, A["nf"]), (8, 512)):
+        g = cuda.launch_geometry("interp_float_coded", nf=nf, lanes=s0 * 128,
+                                 T=tiles)
+        seen |= {("r", g.r), ("shared", g.regs_shared)}
+        for t, name in enumerate(A["names"]):
+            n = min(int(A["lengths"][t]), L)
+            codes = np.zeros((tiles, L), np.uint32)
+            codes[0, :n] = 1
+            codes[1] = seeded_action_codes(A["w1"][t], A["w2"][t], n, A["nf"],
+                                           rng, any_row=True)
+            codes[2] = rng.integers(0, 4, size=L)
+            codes[3] = codes[1]
+            codes[5] = rng.integers(0, 4, size=L)
+            codes[6] = rng.integers(0, 4, size=L)
+            lengths = torch.tensor([n, n, n, L + 7, 0, max(n - 5, 0), n],
+                                   dtype=torch.int32, device=dev)
+            words = torch.from_numpy(pack_action_codes(codes)).to(dev)
+            shared = [torch.from_numpy(np.ascontiguousarray(A[k][t:t + 1])).to(
+                dev) for k in ("w1", "w2", "imm")]
+            vars_ = torch.from_numpy(rng.uniform(
+                -1.5, 1.5, size=(tiles, 2, s0, 128)).astype(np.float32)).to(dev)
+            kw = dict(nf=nf, n_inputs=2, n_outputs=2, s0=s0)
+            got = interp.interp_float_coded(*shared, lengths, words, vars_, **kw)
+            want = interp.interp_float_coded_plain(
+                *shared, lengths, words, vars_, **kw)
+            same = got.view(torch.int32) == want.view(torch.int32)
+            if not same.all():
+                tb = (~same).reshape(tiles, -1).any(1).nonzero()[:, 0].tolist()
+                raise Failed(f"adversarial coded leaf differs from plain on "
+                             f"{name}, tiles {tb}, s0 {s0}, nf {nf}")
+            if (got[4] != 0).any():
+                raise Failed(f"adversarial coded leaf: culled tile wrote ({name})")
+    if seen != {("r", 4), ("r", 2), ("r", 1), ("shared", True),
+                ("shared", False)}:
+        raise Failed(f"adversarial coded leaf: geometries covered only {seen}")
+    torch.cuda.synchronize()
+    log(f"adversarial coded leaf: {len(A['names'])} shared tapes x {tiles} "
+        f"tiles (seeded and random codes, lengths 0, past L and cut inside a "
+        f"word) through interp_float_coded equal its plain version bit for "
+        f"bit at 4, 2 and 1 lanes a thread and through the global scratch")
 
 
 def _op_matrix_coded(cases, packed, arena, pts, dev):
@@ -786,19 +911,34 @@ def measure_kernel(name, args, kwargs, lanes=None):
         f"({bound_by}), scheduler-slot bound {slot_ms:.5f} ms")
     row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                bound_by=bound_by, slot_bound_ms=slot_ms)
-    if name in ("interp_float", "interp_interval"):
+    if name == "liveness_codes":
+        row["chain_bound_ms"] = _chain_bound_ms(args)
+        log(f"  serial-chain bound {row['chain_bound_ms']:.5f} ms")
+    if name in ("interp_float", "interp_interval", "liveness_codes",
+                "interp_float_coded"):
         from fidget_tpu_torch.eval import cuda
 
+        cw = shape[1] if name == "liveness_codes" else kwargs.get("c_words", 0)
         g = cuda.launch_geometry(
-            name, nf=kwargs["nf"], lanes=shape[-2] * 128, T=shape[0],
-            cw=kwargs.get("c_words", 0),
+            name, nf=kwargs["nf"], lanes=shape[-2] * 128, T=shape[0], cw=cw,
         )
         row["geometry"] = {
             "lanes_per_thread": g.r, "smem_bytes": g.smem, "blocks": g.blocks,
             "regs_shared": g.regs_shared, "choices_shared": g.choices_shared,
+            "mask_words": g.mask_words,
         }
         log(f"  geometry: {row['geometry']}")
     return row
+
+
+def _chain_bound_ms(args):
+    """The bound of the liveness pass's serial chain: the most rows any
+    instance walks, each CHAIN_INSTRUCTIONS dependent instructions at
+    CHAIN_LATENCY cycles, at the SM clock (instances run side by side;
+    a lane's rows one after another)."""
+    w1, _, lens = args[:3]
+    rows = int(lens.clamp(min=0, max=w1.shape[1]).max())
+    return rows * CHAIN_INSTRUCTIONS * CHAIN_LATENCY / SM_CLOCK_HZ * 1e3
 
 
 def phase_kernels(captured, launches, n_frames, n_tiles):
@@ -848,7 +988,8 @@ def phase_kernels3d(r, captured, launches3d, n_frames, rows):
         m = measure_kernel(name, args, kwargs, real[where])
         rows[name].setdefault("at_3d", {})[where] = {
             k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                              "slot_bound_ms")
+                              "slot_bound_ms", "chain_bound_ms")
+            if k in m
         }
     for name in rows:
         rows[name]["launches_3d"] = launches3d[name]
@@ -982,14 +1123,19 @@ def phase_coded(r, std_images, brutes, cuda, render2d):
         "launches_per_frame": launches[name] / len(FRAMES),
         **measure_kernel(name, args, kwargs), "library_ms": None,
     }
-    wide = interp.interp_float_coded(*args, **{**kwargs, "nf": 256})
-    if not torch.equal(wide, interp.interp_float_coded(*args, **kwargs)):
-        raise Failed("interp_float_coded differs through global scratch")
-    wide_ms = time_cuda(
-        lambda: interp.interp_float_coded(*args, **{**kwargs, "nf": 256}), 10
-    )
-    log(f"kernel interp_float_coded: global-scratch register file (nf 256) "
-        f"equals the shared-memory one; {wide_ms:.4f} ms")
+    got = interp.interp_float_coded(*args, **kwargs)
+    for nf in (r.nf_b, 256):
+        other = dict(kwargs, nf=nf)
+        if not torch.equal(interp.interp_float_coded(*args, **other), got):
+            raise Failed(f"interp_float_coded differs at nf {nf}")
+        other_ms = time_cuda(lambda: interp.interp_float_coded(*args, **other),
+                             10)
+        g = cuda.launch_geometry(name, nf=nf, lanes=args[5].shape[-2] * 128,
+                                 T=args[5].shape[0])
+        row[f"ms_at_nf{nf}"] = other_ms
+        log(f"kernel interp_float_coded at nf {nf} ({g.r} lanes a thread, "
+            f"register file in {'shared' if g.regs_shared else 'device'} "
+            f"memory) equals it at nf {kwargs['nf']}; {other_ms:.4f} ms")
     log("coded frame stages:")
     _stage_profile(
         lambda: frame(FRAMES[1]),

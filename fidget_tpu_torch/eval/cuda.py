@@ -31,8 +31,8 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent / "_build"
 
 #: threads per block of every kernel; must match BLOCK in csrc/ops.cuh
 BLOCK = 128
-#: shared-memory budget of a register file of K2, K4, K5 and K6 (several
-#: blocks an SM); above it their wrappers hand the kernel a global scratch
+#: shared-memory budget of a register file of K4 and K5 (several blocks
+#: an SM); above it their wrappers hand the kernel a global scratch
 SMEM_LIMIT = 96 * 1024
 #: dynamic shared memory one block may opt in to on an H100, the shared
 #: memory of one SM, and what the card reserves of it per block
@@ -40,7 +40,9 @@ SMEM_BLOCK_MAX = 232448
 SMEM_SM = 233472
 SMEM_BLOCK_RESERVED = 1024
 N_SM = 132
-#: tape rows per ring buffer of K1 and K3 (csrc/ops.cuh `TapeRing`)
+#: tape rows per ring buffer of K1, K2, K3 and K6 (csrc/ops.cuh
+#: `TapeRing`, csrc/liveness.cu `LiveRing`); a multiple of 16, the code
+#: words of K2 and K6
 TAPE_CHUNK = 256
 
 
@@ -52,18 +54,30 @@ def tape_ring_bytes(chunk: int) -> int:
     return -(-((chunk + 1) * 2 * 20 + chunk * 12) // 16) * 16
 
 
+def live_ring_bytes(chunk: int) -> int:
+    """Shared memory of one K2 block's ring: two buffers of `chunk`
+    decoded rows of 32 bytes and the raw words (w1, w2) of one chunk
+    (csrc/liveness.cu `live_ring_bytes`)."""
+    return chunk * (2 * 32 + 2 * 4)
+
+
 @dataclasses.dataclass(frozen=True)
 class Geometry:
-    """How one launch of K1 or K3 is laid out.
+    """How one launch of K1, K2, K3 or K6 is laid out.
 
-    r: lanes a thread owns (K3: 4, 2 or 1; K1: 1).
+    r: lanes a thread owns (K3, K6: 4, 2 or 1; K1, K2: 1).
     chunk: tape rows per ring buffer.
     smem: bytes of dynamic shared memory of a block.
-    regs_shared: the register file lies in shared memory; else the
-      wrapper allocates a global scratch.
-    choices_shared: K1's choice words accumulate in shared memory; else
-      the wrapper hands the kernel zeroed device memory to OR into.
-    blocks: blocks of the grid."""
+    regs_shared: the register file (K2: the liveness bits) lies in
+      registers or shared memory; else the wrapper allocates a global
+      scratch.
+    choices_shared: K1's choice words accumulate in shared memory (else
+      the wrapper hands the kernel zeroed device memory to OR into); K2
+      reads its choice words from shared memory (else from device
+      memory).
+    blocks: blocks of the grid.
+    mask_words: K2 keeps liveness as a bit mask of this many 32-bit
+      registers a lane (1 or 2); 0: as a byte plane `[nf][BLOCK]`."""
 
     r: int
     chunk: int
@@ -71,28 +85,47 @@ class Geometry:
     regs_shared: bool
     choices_shared: bool
     blocks: int
+    mask_words: int = 0
 
 
 @functools.lru_cache(maxsize=None)
 def launch_geometry(kernel: str, *, nf: int, lanes: int, T: int,
                     cw: int = 0) -> Geometry:
-    """The launch geometry of `interp_float` (K3) or `interp_interval`
-    (K1) for T instances of `lanes` lanes, an `nf`-register file and
-    `cw` choice words a lane. Everything stays in shared memory as long
-    as one block's 227 KB hold it.
+    """The launch geometry of `interp_float` (K3), `interp_float_coded`
+    (K6), `interp_interval` (K1) or `liveness_codes` (K2) for T
+    instances of `lanes` lanes, an `nf`-register file and `cw` choice
+    words a lane. Everything stays in shared memory as long as one
+    block's 227 KB hold it.
 
-    K3 takes the most lanes a thread (4, 2, 1) that divide the lanes
-    into whole blocks and whose register file `[nf][BLOCK * r]` leaves
-    room for two blocks an SM, or for one where the grid has no more
-    blocks than the card has SMs; failing that the most that fit one
-    block; and the global scratch only when not even one lane a thread
-    fits. K1 keeps one lane a thread (its passes are short of lanes, not
-    of scheduler slots); its register file `[nf][BLOCK]` of (lo, hi) pairs
-    goes to shared memory if it fits beside the ring, and its choice
-    words `[cw][BLOCK]` if they fit beside that."""
+    K3 and K6 take the most lanes a thread (4, 2, 1) that divide the
+    lanes into whole blocks and whose register file `[nf][BLOCK * r]`
+    leaves room for two blocks an SM, or for one where the grid has no
+    more blocks than the card has SMs; failing that the most that fit
+    one block; and the global scratch only when not even one lane a
+    thread fits (K6 compacts its executed rows into the ring's own
+    buffers, so its shared memory is K3's). K1 keeps one lane a thread
+    (its passes are short of lanes, not of scheduler slots); its
+    register file `[nf][BLOCK]` of (lo, hi) pairs goes to shared memory
+    if it fits beside the ring, and its choice words `[cw][BLOCK]` if
+    they fit beside that. K2 keeps one lane a thread and its liveness in
+    registers, one 32-bit mask word a lane up to nf 32 and two up to nf
+    64; above that a byte plane `[nf][BLOCK]`, in shared memory if it
+    fits beside the ring and the choice words, which come first."""
     if lanes <= 0 or lanes % BLOCK:
         raise ValueError(f"lanes must be a positive multiple of {BLOCK}")
     chunk = TAPE_CHUNK
+    if kernel == "liveness_codes":
+        blocks = T * (lanes // BLOCK)
+        smem = live_ring_bytes(chunk)
+        choices_shared = smem + cw * BLOCK * 4 <= SMEM_BLOCK_MAX
+        if choices_shared:
+            smem += cw * BLOCK * 4
+        mask_words = 1 if nf <= 32 else 2 if nf <= 64 else 0
+        regs_shared = mask_words > 0 or smem + nf * BLOCK <= SMEM_BLOCK_MAX
+        if not mask_words and regs_shared:
+            smem += nf * BLOCK
+        return Geometry(1, chunk, smem, regs_shared, choices_shared, blocks,
+                        mask_words)
     ring = tape_ring_bytes(chunk)
     if kernel == "interp_interval":
         blocks = T * (lanes // BLOCK)
@@ -104,7 +137,7 @@ def launch_geometry(kernel: str, *, nf: int, lanes: int, T: int,
         if choices_shared:
             smem += cw * BLOCK * 4
         return Geometry(1, chunk, smem, regs_shared, choices_shared, blocks)
-    if kernel != "interp_float":
+    if kernel not in ("interp_float", "interp_float_coded"):
         raise ValueError(f"no launch geometry for {kernel}")
     rs = [r for r in (4, 2, 1) if lanes % (BLOCK * r) == 0]
     two_an_sm = SMEM_SM // 2 - SMEM_BLOCK_RESERVED
@@ -148,13 +181,15 @@ _ARGTYPES = {
     # lanes chunk choices_shared smem
     "fidget_interp_interval": [_P] * 11 + [_I] * 10 + [_P],
     # w1s w2s lengths choices codes scratch order | B Tt L nf CW lanes
-    "fidget_liveness_codes": [_P] * 7 + [_I] * 6 + [_P],
+    # chunk mask_words choices_shared smem
+    "fidget_liveness_codes": [_P] * 7 + [_I] * 10 + [_P],
     # w1 w2 imm lengths vars out scratch | T L nf V O lanes
     "fidget_interp_grad": [_P] * 7 + [_I] * 6 + [_P],
     # w1 w2 imm lengths vars out scratch | T L nf V sub pp_out
     "fidget_interp_voxel_depth": [_P] * 7 + [_I] * 6 + [_P],
-    # w1 w2 imm lengths codes vars out scratch | T L LW nf V O lanes
-    "fidget_interp_float_coded": [_P] * 8 + [_I] * 7 + [_P],
+    # w1 w2 imm lengths codes vars out scratch | T L LW nf V O lanes r
+    # chunk smem
+    "fidget_interp_float_coded": [_P] * 8 + [_I] * 10 + [_P],
 }
 
 _LOCK = threading.Lock()

@@ -35,13 +35,13 @@ the port has no split. K5 drops the TPU's `tiles_per_step`, which
 amortized a per-grid-step cost the card does not have (the bucketed 3D
 path ran it at 1).
 
-K1 and K3 stage their tape through shared memory and, in K3, give a
-thread up to four lanes; how a launch is laid out (lanes per thread,
-shared-memory bytes, tape chunk, register file and choice words in
-shared or in device memory) is decided by `cuda.launch_geometry` from
-(nf, lanes, c_words, T), so `nf` should be the registers the tapes can
-name, not a padded bucket: a small file is what lets K3 run four lanes
-a thread.
+K1, K3 and K6 stage their tape through shared memory and, in K3 and
+K6, give a thread up to four lanes; how a launch is laid out (lanes per
+thread, shared-memory bytes, tape chunk, register file and choice words
+in shared or in device memory) is decided by `cuda.launch_geometry`
+from (nf, lanes, c_words, T), so `nf` should be the registers the tapes
+can name, not a padded bucket: a small file is what lets K3 and K6 run
+four lanes a thread.
 """
 
 from __future__ import annotations
@@ -495,7 +495,10 @@ def interp_float_coded(
 
     The 2-bit codes of the liveness pass (simplify_device.py) annotate
     every parent row per tile: 0 = skip, 1 = execute, 2/3 = execute as
-    COPY from operand a/b. A skipped row reads no tape word.
+    COPY from operand a/b, whatever the row's op. A skipped row costs
+    the kernel no turn of its row loop. Registers start at 0, so the
+    result is defined for any codes, not only for those of a liveness
+    pass.
 
     Args:
       w1/w2/imm: [1, L] packed parent tape (canonical op order).
@@ -530,14 +533,14 @@ def interp_float_coded(
     out = torch.empty(
         (T, n_outputs, s0, 128), dtype=torch.float32, device=vars_.device
     )
+    g = cuda.launch_geometry("interp_float_coded", nf=nf, lanes=lanes, T=T)
     scratch = None
-    if nf * cuda.BLOCK * 4 > cuda.SMEM_LIMIT:
-        scratch = torch.empty(
-            (T, nf, lanes), dtype=torch.float32, device=vars_.device
-        )
+    if not g.regs_shared:
+        scratch = _scratch((T, nf, lanes), vars_.device)
     cuda.launch(
         "interp_float_coded", w1, w2, imm, lengths, codes, vars_, out,
-        scratch, T, L, LW, nf, n_inputs, n_outputs, lanes,
+        scratch, T, L, LW, nf, n_inputs, n_outputs, lanes, g.r, g.chunk,
+        g.smem,
     )
     return out
 

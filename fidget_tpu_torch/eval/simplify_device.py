@@ -77,20 +77,28 @@ def liveness_codes(
             shared_tape=shared_tape, op_order=op_order,
         )
     cuda.check_cuda(w1s, w2s, lengths, packed_choices)
+    if cw == 0:
+        raise ValueError("liveness_codes needs at least one choice word")
     lanes = s0 * 128
     lw = -(-L // 16)
     codes = torch.empty(
         (B, lw, s0, 128), dtype=torch.int32, device=packed_choices.device
     )
+    g = cuda.launch_geometry("liveness_codes", nf=nf, lanes=lanes, T=B, cw=cw)
+    if not g.choices_shared and cw * lanes * 4 >= 2**31:
+        raise ValueError(f"{cw} choice words of {lanes} lanes are too many")
     scratch = None
-    if nf * cuda.BLOCK > cuda.SMEM_LIMIT:
+    if not g.regs_shared:
+        if nf * lanes >= 2**31:
+            raise ValueError(f"liveness plane [{nf}, {lanes}] is too large")
         scratch = torch.empty(
             (B, nf, lanes), dtype=torch.uint8, device=packed_choices.device
         )
     cuda.launch(
         "liveness_codes", w1s, w2s, lengths, packed_choices, codes, scratch,
         cuda.order_table(op_order, packed_choices.device),
-        B, Tt, L, nf, cw, lanes,
+        B, Tt, L, nf, cw, lanes, g.chunk, g.mask_words,
+        int(g.choices_shared), g.smem,
     )
     return codes
 

@@ -147,8 +147,8 @@ class _Bind:
     x/y/z input indices (-1 = unused), the register-file, input and
     choice-word dims, and the opcode order of its arenas. `nf` is the
     register-file size of the binding's bucket; `nf_regs` is the one the
-    value kernels (K1, K3) are launched with, which need hold only the
-    registers the tape can name."""
+    value kernels (K1, K3, K6) are launched with, which need hold only
+    the registers the tape can name."""
 
     two_level = False
     op_order = None
@@ -215,7 +215,7 @@ class _TracedBind(_Bind):
             ).contiguous()
             return interp_float_coded(
                 w1, w2, imm, lens_t, self._per_tile, vars_,
-                nf=self.nf, n_inputs=self.V, n_outputs=1, s0=s0l,
+                nf=self.nf_regs, n_inputs=self.V, n_outputs=1, s0=s0l,
             )[:, 0]
         return interp_float(
             w1c, w2c, immc, lensc, vars_,

@@ -80,13 +80,18 @@ def sphere_union_shape(ctx, n=300, seed=1):
     return _min_tree(ctx, parts)
 
 
-def seeded_action_codes(w1, w2, n, nf, rng):
+def seeded_action_codes(w1, w2, n, nf, rng, any_row=False):
     """Seeded 2-bit action codes [L] for the first n rows of one packed
     tape (canonical op order) that mix all four values and keep the
     dataflow valid, so that no executed row reads a register a skipped
     row should have written: a reverse liveness walk that picks keep /
-    COPY-from-a / COPY-from-b at random for every executed row,
-    whatever its op, and skips the rows that leaves dead."""
+    COPY-from-a / COPY-from-b at random for every executed row and
+    skips the rows that leaves dead. COPY-from-b is picked only on
+    binary rows, or (`any_row`) on every row but INPUT and OUTPUT, where
+    it copies the row's raw b field (the immediate if it is IMM12); a
+    non-binary row then keeps with odds 1/2, so that chains of unary
+    rows run on.
+    Registers are clamped to nf - 1, as the kernels clamp them."""
     from .compiler.pack import IMM12
     from .compiler.tape import BINARY_MASK, TapeOp
 
@@ -94,7 +99,7 @@ def seeded_action_codes(w1, w2, n, nf, rng):
     live = np.zeros(nf, bool)
     for j in reversed(range(n)):
         op = int(w1[j]) & 127
-        out = (int(w1[j]) >> 7) & 0xFFF
+        out = min((int(w1[j]) >> 7) & 0xFFF, nf - 1)
         a = (int(w1[j]) >> 19) & 0xFFF
         b = int(w2[j]) & 0xFFF
         if op != int(TapeOp.OUTPUT) and not live[out]:
@@ -103,14 +108,16 @@ def seeded_action_codes(w1, w2, n, nf, rng):
         if op in (int(TapeOp.OUTPUT), int(TapeOp.INPUT)):
             c = 1
         else:
-            c = int(rng.choice([1, 2, 3] if binary else [1, 2]))
+            c = int(rng.choice([1, 2, 3])) if binary else (
+                int(rng.choice([1, 2, 3], p=[0.5, 0.3, 0.2])) if any_row
+                else int(rng.choice([1, 2])))
         codes[j] = c
         live[out] = False
-        if op != int(TapeOp.INPUT):
+        if op != int(TapeOp.INPUT) or c > 1:
             if c in (1, 2) and a != IMM12:
-                live[a] = True
-            if binary and c in (1, 3) and b != IMM12:
-                live[b] = True
+                live[min(a, nf - 1)] = True
+            if (binary and c == 1 or c == 3) and b != IMM12:
+                live[min(b, nf - 1)] = True
     return codes
 
 
@@ -132,14 +139,14 @@ _MUL, _ABS = 10, 12
 _IMM12 = 0xFFF
 
 
-def adversarial_arena(chunk):
-    """Hand-packed tapes built to break the staging of the float and
-    interval kernels, which copy a tape through shared memory `chunk`
-    rows at a time. Returns a dict: `w1`, `w2`, `imm` ([T, L] with L =
-    3 * chunk + 5) and `lengths` ([T]) in the layout of
-    compiler/pack.py, canonical opcode order; `names` ([T]); `nf` = 6
-    registers, `n_inputs` = 2, `n_outputs` = 2; `n_choices`, the most
-    choice rows of any tape.
+def adversarial_arena(chunk, liveness=False):
+    """Hand-packed tapes built to break the staging of the interpreter
+    kernels, which copy a tape through shared memory `chunk` rows at a
+    time (the liveness pass from the end backwards). Returns a dict:
+    `w1`, `w2`, `imm` ([T, L] with L = 3 * chunk + 5) and `lengths`
+    ([T]) in the layout of compiler/pack.py, canonical opcode order;
+    `names` ([T]); `nf` = 6 registers, `n_inputs` = 2, `n_outputs` = 2;
+    `n_choices`, the most choice rows of any tape.
 
     The tapes, every op of which f32 rounds correctly:
 
@@ -149,8 +156,9 @@ def adversarial_arena(chunk):
       `over`, whose length claims 7 rows more than L holds: two INPUT
       rows, then a chain in which every row reads the result of the row
       before it (ADD, MIN, MUL, MAX, ABS, SUB, NEG by turns, against an
-      immediate or the second input; every 17th row restarts the chain
-      from immediate + immediate), then OUTPUT 0 of the chain. The MIN
+      immediate or the second input; ABS names the second input in its
+      unused b field; every 17th row restarts the chain from immediate
+      + immediate), then OUTPUT 0 of the chain. The MIN
       and MAX rows are choices 0, 1, 2, ... of one lane, sixteen to a
       word, and past 16 * c_words they fold into the last word;
     - `apart`: three accumulators by turns, so that no row reads the
@@ -158,6 +166,18 @@ def adversarial_arena(chunk):
       accumulator (two OUTPUT rows);
     - `clamp`: names register 9 of a 6-register file, which reads and
       writes register 5.
+
+    `liveness=True` adds tapes that only the liveness pass reads (the
+    value modes have no opcode past 30):
+
+    - `unknown`: rows with opcodes 31 (past the 31 kernel opcodes, but
+      inside the 32-bit op masks) and 40 and 127 (past them), whose b
+      fields name a register that nothing else reads: such an op takes
+      no b, and its a counts as a register;
+    - `rawclamp`: choice rows whose raw a or b differs from out where
+      the clamped registers (of the 6) are equal, and one where the raw
+      fields are equal, so that a COPY is elided by the raw fields only;
+      a choice index of 100 folds into the last of 2 words.
     """
     L = 3 * chunk + 5
     tapes = {}
@@ -172,7 +192,7 @@ def adversarial_arena(chunk):
         prev, choice = 0, 0
         steps = (
             (_ADD, None, 0.37), (_MIN, 1, 0.0), (_MUL, None, 0.83),
-            (_MAX, None, -1.25), (_ABS, None, 0.0), (_SUB, 1, 0.0),
+            (_MAX, None, -1.25), (_ABS, 1, 0.0), (_SUB, 1, 0.0),
             (_NEG, None, 0.0), (_MIN, None, 0.6),
         )
         j = 0
@@ -221,6 +241,22 @@ def adversarial_arena(chunk):
         row(_ADD, out=5, a=5, b=0), row(_SUB, out=2, a=9, b=_IMM12, imm=0.5),
         row(_OUTPUT, out=2, a=2, aux=0), row(_OUTPUT, out=9, a=9, aux=1),
     ], 6)
+
+    if liveness:
+        tapes["unknown"] = ([
+            row(_INPUT, out=0, aux=0), row(_INPUT, out=1, aux=1),
+            row(31, out=2, a=0, b=1), row(40, out=3, a=2, b=1),
+            row(_MIN, out=4, a=3, b=_IMM12, aux=0, imm=0.25),
+            row(127, out=5, a=4, b=1), row(_OUTPUT, out=5, a=5, aux=0),
+        ], 7)
+        tapes["rawclamp"] = ([
+            row(_INPUT, out=0, aux=0), row(_INPUT, out=9, aux=1),
+            row(_MIN, out=5, a=9, b=0, aux=0),
+            row(_MAX, out=9, a=9, b=0, aux=1),
+            row(_MIN, out=9, a=0, b=5, aux=2),
+            row(_MAX, out=7, a=0, b=7, aux=100),
+            row(_OUTPUT, out=9, a=9, aux=0), row(_OUTPUT, out=7, a=7, aux=1),
+        ], 8)
 
     T = len(tapes)
     w1 = np.zeros((T, L), np.int32)

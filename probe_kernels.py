@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
 """Where the interpreter kernels' time goes on one CUDA card.
 
-Captures the inputs that the 2D main path of `chip_smoke.py` hands to
-`interp_float` (K3) and `interp_interval` (K1) under the bucketed and
-the two-level (128, 32) bindings, then, for the kernel sources of this
-tree and of every `--variant NAME=DIR` (a directory holding a full
-copy of `fidget_tpu_torch/csrc` with an experiment edited in), builds
-them and times both kernels on those inputs by CUDA events, in turns
-(tree, variants..., tree). A variant must keep the C interface of the
-tree's sources. For each build it also writes the disassembly
-(`cuobjdump -sass`) and nvcc's `-Xptxas -v` log of the two kernels to
-`<out>/<name>/` (default `probe_out/`), where the instructions of one
-tape row can be counted per opcode.
+Captures the inputs that the main paths of `chip_smoke.py` hand to
+`interp_float` (K3), `interp_interval` (K1), `liveness_codes` (K2) and
+`interp_float_coded` (K6): the 2D bucketed binding (K1, K2 and K3 at
+the root tiles and the leaf), its coded leaf (K6 at the tape's
+registers, and again at the bucket's nf 64), the two-level (128, 32)
+binding (K1 and K2 at the root under the shape's `op_order` and per
+instance at the subtiles, K3 over the leaves) and the 512^3 gyroid
+frame (K2 shared and per instance). Then, for this tree and for every
+`--variant NAME=DIR`, it times each kernel on those inputs by CUDA
+events, in turns (tree, variants..., tree). DIR is either a full copy
+of `fidget_tpu_torch/csrc` with an experiment edited in (built and
+called through this tree's wrappers, so it must keep their C
+interface), or the root of another checkout of the repository (its
+`fidget_tpu_torch` is imported beside this tree's and called through
+its own wrappers: the parent commit, say). For each build it also
+writes the disassembly (`cuobjdump -sass`) and nvcc's `-Xptxas -v` log
+of the four kernels to `<out>/<name>/` (default `probe_out/`), where
+the instructions of one tape row can be counted per opcode.
 
     python3 probe_kernels.py [--variant NAME=DIR ...] [--reps 20] [--out DIR]
 
@@ -46,13 +53,20 @@ import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
-STEMS = ("interp_float", "interp_interval")
+STEMS = ("interp_float", "interp_interval", "liveness", "interp_float_coded")
+#: kernel name -> (module under fidget_tpu_torch.eval, wrapper)
+WRAPPERS = {
+    "interp_float": ("interp", "interp_float"),
+    "interp_interval": ("interp", "interp_interval"),
+    "liveness_codes": ("simplify_device", "liveness_codes"),
+    "interp_float_coded": ("interp", "interp_float_coded"),
+}
 
 
-def capture_inputs(port, cs, render2d):
-    """{label: (kernel name, args, kwargs)} from one frame of the
-    bucketed binding and one of the two-level binding."""
-    from fidget_tpu_torch.scenes import standin_shape
+def capture_inputs(port, cs, render2d, render3d, simplify_device):
+    """{label: (kernel name, args, kwargs)} from one frame of each
+    binding: bucketed, coded leaf, two-level, and the 3D gyroid."""
+    from fidget_tpu_torch.scenes import gyroid_sphere, standin_shape
 
     ctx = port.Context()
     tape = port.lower(ctx, [standin_shape(ctx)])
@@ -66,12 +80,46 @@ def capture_inputs(port, cs, render2d):
         targets = [
             (render2d, "interp_interval", lambda a, k: "interp_interval@" + where(a)),
             (render2d, "interp_float", lambda a, k: "interp_float@leaf"),
+            (render2d, "liveness_codes", lambda a, k: "liveness_codes@root"),
+            (simplify_device, "liveness_codes",
+             lambda a, k: "liveness_codes@" + where(a)),
         ]
         with cs.capture_kernel_inputs(targets, store):
             r.render(cs.FRAMES[0])
         torch.cuda.synchronize()
         for key, (args, kwargs) in store.items():
             calls[f"{label} {key}"] = (key.split("@")[0], args, kwargs)
+        if label == "bucketed":
+            # the root's K2 at the tape's registers (one mask word a lane)
+            args, kwargs = store["liveness_codes@root"]
+            calls[f"{label} liveness_codes@root nf {r._nf_regs}"] = (
+                "liveness_codes", args, dict(kwargs, nf=r._nf_regs))
+            store = {}
+            targets = [(render2d, "interp_float_coded",
+                        lambda a, k: "interp_float_coded@leaf")]
+            with cs.capture_kernel_inputs(targets, store):
+                r._frame(r._mat4(cs.FRAMES[0]), 0.0, r._var_vec(None),
+                         leaf_coded=True)
+            args, kwargs = store["interp_float_coded@leaf"]
+            calls["coded interp_float_coded@leaf"] = (
+                "interp_float_coded", args, kwargs)
+            calls["coded interp_float_coded@leaf nf 64"] = (
+                "interp_float_coded", args, dict(kwargs, nf=r.nf_b))
+    vox = port.VoxelRenderer(
+        gyroid_sphere(port), port.VoxelSize(cs.SIZE3, cs.SIZE3, cs.SIZE3),
+        tile_size=64, sub_size=16,
+    )
+    store = {}
+    targets = [
+        (render2d, "liveness_codes", lambda a, k: "liveness_codes@root"),
+        (simplify_device, "liveness_codes",
+         lambda a, k: "liveness_codes@instances"),
+    ]
+    with cs.capture_kernel_inputs(targets, store):
+        vox.render(cs.VIEWS3[0][1])
+    torch.cuda.synchronize()
+    for key, (args, kwargs) in store.items():
+        calls[f"3D {key}"] = (key.split("@")[0], args, kwargs)
     return calls
 
 
@@ -82,8 +130,8 @@ def use_sources(cuda, csrc):
 
 
 def dump(cuda, name, out_root):
-    """Disassembly and ptxas logs of the two kernels of the current
-    sources, into `out_root/name`."""
+    """Disassembly and ptxas logs of the kernels of the current sources,
+    into `out_root/name`."""
     out = out_root / name
     out.mkdir(parents=True, exist_ok=True)
     build = cuda.build()
@@ -179,7 +227,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     import fidget_tpu_torch as port
-    from fidget_tpu_torch.eval import cuda, interp
+    from fidget_tpu_torch.eval import cuda
     from fidget_tpu_torch.render import render2d
 
     print(cs.phase_device(), flush=True)
@@ -195,27 +243,38 @@ def main() -> int:
         frames_in_turns(cs, {"tree": port, "other": other}, opts.rounds)
         return 0
 
+    from fidget_tpu_torch.eval import simplify_device
+    from fidget_tpu_torch.render import render3d
+
     tree = cuda.CSRC
-    calls = capture_inputs(port, cs, render2d)
+    calls = capture_inputs(port, cs, render2d, render3d, simplify_device)
     for label, (name, args, kwargs) in calls.items():
-        lens = args[3]
+        lens = args[2] if name == "liveness_codes" else args[3]
+        planes = {"liveness_codes": 3, "interp_float_coded": 5}.get(name, 4)
         print(f"{label}: arena {tuple(args[0].shape)}, planes "
-              f"{tuple(args[4].shape)}, {int(lens.clamp(min=0).sum())} rows, "
-              f"{ {k: v for k, v in kwargs.items() if k != 'op_order'} }",
-              flush=True)
-    builds = [("tree", tree)]
+              f"{tuple(args[planes].shape)}, {int(lens.clamp(min=0).sum())} "
+              f"rows, { {k: v for k, v in kwargs.items() if k != 'op_order'} }"
+              f"{', op_order' if kwargs.get('op_order') else ''}", flush=True)
+    builds = [("tree", port, tree)]
     for spec in opts.variant:
         vname, _, vdir = spec.partition("=")
-        builds.append((vname, ROOT / vdir))
-    builds.append(("tree again", tree))
-    fns = {"interp_float": interp.interp_float,
-           "interp_interval": interp.interp_interval}
+        vdir = ROOT / vdir
+        if (vdir / "fidget_tpu_torch").is_dir():
+            pkg = load_package(vdir, "fidget_tpu_torch_" + vname)
+            builds.append((vname, pkg, None))
+        else:
+            builds.append((vname, port, vdir))
+    builds.append(("tree again", port, tree))
     reference = {}
-    for bname, csrc in builds:
-        use_sources(cuda, csrc)
-        dump(cuda, bname.replace(" ", "_"), opts.out)
+    for bname, pkg, csrc in builds:
+        bcuda = importlib.import_module(pkg.__name__ + ".eval.cuda")
+        if csrc is not None:
+            use_sources(bcuda, csrc)
+        dump(bcuda, bname.replace(" ", "_"), opts.out)
         for label, (name, args, kwargs) in calls.items():
-            fn = fns[name]
+            mod, wrapper = WRAPPERS[name]
+            fn = getattr(importlib.import_module(f"{pkg.__name__}.eval.{mod}"),
+                         wrapper)
             got = fn(*args, **kwargs)
             got = got if isinstance(got, tuple) else (got,)
             torch.cuda.synchronize()

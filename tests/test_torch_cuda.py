@@ -39,6 +39,8 @@ from fidget_tpu_torch.render.render2d import FILL_INSIDE, FILL_NONE, FILL_OUTSID
 from fidget_tpu_torch.scenes import (
     adversarial_arena,
     gyroid_sphere,
+    pack_action_codes,
+    seeded_action_codes,
     sphere_union_shape,
 )
 
@@ -361,3 +363,90 @@ def test_two_level_render_on_card_matches_brute(card):
     assert (brute[cls == FILL_INSIDE] < 0).all()
     assert (brute[cls == FILL_OUTSIDE] > 0).all()
     assert (img.fill_level() == 1).any()
+
+
+#: (nf_pad, cw) of K2 on the adversarial tapes: one mask word (nf 6),
+#: two (64), choice words too many for shared memory, the byte plane in
+#: shared memory (512) beside shared and device-memory choice words, and
+#: the byte plane in device memory (2048)
+LIVENESS_CASES = [(0, 2), (64, 2), (0, 512), (512, 2), (512, 512), (2048, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nf_pad,cw", LIVENESS_CASES)
+def test_adversarial_liveness_matches_plain(card, nf_pad, cw):
+    """K2 on `scenes.adversarial_arena(liveness=True)` (tapes cut around
+    the staging chunk, past L and 0, opcodes past the value modes,
+    raw-field elisions that clamping would change, choices folding into
+    the last word) per instance and, on the longest chain, as a shared
+    tape: bit for bit against the plain version, on every route."""
+    A = adversarial_arena(cuda.TAPE_CHUNK, liveness=True)
+    w1, w2, lens = (torch.from_numpy(A[k]).to(card)
+                    for k in ("w1", "w2", "lengths"))
+    T, L = w1.shape
+    nf = max(A["nf"], nf_pad)
+    g = cuda.launch_geometry("liveness_codes", nf=nf, lanes=128, T=T, cw=cw)
+    assert g.mask_words == (1 if nf <= 32 else 2 if nf <= 64 else 0)
+    assert g.regs_shared == (nf <= 512)
+    assert g.choices_shared == (cw == 2)
+    rng = np.random.default_rng(6)
+    ch = torch.from_numpy(
+        rng.integers(-2**31, 2**31, size=(T, cw, 1, 128)).astype(np.int32)
+    ).to(card)
+    kw = dict(nf=nf, L=L, shared_tape=False)
+    cuda.reset_launches()
+    got = liveness_codes(w1, w2, lens, ch, **kw)
+    assert cuda.LAUNCHES["liveness_codes"] == 1
+    assert torch.equal(got, liveness_codes_plain(w1, w2, lens, ch, **kw))
+    assert (got != 0).any() and (got[A["names"].index("len0")] == 0).all()
+    t = A["names"].index(f"chain{L}")
+    one = (w1[t:t + 1], w2[t:t + 1], lens[t:t + 1])
+    kw = dict(nf=nf, L=L, shared_tape=True)
+    got = liveness_codes(*one, ch[:3], **kw)
+    assert torch.equal(got, liveness_codes_plain(*one, ch[:3], **kw))
+
+
+#: (s0, nf_pad) of K6 on the adversarial tapes: 4, 2 and 1 lanes a
+#: thread on the shared-memory register file, and the global scratch
+CODED_CASES = [(8, 0), (2, 0), (1, 0), (8, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s0,nf_pad", CODED_CASES)
+def test_adversarial_coded_matches_plain(card, s0, nf_pad):
+    """K6 with each adversarial tape as the shared tape of seven tiles:
+    every row run, seeded codes that keep the dataflow (COPY from b on
+    unary rows and immediates included), uniformly random codes (rows
+    that read registers nothing wrote read 0), the seeded codes under a
+    length past L, a culled tile, and random codes beyond a length cut
+    inside a word (masked): bit for bit against the plain version."""
+    A = adversarial_arena(cuda.TAPE_CHUNK)
+    L = A["w1"].shape[1]
+    nf = max(A["nf"], nf_pad)
+    tiles = 7
+    g = cuda.launch_geometry("interp_float_coded", nf=nf, lanes=s0 * 128,
+                             T=tiles)
+    assert g.r == min(4, s0) and g.regs_shared == (nf_pad == 0)
+    rng = np.random.default_rng(8)
+    for t, name in enumerate(A["names"]):
+        n = min(int(A["lengths"][t]), L)
+        codes = np.zeros((tiles, L), np.uint32)
+        codes[0, :n] = 1
+        codes[1] = seeded_action_codes(A["w1"][t], A["w2"][t], n, A["nf"], rng,
+                                       any_row=True)
+        codes[2] = rng.integers(0, 4, size=L)
+        codes[3] = codes[1]
+        codes[5] = rng.integers(0, 4, size=L)
+        codes[6] = rng.integers(0, 4, size=L)
+        lengths = torch.tensor([n, n, n, L + 7, 0, max(n - 5, 0), n],
+                               dtype=torch.int32, device=card)
+        words = torch.from_numpy(pack_action_codes(codes)).to(card)
+        shared = [torch.from_numpy(np.ascontiguousarray(A[k][t:t + 1])).to(card)
+                  for k in ("w1", "w2", "imm")]
+        vars_ = torch.from_numpy(rng.uniform(
+            -1.5, 1.5, size=(tiles, 2, s0, 128)).astype(np.float32)).to(card)
+        kw = dict(nf=nf, n_inputs=2, n_outputs=2, s0=s0)
+        got = interp_float_coded(*shared, lengths, words, vars_, **kw)
+        want = interp_float_coded_plain(*shared, lengths, words, vars_, **kw)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), name
+        assert (got[4] == 0).all()

@@ -473,10 +473,10 @@ def test_tile_size_checks():
 )
 def test_register_file_sized_by_the_tape_equals_the_bucket(binding, name,
                                                            monkeypatch):
-    """K1 and K3 are launched with the registers the tape can name, not
-    the bucket's 64: the frame is the same bit for bit (fills, distances,
-    every stage the binding exposes), K2 and K6 keep the bucket's nf, and
-    the value kernels really are handed the small file."""
+    """K1, K3 and K6 are launched with the registers the tape can name,
+    not the bucket's 64: the frame is the same bit for bit (fills,
+    distances, every stage the binding exposes), K2 keeps the bucket's
+    nf, and the value kernels really are handed the small file."""
     from fidget_tpu_torch.render import render2d
 
     ctx = port.Context()
@@ -516,10 +516,7 @@ def test_register_file_sized_by_the_tape_equals_the_bucket(binding, name,
     leaf = "interp_float_coded" if binding == "coded" else "interp_float"
     assert nf_small["interp_interval"] == {r.nf}
     assert nf_large["interp_interval"] == {r.nf_b}
-    if binding == "coded":
-        assert nf_small[leaf] == nf_large[leaf] == {r.nf_b}
-    else:
-        assert nf_small[leaf] == {r.nf} and nf_large[leaf] == {r.nf_b}
+    assert nf_small[leaf] == {r.nf} and nf_large[leaf] == {r.nf_b}
     for stage, got in small.items():
         for g, w in zip(got, large[stage]):
             if g is None:
@@ -530,3 +527,35 @@ def test_register_file_sized_by_the_tape_equals_the_bucket(binding, name,
             assert same.all(), (stage, binding)
     img, fill = small[None]
     _check_against_brute(r, PAN, img, fill)
+
+
+@pytest.mark.parametrize("name", ["spiky", "union"])
+def test_coded_frame_at_the_tapes_registers_equals_the_bucketed_frame(
+        name, monkeypatch):
+    """The coded leaf (K6) at the tape's registers gives the bucketed
+    frame's fills, and its distances bit for bit where a pixel was
+    evaluated, under the same view."""
+    from fidget_tpu_torch.render import render2d
+
+    ctx = port.Context()
+    tape = port.lower(ctx, [SHAPES[name](ctx)])
+    r = port.PixelRenderer(tape, port.ImageSize(128, 128), tile_size=32,
+                           device="cpu")
+    seen = []
+    coded = render2d.interp_float_coded
+
+    def spy(*a, **kw):
+        seen.append(kw["nf"])
+        return coded(*a, **kw)
+
+    monkeypatch.setattr(render2d, "interp_float_coded", spy)
+    mat, vec = r._mat4(PAN), r._var_vec(None)
+    img, fill = r._frame(mat, 0.0, vec, leaf_coded=True)
+    std = r.render(PAN)
+    assert seen == [r.nf] and r.nf < r.nf_b
+    img, fill = img[: r.H, : r.W], fill[: r.H, : r.W]
+    assert torch.equal(fill, std.fill)
+    ev = std.fill == FILL_NONE
+    assert ev.any()
+    assert torch.equal(img[ev].view(torch.int32),
+                       std.distance[ev].view(torch.int32))

@@ -1,18 +1,19 @@
-"""The launch geometry of the redesigned K1 / K3 kernels, and the
-hand-packed tapes that `chip_smoke.py` and the card tests run through
-them, on the CPU.
+"""The launch geometry of the redesigned K1, K2, K3 and K6 kernels,
+and the hand-packed tapes that `chip_smoke.py` and the card tests run
+through them, on the CPU.
 
 `launch_geometry` (fidget_tpu_torch/eval/cuda.py) is plain Python: it
 decides lanes per thread, shared-memory bytes, the tape chunk and the
-register-file route of a launch, so every branch of it is covered here
-without a card. The adversarial tapes (`scenes.adversarial_arena`) are
-built to break the kernels' tape staging; on the card the kernels are
-held to the plain PyTorch versions on them, so here the plain versions
-are held to the reference's `interp_float` / `interp_interval` in
-interpret mode on the same arena and the same seeded numpy inputs
-(values equal at rtol 1e-6, atol 1e-7, the tolerance of
-tests/test_torch_kernels.py; every op of these tapes rounds correctly
-in f32; choice words exact).
+register-file (K2: liveness) and choice-word routes of a launch, so
+every branch of it is covered here without a card. The adversarial
+tapes (`scenes.adversarial_arena`) are built to break the kernels' tape
+staging; on the card the kernels are held to the plain PyTorch versions
+on them, so here the plain versions are held to the reference's
+`interp_float` / `interp_interval` / `_liveness_codes` /
+`interp_float_coded` in interpret mode on the same arena and the same
+seeded numpy inputs (values equal at rtol 1e-6, atol 1e-7, the tolerance
+of tests/test_torch_kernels.py; every op of these tapes rounds correctly
+in f32; choice words and action codes exact).
 """
 
 import numpy as np
@@ -20,10 +21,20 @@ import pytest
 import torch
 
 from fidget_tpu.eval import pallas_interp as ref_interp
+from fidget_tpu.eval.simplify_device import _liveness_codes
 
 from fidget_tpu_torch.eval import cuda
-from fidget_tpu_torch.eval.interp import interp_float, interp_interval
-from fidget_tpu_torch.scenes import adversarial_arena
+from fidget_tpu_torch.eval.interp import (
+    interp_float,
+    interp_float_coded,
+    interp_interval,
+)
+from fidget_tpu_torch.eval.simplify_device import liveness_codes
+from fidget_tpu_torch.scenes import (
+    adversarial_arena,
+    pack_action_codes,
+    seeded_action_codes,
+)
 
 SMEM_BLOCK_MAX = 232448
 
@@ -51,17 +62,42 @@ GEOMETRY_CASES = [
 ]
 
 
-@pytest.mark.parametrize("kernel", ["interp_float", "interp_interval"])
+@pytest.mark.parametrize(
+    "kernel",
+    ["interp_float", "interp_interval", "liveness_codes", "interp_float_coded"],
+)
 @pytest.mark.parametrize("case", GEOMETRY_CASES, ids=lambda c: c[0])
 def test_launch_geometry(kernel, case):
     _, nf, lanes, T, cw = case
     g = cuda.launch_geometry(kernel, nf=nf, lanes=lanes, T=T, cw=cw)
-    ring = cuda.tape_ring_bytes(g.chunk)
-    assert g.chunk > 0 and ring % 16 == 0
+    assert g.chunk > 0 and g.chunk % 16 == 0
     assert g.smem <= SMEM_BLOCK_MAX
     assert g.r in (1, 2, 4) and lanes % (cuda.BLOCK * g.r) == 0
     assert g.blocks == T * lanes // (cuda.BLOCK * g.r)
-    if kernel == "interp_float":
+    if kernel == "liveness_codes":
+        # one lane a thread; liveness in one 32-bit mask word a lane up to
+        # nf 32, two up to 64, else a byte plane [nf][BLOCK] in shared
+        # memory if it fits beside the ring and the choice words
+        ring = cuda.live_ring_bytes(g.chunk)
+        assert ring % 16 == 0 and g.r == 1
+        assert g.mask_words == (1 if nf <= 32 else 2 if nf <= 64 else 0)
+        words = cw * cuda.BLOCK * 4
+        assert g.choices_shared == (ring + words <= SMEM_BLOCK_MAX)
+        used = ring + (words if g.choices_shared else 0)
+        plane = nf * cuda.BLOCK
+        if g.mask_words:
+            assert g.regs_shared and g.smem == used
+        else:
+            assert g.regs_shared == (used + plane <= SMEM_BLOCK_MAX)
+            assert g.smem == used + (plane if g.regs_shared else 0)
+        return
+    ring = cuda.tape_ring_bytes(g.chunk)
+    assert ring % 16 == 0 and g.mask_words == 0
+    if kernel in ("interp_float", "interp_float_coded"):
+        if kernel == "interp_float_coded":
+            # K6 compacts into the ring's own buffers: K3's geometry
+            assert g == cuda.launch_geometry(
+                "interp_float", nf=nf, lanes=lanes, T=T, cw=cw)
         file_bytes = nf * cuda.BLOCK * g.r * 4
         fits_at_all = ring + nf * cuda.BLOCK * 4 <= SMEM_BLOCK_MAX
         # the global route exactly when not even one lane a thread fits
@@ -101,6 +137,37 @@ def test_main_path_geometry():
     assert root.smem == cuda.tape_ring_bytes(root.chunk) + 13 * 1024 + 65536
 
 
+def test_main_path_geometry_k2_k6():
+    """What the main paths give K2 and K6: the bucketed root (nf 64, 128
+    choice words) two mask words a lane and 64 KB of choice words in
+    shared memory; the per-shape root and second level (nf 13) one mask
+    word; the 3D passes (nf 64, 1 word) two; the coded leaf at the
+    tape's 13 registers K3's four lanes a thread and 39,984 bytes, two
+    blocks an SM and more."""
+    root = cuda.launch_geometry("liveness_codes", nf=64, lanes=1024, T=1,
+                                cw=128)
+    assert (root.mask_words, root.choices_shared, root.r) == (2, True, 1)
+    assert root.smem == cuda.live_ring_bytes(root.chunk) + 128 * 512
+    for nf, lanes, T, cw, words in ((13, 1024, 1, 67, 1), (13, 128, 64, 67, 1),
+                                    (64, 128, 32, 1, 2)):
+        g = cuda.launch_geometry("liveness_codes", nf=nf, lanes=lanes, T=T,
+                                 cw=cw)
+        assert (g.mask_words, g.choices_shared) == (words, True)
+    leaf = cuda.launch_geometry("interp_float_coded", nf=13, lanes=16384, T=64)
+    assert (leaf.r, leaf.regs_shared, leaf.smem) == (4, True, 39984)
+    assert 2 * (leaf.smem + cuda.SMEM_BLOCK_RESERVED) <= cuda.SMEM_SM
+    # the bucket's 64 registers would have halved the lanes a thread
+    assert cuda.launch_geometry(
+        "interp_float_coded", nf=64, lanes=16384, T=64).r == 2
+
+
+def test_live_ring_bytes_matches_the_layout():
+    """Two buffers of `chunk` decoded 32-byte rows and two raw words a
+    row (csrc/liveness.cu `LiveRing`)."""
+    for chunk in (16, 256, 1024):
+        assert cuda.live_ring_bytes(chunk) == chunk * (2 * 32 + 2 * 4)
+
+
 @pytest.mark.parametrize("lanes", [0, 100, -128])
 def test_launch_geometry_rejects_ragged_lanes(lanes):
     with pytest.raises(ValueError):
@@ -109,7 +176,7 @@ def test_launch_geometry_rejects_ragged_lanes(lanes):
 
 def test_launch_geometry_rejects_other_kernels():
     with pytest.raises(ValueError):
-        cuda.launch_geometry("liveness_codes", nf=8, lanes=128, T=1)
+        cuda.launch_geometry("interp_grad", nf=8, lanes=128, T=1)
 
 
 def test_tape_ring_bytes_matches_the_layout():
@@ -252,3 +319,192 @@ def test_adversarial_choices_fold_into_the_last_word(evaluated):
         folded[:, 1], np.bitwise_or.reduce(spread[:, 1:], axis=1)
     )
     assert (spread[:, 2:] != 0).any()
+
+
+# ----------------------------------------------------------------------
+# the liveness pass (K2) and the coded leaf (K6) on the adversarial tapes
+
+LIVE_ARENA = adversarial_arena(cuda.TAPE_CHUNK, liveness=True)
+LIVE_NAMES = LIVE_ARENA["names"]
+
+#: (nf, cw): one and two mask words, the byte plane in shared memory and
+#: (nf 2048) in device memory, choice words folded into 2 and too many
+#: (512) for shared memory
+LIVE_CASES = [(6, 2), (13, 2), (64, 2), (512, 2), (512, 512), (2048, 2)]
+
+
+def _ref_liveness(w1, w2, lengths, ch, nf, shared):
+    """The reference's `_liveness_codes` in interpret mode. It walks a
+    length past L from rows past the tape's end (interpret mode clamps
+    the index); the port walks min(length, L) rows, as its interpreter
+    kernels do, so the reference is given that."""
+    Tt, L = w1.shape
+    return np.asarray(_liveness_codes(
+        w1.reshape(Tt, 1, L), w2.reshape(Tt, 1, L),
+        np.minimum(lengths, L).reshape(Tt, 1, 1), ch, nf=nf, L=L,
+        shared_tape=shared, interpret=True,
+    ))
+
+
+@pytest.fixture(scope="module")
+def live_codes():
+    """Every adversarial tape through K2's plain version and the
+    reference, per instance, with seeded choice words (all four codes)
+    at each of LIVE_CASES; and the longest chain as the shared tape of
+    three instances."""
+    A = LIVE_ARENA
+    T, L = A["w1"].shape
+    rng = np.random.default_rng(9)
+    out = {}
+    tape = [torch.from_numpy(A[k]) for k in ("w1", "w2", "lengths")]
+    for nf, cw in LIVE_CASES:
+        ch = rng.integers(-2**31, 2**31, size=(T, cw, 1, 128)).astype(np.int32)
+        got = liveness_codes(*tape, torch.from_numpy(ch), nf=nf, L=L,
+                             shared_tape=False).numpy()
+        out[nf, cw] = got, _ref_liveness(A["w1"], A["w2"], A["lengths"], ch,
+                                         nf, False)
+    t = LIVE_NAMES.index(f"chain{L}")
+    ch = rng.integers(-2**31, 2**31, size=(3, 2, 1, 128)).astype(np.int32)
+    one = [a[t:t + 1] for a in tape]
+    got = liveness_codes(*one, torch.from_numpy(ch), nf=6, L=L,
+                         shared_tape=True).numpy()
+    out["shared"] = got, _ref_liveness(
+        A["w1"][t:t + 1], A["w2"][t:t + 1], A["lengths"][t:t + 1], ch, 6, True)
+    return out
+
+
+@pytest.mark.parametrize("case", LIVE_CASES, ids=lambda c: f"nf{c[0]}-cw{c[1]}")
+@pytest.mark.parametrize("name", LIVE_NAMES)
+def test_adversarial_liveness_matches_reference(live_codes, name, case):
+    t = LIVE_NAMES.index(name)
+    got, want = live_codes[case]
+    np.testing.assert_array_equal(got[t], want[t])
+    L = LIVE_ARENA["w1"].shape[1]
+    n = min(int(LIVE_ARENA["lengths"][t]), L)
+    # words past the tape's end stay 0; a tape's last row emits
+    assert (got[t, -(-n // 16):] == 0).all()
+    if n:
+        assert (got[t, (n - 1) // 16] >> (2 * ((n - 1) % 16)) & 3).any()
+
+
+def test_adversarial_liveness_shared_tape_matches_reference(live_codes):
+    got, want = live_codes["shared"]
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got[0], got[1])
+
+
+def test_adversarial_liveness_tapes_cover_what_they_claim(live_codes):
+    """`unknown` holds opcodes 31, 40 and 127 whose b (register 1) no
+    other row reads: such an op takes no b, so INPUT y is dropped on
+    every lane, and op 127 (a counts as a register) always runs. In
+    `rawclamp` the elision compares the raw fields: the MIN whose raw a
+    (9) differs from out (5) but clamps to the same register becomes a
+    COPY from a on some lanes (a clamped comparison would elide it),
+    the MIN with raw b (5) against out (9) a COPY from b, while the MAX
+    whose raw a equals out and the MAX whose raw b equals out never
+    become the COPY they would elide."""
+    A = LIVE_ARENA
+    got, _ = live_codes[6, 2]
+    shifts = (2 * np.arange(16))[:, None, None]
+    t = LIVE_NAMES.index("unknown")
+    op = A["w1"][t, :A["lengths"][t]] & 127
+    assert op.tolist() == [1, 1, 31, 40, 6, 127, 0]
+    codes = (got[t, 0] >> shifts) & 3
+    assert (codes[1] == 0).all() and (codes[5] == 1).all()
+    assert (codes[6] == 1).all() and (codes[0] == 0).any()
+    t = LIVE_NAMES.index("rawclamp")
+    codes = (got[t, 0] >> shifts) & 3
+    assert (codes[2] == 2).any() and (codes[4] == 3).any()
+    assert not (codes[3] == 2).any() and not (codes[5] == 3).any()
+    assert (codes[3] == 1).any() and (codes[5] == 2).any()
+
+
+# seeded codes of the coded leaf over one adversarial tape: tile 0 runs
+# every row; 1-5 carry seeded codes 0-3 on every row kind (COPY from b on
+# unary rows too, where b is an immediate or a register); 6 repeats 1
+# under a length past L; 7 is culled; 8 repeats 0 with its last 3 rows
+# cut off, so that a word's codes past the length must be masked
+K6_TILES = 9
+
+
+def _k6_case(name, rng):
+    A = ADV_K6
+    t = NAMES.index(name)
+    L = A["w1"].shape[1]
+    n = min(int(A["lengths"][t]), L)
+    codes = np.zeros((K6_TILES, L), np.uint32)
+    codes[0, :n] = 1
+    for k in range(1, 6):
+        codes[k] = seeded_action_codes(A["w1"][t], A["w2"][t], n, A["nf"], rng,
+                                       any_row=True)
+    codes[6] = codes[1]
+    codes[8] = codes[0]
+    lengths = np.array([n] * 6 + [L + 7, 0, max(n - 3, 0)], np.int32)
+    vars_ = rng.uniform(-1.5, 1.5, size=(K6_TILES, 2, 1, 128)).astype(np.float32)
+    vars_[6] = vars_[1]
+    shared = [np.ascontiguousarray(A[k][t:t + 1]) for k in ("w1", "w2", "imm")]
+    return shared, lengths, codes, vars_
+
+
+def _k6_written(shared, lengths, codes, O):
+    """[tiles, O]: whether an executed OUTPUT row (code 1) writes each
+    output within each tile's length."""
+    w1, w2 = shared[0][0], shared[1][0]
+    L = w1.shape[0]
+    rows = np.arange(L)
+    written = np.zeros((len(lengths), O), bool)
+    for k, n in enumerate(lengths):
+        run = (codes[k] == 1) & (rows < min(n, L)) & ((w1 & 127) == 0)
+        for j in np.nonzero(run)[0]:
+            written[k, min(int(w2[j]) >> 12, O - 1)] = True
+    return written
+
+
+ADV_K6 = ARENA
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_adversarial_coded_matches_reference(name):
+    """K6's plain version against the reference's `interp_float_coded`
+    on each adversarial tape as the shared tape of K6_TILES tiles, bit
+    for bit where an OUTPUT row ran; outputs the tile never wrote are 0
+    in the port (the reference leaves them as its block came)."""
+    rng = np.random.default_rng(13 + NAMES.index(name))
+    shared, lengths, codes, vars_ = _k6_case(name, rng)
+    words = pack_action_codes(codes)
+    kw = dict(nf=ARENA["nf"], n_inputs=2, n_outputs=2, s0=1)
+    want = np.asarray(ref_interp.interp_float_coded(
+        *shared, lengths, words, vars_, interpret=True, **kw))
+    got = interp_float_coded(
+        *(torch.from_numpy(a) for a in (*shared, lengths, words, vars_)), **kw
+    ).numpy()
+    written = _k6_written(shared, lengths, codes, 2)
+    for k in range(K6_TILES):
+        for o in range(2):
+            if written[k, o]:
+                np.testing.assert_array_equal(got[k, o].view(np.uint32),
+                                              want[k, o].view(np.uint32))
+            else:
+                assert (got[k, o] == 0).all()
+    assert not written[7].any()
+    np.testing.assert_array_equal(got[6], got[1])
+
+
+def test_adversarial_coded_codes_cover_every_row_kind():
+    """Over the arena, the seeded codes hold COPY from a and from b on
+    binary and on unary rows, from a register and from an immediate."""
+    seen = set()
+    for name in NAMES:
+        rng = np.random.default_rng(13 + NAMES.index(name))
+        shared, lengths, codes, _ = _k6_case(name, rng)
+        w1, w2 = shared[0][0], shared[1][0]
+        op = w1 & 127
+        unary = np.isin(op, [2, 7, 12])  # COPY, NEG, ABS: no b to read
+        src_imm = {2: ((w1 >> 19) & 0xFFF) == 0xFFF, 3: (w2 & 0xFFF) == 0xFFF}
+        for c in (2, 3):
+            hit = (codes[1:6] == c).any(axis=0)
+            seen |= {(c, "unary" if u else "binary", "imm" if i else "reg")
+                     for u, i in zip(unary[hit], src_imm[c][hit])}
+    assert {(3, "unary", "imm"), (3, "unary", "reg"), (3, "binary", "imm"),
+            (3, "binary", "reg"), (2, "unary", "reg"),
+            (2, "binary", "reg")} <= seen
