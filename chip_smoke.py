@@ -31,14 +31,17 @@ Phases (any failure exits non-zero and prints no result):
    its plain version, on both register-file routes; and K1, K2, K3 once
    more on each tape packed under its own `frequency_op_order`, against
    the plain versions with the same order and bit-equal to their own
-   canonical results; then hand-packed tapes built to break the tape
+   canonical results (K4 too); then hand-packed tapes built to break the tape
    staging (`scenes.adversarial_arena`: lengths 0, 1, chunk - 1, chunk,
    chunk + 1, 3 chunks + 5 and a length past L; a chain in which every
    row reads the row before it and one in which none does; both
    operands immediate; two OUTPUT rows; a register past nf) through K3
    and K1 on both register-file routes, at S0 = 8, 2 and 1 (4, 2 and 1
    lanes a thread in K3), with choices that fold into the last word and
-   with choice words too many for shared memory; through K2 (with
+   with choice words too many for shared memory; through K4 at 2 and 1
+   lanes a thread and through its global scratch, and K5 at sub 16 and
+   32 (4 and 32 blocks a subtile), at one lane a thread and through its
+   global scratch; through K2 (with
    opcodes 31, 40 and 127 and raw-field elisions that clamping would
    change) on its four routes (one or two mask words, the byte plane in
    shared or device memory) with choice words in shared and in device
@@ -84,9 +87,15 @@ Phases (any failure exits non-zero and prints no result):
    `brute_normals` where depth > 0, [0, 0, 1] where saturated; ten
    warm union frames timed;
 8. one phase per 3D kernel shape on the inputs the 3D path gave it:
-   K4 and K5 against their plain versions (K5 exact, also through the
-   global-scratch register file), K1 and K2 at their 3D shapes; times
-   and bounds over the real lanes and live instances only;
+   K4 and K5 against their plain versions (K5 exact) at the tape's
+   registers, as the path launches them, with CUDA-event and profiler
+   device times; again at the bucket's nf 64, at one lane a thread and
+   through their global scratch, equal to the path's results; under the
+   gyroid's `frequency_op_order` (the captured arenas renumbered),
+   against the plain versions and bit-equal to the canonical results;
+   K5 at sub 32 on a few subtiles of the gyroid; K1 and K2 at their 3D
+   shapes; times and bounds over the real lanes and live instances
+   only;
 9. per-stage times of a warm 512^3 normals frame.
 
 The last two lines of standard output are the `kernels` JSON line and
@@ -360,12 +369,17 @@ def phase_op_matrix(port, dev):
     )[:, None, None, None]
     errs = {}
     # shared-memory register files, then global scratch for every kernel
-    # (K4's four files leave shared memory above nf = 48; K3's single
-    # file of one lane a thread only above nf = 428)
+    # (K4's four files of one lane a thread leave shared memory above
+    # nf = 106; K3's single file above nf = 428)
     from fidget_tpu_torch.eval import cuda
 
+    duals = torch.zeros((T, 2, 4, s0, 128), device=dev)
+    duals[:, :, 0] = pts
+    for t_i, (_, tape) in enumerate(cases):
+        for v, i in tape.var_map.items():
+            duals[t_i, i, 1 if v.kind == "x" else 2] = 1.0
     for nf in (packed.nf, 512):
-        for kernel in ("interp_float", "interp_interval"):
+        for kernel in ("interp_float", "interp_interval", "interp_grad"):
             g = cuda.launch_geometry(kernel, nf=nf, lanes=lanes, T=T, cw=1)
             if g.regs_shared != (nf == packed.nf):
                 raise Failed(f"op matrix: {kernel} at nf {nf} took {g}")
@@ -395,11 +409,6 @@ def phase_op_matrix(port, dev):
         if not torch.equal(codes, codes_plain):
             raise Failed(f"op matrix liveness codes differ (nf={nf})")
         # grad mode: x seeded d/dx, y seeded d/dy
-        duals = torch.zeros((T, 2, 4, s0, 128), device=dev)
-        duals[:, :, 0] = pts
-        for t_i, (_, tape) in enumerate(cases):
-            for v, i in tape.var_map.items():
-                duals[t_i, i, 1 if v.kind == "x" else 2] = 1.0
         got = interp.interp_grad(*arena, duals, **kw)
         want = interp.interp_grad_plain(*arena, duals, **kw)
         errs["grad", nf] = check(
@@ -415,7 +424,7 @@ def phase_op_matrix(port, dev):
         f"interval and grad mode, choices and codes exact; max abs err "
         + ", ".join(f"{k[0]}@nf{k[1]}={v:.3g}" for k, v in errs.items()))
     _op_matrix_coded(cases, packed, arena, pts, dev)
-    _op_matrix_op_order(cases, packed, arena, pts, lo, hi, dev)
+    _op_matrix_op_order(cases, packed, arena, pts, lo, hi, duals, dev)
     phase_adversarial(dev)
 
 
@@ -480,6 +489,7 @@ def phase_adversarial(dev):
         f"with 512 words OR-reduced into device memory")
     _adversarial_liveness(dev)
     _adversarial_coded(dev)
+    _adversarial_3d(dev)
 
 
 def _adversarial_liveness(dev):
@@ -592,6 +602,66 @@ def _adversarial_coded(dev):
         f"bit at 4, 2 and 1 lanes a thread and through the global scratch")
 
 
+def _adversarial_3d(dev):
+    """K4 and K5 on the adversarial tapes against their plain versions,
+    bit for bit (every op of these tapes rounds correctly in f32, duals
+    too): K4 at S0 = 8 and 1 (2 and 1 lanes a thread) and through its
+    global scratch (nf 256); K5 at sub 16 and 32, at one lane a thread
+    (nf 256) and through its global scratch (nf 512), with a ramp over
+    vz in the inputs so that the surface moves within a column."""
+    from fidget_tpu_torch.eval import cuda, interp
+    from fidget_tpu_torch.scenes import adversarial_arena
+
+    A = adversarial_arena(cuda.TAPE_CHUNK)
+    arena = [torch.from_numpy(A[k]).to(dev)
+             for k in ("w1", "w2", "imm", "lengths")]
+    T = len(A["names"])
+    rng = np.random.default_rng(12)
+    seen = set()
+
+    def differs(what, got, want, **at):
+        same = got.view(torch.int32) == want.view(torch.int32)
+        if not same.all():
+            bad = sorted({A["names"][t] for t in
+                          (~same).reshape(T, -1).any(1).nonzero()[:, 0]})
+            raise Failed(f"adversarial tapes: {what} differs from plain at "
+                         f"{at} on {bad}")
+
+    for s0, nf in ((8, A["nf"]), (1, A["nf"]), (8, 256)):
+        g = cuda.launch_geometry("interp_grad", nf=nf, lanes=s0 * 128, T=T)
+        seen |= {("grad r", g.r), ("grad shared", g.regs_shared)}
+        duals = torch.from_numpy(rng.uniform(
+            -1.5, 1.5, size=(T, 2, 4, s0, 128)).astype(np.float32)).to(dev)
+        kw = dict(nf=nf, n_inputs=2, n_outputs=2, s0=s0)
+        differs("interp_grad", interp.interp_grad(*arena, duals, **kw),
+                interp.interp_grad_plain(*arena, duals, **kw), s0=s0, nf=nf)
+    depths = set()
+    for sub, nf in ((16, A["nf"]), (32, A["nf"]), (16, 256), (16, 512)):
+        g = cuda.launch_geometry("interp_voxel_depth", nf=nf, lanes=sub**3,
+                                 T=T, sub=sub)
+        seen |= {("voxel r", g.r), ("voxel shared", g.regs_shared)}
+        vz = np.arange(sub**3) // (sub * sub)
+        x = rng.uniform(-1.5, 1.5, size=(T, 2, sub**3)) + (vz / sub * 3 - 1.5)
+        pts = torch.from_numpy(
+            x.astype(np.float32).reshape(T, 2, sub**3 // 128, 128)).to(dev)
+        kw = dict(nf=nf, n_inputs=2, s0=sub**3 // 128, sub=sub)
+        got = interp.interp_voxel_depth(*arena, pts, **kw)
+        differs("interp_voxel_depth", got,
+                interp.interp_voxel_depth_plain(*arena, pts, **kw), sub=sub,
+                nf=nf)
+        depths |= set(got.unique().tolist())
+    want_seen = {("grad r", 2), ("grad r", 1), ("grad shared", True),
+                 ("grad shared", False), ("voxel r", 4), ("voxel r", 1),
+                 ("voxel shared", True), ("voxel shared", False)}
+    if seen != want_seen or len(depths) < 8:
+        raise Failed(f"adversarial 3D: covered only {seen}, depths {depths}")
+    torch.cuda.synchronize()
+    log(f"adversarial 3D: {T} tapes through interp_grad (2 and 1 lanes a "
+        f"thread, global scratch) and interp_voxel_depth (sub 16 and 32, 4 "
+        f"and 1 lanes a thread, global scratch; {len(depths)} distinct "
+        f"depths) equal their plain versions bit for bit")
+
+
 def _op_matrix_coded(cases, packed, arena, pts, dev):
     """K6 over every op-matrix tape as the shared tape of six tiles:
     tile 0 runs every row, tiles 1-4 carry seeded codes that rewrite
@@ -639,10 +709,10 @@ def _op_matrix_coded(cases, packed, arena, pts, dev):
         f"on both register-file routes; max abs err {worst:.3g}")
 
 
-def _op_matrix_op_order(cases, packed, arena, pts, lo, hi, dev):
-    """K1, K2, K3 on each tape packed under its own frequency order:
-    against the plain versions with the same order, and bit-equal to
-    the same kernels on the canonical arena."""
+def _op_matrix_op_order(cases, packed, arena, pts, lo, hi, duals, dev):
+    """K1, K2, K3 and K4 on each tape packed under its own frequency
+    order: against the plain versions with the same order, and
+    bit-equal to the same kernels on the canonical arena."""
     from fidget_tpu_torch.compiler.pack import frequency_op_order, pack_tapes
     from fidget_tpu_torch.eval import interp, simplify_device
 
@@ -654,6 +724,7 @@ def _op_matrix_op_order(cases, packed, arena, pts, lo, hi, dev):
         arena[0], arena[1], arena[3], c_ival[2], nf=packed.nf, L=L,
         shared_tape=False,
     )
+    c_grad = interp.interp_grad(*arena, duals, **kw)
     moved, worst = 0, 0.0
     for t_i, (name, tape) in enumerate(cases):
         order = frequency_op_order(tape)
@@ -690,10 +761,20 @@ def _op_matrix_op_order(cases, packed, arena, pts, lo, hi, dev):
         )
         if not (torch.equal(codes, plain) and torch.equal(codes, c_codes[one])):
             raise Failed(f"op_order liveness codes {name} differ")
+        got = interp.interp_grad(*a, duals[one], op_order=order, **kw)
+        want = interp.interp_grad_plain(*a, duals[one], op_order=order, **kw)
+        gtol = 2e-4 if name in ("EXP", "LN") else 2e-5
+        worst = max(worst, check(f"op_order grad {name}", got[:, :, 0],
+                                 want[:, :, 0], gtol, gtol),
+                    check(f"op_order grad derivatives {name}", got[:, :, 1:],
+                          want[:, :, 1:], 1e-4, 1e-4))
+        if not torch.equal(got.view(torch.int32),
+                           c_grad[one].view(torch.int32)):
+            raise Failed(f"op_order grad {name} differs from canonical")
     if moved < len(cases) // 2:
         raise Failed(f"only {moved} frequency orders differ from canonical")
     torch.cuda.synchronize()
-    log(f"op matrix op_order: K1, K2, K3 on {len(cases)} tapes under their "
+    log(f"op matrix op_order: K1, K2, K3, K4 on {len(cases)} tapes under their "
         f"own frequency orders ({moved} of them not the canonical order) "
         f"agree with their plain versions (max abs err {worst:.3g}) and "
         f"are bit-equal to the canonical kernels")
@@ -914,13 +995,13 @@ def measure_kernel(name, args, kwargs, lanes=None):
     if name == "liveness_codes":
         row["chain_bound_ms"] = _chain_bound_ms(args)
         log(f"  serial-chain bound {row['chain_bound_ms']:.5f} ms")
-    if name in ("interp_float", "interp_interval", "liveness_codes",
-                "interp_float_coded"):
+    if name in KERNEL_INFO:
         from fidget_tpu_torch.eval import cuda
 
         cw = shape[1] if name == "liveness_codes" else kwargs.get("c_words", 0)
         g = cuda.launch_geometry(
             name, nf=kwargs["nf"], lanes=shape[-2] * 128, T=shape[0], cw=cw,
+            sub=kwargs.get("sub", 0),
         )
         row["geometry"] = {
             "lanes_per_thread": g.r, "smem_bytes": g.smem, "blocks": g.blocks,
@@ -958,13 +1039,130 @@ def phase_kernels(captured, launches, n_frames, n_tiles):
     return rows
 
 
-def phase_kernels3d(r, captured, launches3d, n_frames, rows):
-    """K4 and K5 on the inputs the 3D path gave them (K5 also through
-    its global-scratch register file), and K1/K2 at their 3D shapes:
-    one real lane per root tile at the root, per subtile of a root tile
-    at the subtiles."""
-    from fidget_tpu_torch.eval import interp
+def device_ms(fn, name, reps=20):
+    """Mean device time per call of the kernels whose name holds `name`
+    over `reps` calls, from the profiler (None when it records none);
+    beside `time_cuda`, which also counts the host's enqueue where it is
+    slower than the kernel."""
+    from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if name in e.key and e.self_device_time_total > 0]
+    count = sum(e.count for e in events)
+    if not count:
+        return None
+    return sum(e.self_device_time_total for e in events) / 1e3 / count
+
+
+def _renumbered(w1, order):
+    """Tape words with their op fields moved to the positions of
+    `order` (position -> canonical opcode), as `pack_tapes(op_order=)`
+    packs them."""
+    pos = torch.arange(128, dtype=torch.int32, device=w1.device)
+    pos[torch.tensor(order, device=w1.device).long()] = torch.arange(
+        len(order), dtype=torch.int32, device=w1.device)
+    return ((w1 & ~127) | pos[(w1 & 127).long()]).contiguous()
+
+
+def _same(got, want):
+    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _routes3d(r, captured, rows):
+    """K4 and K5 on the 3D path's inputs at other register-file sizes
+    (the bucket's nf 64, one lane a thread, the global scratch), bit-
+    equal to the path's results, with the bucket's nf timed; under the
+    gyroid's frequency order, against the plain versions and bit-equal
+    to the canonical results; K5 at sub 32 on a few gyroid subtiles."""
+    from fidget_tpu_torch.compiler.pack import frequency_op_order, pack_tapes
+    from fidget_tpu_torch.eval import cuda
+
+    pairs = _kernel_pairs()
+    order = frequency_op_order(r.tape)
+    if order == tuple(range(len(order))):
+        raise Failed("the gyroid's frequency order is the canonical one")
+    for name, nfs in (("interp_grad", (64, 256)),
+                      ("interp_voxel_depth", (64, 256, 512))):
+        fn, plain = pairs[name]
+        args, kwargs = captured[name]
+        base = fn(*args, **kwargs)
+        routes = []
+        for nf in nfs:
+            kw = {**kwargs, "nf": nf}
+            g = cuda.launch_geometry(
+                name, nf=nf, lanes=args[4].shape[-2] * 128,
+                T=args[4].shape[0], sub=kw.get("sub", 0))
+            routes.append((nf, g.r, g.regs_shared))
+            if not _same(fn(*args, **kw), base):
+                raise Failed(f"{name} at nf {nf} ({g}) differs from nf "
+                             f"{kwargs['nf']}")
+            if nf == r.nf_b:
+                ms = time_cuda(lambda: fn(*args, **kw), reps=20)
+                dms = device_ms(lambda: fn(*args, **kw), name + "_kernel")
+                rows[name]["at_bucket_nf"] = dict(nf=nf, ms=ms, device_ms=dms,
+                                                  r=g.r)
+                log(f"kernel {name} at the bucket's nf {nf}: {ms:.4f} ms "
+                    f"(device {dms if dms is None else round(dms, 4)} ms), "
+                    f"{g.r} lanes a thread")
+        w1o = _renumbered(args[0], order)
+        got = fn(w1o, *args[1:], op_order=order, **kwargs)
+        want = plain(w1o, *args[1:], op_order=order, **kwargs)
+        if name == "interp_grad":
+            err = max(check(f"{name} op_order values", got[:, :, 0],
+                            want[:, :, 0], 2e-5, 2e-5),
+                      check(f"{name} op_order derivatives", got[:, :, 1:],
+                            want[:, :, 1:], 1e-4, 1e-4))
+        elif not torch.equal(got, want):
+            raise Failed(f"{name} under op_order differs from plain")
+        else:
+            err = 0.0
+        if not _same(got, base):
+            raise Failed(f"{name} under op_order differs from canonical")
+        log(f"kernel {name}: equal at (nf, lanes a thread, shared) {routes}; "
+            f"under the gyroid's op_order equal to plain (max abs err "
+            f"{err:.3g}) and bit-equal to canonical")
+    # K5 at sub 32: the gyroid over four 32^3 subtiles across its surface
+    sub, T = 32, 4
+    packed = pack_tapes([r.tape] * T)
+    dev = captured["interp_voxel_depth"][0][0].device
+    arena = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+             for a in (packed.w1, packed.w2, packed.imm, packed.lengths)]
+    arena[3][-1] = 0
+    vz, vy, vx = np.meshgrid(*[np.arange(sub)] * 3, indexing="ij")
+    vox = np.stack([vx, vy, vz]).reshape(3, -1).astype(np.float32)
+    step = np.float32(2.0 / SIZE3)
+    planes = np.zeros((T, packed.n_inputs, sub**3), np.float32)
+    for t, base in enumerate(([-0.05, -0.05, 0.45], [0.3, -0.4, 0.2],
+                              [-0.5, 0.1, -0.3], [0.0, 0.0, 0.0])):
+        pts = np.asarray(base, np.float32)[:, None] + vox * step
+        for v, i in r.tape.var_map.items():
+            planes[t, i] = pts["xyz".index(v.kind)]
+    planes = torch.from_numpy(planes.reshape(T, -1, sub**3 // 128, 128)).to(dev)
+    kw = dict(nf=packed.nf, n_inputs=packed.n_inputs, s0=sub**3 // 128,
+              sub=sub)
+    fn, plain = pairs["interp_voxel_depth"]
+    got = fn(*arena, planes, **kw)
+    if not torch.equal(got, plain(*arena, planes, **kw)):
+        raise Failed("interp_voxel_depth at sub 32 differs from plain")
+    if len(got[:-1].unique()) < 4 or (got[-1] != 0).any():
+        raise Failed("interp_voxel_depth at sub 32: too few depths, or a "
+                     "culled subtile has one")
+    log(f"kernel interp_voxel_depth at sub 32: {T} subtiles equal the plain "
+        f"version ({len(got.unique())} distinct depths)")
+
+
+def phase_kernels3d(r, captured, launches3d, n_frames, rows):
+    """K4 and K5 on the inputs the 3D path gave them (with the
+    profiler's device time beside the CUDA-event time, and
+    `_routes3d`), and K1/K2 at their 3D shapes: one real lane per root
+    tile at the root, per subtile of a root tile at the subtiles."""
+    pairs = _kernel_pairs()
     for name in ("interp_grad", "interp_voxel_depth"):
         args, kwargs = captured[name]
         src, replaces = KERNEL_INFO[name]
@@ -974,12 +1172,12 @@ def phase_kernels3d(r, captured, launches3d, n_frames, rows):
             "launches_per_frame": launches3d[name] / n_frames,
             **measure_kernel(name, args, kwargs), "library_ms": None,
         }
-    args, kwargs = captured["interp_voxel_depth"]
-    wide = interp.interp_voxel_depth(*args, **{**kwargs, "nf": 256})
-    if not torch.equal(wide, interp.interp_voxel_depth(*args, **kwargs)):
-        raise Failed("interp_voxel_depth differs through global scratch")
-    log("kernel interp_voxel_depth: global-scratch register file (nf 256) "
-        "equals the shared-memory one")
+        fn = pairs[name][0]
+        dms = device_ms(lambda: fn(*args, **kwargs), name + "_kernel")
+        rows[name]["device_ms"] = dms
+        log(f"kernel {name}: profiler device time "
+            f"{'not recorded' if dms is None else f'{dms:.4f} ms'} a launch")
+    _routes3d(r, captured, rows)
     real = {"root": r.geo.nt, "subtile": r.geo.m, "instances": r.geo.m}
     for key in ("interp_interval@root", "interp_interval@subtile",
                 "liveness_codes@root", "liveness_codes@instances"):

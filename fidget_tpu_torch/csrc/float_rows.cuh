@@ -1,8 +1,15 @@
-// The float-mode row loop shared by interp_float.cu (K3) and
-// interp_float_coded.cu (K6): a thread owns R = 4 (2, 1) neighbouring
-// lanes, and a block walks rows already decoded into a `TapeRing`
-// buffer (ops.cuh `stage_row`), one 16-byte broadcast row and its
-// immediate at a time.
+// The row loop shared by the value-mode interpreters: interp_float.cu
+// (K3), interp_float_coded.cu (K6), interp_voxel_depth.cu (K5) and
+// interp_grad.cu (K4). A thread owns R = 4 (2, 1) neighbouring lanes,
+// and a block walks rows already decoded into a `TapeRing` buffer
+// (ops.cuh `stage_row`), one 16-byte broadcast row and its immediate at
+// a time. The loop is written once, over two parameters:
+//   - a value mode: what a lane holds and how an op computes it,
+//     `Floats<R>` (one float) or `Duals<R>` (the four planes v, dx, dy,
+//     dz of forward-mode duals, each plane its own register file);
+//   - an output sink: what an OUTPUT row does with its `a` operand,
+//     `StoreOutput` (write it to the output planes) or `KeepOutput`
+//     (keep it in registers, as the voxel pass does with the distance).
 #pragma once
 
 #include "ops.cuh"
@@ -22,43 +29,187 @@ __device__ __forceinline__ Pack<R> splat(float x) {
   return p;
 }
 
-// an operand: the thread's R lanes of a register, or the immediate
 template <int R>
-__device__ __forceinline__ Pack<R> operand(const unsigned char* regs, int off,
-                                           float iv) {
-  if (off >= 0) return *reinterpret_cast<const Pack<R>*>(regs + off);
-  return splat<R>(iv);
+__device__ __forceinline__ Pack<R> load_pack(const void* p) {
+  return *reinterpret_cast<const Pack<R>*>(p);
+}
+template <int R>
+__device__ __forceinline__ void store_pack(void* p, const Pack<R>& v) {
+  *reinterpret_cast<Pack<R>*>(p) = v;
 }
 
-#define FIDGET_UNARY(OP)                                       \
-  case OP:                                                     \
-    _Pragma("unroll") for (int i = 0; i < R; ++i) r.v[i] =     \
-        f_unary(OP, va.v[i]);                                  \
+// Float mode. Register file [nf][lanes]; inputs and outputs are planes
+// `lanes` floats apart.
+template <int R>
+struct Floats {
+  using Val = Pack<R>;
+
+  // an operand: the thread's R lanes of a register, or the immediate
+  __device__ __forceinline__ Val load(const unsigned char* regs, int off,
+                                      float iv) const {
+    if (off >= 0) return load_pack<R>(regs + off);
+    return splat<R>(iv);
+  }
+  __device__ __forceinline__ void store(unsigned char* regs, int off,
+                                        const Val& v) const {
+    store_pack<R>(regs + off, v);
+  }
+  __device__ __forceinline__ Val input(const float* tvars, int pay,
+                                       int lanes) const {
+    return load_pack<R>(tvars + (size_t)pay * lanes);
+  }
+  __device__ __forceinline__ void output(float* tout, int pay, int lanes,
+                                         const Val& v) const {
+    store_pack<R>(tout + (size_t)pay * lanes, v);
+  }
+  // zeroes output plane o
+  __device__ __forceinline__ void clear(float* tout, int o, int lanes) const {
+    store_pack<R>(tout + (size_t)o * lanes, splat<R>(0.f));
+  }
+  template <int OP>
+  __device__ __forceinline__ static Val unary(const Val& a) {
+    Val r;
+#pragma unroll
+    for (int i = 0; i < R; ++i) r.v[i] = f_unary(OP, a.v[i]);
+    return r;
+  }
+  template <int OP>
+  __device__ __forceinline__ static Val binary(const Val& a, const Val& b) {
+    Val r;
+#pragma unroll
+    for (int i = 0; i < R; ++i) r.v[i] = f_binary(OP, a.v[i], b.v[i]);
+    return r;
+  }
+};
+
+// Grad mode: four register files, plane k `pstride` bytes after plane
+// 0; a row's operand offsets address plane 0. An immediate reads as
+// (imm, 0, 0, 0). Input and output i hold their four planes at
+// (4 i + k) * lanes.
+template <int R>
+struct Duals {
+  struct Val {
+    Pack<R> p[4];
+  };
+  int pstride;
+
+  __device__ __forceinline__ Val load(const unsigned char* regs, int off,
+                                      float iv) const {
+    Val r;
+    if (off >= 0) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) r.p[k] = load_pack<R>(regs + off + k * pstride);
+    } else {
+      r.p[0] = splat<R>(iv);
+#pragma unroll
+      for (int k = 1; k < 4; ++k) r.p[k] = splat<R>(0.f);
+    }
+    return r;
+  }
+  __device__ __forceinline__ void store(unsigned char* regs, int off,
+                                        const Val& v) const {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) store_pack<R>(regs + off + k * pstride, v.p[k]);
+  }
+  __device__ __forceinline__ Val input(const float* tvars, int pay,
+                                       int lanes) const {
+    Val r;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      r.p[k] = load_pack<R>(tvars + (size_t)(4 * pay + k) * lanes);
+    return r;
+  }
+  __device__ __forceinline__ void output(float* tout, int pay, int lanes,
+                                         const Val& v) const {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      store_pack<R>(tout + (size_t)(4 * pay + k) * lanes, v.p[k]);
+  }
+  __device__ __forceinline__ void clear(float* tout, int o, int lanes) const {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      store_pack<R>(tout + (size_t)(4 * o + k) * lanes, splat<R>(0.f));
+  }
+  template <int OP>
+  __device__ __forceinline__ static Val unary(const Val& a) {
+    Val r;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const Dual d = g_unary(
+          OP, Dual{a.p[0].v[i], a.p[1].v[i], a.p[2].v[i], a.p[3].v[i]});
+      r.p[0].v[i] = d.v;
+      r.p[1].v[i] = d.dx;
+      r.p[2].v[i] = d.dy;
+      r.p[3].v[i] = d.dz;
+    }
+    return r;
+  }
+  template <int OP>
+  __device__ __forceinline__ static Val binary(const Val& a, const Val& b) {
+    Val r;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const Dual d = g_binary(
+          OP, Dual{a.p[0].v[i], a.p[1].v[i], a.p[2].v[i], a.p[3].v[i]},
+          Dual{b.p[0].v[i], b.p[1].v[i], b.p[2].v[i], b.p[3].v[i]});
+      r.p[0].v[i] = d.v;
+      r.p[1].v[i] = d.dx;
+      r.p[2].v[i] = d.dy;
+      r.p[3].v[i] = d.dz;
+    }
+    return r;
+  }
+};
+
+// OUTPUT writes its operand to output plane min(aux, O - 1)
+template <class Mode>
+struct StoreOutput {
+  float* tout;
+  int lanes;
+  __device__ __forceinline__ void operator()(const Mode& m, int pay,
+                                             const typename Mode::Val& v) {
+    m.output(tout, pay, lanes, v);
+  }
+};
+
+// OUTPUT keeps its operand: after the walk, `v` is the last OUTPUT's
+template <class Mode>
+struct KeepOutput {
+  typename Mode::Val v;
+  __device__ __forceinline__ void operator()(const Mode&, int,
+                                             const typename Mode::Val& a) {
+    v = a;
+  }
+};
+
+#define FIDGET_UNARY(OP)                       \
+  case OP:                                     \
+    r = Mode::template unary<OP>(va);          \
     break;
-#define FIDGET_BINARY(OP)                                      \
-  case OP:                                                     \
-    _Pragma("unroll") for (int i = 0; i < R; ++i) r.v[i] =     \
-        f_binary(OP, va.v[i], vb.v[i]);                        \
+#define FIDGET_BINARY(OP)                      \
+  case OP:                                     \
+    r = Mode::template binary<OP>(va, vb);     \
     break;
 
 // One tape row on the thread's R lanes: both operand loads first, then
 // one flat switch with a constant opcode per case.
-template <int R>
-__device__ __forceinline__ void run_row(const Row cur, const float iv,
+template <class Mode, class Sink>
+__device__ __forceinline__ void run_row(const Mode& m, Sink& sink,
+                                        const Row cur, const float iv,
                                         unsigned char* regs,
-                                        const float* tvars, float* tout,
-                                        int lanes) {
-  const Pack<R> va = operand<R>(regs, cur.a, iv);
-  const Pack<R> vb = operand<R>(regs, cur.b, iv);
+                                        const float* tvars, int lanes) {
+  using Val = typename Mode::Val;
+  const Val va = m.load(regs, cur.a, iv);
+  const Val vb = m.load(regs, cur.b, iv);
   const int pay = cur.op_pay >> 8;
-  Pack<R> r;
+  Val r;
   switch (cur.op_pay & 0xFF) {
     case OP_OUTPUT:
-      *reinterpret_cast<Pack<R>*>(tout + (size_t)pay * lanes) = va;
+      sink(m, pay, va);
       r = va;
       break;
     case OP_INPUT:
-      r = *reinterpret_cast<const Pack<R>*>(tvars + (size_t)pay * lanes);
+      r = m.input(tvars, pay, lanes);
       break;
     FIDGET_UNARY(OP_NEG) FIDGET_UNARY(OP_ABS) FIDGET_UNARY(OP_RECIP)
     FIDGET_UNARY(OP_SQRT) FIDGET_UNARY(OP_SQUARE) FIDGET_UNARY(OP_FLOOR)
@@ -74,7 +225,7 @@ __device__ __forceinline__ void run_row(const Row cur, const float iv,
       r = va;
       break;
   }
-  *reinterpret_cast<Pack<R>*>(regs + cur.out) = r;
+  m.store(regs, cur.out, r);
 }
 
 #undef FIDGET_UNARY
@@ -84,21 +235,58 @@ __device__ __forceinline__ void run_row(const Row cur, const float iv,
 // the other runs, into registers of its own: a single loop-carried row
 // would be copied at the top of the loop and wait there for the load
 // just started. The slot past `count` is read and never run.
-template <int R>
-__device__ __forceinline__ void run_rows(const Row* rows, const float* imms,
+template <class Mode, class Sink>
+__device__ __forceinline__ void run_rows(const Mode& m, Sink& sink,
+                                         const Row* rows, const float* imms,
                                          int count, unsigned char* regs,
-                                         const float* tvars, float* tout,
-                                         int lanes) {
+                                         const float* tvars, int lanes) {
   Row row_a = rows[0];
   float imm_a = imms[0];
   for (int k = 0; k < count; k += 2) {
     const Row row_b = rows[k + 1];
     const float imm_b = imms[k + 1];
-    run_row<R>(row_a, imm_a, regs, tvars, tout, lanes);
+    run_row(m, sink, row_a, imm_a, regs, tvars, lanes);
     if (k + 1 >= count) break;
     row_a = rows[k + 2];
     imm_a = imms[k + 2];
-    run_row<R>(row_b, imm_b, regs, tvars, tout, lanes);
+    run_row(m, sink, row_b, imm_b, regs, tvars, lanes);
+  }
+}
+
+// Where a block's rows land: the order table (or null), the register
+// file's size and its bytes from one register to the next, and the
+// input and output counts that clamp INPUT and OUTPUT payloads.
+struct Staging {
+  const int32_t* order;
+  int nf, stride, V, O;
+};
+
+// The whole of one tape, rows [0, n), through the ring: the next chunk
+// is copied while this one runs and decoded behind it. Every thread of
+// the block must call it; it ends on a barrier, after which the ring
+// may be reused.
+template <class Mode, class Sink>
+__device__ __forceinline__ void run_tape(const Mode& m, Sink& sink,
+                                         const TapeRing& ring,
+                                         const Staging& st,
+                                         const int32_t* tw1,
+                                         const int32_t* tw2,
+                                         const float* timm, int n,
+                                         unsigned char* regs,
+                                         const float* tvars, int lanes) {
+  const int chunk = ring.chunk;
+  ring.fetch(tw1, tw2, timm, 0, min(chunk, n));
+  ring.decode(0, min(chunk, n), st.order, st.nf, st.stride, st.V, st.O, 0);
+  __syncthreads();
+  for (int j0 = 0, buf = 0; j0 < n; j0 += chunk, buf ^= 1) {
+    const int count = min(chunk, n - j0);
+    const int next = min(chunk, n - j0 - chunk);
+    if (next > 0) ring.fetch(tw1, tw2, timm, j0 + chunk, next);
+    run_rows(m, sink, ring.rows(buf), ring.imms(buf), count, regs, tvars,
+             lanes);
+    if (next > 0)
+      ring.decode(buf ^ 1, next, st.order, st.nf, st.stride, st.V, st.O, 0);
+    __syncthreads();
   }
 }
 

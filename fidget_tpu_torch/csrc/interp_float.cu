@@ -65,8 +65,8 @@ __global__ void __launch_bounds__(BLOCK) interp_float_kernel(
   const float* tvars = vars + (size_t)t * V * lanes + lane;
   float* tout = out + (size_t)t * O * lanes + lane;
 
-  for (int o = 0; o < O; ++o)
-    *reinterpret_cast<Pack<R>*>(tout + (size_t)o * lanes) = splat<R>(0.f);
+  const Floats<R> mode{};
+  for (int o = 0; o < O; ++o) mode.clear(tout, o, lanes);
   const int n = min(lengths[t], L);
   if (n <= 0) return;  // uniform across the block: a culled instance
 
@@ -81,22 +81,10 @@ __global__ void __launch_bounds__(BLOCK) interp_float_kernel(
                                             lane);
     stride = lanes * 4;
   }
-  const int32_t* tw1 = w1 + (size_t)t * L;
-  const int32_t* tw2 = w2 + (size_t)t * L;
-  const float* timm = imm + (size_t)t * L;
-
-  ring.fetch(tw1, tw2, timm, 0, min(chunk, n));
-  ring.decode(0, min(chunk, n), order, nf, stride, V, O, 0);
-  __syncthreads();
-  for (int j0 = 0, buf = 0; j0 < n; j0 += chunk, buf ^= 1) {
-    const int count = min(chunk, n - j0);
-    const int next = min(chunk, n - j0 - chunk);
-    if (next > 0) ring.fetch(tw1, tw2, timm, j0 + chunk, next);
-    run_rows<R>(ring.rows(buf), ring.imms(buf), count, regs, tvars, tout,
-                lanes);
-    if (next > 0) ring.decode(buf ^ 1, next, order, nf, stride, V, O, 0);
-    __syncthreads();
-  }
+  StoreOutput<Floats<R>> sink{tout, lanes};
+  run_tape(mode, sink, ring, Staging{order, nf, stride, V, O},
+           w1 + (size_t)t * L, w2 + (size_t)t * L, imm + (size_t)t * L, n,
+           regs, tvars, lanes);
 }
 
 }  // namespace

@@ -105,8 +105,8 @@ __global__ void __launch_bounds__(BLOCK) interp_float_coded_kernel(
   const float* tvars = vars + (size_t)t * V * lanes + lane;
   float* tout = out + (size_t)t * O * lanes + lane;
 
-  for (int o = 0; o < O; ++o)
-    *reinterpret_cast<Pack<R>*>(tout + (size_t)o * lanes) = splat<R>(0.f);
+  const Floats<R> mode{};
+  for (int o = 0; o < O; ++o) mode.clear(tout, o, lanes);
   const int n = min(lengths[t], L);
   if (n <= 0) return;  // uniform across the block: a culled tile
 
@@ -124,6 +124,7 @@ __global__ void __launch_bounds__(BLOCK) interp_float_coded_kernel(
   for (int r = 0; r < nf; ++r)
     *reinterpret_cast<Pack<R>*>(regs + r * stride) = splat<R>(0.f);
   const int32_t* tcodes = codes + (size_t)t * LW;
+  StoreOutput<Floats<R>> sink{tout, lanes};
 
   ring.fetch(w1, w2, imm, 0, min(chunk, n));
   int count = decode_executed(ring, 0, 0, min(chunk, n), tcodes, n, nf,
@@ -132,8 +133,8 @@ __global__ void __launch_bounds__(BLOCK) interp_float_coded_kernel(
   for (int j0 = 0, buf = 0; j0 < n; j0 += chunk, buf ^= 1) {
     const int next = min(chunk, n - j0 - chunk);
     if (next > 0) ring.fetch(w1, w2, imm, j0 + chunk, next);
-    run_rows<R>(ring.rows(buf), ring.imms(buf), count, regs, tvars, tout,
-                lanes);
+    run_rows(mode, sink, ring.rows(buf), ring.imms(buf), count, regs, tvars,
+             lanes);
     if (next > 0)
       count = decode_executed(ring, buf ^ 1, j0 + chunk, next, tcodes, n, nf,
                               stride, V, O);

@@ -82,9 +82,9 @@ __device__ __forceinline__ Word decode(int32_t w1, int32_t w2,
 }
 
 // ---------------------------------------------------------------------
-// Staged tape rows (interp_float.cu, interp_interval.cu). A block copies
-// its tape chunk by chunk into shared memory with cp.async, one chunk
-// ahead of the one it executes, and decodes every row once per block
+// Staged tape rows (every interpreter kernel but liveness.cu). A block
+// copies its tape chunk by chunk into shared memory with cp.async, one
+// chunk ahead of the one it executes, and decodes every row once per block
 // instead of once per warp: the opcode mapped back through the order
 // table, operands as byte offsets into the register file (already
 // clamped to nf - 1 and scaled by the row stride), the payload of aux
@@ -491,7 +491,7 @@ __device__ __forceinline__ Dual d_const(float f) {
   return Dual{f, 0.f, 0.f, 0.f};
 }
 
-__device__ Dual g_unary(int op, Dual a) {
+__device__ __forceinline__ Dual g_unary(int op, Dual a) {
   const float v = a.v;
   switch (op) {
     case OP_NEG: return Dual{-v, -a.dx, -a.dy, -a.dz};
@@ -525,7 +525,7 @@ __device__ Dual g_unary(int op, Dual a) {
 // every binary op, choice ops included: MIN/MAX/AND/OR pick a whole
 // dual by strict comparison of the values (grad.rs:169), not by the
 // NaN rules of float mode
-__device__ Dual g_binary(int op, Dual a, Dual b) {
+__device__ __forceinline__ Dual g_binary(int op, Dual a, Dual b) {
   switch (op) {
     case OP_ADD: return Dual{a.v + b.v, a.dx + b.dx, a.dy + b.dy, a.dz + b.dz};
     case OP_SUB: return Dual{a.v - b.v, a.dx - b.dx, a.dy - b.dy, a.dz - b.dz};

@@ -31,19 +31,25 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent / "_build"
 
 #: threads per block of every kernel; must match BLOCK in csrc/ops.cuh
 BLOCK = 128
-#: shared-memory budget of a register file of K4 and K5 (several blocks
-#: an SM); above it their wrappers hand the kernel a global scratch
-SMEM_LIMIT = 96 * 1024
 #: dynamic shared memory one block may opt in to on an H100, the shared
 #: memory of one SM, and what the card reserves of it per block
 SMEM_BLOCK_MAX = 232448
 SMEM_SM = 233472
 SMEM_BLOCK_RESERVED = 1024
 N_SM = 132
-#: tape rows per ring buffer of K1, K2, K3 and K6 (csrc/ops.cuh
+#: tape rows per ring buffer of every interpreter kernel (csrc/ops.cuh
 #: `TapeRing`, csrc/liveness.cu `LiveRing`); a multiple of 16, the code
 #: words of K2 and K6
 TAPE_CHUNK = 256
+#: lanes a thread K4 and K5 may take, most first (a dual row of K4
+#: moves four planes through shared memory, four times K3's bytes)
+GRAD_LANES = (2, 1)
+VOXEL_LANES = (4, 2, 1)
+#: passes over its columns a K5 block makes at least: the block stages
+#: its tape once for all of them, and more, shorter blocks overlap each
+#: other's latencies (probe_kernels.py on the 3D path's heaviest
+#: stratum: 2 passes 0.070 ms, 8 passes 0.092)
+VOXEL_PASSES = 2
 
 
 def tape_ring_bytes(chunk: int) -> int:
@@ -63,21 +69,23 @@ def live_ring_bytes(chunk: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Geometry:
-    """How one launch of K1, K2, K3 or K6 is laid out.
+    """How one launch of an interpreter kernel is laid out.
 
-    r: lanes a thread owns (K3, K6: 4, 2 or 1; K1, K2: 1).
+    r: lanes a thread owns (K3, K5, K6: 4, 2 or 1; K4: GRAD_LANES; K1,
+      K2: 1).
     chunk: tape rows per ring buffer.
     smem: bytes of dynamic shared memory of a block.
-    regs_shared: the register file (K2: the liveness bits) lies in
-      registers or shared memory; else the wrapper allocates a global
-      scratch.
+    regs_shared: the register file (K4: the four files; K2: the
+      liveness bits) lies in registers or shared memory; else the
+      wrapper allocates a global scratch.
     choices_shared: K1's choice words accumulate in shared memory (else
       the wrapper hands the kernel zeroed device memory to OR into); K2
       reads its choice words from shared memory (else from device
       memory).
     blocks: blocks of the grid.
     mask_words: K2 keeps liveness as a bit mask of this many 32-bit
-      registers a lane (1 or 2); 0: as a byte plane `[nf][BLOCK]`."""
+      registers a lane (1 or 2); 0: as a byte plane `[nf][BLOCK]`.
+    cols: K5's subtile columns a block covers over every vz."""
 
     r: int
     chunk: int
@@ -86,31 +94,36 @@ class Geometry:
     choices_shared: bool
     blocks: int
     mask_words: int = 0
+    cols: int = 0
 
 
 @functools.lru_cache(maxsize=None)
 def launch_geometry(kernel: str, *, nf: int, lanes: int, T: int,
-                    cw: int = 0) -> Geometry:
+                    cw: int = 0, sub: int = 0) -> Geometry:
     """The launch geometry of `interp_float` (K3), `interp_float_coded`
-    (K6), `interp_interval` (K1) or `liveness_codes` (K2) for T
-    instances of `lanes` lanes, an `nf`-register file and `cw` choice
-    words a lane. Everything stays in shared memory as long as one
-    block's 227 KB hold it.
+    (K6), `interp_grad` (K4), `interp_voxel_depth` (K5, over sub^3 lanes
+    of `sub`^2 columns), `interp_interval` (K1) or `liveness_codes` (K2)
+    for T instances of `lanes` lanes, an `nf`-register file and `cw`
+    choice words a lane. Everything stays in shared memory as long as
+    one block's 227 KB hold it.
 
-    K3 and K6 take the most lanes a thread (4, 2, 1) that divide the
-    lanes into whole blocks and whose register file `[nf][BLOCK * r]`
-    leaves room for two blocks an SM, or for one where the grid has no
-    more blocks than the card has SMs; failing that the most that fit
-    one block; and the global scratch only when not even one lane a
-    thread fits (K6 compacts its executed rows into the ring's own
-    buffers, so its shared memory is K3's). K1 keeps one lane a thread
-    (its passes are short of lanes, not of scheduler slots); its
-    register file `[nf][BLOCK]` of (lo, hi) pairs goes to shared memory
-    if it fits beside the ring, and its choice words `[cw][BLOCK]` if
-    they fit beside that. K2 keeps one lane a thread and its liveness in
-    registers, one 32-bit mask word a lane up to nf 32 and two up to nf
-    64; above that a byte plane `[nf][BLOCK]`, in shared memory if it
-    fits beside the ring and the choice words, which come first."""
+    K3, K4, K5 and K6 take the most lanes a thread (K4: of GRAD_LANES;
+    K5: of VOXEL_LANES with a column layout, `_voxel_cols`; else 4, 2,
+    1) that divide the lanes into whole blocks and whose register file
+    (`[nf][BLOCK * r]` floats, K4 four of them; K5 with BLOCK * r ints
+    more to fold the slices of a pass) leaves room for two blocks an SM,
+    or for one where the grid has no more blocks than the card has SMs;
+    failing that the most that fit one block; and the global scratch
+    only when not even one lane a thread fits (K6 compacts its executed
+    rows into the ring's own buffers, so its shared memory is K3's). K1
+    keeps one lane a thread (its passes are short of lanes, not of
+    scheduler slots); its register file `[nf][BLOCK]` of (lo, hi) pairs
+    goes to shared memory if it fits beside the ring, and its choice
+    words `[cw][BLOCK]` if they fit beside that. K2 keeps one lane a
+    thread and its liveness in registers, one 32-bit mask word a lane up
+    to nf 32 and two up to nf 64; above that a byte plane `[nf][BLOCK]`,
+    in shared memory if it fits beside the ring and the choice words,
+    which come first."""
     if lanes <= 0 or lanes % BLOCK:
         raise ValueError(f"lanes must be a positive multiple of {BLOCK}")
     chunk = TAPE_CHUNK
@@ -137,21 +150,49 @@ def launch_geometry(kernel: str, *, nf: int, lanes: int, T: int,
         if choices_shared:
             smem += cw * BLOCK * 4
         return Geometry(1, chunk, smem, regs_shared, choices_shared, blocks)
-    if kernel not in ("interp_float", "interp_float_coded"):
+    planes, cols = 1, (lambda r: 0)
+    blocks = lambda r: T * (lanes // (BLOCK * r))
+    if kernel in ("interp_float", "interp_float_coded"):
+        rs = [r for r in (4, 2, 1) if lanes % (BLOCK * r) == 0]
+    elif kernel == "interp_grad":
+        planes = 4
+        rs = [r for r in GRAD_LANES if lanes % (BLOCK * r) == 0]
+    elif kernel == "interp_voxel_depth":
+        if (sub * sub) % BLOCK or lanes != sub**3:
+            raise ValueError(f"sub={sub} needs sub^2 % {BLOCK} == 0 and "
+                             f"lanes == sub^3")
+        cols = functools.partial(_voxel_cols, sub)
+        rs = [r for r in VOXEL_LANES if cols(r)]
+        blocks = lambda r: T * sub * sub // cols(r)
+    else:
         raise ValueError(f"no launch geometry for {kernel}")
-    rs = [r for r in (4, 2, 1) if lanes % (BLOCK * r) == 0]
+    # K5 folds the slices of a pass through BLOCK * r ints
+    fold = lambda r: 4 * BLOCK * r if 0 < cols(r) < BLOCK * r else 0
     two_an_sm = SMEM_SM // 2 - SMEM_BLOCK_RESERVED
     for roomy in (True, False):
         for r in rs:
-            blocks = T * (lanes // (BLOCK * r))
-            smem = ring + nf * BLOCK * r * 4
+            smem = ring + planes * nf * BLOCK * r * 4 + fold(r)
             budget = SMEM_BLOCK_MAX
-            if roomy and blocks > N_SM:
+            if roomy and blocks(r) > N_SM:
                 budget = two_an_sm
             if smem <= budget:
-                return Geometry(r, chunk, smem, True, False, blocks)
+                return Geometry(r, chunk, smem, True, False, blocks(r),
+                                cols=cols(r))
     r = rs[0]
-    return Geometry(r, chunk, ring, False, False, T * (lanes // (BLOCK * r)))
+    return Geometry(r, chunk, ring + fold(r), False, False, blocks(r),
+                    cols=cols(r))
+
+
+def _voxel_cols(sub: int, r: int) -> int:
+    """Columns of a sub^3 subtile one K5 block covers at r lanes a
+    thread, over every vz: the fewest that divide the sub^2 columns and
+    BLOCK * r, are a whole number of slices of a pass that divides sub,
+    and take the block at least VOXEL_PASSES passes; 0 when none do."""
+    P, cols = BLOCK * r, sub * sub
+    fits = [cb for cb in range(r, min(cols, P) + 1, r)
+            if cols % cb == 0 and P % cb == 0 and sub % (P // cb) == 0
+            and sub * cb // P >= VOXEL_PASSES]
+    return min(fits, default=0)
 
 
 #: kernel name -> (source stem, C entry point)
@@ -183,10 +224,12 @@ _ARGTYPES = {
     # w1s w2s lengths choices codes scratch order | B Tt L nf CW lanes
     # chunk mask_words choices_shared smem
     "fidget_liveness_codes": [_P] * 7 + [_I] * 10 + [_P],
-    # w1 w2 imm lengths vars out scratch | T L nf V O lanes
-    "fidget_interp_grad": [_P] * 7 + [_I] * 6 + [_P],
-    # w1 w2 imm lengths vars out scratch | T L nf V sub pp_out
-    "fidget_interp_voxel_depth": [_P] * 7 + [_I] * 6 + [_P],
+    # w1 w2 imm lengths vars out scratch order | T L nf V O lanes r chunk
+    # smem
+    "fidget_interp_grad": [_P] * 8 + [_I] * 9 + [_P],
+    # w1 w2 imm lengths vars out scratch order | T L nf V sub pp_out r cols
+    # chunk smem
+    "fidget_interp_voxel_depth": [_P] * 8 + [_I] * 10 + [_P],
     # w1 w2 imm lengths codes vars out scratch | T L LW nf V O lanes r
     # chunk smem
     "fidget_interp_float_coded": [_P] * 8 + [_I] * 10 + [_P],

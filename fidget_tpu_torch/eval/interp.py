@@ -26,8 +26,8 @@ kernels dispatch through a full `switch` over the canonical op order,
 so that hazard cannot arise; `tape_n_ops` is kept for callers that
 size such a vocabulary. An arena packed under a per-shape opcode
 renumbering (`pack_tapes(op_order=...)`) is evaluated by passing the
-same `op_order` to K1, K3 and the simplifier: the kernels map the op
-field back to canonical opcodes through a 31-entry table instead of
+same `op_order` to every kernel and the simplifier: the kernels map the
+op field back to canonical opcodes through a 31-entry table instead of
 being compiled per order. Results are silently wrong if the orders
 differ. The TPU wrappers of K1 and K4 split the lane
 axis to fit their VMEM budget; lanes are independent on the card, so
@@ -35,13 +35,14 @@ the port has no split. K5 drops the TPU's `tiles_per_step`, which
 amortized a per-grid-step cost the card does not have (the bucketed 3D
 path ran it at 1).
 
-K1, K3 and K6 stage their tape through shared memory and, in K3 and
-K6, give a thread up to four lanes; how a launch is laid out (lanes per
-thread, shared-memory bytes, tape chunk, register file and choice words
-in shared or in device memory) is decided by `cuda.launch_geometry`
-from (nf, lanes, c_words, T), so `nf` should be the registers the tapes
-can name, not a padded bucket: a small file is what lets K3 and K6 run
-four lanes a thread.
+Every kernel stages its tape through shared memory and K3-K6 give a
+thread up to four lanes (K4 up to `cuda.GRAD_LANES`); how a launch is
+laid out (lanes per thread, shared-memory bytes, tape chunk, register
+file and choice words in shared or in device memory) is decided by
+`cuda.launch_geometry` from (nf, lanes, c_words, T, sub), so `nf`
+should be the registers the tapes can name, not a padded bucket: a
+small file is what lets K3-K6 run several lanes a thread from shared
+memory.
 """
 
 from __future__ import annotations
@@ -166,8 +167,9 @@ def interp_float(
 
 def _scratch(shape, device):
     """A global-memory register file for a kernel whose file no shared
-    memory holds; the kernels address it with 32-bit byte offsets."""
-    if 8 * shape[-2] * shape[-1] >= 2**31:
+    memory holds; the kernels address one instance's part of it with
+    32-bit byte offsets."""
+    if 8 * int(np.prod(shape[1:])) >= 2**31:
         raise ValueError(f"register file {shape} is too large to address")
     return torch.empty(shape, dtype=torch.float32, device=device)
 
@@ -327,12 +329,14 @@ def interp_interval_plain(
 
 def interp_grad(
     w1, w2, imm, lengths, vars_, *, nf: int, n_inputs: int, n_outputs: int,
-    s0: int,
+    s0: int, op_order: tuple | None = None,
 ):
     """Evaluates packed tapes with forward-mode duals.
 
     Args:
       vars_: [T, V, 4, S0, 128] f32 dual planes (v, dx, dy, dz).
+      op_order: the opcode renumbering the arena was packed with; None
+        for the canonical order.
     Returns:
       [T, O, 4, S0, 128] f32 dual outputs; 0 where the tape wrote none.
     """
@@ -345,25 +349,27 @@ def interp_grad(
     if vars_.device.type == "cpu":
         return interp_grad_plain(
             w1, w2, imm, lengths, vars_, nf=nf, n_inputs=n_inputs,
-            n_outputs=n_outputs, s0=s0,
+            n_outputs=n_outputs, s0=s0, op_order=op_order,
         )
     cuda.check_cuda(w1, w2, imm, lengths, vars_)
     dev = vars_.device
     lanes = s0 * 128
     out = torch.empty((T, n_outputs, 4, s0, 128), dtype=torch.float32, device=dev)
+    g = cuda.launch_geometry("interp_grad", nf=nf, lanes=lanes, T=T)
     scratch = None
-    if 4 * nf * cuda.BLOCK * 4 > cuda.SMEM_LIMIT:
-        scratch = torch.empty((T, 4, nf, lanes), dtype=torch.float32, device=dev)
+    if not g.regs_shared:
+        scratch = _scratch((T, 4, nf, lanes), dev)
     cuda.launch(
         "interp_grad", w1, w2, imm, lengths, vars_, out, scratch,
-        T, L, nf, n_inputs, n_outputs, lanes,
+        cuda.order_table(op_order, dev),
+        T, L, nf, n_inputs, n_outputs, lanes, g.r, g.chunk, g.smem,
     )
     return out
 
 
 def interp_grad_plain(
     w1, w2, imm, lengths, vars_, *, nf: int, n_inputs: int, n_outputs: int,
-    s0: int,
+    s0: int, op_order: tuple | None = None,
 ):
     """Plain PyTorch version of `interp_grad` (same contract)."""
     T, L = w1.shape
@@ -376,7 +382,9 @@ def interp_grad_plain(
     for t in range(T):
         regs = torch.zeros((4, nf, s0, 128), dtype=torch.float32, device=dev)
         for j in range(min(int(lensh[t]), L)):
-            op, o, a, b, aux = _decode(int(w1h[t, j]), int(w2h[t, j]))
+            op, o, a, b, aux = _decode(
+                int(w1h[t, j]), int(w2h[t, j]), op_order
+            )
             iv = float(immh[t, j])
             va = gm.const(iv, regs[:, 0]) if a == IMM12 else regs[:, min(a, nf - 1)]
             vb = gm.const(iv, regs[:, 0]) if b == IMM12 else regs[:, min(b, nf - 1)]
@@ -404,7 +412,7 @@ def interp_grad_plain(
 
 def interp_voxel_depth(
     w1, w2, imm, lengths, vars_, *, nf: int, n_inputs: int, s0: int,
-    sub: int,
+    sub: int, op_order: tuple | None = None,
 ):
     """Float-evaluates packed tapes over one subtile's voxels and
     reduces to per-column local surface depths.
@@ -415,6 +423,8 @@ def interp_voxel_depth(
     max over vz of (dist < 0 ? vz + 1 : 0), where dist is the tape's
     output (+1.0 if the tape writes none, so a length-0 instance is
     empty; a NaN distance is not inside). Padding planes are 0.
+    `op_order` is the opcode renumbering the arena was packed with; None
+    for the canonical order.
     """
     T, L = _check_arena(w1, w2, imm, lengths)
     _check_planes(vars_, T, n_inputs, s0)
@@ -423,25 +433,29 @@ def interp_voxel_depth(
     if vars_.device.type == "cpu":
         return interp_voxel_depth_plain(
             w1, w2, imm, lengths, vars_, nf=nf, n_inputs=n_inputs, s0=s0,
-            sub=sub,
+            sub=sub, op_order=op_order,
         )
     cuda.check_cuda(w1, w2, imm, lengths, vars_)
     dev = vars_.device
     pp_out = max(8, (sub * sub) // 128)
     out = torch.empty((T, pp_out, 128), dtype=torch.int32, device=dev)
+    g = cuda.launch_geometry(
+        "interp_voxel_depth", nf=nf, lanes=s0 * 128, T=T, sub=sub
+    )
     scratch = None
-    if nf * cuda.BLOCK * 4 > cuda.SMEM_LIMIT:
-        scratch = torch.empty((T, nf, sub * sub), dtype=torch.float32, device=dev)
+    if not g.regs_shared:  # one [nf][BLOCK * r] file a block
+        scratch = _scratch((g.blocks, nf, cuda.BLOCK * g.r), dev)
     cuda.launch(
         "interp_voxel_depth", w1, w2, imm, lengths, vars_, out, scratch,
-        T, L, nf, n_inputs, sub, pp_out,
+        cuda.order_table(op_order, dev),
+        T, L, nf, n_inputs, sub, pp_out, g.r, g.cols, g.chunk, g.smem,
     )
     return out
 
 
 def interp_voxel_depth_plain(
     w1, w2, imm, lengths, vars_, *, nf: int, n_inputs: int, s0: int,
-    sub: int,
+    sub: int, op_order: tuple | None = None,
 ):
     """Plain PyTorch version of `interp_voxel_depth` (same contract)."""
     T, L = w1.shape
@@ -458,7 +472,9 @@ def interp_voxel_depth_plain(
         regs = torch.zeros((nf, s0, 128), dtype=torch.float32, device=dev)
         dist = torch.ones((s0, 128), dtype=torch.float32, device=dev)
         for j in range(n):
-            op, o, a, b, aux = _decode(int(w1h[t, j]), int(w2h[t, j]))
+            op, o, a, b, aux = _decode(
+                int(w1h[t, j]), int(w2h[t, j]), op_order
+            )
             iv = float(immh[t, j])
             va = fm.const(iv, regs[0]) if a == IMM12 else regs[min(a, nf - 1)]
             vb = fm.const(iv, regs[0]) if b == IMM12 else regs[min(b, nf - 1)]

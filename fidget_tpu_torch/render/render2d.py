@@ -147,8 +147,8 @@ class _Bind:
     x/y/z input indices (-1 = unused), the register-file, input and
     choice-word dims, and the opcode order of its arenas. `nf` is the
     register-file size of the binding's bucket; `nf_regs` is the one the
-    value kernels (K1, K3, K6) are launched with, which need hold only
-    the registers the tape can name."""
+    value kernels (K1, K3, K6; in 3D K4 and K5) are launched with, which
+    need hold only the registers the tape can name."""
 
     two_level = False
     op_order = None

@@ -381,7 +381,7 @@ class _Pipeline3:
         if sub * sub % 128 == 0:
             pp = (sub * sub) // 128
             local = interp_voxel_depth(
-                w1_leaf, w2_leaf, imm_leaf, len_leaf, vars_v, nf=b.nf,
+                w1_leaf, w2_leaf, imm_leaf, len_leaf, vars_v, nf=b.nf_regs,
                 n_inputs=b.V, s0=self.s0v, sub=sub,
             )[:, :pp].reshape(cap_s, sub, sub)
             dcand = torch.where(
@@ -422,7 +422,9 @@ class _Pipeline3:
 
     def normals_body(self, b, st, depth, matM, var_vec):
         """Per-pixel forward-gradient normals at the surface voxels
-        (voxel.rs:447-482): K4 over `Tn` instances of the whole tape."""
+        (voxel.rs:447-482): K4 over `Tn` instances of the whole tape. The
+        lanes are split as the reference splits them for the bucket's
+        nf; K4 itself gets the tape's registers."""
         H, W, D = self.H, self.W, self.D
         dev = depth.device
         f32 = torch.float32
@@ -455,7 +457,7 @@ class _Pipeline3:
         g = interp_grad(
             w1r.expand(Tn, -1).contiguous(), w2r.expand(Tn, -1).contiguous(),
             immr.expand(Tn, -1).contiguous(), lensr.expand(Tn).contiguous(),
-            vars_n, nf=b.nf, n_inputs=V, n_outputs=1, s0=s0n,
+            vars_n, nf=b.nf_regs, n_inputs=V, n_outputs=1, s0=s0n,
         )[:, 0]  # [Tn, 4, s0n, 128]
         grads = g.reshape(Tn, 4, s0n * 128).transpose(1, 2).reshape(-1, 4)
         grads = grads[:npix, 1:4]
@@ -515,6 +517,10 @@ class VoxelRenderer:
         self.cap = min(1 << (int(cap) - 1).bit_length(), self.nsub)
 
         self.nf = tape.reg_count + tape.mem_count
+        # K4 and K5 get the registers the tape names (child tapes keep
+        # the parent's register indices), as 2D's value kernels do; K1
+        # and K2 keep the bucket's nf_b
+        self._nf_regs = self.nf
         # padded to >= 1 so constant-only shapes still build var planes
         self.n_inputs = max(1, len(tape.var_map))
         self.c_words = max(1, -(-tape.choice_count // 16))
@@ -540,7 +546,7 @@ class VoxelRenderer:
     def _bind(self) -> _TracedBind:
         return _TracedBind(
             *self._arena, self.axis_idx, self.Lcap_b, self.nf_b,
-            self.n_inputs, self.cw_b,
+            self.n_inputs, self.cw_b, nf_regs=self._nf_regs,
         )
 
     def _mat4(self, world_to_model) -> np.ndarray:

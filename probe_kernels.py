@@ -2,13 +2,15 @@
 """Where the interpreter kernels' time goes on one CUDA card.
 
 Captures the inputs that the main paths of `chip_smoke.py` hand to
-`interp_float` (K3), `interp_interval` (K1), `liveness_codes` (K2) and
-`interp_float_coded` (K6): the 2D bucketed binding (K1, K2 and K3 at
-the root tiles and the leaf), its coded leaf (K6 at the tape's
-registers, and again at the bucket's nf 64), the two-level (128, 32)
-binding (K1 and K2 at the root under the shape's `op_order` and per
-instance at the subtiles, K3 over the leaves) and the 512^3 gyroid
-frame (K2 shared and per instance). Then, for this tree and for every
+`interp_float` (K3), `interp_interval` (K1), `liveness_codes` (K2),
+`interp_float_coded` (K6), `interp_grad` (K4) and `interp_voxel_depth`
+(K5): the 2D bucketed binding (K1, K2 and K3 at the root tiles and the
+leaf), its coded leaf (K6 at the tape's registers, and again at the
+bucket's nf 64), the two-level (128, 32) binding (K1 and K2 at the root
+under the shape's `op_order` and per instance at the subtiles, K3 over
+the leaves) and the 512^3 gyroid frame (K2 shared and per instance; K4
+over the normals and K5 on its heaviest stratum, at the tape's
+registers and again at the bucket's nf 64). Then, for this tree and for every
 `--variant NAME=DIR`, it times each kernel on those inputs by CUDA
 events, in turns (tree, variants..., tree). DIR is either a full copy
 of `fidget_tpu_torch/csrc` with an experiment edited in (built and
@@ -17,8 +19,10 @@ interface), or the root of another checkout of the repository (its
 `fidget_tpu_torch` is imported beside this tree's and called through
 its own wrappers: the parent commit, say). For each build it also
 writes the disassembly (`cuobjdump -sass`) and nvcc's `-Xptxas -v` log
-of the four kernels to `<out>/<name>/` (default `probe_out/`), where
-the instructions of one tape row can be counted per opcode.
+of the six kernels to `<out>/<name>/` (default `probe_out/`), where
+the instructions of one tape row can be counted per opcode. Last, it
+times K4 and K5 of this tree at each number of lanes a thread they can
+take (`cuda.GRAD_LANES`, `cuda.VOXEL_LANES`).
 
     python3 probe_kernels.py [--variant NAME=DIR ...] [--reps 20] [--out DIR]
 
@@ -53,13 +57,16 @@ import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
-STEMS = ("interp_float", "interp_interval", "liveness", "interp_float_coded")
+STEMS = ("interp_float", "interp_interval", "liveness", "interp_float_coded",
+         "interp_grad", "interp_voxel_depth")
 #: kernel name -> (module under fidget_tpu_torch.eval, wrapper)
 WRAPPERS = {
     "interp_float": ("interp", "interp_float"),
     "interp_interval": ("interp", "interp_interval"),
     "liveness_codes": ("simplify_device", "liveness_codes"),
     "interp_float_coded": ("interp", "interp_float_coded"),
+    "interp_grad": ("interp", "interp_grad"),
+    "interp_voxel_depth": ("interp", "interp_voxel_depth"),
 }
 
 
@@ -114,13 +121,59 @@ def capture_inputs(port, cs, render2d, render3d, simplify_device):
         (render2d, "liveness_codes", lambda a, k: "liveness_codes@root"),
         (simplify_device, "liveness_codes",
          lambda a, k: "liveness_codes@instances"),
+        (render3d, "interp_grad", lambda a, k: "interp_grad@normals"),
+        (render3d, "interp_voxel_depth",
+         lambda a, k: "interp_voxel_depth@voxels"),
     ]
     with cs.capture_kernel_inputs(targets, store):
         vox.render(cs.VIEWS3[0][1])
     torch.cuda.synchronize()
     for key, (args, kwargs) in store.items():
         calls[f"3D {key}"] = (key.split("@")[0], args, kwargs)
+        if key.startswith(("interp_grad", "interp_voxel_depth")):
+            calls[f"3D {key} nf {vox.nf_b}"] = (
+                key.split("@")[0], args, dict(kwargs, nf=vox.nf_b))
     return calls
+
+
+def device_note(cs, fn, name, args, kwargs, label):
+    """The profiler's device time of a 3D call's kernel, whose
+    CUDA-event time can be the host's enqueue at these sizes."""
+    if not label.startswith("3D interp_"):
+        return ""
+    dms = cs.device_ms(lambda: fn(*args, **kwargs), name + "_kernel")
+    return "" if dms is None else f", device {dms:.4f} ms"
+
+
+def lanes_a_thread(cs, cuda, calls, reps):
+    """K4 and K5 of this tree at each number of lanes a thread they may
+    take, on the 3D path's inputs."""
+    for label, (name, args, kwargs) in calls.items():
+        if not label.startswith("3D interp_grad@") and not label.startswith(
+                "3D interp_voxel_depth@"):
+            continue
+        attr = "GRAD_LANES" if name == "interp_grad" else "VOXEL_LANES"
+        fn = getattr(importlib.import_module("fidget_tpu_torch.eval.interp"),
+                     name)
+        saved = getattr(cuda, attr)
+        want = fn(*args, **kwargs)
+        for r in (4, 2, 1):
+            setattr(cuda, attr, (r,))
+            cuda.launch_geometry.cache_clear()
+            got = fn(*args, **kwargs)
+            same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            ms = cs.time_cuda(lambda: fn(*args, **kwargs), reps)
+            g = cuda.launch_geometry(
+                name, nf=kwargs["nf"], lanes=args[4].shape[-2] * 128,
+                T=args[4].shape[0], sub=kwargs.get("sub", 0))
+            print(f"{'lanes ' + str(r):>14} | {label:<34} {ms:8.4f} ms  "
+                  f"{g.smem} B shared, {g.blocks} blocks, "
+                  f"{'equal' if same else 'DIFFERS'}"
+                  f"{device_note(cs, fn, name, args, kwargs, label)}",
+                  flush=True)
+        setattr(cuda, attr, saved)
+        cuda.launch_geometry.cache_clear()
+
 
 
 def use_sources(cuda, csrc):
@@ -286,8 +339,10 @@ def main() -> int:
             )
             ms = cs.time_cuda(lambda: fn(*args, **kwargs), opts.reps)
             print(f"{bname:>14} | {label:<34} {ms:8.4f} ms  "
-                  f"{'equal to tree' if same else 'DIFFERS from tree'}",
+                  f"{'equal to tree' if same else 'DIFFERS from tree'}"
+                  f"{device_note(cs, fn, name, args, kwargs, label)}",
                   flush=True)
+    lanes_a_thread(cs, cuda, calls, opts.reps)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
         capture_output=True, text=True,

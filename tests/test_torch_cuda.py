@@ -176,11 +176,11 @@ def test_adversarial_tapes_match_plain(card, s0, nf_pad, cw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nf_pad", [0, 256])
+@pytest.mark.parametrize("nf_pad", [0, 256, 512])
 def test_grad_and_voxel_kernels_match_plain(card, nf_pad):
-    """K4 and K5 against their plain versions; nf_pad = 256 takes both
-    to their global-scratch register files (K4 already goes there at
-    nf > 48)."""
+    """K4 and K5 against their plain versions; nf_pad = 256 takes K4 to
+    its global-scratch register files and K5 to one lane a thread, 512
+    takes K5 to its global scratch."""
     tapes = [gyroid_sphere(port).tape()] + _tapes()
     packed = pack_tapes(tapes, capacity=512)
     nf = max(packed.nf, nf_pad)
@@ -203,6 +203,106 @@ def test_grad_and_voxel_kernels_match_plain(card, nf_pad):
     got = interp_voxel_depth(*arena, pts, **kw)
     assert torch.equal(got, interp_voxel_depth_plain(*arena, pts, **kw))
     assert (got[0] > 0).any() and (got[-1] == 0).all()
+    g4 = cuda.launch_geometry("interp_grad", nf=nf, lanes=S0 * 128, T=T)
+    g5 = cuda.launch_geometry("interp_voxel_depth", nf=nf, lanes=4096, T=T,
+                              sub=16)
+    assert (g4.regs_shared, g5.regs_shared) == (nf_pad < 256, nf_pad < 512)
+
+
+@pytest.mark.cuda
+def test_grad_and_voxel_under_op_order_match_plain_and_canonical(card):
+    """K4 and K5 on an arena packed under the gyroid's frequency order:
+    equal to their plain versions with the same order (K5 exactly) and
+    bit-equal to their own results on the canonical arena."""
+    tapes = [gyroid_sphere(port).tape()] + _tapes()
+    order = frequency_op_order(tapes[0])
+    assert order != tuple(range(31))
+    to = lambda p: [torch.from_numpy(np.ascontiguousarray(a)).to(card)
+                    for a in (p.w1, p.w2, p.imm, p.lengths)]
+    canon = to(pack_tapes(tapes, capacity=512))
+    arena = to(pack_tapes(tapes, capacity=512, op_order=order))
+    nf = pack_tapes(tapes).nf
+    T = len(tapes)
+    rng = np.random.default_rng(5)
+    duals = torch.from_numpy(
+        rng.uniform(-1, 1, size=(T, 3, 4, S0, 128)).astype(np.float32)
+    ).to(card)
+    kw = dict(nf=nf, n_inputs=3, n_outputs=1, s0=S0)
+    got = interp_grad(*arena, duals, op_order=order, **kw)
+    want = interp_grad_plain(*arena, duals, op_order=order, **kw)
+    torch.testing.assert_close(got[:, :, 0], want[:, :, 0], rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got[:, :, 1:], want[:, :, 1:], rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, interp_grad(*canon, duals, **kw))
+    pts = torch.from_numpy(
+        rng.uniform(-1, 1, size=(T, 3, 32, 128)).astype(np.float32)
+    ).to(card)
+    kw = dict(nf=nf, n_inputs=3, s0=32, sub=16)
+    got = interp_voxel_depth(*arena, pts, op_order=order, **kw)
+    assert torch.equal(got, interp_voxel_depth_plain(*arena, pts,
+                                                     op_order=order, **kw))
+    assert torch.equal(got, interp_voxel_depth(*canon, pts, **kw))
+    assert (got > 0).any()
+
+
+#: (s0, nf_pad) of K4 on the adversarial tapes: its lanes a thread on
+#: the shared-memory register files, and the global scratch
+GRAD_CASES = [(8, 0), (1, 0), (8, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s0,nf_pad", GRAD_CASES)
+def test_adversarial_grad_matches_plain(card, s0, nf_pad):
+    """K4 on the adversarial tapes: bit for bit against the plain
+    version (every op of these tapes rounds correctly in f32, duals
+    too), on both register-file routes."""
+    A = adversarial_arena(cuda.TAPE_CHUNK)
+    arena = [torch.from_numpy(A[k]).to(card)
+             for k in ("w1", "w2", "imm", "lengths")]
+    T = len(A["names"])
+    nf = max(A["nf"], nf_pad)
+    g = cuda.launch_geometry("interp_grad", nf=nf, lanes=s0 * 128, T=T)
+    assert g.regs_shared == (nf_pad == 0)
+    rng = np.random.default_rng(9)
+    duals = torch.from_numpy(rng.uniform(
+        -1.5, 1.5, size=(T, 2, 4, s0, 128)).astype(np.float32)).to(card)
+    kw = dict(nf=nf, n_inputs=2, n_outputs=2, s0=s0)
+    cuda.reset_launches()
+    got = interp_grad(*arena, duals, **kw)
+    assert cuda.LAUNCHES["interp_grad"] == 1
+    want = interp_grad_plain(*arena, duals, **kw)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (got[A["names"].index("len0")] == 0).all()
+
+
+#: (sub, nf_pad) of K5 on the adversarial tapes: four lanes a thread at
+#: sub 16 and 32 (4 and 32 blocks a subtile), one lane a thread (nf 256)
+#: and the global scratch (nf 512)
+VOXEL_CASES = [(16, 0), (32, 0), (16, 256), (16, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sub,nf_pad", VOXEL_CASES)
+def test_adversarial_voxel_depth_matches_plain(card, sub, nf_pad):
+    """K5 on the adversarial tapes, with a ramp over vz in the inputs so
+    that the surface moves within a column: depths bit for bit against
+    the plain version."""
+    A = adversarial_arena(cuda.TAPE_CHUNK)
+    arena = [torch.from_numpy(A[k]).to(card)
+             for k in ("w1", "w2", "imm", "lengths")]
+    T = len(A["names"])
+    nf = max(A["nf"], nf_pad)
+    g = cuda.launch_geometry("interp_voxel_depth", nf=nf, lanes=sub**3, T=T,
+                             sub=sub)
+    assert g.regs_shared == (nf_pad < 512)
+    rng = np.random.default_rng(10)
+    vz = np.arange(sub**3) // (sub * sub)
+    x = rng.uniform(-1.5, 1.5, size=(T, 2, sub**3)) + (vz / sub * 3 - 1.5)
+    pts = torch.from_numpy(
+        x.astype(np.float32).reshape(T, 2, sub**3 // 128, 128)).to(card)
+    kw = dict(nf=nf, n_inputs=2, s0=sub**3 // 128, sub=sub)
+    got = interp_voxel_depth(*arena, pts, **kw)
+    assert torch.equal(got, interp_voxel_depth_plain(*arena, pts, **kw))
+    assert len(got.unique()) > 4 and (got[A["names"].index("len0")] == 0).all()
 
 
 @pytest.mark.cuda

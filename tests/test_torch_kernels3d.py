@@ -4,8 +4,10 @@ the 3D transforms against fidget_tpu's, on the CPU.
 On the CPU each wrapper runs its kernel's plain PyTorch version, so
 these tests hold the plain versions to the reference: the Pallas
 kernels in interpret mode on the same packed arenas (K4 at S0 = 8:
-values allclose at 1e-6, derivatives at 1e-5; K5 at sub = 16, S0 = 32:
-depths exact), the grad-mode op matrix against the reference's numpy
+values allclose at 1e-6, derivatives at 1e-5; K5 at sub = 16, S0 = 32,
+and at sub = 32: depths exact), both also on arenas packed under a
+`frequency_op_order` with the same order handed to both sides, the
+grad-mode op matrix against the reference's numpy
 GradMode at the tolerances of tests/test_kernel_ops.py, and
 `transform_duals` / `VoxelSize` against the reference's. The CUDA
 kernels are held to the same plain versions on the card by
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 import fidget_tpu as ref
+from fidget_tpu.compiler.pack import frequency_op_order as ref_frequency_op_order
 from fidget_tpu.compiler.pack import pack_tapes as ref_pack_tapes
 from fidget_tpu.eval import pallas_interp as ref_interp
 from fidget_tpu.eval.arith import GradMode as RefGradMode
@@ -216,6 +219,99 @@ def test_k5_voxel_depth_matches_reference_kernel():
     live = got[:-2, :2]
     assert (live > 0).any() and (live == 0).any() and (live < SUB).any()
     assert (got[-2:] == 0).all() and (got[:, 2:] == 0).all()
+
+
+@pytest.fixture(scope="module")
+def voxel_order():
+    """The gyroid's frequency order: sin and cos move ahead of the
+    ops a canonical switch puts first."""
+    order = ref_frequency_op_order(REF_TAPES[len(REF_TAPES) - 1])
+    assert order[:4] != tuple(range(4))
+    return order
+
+
+def test_k4_under_op_order_matches_reference_kernel(voxel_order):
+    """K4 on arenas packed under the gyroid's frequency order, the
+    same order to both sides: values allclose at 2e-5, derivatives at
+    1e-4, and equal to the port's own canonical result."""
+    order = voxel_order
+    port_tapes = [port_tape_from_ref(t) for t in REF_TAPES]
+    pp = pack_tapes(port_tapes, capacity=512, op_order=order)
+    rp = ref_pack_tapes(REF_TAPES, capacity=512, op_order=order)
+    np.testing.assert_array_equal(pp.w1, rp.w1)
+    duals = _grad_planes(REF_TAPES, 8)
+    kw = dict(nf=rp.nf, n_inputs=V3, n_outputs=1, s0=S0)
+    want = np.asarray(ref_interp.interp_grad(
+        rp.w1, rp.w2, rp.imm, rp.lengths, duals, interpret=True,
+        op_order=order, **kw))
+    got = interp_grad(*_arena(pp), torch.from_numpy(duals), op_order=order,
+                      **kw)
+    np.testing.assert_allclose(got[:, :, 0], want[:, :, 0], rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got[:, :, 1:], want[:, :, 1:], rtol=1e-4,
+                               atol=1e-4)
+    canonical = pack_tapes(port_tapes, capacity=512)
+    torch.testing.assert_close(
+        got, interp_grad(*_arena(canonical), torch.from_numpy(duals), **kw),
+        rtol=0, atol=0)
+    assert not np.array_equal(pp.w1, canonical.w1)
+
+
+def test_k5_under_op_order_matches_reference_kernel(voxel_order):
+    """K5 over `_voxel_case` packed under the gyroid's frequency order:
+    depths equal the reference's and the port's canonical ones."""
+    order = voxel_order
+    tapes, planes = _voxel_case()
+    pp = pack_tapes([port_tape_from_ref(t) for t in tapes], capacity=512,
+                    op_order=order)
+    rp = ref_pack_tapes(tapes, capacity=512, op_order=order)
+    lens = rp.lengths.copy()
+    lens[-2] = 0
+    kw = dict(nf=rp.nf, n_inputs=V3, s0=S0V, sub=SUB)
+    want = np.asarray(ref_interp.interp_voxel_depth(
+        rp.w1, rp.w2, rp.imm, lens, planes, interpret=True, op_order=order,
+        **kw))
+    w1, w2, imm, _ = _arena(pp)
+    got = interp_voxel_depth(w1, w2, imm, torch.from_numpy(lens),
+                             torch.from_numpy(planes), op_order=order, **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    cp = pack_tapes([port_tape_from_ref(t) for t in tapes], capacity=512)
+    canonical = interp_voxel_depth(
+        *_arena(cp)[:3], torch.from_numpy(lens), torch.from_numpy(planes), **kw)
+    assert torch.equal(got, canonical)
+    assert (got[:-2, :2] > 0).any() and (got[-2] == 0).all()
+
+
+def test_k5_sub32_matches_reference_kernel():
+    """K5 at sub = 32 (S0 = 256, eight column planes, no padding): the
+    gyroid sphere at two places and a culled instance, depths exact."""
+    sub = 32
+    s0 = sub**3 // 128
+    gyroid = REF_TAPES[len(REF_TAPES) - 1]
+    tapes = [gyroid, REF_TAPES[UNION], gyroid]
+    rng = np.random.default_rng(12)
+    vz, vy, vx = np.meshgrid(*[np.arange(sub)] * 3, indexing="ij")
+    vox = np.stack([vx, vy, vz]).reshape(3, -1).astype(np.float32)
+    planes = np.zeros((len(tapes), V3, s0, 128), np.float32)
+    for t_i, tape in enumerate(tapes):
+        base = rng.uniform(-1.0, 0.2, size=3).astype(np.float32)
+        pts = base[:, None] + vox * np.float32(0.03)
+        for v, i in tape.var_map.items():
+            planes[t_i, i] = pts["xyz".index(v.kind)].reshape(s0, 128)
+    pp = pack_tapes([port_tape_from_ref(t) for t in tapes], capacity=512)
+    rp = ref_pack_tapes(tapes, capacity=512)
+    lens = rp.lengths.copy()
+    lens[-1] = 0
+    kw = dict(nf=rp.nf, n_inputs=V3, s0=s0, sub=sub)
+    want = np.asarray(ref_interp.interp_voxel_depth(
+        rp.w1, rp.w2, rp.imm, lens, planes, interpret=True, **kw))
+    w1, w2, imm, _ = _arena(pp)
+    got = interp_voxel_depth(w1, w2, imm, torch.from_numpy(lens),
+                             torch.from_numpy(planes), **kw).numpy()
+    assert got.shape == want.shape == (len(tapes), 8, 128)
+    np.testing.assert_array_equal(got, want)
+    live = got[:-1]
+    assert (live > 0).any() and (live == 0).any() and (live < sub).any()
+    assert (got[-1] == 0).all()
 
 
 def test_k5_nan_distance_is_not_inside():

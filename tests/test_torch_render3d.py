@@ -117,6 +117,43 @@ def test_frame_matches_reference_stage_by_stage(ts, sub, view):
     )
 
 
+@pytest.mark.parametrize("view", [None, TURN], ids=["identity", "turned"])
+def test_voxel_and_grad_get_the_tapes_registers(monkeypatch, view):
+    """K5 and K4 are launched with the registers the tape names (the
+    gyroid's 6), K1 and K2 with the bucket's 64; the normals pass keeps
+    the reference's lane split for the bucket's nf. Depth and normals
+    equal a frame that hands K4 and K5 the bucket's nf."""
+    pr = port.VoxelRenderer(
+        port_tape_from_ref(REF_GYROID), port.VoxelSize(32, 32, 32),
+        tile_size=32, sub_size=16, device="cpu",
+    )
+    assert (pr.nf, pr.nf_b) == (REF_GYROID.reg_count, 64)
+    seen = []
+
+    def recorder(name, fn):
+        def call(*args, **kwargs):
+            seen.append((name, kwargs["nf"], kwargs.get("s0")))
+            return fn(*args, **kwargs)
+        return call
+
+    for name in ("interp_voxel_depth", "interp_grad", "interp_interval"):
+        monkeypatch.setattr(render3d, name,
+                            recorder(name, getattr(render3d, name)))
+    img = pr.render(view)
+    nfs = {(name, nf) for name, nf, _ in seen}
+    assert nfs == {("interp_voxel_depth", pr.nf), ("interp_grad", pr.nf),
+                   ("interp_interval", pr.nf_b)}
+    s0n = {s0 for name, _, s0 in seen if name == "interp_grad"}
+    assert s0n == {render3d._Pipeline3.s0n_of(pr.nf_b)}
+    pr._nf_regs = pr.nf_b
+    seen.clear()
+    bucket = pr.render(view)
+    assert {nf for name, nf, _ in seen if name != "interp_interval"} == {64}
+    assert torch.equal(img.depth, bucket.depth)
+    assert torch.equal(img.normal, bucket.normal)
+    assert (img.depth > 0).any()
+
+
 def test_overflow_retry():
     """tests/test_render3d.py::test_overflow_retry on the port: a tiny
     worklist must grow and still give brute's depth exactly."""

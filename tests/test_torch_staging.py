@@ -1,6 +1,6 @@
-"""The launch geometry of the redesigned K1, K2, K3 and K6 kernels,
-and the hand-packed tapes that `chip_smoke.py` and the card tests run
-through them, on the CPU.
+"""The launch geometry of the redesigned kernels (K1-K6), and the
+hand-packed tapes that `chip_smoke.py` and the card tests run through
+them, on the CPU.
 
 `launch_geometry` (fidget_tpu_torch/eval/cuda.py) is plain Python: it
 decides lanes per thread, shared-memory bytes, the tape chunk and the
@@ -10,10 +10,13 @@ tapes (`scenes.adversarial_arena`) are built to break the kernels' tape
 staging; on the card the kernels are held to the plain PyTorch versions
 on them, so here the plain versions are held to the reference's
 `interp_float` / `interp_interval` / `_liveness_codes` /
-`interp_float_coded` in interpret mode on the same arena and the same
-seeded numpy inputs (values equal at rtol 1e-6, atol 1e-7, the tolerance
-of tests/test_torch_kernels.py; every op of these tapes rounds correctly
-in f32; choice words and action codes exact).
+`interp_float_coded` / `interp_grad` / `interp_voxel_depth` in
+interpret mode on the same arena and the same seeded numpy inputs
+(values equal at rtol 1e-6, atol 1e-7, the tolerance of
+tests/test_torch_kernels.py; every op of these tapes rounds correctly
+in f32; choice words, action codes and voxel depths exact; K4 at its
+tolerances of tests/test_torch_cuda.py, 2e-5 on values and 1e-4 on
+derivatives).
 """
 
 import numpy as np
@@ -27,7 +30,9 @@ from fidget_tpu_torch.eval import cuda
 from fidget_tpu_torch.eval.interp import (
     interp_float,
     interp_float_coded,
+    interp_grad,
     interp_interval,
+    interp_voxel_depth,
 )
 from fidget_tpu_torch.eval.simplify_device import liveness_codes
 from fidget_tpu_torch.scenes import (
@@ -161,6 +166,105 @@ def test_main_path_geometry_k2_k6():
         "interp_float_coded", nf=64, lanes=16384, T=64).r == 2
 
 
+#: (label, nf, lanes, T, sub) of K4 and K5: the 3D path's launches at
+#: the tape's 6 registers and the bucket's 64, K5 at sub 32, 48 and 64,
+#: few instances, and register files too large for shared memory
+GEOMETRY_3D_CASES = [
+    ("normals-regs", 6, 8192, 32, 0),
+    ("normals-bucket", 64, 8192, 32, 0),
+    ("voxels-regs", 6, 4096, 1024, 16),
+    ("voxels-bucket", 64, 4096, 1024, 16),
+    ("voxels-sub32", 6, 32768, 4, 32),
+    ("voxels-sub48", 6, 48**3, 4, 48),
+    ("voxels-sub64", 6, 64**3, 2, 64),
+    ("few", 13, 4096, 3, 16),
+    ("nf256", 256, 4096, 10, 16),
+    ("nf512", 512, 4096, 10, 16),
+    ("nf512-sub32", 512, 32768, 2, 32),
+]
+
+
+@pytest.mark.parametrize("kernel", ["interp_grad", "interp_voxel_depth"])
+@pytest.mark.parametrize("case", GEOMETRY_3D_CASES, ids=lambda c: c[0])
+def test_launch_geometry_3d(kernel, case):
+    """K4 takes GRAD_LANES and four register files; K5 VOXEL_LANES, the
+    fewest columns a block that take it VOXEL_PASSES passes of whole
+    slices, and a fold of BLOCK * r ints where a pass spans several
+    slices; both keep the global scratch for files that not even one
+    lane a thread fits, and the budget of two blocks an SM where the
+    grid has more blocks than SMs."""
+    _, nf, lanes, T, sub = case
+    if kernel == "interp_grad":
+        g = cuda.launch_geometry(kernel, nf=nf, lanes=lanes, T=T)
+        rs = [r for r in cuda.GRAD_LANES if lanes % (cuda.BLOCK * r) == 0]
+        planes = 4
+        fold = lambda r: 0
+        blocks = lambda r: T * lanes // (cuda.BLOCK * r)
+    else:
+        if not sub:
+            return
+        g = cuda.launch_geometry(kernel, nf=nf, lanes=lanes, T=T, sub=sub)
+        cols = sub * sub
+        rs = [r for r in cuda.VOXEL_LANES if cuda._voxel_cols(sub, r)]
+        planes = 1
+        cb = cuda._voxel_cols
+        fold = lambda r: 4 * cuda.BLOCK * r if cuda.BLOCK * r > cb(sub, r) else 0
+        blocks = lambda r: T * cols // cb(sub, r)
+        # a block's columns: whole slices of a pass that divides sub, at
+        # least VOXEL_PASSES passes, and no fewer columns would do
+        P = cuda.BLOCK * g.r
+        assert g.cols == cb(sub, g.r)
+        assert cols % g.cols == 0 and P % g.cols == 0 and g.cols % g.r == 0
+        assert sub % (P // g.cols) == 0
+        passes = sub * g.cols // P
+        assert passes >= cuda.VOXEL_PASSES
+        assert not [c for c in range(g.r, g.cols, g.r)
+                    if cols % c == 0 and P % c == 0 and sub % (P // c) == 0
+                    and sub * c // P >= cuda.VOXEL_PASSES]
+    ring = cuda.tape_ring_bytes(g.chunk)
+    assert g.r in rs and g.chunk == cuda.TAPE_CHUNK
+    assert g.blocks == blocks(g.r) and g.smem <= SMEM_BLOCK_MAX
+    file_bytes = lambda r: planes * nf * cuda.BLOCK * r * 4
+    fits_at_all = ring + file_bytes(min(rs)) + fold(min(rs)) <= SMEM_BLOCK_MAX
+    assert g.regs_shared == fits_at_all
+    assert g.smem == ring + fold(g.r) + (file_bytes(g.r) if g.regs_shared else 0)
+    assert not g.choices_shared and g.mask_words == 0
+    assert (g.cols > 0) == (kernel == "interp_voxel_depth")
+    if g.regs_shared:
+        for r in rs[:rs.index(g.r)]:  # every wider choice must not fit
+            budget = SMEM_BLOCK_MAX if blocks(r) <= cuda.N_SM else (
+                cuda.SMEM_SM // 2 - cuda.SMEM_BLOCK_RESERVED)
+            assert ring + file_bytes(r) + fold(r) > budget
+    else:
+        assert g.r == rs[0]
+
+
+def test_main_path_geometry_k4_k5():
+    """What the 3D path gives K4 and K5 at the gyroid's 6 registers: K4
+    two lanes a thread with its four files in shared memory (at the
+    bucket's 64 one lane, 128 KB of files), K5 four lanes a thread, four
+    blocks a subtile of 64 columns, eight slices a pass and two passes,
+    eight blocks an SM."""
+    k4 = cuda.launch_geometry("interp_grad", nf=6, lanes=8192, T=32)
+    assert (k4.r, k4.regs_shared, k4.blocks) == (2, True, 1024)
+    assert k4.smem == cuda.tape_ring_bytes(k4.chunk) + 4 * 6 * 256 * 4
+    wide = cuda.launch_geometry("interp_grad", nf=64, lanes=8192, T=32)
+    assert (wide.r, wide.regs_shared) == (1, True)
+    k5 = cuda.launch_geometry("interp_voxel_depth", nf=6, lanes=4096, T=1024,
+                              sub=16)
+    assert (k5.r, k5.regs_shared, k5.blocks, k5.cols) == (4, True, 4096, 64)
+    assert k5.smem == cuda.tape_ring_bytes(k5.chunk) + 6 * 512 * 4 + 512 * 4
+    assert 8 * (k5.smem + cuda.SMEM_BLOCK_RESERVED) <= cuda.SMEM_SM
+
+
+def test_launch_geometry_rejects_bad_subtiles():
+    with pytest.raises(ValueError, match="sub"):
+        cuda.launch_geometry("interp_voxel_depth", nf=6, lanes=512, T=1,
+                             sub=8)
+    with pytest.raises(ValueError, match="sub"):
+        cuda.launch_geometry("interp_voxel_depth", nf=6, lanes=4096, T=1)
+
+
 def test_live_ring_bytes_matches_the_layout():
     """Two buffers of `chunk` decoded 32-byte rows and two raw words a
     row (csrc/liveness.cu `LiveRing`)."""
@@ -176,7 +280,7 @@ def test_launch_geometry_rejects_ragged_lanes(lanes):
 
 def test_launch_geometry_rejects_other_kernels():
     with pytest.raises(ValueError):
-        cuda.launch_geometry("interp_grad", nf=8, lanes=128, T=1)
+        cuda.launch_geometry("interp_nothing", nf=8, lanes=128, T=1)
 
 
 def test_tape_ring_bytes_matches_the_layout():
@@ -508,3 +612,82 @@ def test_adversarial_coded_codes_cover_every_row_kind():
     assert {(3, "unary", "imm"), (3, "unary", "reg"), (3, "binary", "imm"),
             (3, "binary", "reg"), (2, "unary", "reg"),
             (2, "binary", "reg")} <= seen
+
+
+# ----------------------------------------------------------------------
+# K4 and K5 on the adversarial tapes
+
+VOX_SUBS = (16, 32)
+
+
+def _voxel_planes(sub, rng):
+    """[T, 2, sub^3 / 128, 128]: seeded inputs with a ramp over vz, so
+    that the chains' distances change sign within a column."""
+    T = len(NAMES)
+    vz = np.arange(sub**3) // (sub * sub)
+    x = rng.uniform(-1.5, 1.5, size=(T, 2, sub**3)) + (vz / sub * 3 - 1.5)
+    return x.astype(np.float32).reshape(T, 2, sub**3 // 128, 128)
+
+
+@pytest.fixture(scope="module")
+def evaluated_3d():
+    """The arena through the port's K4 and K5 (plain versions on the
+    CPU) and the reference's in interpret mode; K5 at sub 16 and 32."""
+    A = ARENA
+    arena = [torch.from_numpy(A[k]) for k in ("w1", "w2", "imm", "lengths")]
+    ref_arena = (A["w1"], A["w2"], A["imm"], A["lengths"])
+    rng = np.random.default_rng(21)
+    duals = rng.uniform(-1.5, 1.5, size=(len(NAMES), 2, 4, S0, 128))
+    duals = duals.astype(np.float32)
+    kw = dict(nf=A["nf"], n_inputs=2, n_outputs=2, s0=S0)
+    out = {"grad": (
+        interp_grad(*arena, torch.from_numpy(duals), **kw).numpy(),
+        np.asarray(ref_interp.interp_grad(*ref_arena, duals, interpret=True,
+                                          **kw)),
+    )}
+    for sub in VOX_SUBS:
+        planes = _voxel_planes(sub, rng)
+        kw = dict(nf=A["nf"], n_inputs=2, s0=sub**3 // 128, sub=sub)
+        out[sub] = (
+            interp_voxel_depth(*arena, torch.from_numpy(planes), **kw).numpy(),
+            np.asarray(ref_interp.interp_voxel_depth(
+                *ref_arena, planes, interpret=True, **kw)),
+        )
+    return out
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_adversarial_grad_matches_reference(evaluated_3d, name):
+    t = NAMES.index(name)
+    got, want = evaluated_3d["grad"]
+    for o in range(2):
+        if o in _written(name):
+            np.testing.assert_allclose(got[t, o, 0], want[t, o, 0],
+                                       rtol=2e-5, atol=2e-5)
+            np.testing.assert_allclose(got[t, o, 1:], want[t, o, 1:],
+                                       rtol=1e-4, atol=1e-4)
+            assert np.isfinite(got[t, o]).all()
+            assert name == "len1" or (got[t, o, 1:] != 0).any()
+        else:
+            assert (got[t, o] == 0).all()
+    if name == "len1":  # an immediate is (imm, 0, 0, 0)
+        assert (got[t, 0, 0] == 1.5).all() and (got[t, 0, 1:] == 0).all()
+
+
+@pytest.mark.parametrize("sub", VOX_SUBS)
+@pytest.mark.parametrize("name", NAMES)
+def test_adversarial_voxel_depth_matches_reference(evaluated_3d, name, sub):
+    """Depth exact on every tape: the chains across chunk boundaries and
+    cut mid-chunk, past L, two OUTPUT rows (the last one counts) and a
+    register past nf; a tape without rows is empty."""
+    t = NAMES.index(name)
+    got, want = evaluated_3d[sub]
+    np.testing.assert_array_equal(got[t], want[t])
+    pp = sub * sub // 128
+    assert (got[t, pp:] == 0).all()
+    if name == "len0":
+        assert (got[t] == 0).all()
+    elif name in ("chain255", "chain773", "over", "clamp"):
+        # the ramp over vz moves these tapes' surface inside the columns
+        # (others end on a value of one sign, as chain256 on an ABS)
+        assert len(np.unique(got[t, :pp])) > 2
