@@ -9,7 +9,10 @@ under each of its tape bindings (bucketed, coded leaf, per-shape
 arena, two tile levels) and the 3D heightmap + normals renderer
 (`VoxelRenderer.render()` at 512^3 on the 28-op gyroid sphere, and at
 128^3 on a 3,303-op union of 300 spheres), holding every frame against
-the numpy oracles. Run from the root of the repository:
+the numpy oracles; then the shape-parameter gradient of the 2D frame
+and the mesher (`build_mesh` at depth 8 on the sphere union and the
+gyroid sphere), on `BulkEvaluator`. Run from the root of the
+repository:
 
     python3 chip_smoke.py
 
@@ -96,7 +99,28 @@ Phases (any failure exits non-zero and prints no result):
    K5 at sub 32 on a few subtiles of the gyroid; K1 and K2 at their 3D
    shapes; times and bounds over the real lanes and live instances
    only;
-9. per-stage times of a warm 512^3 normals frame.
+9. per-stage times of a warm 512^3 normals frame;
+10. gradient: the parametrized 7,207-op stand-in (`param_standin_shape`,
+   two shape Vars, V = 4) at 1024^2, bucketed, pixel_perfect; loss
+   sum(img^2) / N^2 reversed through `_frame` with backward() (K3
+   primal, two K4 passes for the Jacobian), held to `torch.func.jacfwd`
+   (rtol 1e-5, atol 1e-6) and to central differences (h = 1e-2; rtol
+   2e-2, atol 1e-3); without pixel_perfect, on the zoomed-out view,
+   proven fills have a zero or NaN tangent (`torch.func.jvp`); forward
+   and step times, the step's launches and device busy time, and K3 and
+   K4 on the step's inputs against their plain versions;
+11. mesh: `build_mesh` at depth 8, collapse on, on the sphere union and
+   the gyroid sphere (world [-1, 1]^3 viewing model [-1.1, 1.1]^3),
+   launch counts set to 0 before and read after; each mesh a closed
+   2-manifold but at ambiguous-face pinches, wound outward (positive
+   volume, 99% of the area with normals along the gradient), every
+   vertex inside its cell and within its cell's diagonal of the surface
+   (|f| / |grad f| by `BulkEvaluator`); a depth-5 sphere built on the
+   card equal to the CPU's build; warm builds timed by stage
+   (`_StageClock`) with the device's busy time; and K1, K3 and K4 on the
+   inputs the depth-8 builds gave them, bit-equal to their plain
+   versions on the first instances (NaN where plain is NaN), with time,
+   bound and the cost of copying the tape over the instances.
 
 The last two lines of standard output are the `kernels` JSON line and
 the device JSON line.
@@ -1670,6 +1694,459 @@ def phase_union3d(port, cuda, reps=10):
     log(f"  oracle {time.time() - t0:.1f} s")
 
 
+# ----------------------------------------------------------------------
+# gradients, bulk evaluation and meshing
+
+#: finite-difference step and the reference's tolerances
+#: (tests/test_grad_parity.py:230-253)
+H_FD = 1e-2
+#: parameter values of the parametrized 2D stand-in: (shift, grow)
+GRAD_PARAMS = (0.013, 0.004)
+#: BASELINE.json's meshing depth, and the depth of the card-against-CPU
+#: build
+MESH_DEPTH = 8
+MESH_DEPTH_CPU = 5
+#: world -> model of the mesh scenes: world [-1, 1]^3 views model
+#: [-1.1, 1.1]^3, so the union's spheres (centres in [-0.9, 0.9], radii
+#: up to 0.12) and the gyroid sphere (radius 0.8) lie inside the cube
+#: and their meshes close
+MESH_VIEW = np.diag([1.1, 1.1, 1.1, 1.0])
+#: warm builds timed per scene
+MESH_REPS = 3
+#: instances of a captured bulk call held to the plain version: the
+#: plain version walks every instance's copy of the tape on the host,
+#: so it takes the first few (each instance depends on its own lanes
+#: only)
+PLAIN_INSTANCES = 4
+KERNELS_MESH = ("interp_interval", "interp_float", "interp_grad")
+
+
+def _param_standin(port):
+    from fidget_tpu_torch.scenes import param_standin_shape
+
+    ctx = port.Context()
+    shift, grow = port.Var.new(), port.Var.new()
+    tape = port.lower(ctx, [param_standin_shape(ctx, ctx.input(shift),
+                                                ctx.input(grow))])
+    if (len(tape), tape.reg_count, tape.choice_count) != (7207, 14, 1066):
+        raise Failed(f"parametrized stand-in lowered to {len(tape)} ops, "
+                     f"{tape.reg_count} registers, {tape.choice_count} choices")
+    return tape, shift, grow
+
+
+def _device_busy(fn, reps):
+    """(device busy ms per call, wall ms per call under the profiler,
+    device ops per call, the heaviest kernels) of `fn` over `reps`
+    warm calls, from the profiler's device-side entries; None when it
+    records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / reps
+    if busy == 0:
+        return None
+    events.sort(key=lambda e: -e.self_device_time_total)
+    top = [(e.key[:60], e.self_device_time_total / 1e3 / reps, e.count / reps)
+           for e in events[:5]]
+    return busy, wall, sum(e.count for e in events) / reps, top
+
+
+def _log_busy(label, busy, median_ms):
+    if busy is None:
+        log(f"  {label}: profiler recorded no device time; busy share not "
+            f"measured")
+        return None
+    ms, wall, ops, top = busy
+    log(f"  {label}: device busy {ms:.3f} ms a run of {wall:.1f} ms under the "
+        f"profiler ({100 * ms / median_ms:.1f}% of the unprofiled median "
+        f"{median_ms:.1f} ms), {ops:.0f} device ops; heaviest: " + "; ".join(
+            f"{k} {t:.3f} ms x{c:.0f}" for k, t, c in top))
+    return ms
+
+
+def _median_ms(fn, reps):
+    wall = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(wall)), min(wall)
+
+
+def phase_grad(port, cuda, rows, size=SIZE, reps=5, dev="cuda"):
+    """The shape-parameter gradient of a 1024^2 frame of the
+    parametrized stand-in (bucketed binding, pixel_perfect): loss
+    sum(img^2) / N^2 reversed through `_frame` with backward(), held to
+    forward mode (`torch.func.jacfwd`; rtol 1e-5, atol 1e-6) and to
+    central differences (h = 1e-2; rtol 2e-2, atol 1e-3); without
+    pixel_perfect, proven fills get a zero or NaN tangent
+    (`torch.func.jvp`). Times the forward frame and the forward +
+    backward step; records K3 and K4 launches of the step and holds both
+    kernels to their plain versions on its inputs."""
+    dev = torch.device(dev)
+    tape, shift, grow = _param_standin(port)
+    r = port.PixelRenderer(tape, port.ImageSize(size, size), device=dev)
+    mat = r._mat4(None)
+    vec0 = r._var_vec({shift: GRAD_PARAMS[0], grow: GRAD_PARAMS[1]})
+    V = len(vec0)
+    N = size
+
+    def loss(v, pixel_perfect=True):
+        img, _ = r._frame(mat, 0.0, v, pixel_perfect=pixel_perfect)
+        return (img[:N, :N] ** 2).sum() / (N * N)
+
+    def step():
+        v = torch.tensor(vec0, device=dev, requires_grad=True)
+        loss(v).backward()
+        return v.grad
+
+    from fidget_tpu_torch.eval import interp
+    from fidget_tpu_torch.render import render2d
+
+    captured = {}
+    targets = [(render2d, "interp_float", lambda a, k: "interp_float"),
+               (interp, "interp_grad", lambda a, k: "interp_grad")]
+    with capture_kernel_inputs(targets, captured):
+        step()  # warm-up; its inputs feed the kernel rows
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    g_rev = step()
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    log(f"gradient: {len(tape)}-op parametrized stand-in, V = {V}, {N}^2, "
+        f"one forward + backward step launched {launches}")
+    for k in ("interp_float", "interp_grad"):
+        if launches[k] == 0:
+            raise Failed(f"the gradient step never launched {k}")
+    g_rev = g_rev.double().cpu().numpy()
+    g_fwd = torch.func.jacfwd(loss)(torch.tensor(vec0, device=dev))
+    g_fwd = g_fwd.double().cpu().numpy()
+    if not np.allclose(g_rev, g_fwd, rtol=1e-5, atol=1e-6):
+        raise Failed(f"reverse mode {g_rev} differs from forward mode {g_fwd}")
+    fd = np.zeros(V)
+    with torch.no_grad():
+        for k in range(V):
+            e = np.zeros(V, np.float32)
+            e[k] = H_FD
+            lo = float(loss(torch.tensor(vec0 - e, device=dev)))
+            hi = float(loss(torch.tensor(vec0 + e, device=dev)))
+            fd[k] = (hi - lo) / (2 * H_FD)
+    if not np.allclose(g_rev, fd, rtol=2e-2, atol=1e-3):
+        raise Failed(f"reverse mode {g_rev} differs from central "
+                     f"differences {fd}")
+    # beside it, a step ten times smaller (reported, not held: the
+    # 800-circle loss is not smooth at the scale of a few pixels)
+    fd3 = np.zeros(V)
+    with torch.no_grad():
+        for k in range(V):
+            e = np.zeros(V, np.float32)
+            e[k] = H_FD / 10
+            lo = float(loss(torch.tensor(vec0 - e, device=dev)))
+            hi = float(loss(torch.tensor(vec0 + e, device=dev)))
+            fd3[k] = (hi - lo) / (2 * H_FD / 10)
+    kinds = [v.kind for v, _ in sorted(tape.var_map.items(), key=lambda p: p[1])]
+    log(f"  d loss / d inputs {kinds}: "
+        f"reverse {g_rev.tolist()}, torch.func.jacfwd {g_fwd.tolist()}, central "
+        f"differences {fd.tolist()} (h = {H_FD}), {fd3.tolist()} (h = "
+        f"{H_FD / 10})")
+    # fills carry no tangent: the zoomed-out view, whose outer tiles
+    # are proven empty
+    dvec = torch.zeros(V, device=dev)
+    dvec[tape.var_map[shift]] = 0.7
+    dvec[tape.var_map[grow]] = -0.3
+    mat2 = r._mat4(FRAMES[2])
+    _, tang = torch.func.jvp(
+        lambda v: r._frame(mat2, 0.0, v, pixel_perfect=False)[0],
+        (torch.tensor(vec0, device=dev),), (dvec,))
+    _, fill = r._frame(mat2, 0.0, vec0, pixel_perfect=False)
+    filled = fill != 0
+    t_fill = tang[filled]
+    if not filled.any() or not bool(((t_fill == 0) | ~torch.isfinite(t_fill)).all()):
+        raise Failed("no proven fill, or one carries a finite non-zero tangent")
+    log(f"  pixel_perfect=False: {int(filled.sum())} filled pixels, all with "
+        f"a zero or NaN tangent")
+    with torch.no_grad():
+        fwd_ms = _median_ms(lambda: loss(torch.tensor(vec0, device=dev)), reps)
+    step_ms = _median_ms(step, reps)
+    log(f"  forward frame + loss {fwd_ms[0]:.3f} ms median ({fwd_ms[1]:.3f} "
+        f"min), forward + backward step {step_ms[0]:.3f} ms median "
+        f"({step_ms[1]:.3f} min), host clock, synchronized, {reps} warm "
+        f"runs")
+    busy = _log_busy("gradient step", _device_busy(step, reps), step_ms[0])
+    for name in ("interp_float", "interp_grad"):
+        args, kwargs = captured[name]
+        rows[name]["at_gradient"] = {
+            "launches": launches[name], "forward_ms": fwd_ms[0],
+            "step_ms": step_ms[0], "step_device_busy_ms": busy,
+            **_measure_sliced(f"{name} in the gradient step", name, args,
+                              kwargs),
+        }
+
+
+def _mesh_scenes(port):
+    from fidget_tpu_torch.scenes import gyroid_sphere, sphere_union_shape
+
+    ctx = port.Context()
+    union = port.lower(ctx, [sphere_union_shape(ctx)])
+    if (len(union), union.reg_count, union.choice_count) != (3303, 13, 299):
+        raise Failed(f"sphere union lowered to {len(union)} ops")
+    return [("union", "sphere union", union),
+            ("gyroid", "gyroid sphere", gyroid_sphere(port))]
+
+
+@contextlib.contextmanager
+def _cell_boxes(collapse, boxes):
+    """Records, for the build it wraps, every output vertex with the
+    box of the octree cell it belongs to: the leaf cell of a fine
+    vertex, the merged cell of a collapsed one. `boxes` receives
+    (vertices [V, 3] f64, lo [V, 3], size [V]) in world units."""
+    real_walk = collapse.collapse_and_walk
+    real_store = collapse.HostVertexStore
+
+    class BoxedStore(real_store):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.lo, self.size = BoxedStore.fine
+
+        def merge_round(self, member_vids, seg_member, pbase, ps):
+            self.cand = (pbase, ps)
+            return super().merge_round(member_vids, seg_member, pbase, ps)
+
+        def commit(self, accept):
+            pbase, ps = self.cand
+            lo = pbase[accept].astype(np.float64) * self.h - 1.0
+            self.lo = np.concatenate([self.lo, lo])
+            self.size = np.concatenate(
+                [self.size, np.full(len(lo), ps * self.h)])
+            return super().commit(accept)
+
+        def final_positions(self, ids):
+            boxes.append((self.vpos[ids], self.lo[ids], self.size[ids]))
+            return super().final_positions(ids)
+
+    def walk(**kw):
+        cells, nvert, h = kw["cells"], kw["nvert"], kw["h"]
+        cov = np.repeat(np.arange(len(cells)), nvert)
+        BoxedStore.fine = (cells[cov].astype(np.float64) * h - 1.0,
+                           np.full(len(cov), h))
+        return real_walk(**kw)
+
+    collapse.HostVertexStore = BoxedStore
+    collapse.collapse_and_walk = walk
+    try:
+        yield
+    finally:
+        collapse.HostVertexStore = real_store
+        collapse.collapse_and_walk = real_walk
+
+
+def check_mesh(label, mesh, ev, boxes, view):
+    """A mesh of a closed scene: every undirected edge used twice but at
+    ambiguous-face pinches (used 3 or 4 times, balanced in direction, as
+    fidget_tpu/mesh/__init__.py:34-44 documents and tests/test_mesh.py
+    checks); outward winding (positive enclosed volume, and each
+    triangle's normal along the tape's gradient at its centroid for 99%
+    of triangles); every vertex inside the box of its cell; and every
+    vertex within its cell's diagonal of the surface by the first-order
+    estimate |f| / |grad f| (`BulkEvaluator`, in model units)."""
+    v = mesh.vertices.astype(np.float64)
+    t = mesh.triangles
+    if len(t) == 0 or not np.isfinite(v).all():
+        raise Failed(f"{label}: empty mesh or non-finite vertices")
+    e = np.concatenate([t[:, [0, 1]], t[:, [1, 2]], t[:, [2, 0]]])
+    und = np.sort(e, axis=1)
+    uniq, inv, counts = np.unique(und, axis=0, return_inverse=True,
+                                  return_counts=True)
+    fwd = np.bincount(inv, weights=(e[:, 0] < e[:, 1]), minlength=len(uniq))
+    pinch = counts != 2
+    if (counts < 2).any() or (counts > 4).any() or (
+            np.abs(2 * fwd - counts)[pinch] > 1).any():
+        raise Failed(f"{label}: not a closed 2-manifold (edge uses "
+                     f"{np.bincount(counts).tolist()})")
+    a, b, c = v[t[:, 0]], v[t[:, 1]], v[t[:, 2]]
+    n = np.cross(b - a, c - a)
+    volume = float(np.einsum("ij,ij->i", a, np.cross(b, c)).sum() / 6)
+    mv = np.asarray(view, np.float64)
+    cen = (a + b + c) / 3 @ mv[:3, :3].T + mv[:3, 3]
+    g = ev.eval_grad(*cen.T.astype(np.float32)).cpu().numpy()[0]
+    grad_w = g[1:4].T @ mv[:3, :3]
+    along = np.einsum("ij,ij->i", n, grad_w) > 0
+    area = np.linalg.norm(n, axis=1)
+    along_area = float(area[along].sum() / area.sum())
+    log(f"  {label}: {along.mean():.5f} of triangles ({along_area:.5f} of "
+        f"the area) have their normal along the gradient")
+    if volume <= 0 or along_area < 0.99:
+        raise Failed(f"{label}: winding: volume {volume}, "
+                     f"{along_area:.4f} of the area along the gradient")
+    pos, lo, size = boxes
+    if len(pos) != len(v) or not np.array_equal(pos.astype(np.float32),
+                                                mesh.vertices):
+        raise Failed(f"{label}: the recorded vertices are not the mesh's")
+    if ((pos < lo) | (pos > lo + size[:, None])).any():
+        raise Failed(f"{label}: a vertex lies outside its cell")
+    vm = (v @ mv[:3, :3].T + mv[:3, 3]).astype(np.float32)
+    fg = ev.eval_grad(*vm.T).cpu().numpy()[0].astype(np.float64)
+    est = np.abs(fg[0]) / np.maximum(np.linalg.norm(fg[1:4], axis=0), 1e-12)
+    diag = np.sqrt(3.0) * size * abs(mv[0, 0])
+    if not (est <= diag).all():
+        k = int(np.argmax(est / diag))
+        raise Failed(f"{label}: vertex {k} lies {est[k]} from the surface, "
+                     f"its cell's diagonal is {diag[k]}")
+    log(f"  {label}: {len(v)} vertices, {len(t)} triangles, "
+        f"{int(pinch.sum())} pinched edges, volume {volume:.5f}, "
+        f"{int((size > size.min()).sum())} collapsed vertices; "
+        f"|f|/|grad f| max {est.max():.3g}, median {np.median(est):.3g} "
+        f"(model units)")
+
+
+def _stage_table(stages):
+    """Stage label (without its counts) -> ms, summed."""
+    out = {}
+    for label, ms in stages:
+        key = label.split(" (")[0]
+        if key.startswith("collapse s="):
+            key = "collapse"
+        elif key.startswith("classify d="):
+            key = "classify levels"
+        out[key] = out.get(key, 0.0) + ms
+    return out
+
+
+def _measure_sliced(label, name, args, kwargs, tape_copy=False):
+    """One captured call of K1, K3 or K4: the kernel over every instance
+    against its plain version on the first PLAIN_INSTANCES (max abs err
+    0: NaN where plain is NaN, else equal; choice words exact), its
+    CUDA-event time, the plain version's time on those instances, and
+    the bound; with `tape_copy`, the time of copying instance 0's tape
+    over all instances, as `BulkEvaluator` does."""
+    fn, plain = _kernel_pairs()[name]
+    args = tuple(a.detach() for a in args)
+    T = args[0].shape[0]
+    n = min(PLAIN_INSTANCES, T)
+    got = fn(*args, **kwargs)
+    want, plain_ms = _time_plain(plain, tuple(a[:n] for a in args), kwargs)
+    head = [g[:n] for g in got] if name == "interp_interval" else [got[:n]]
+    want = list(want) if name == "interp_interval" else [want]
+    for g, w in zip(head, want):
+        if g.dtype == torch.int32:
+            if not torch.equal(g, w):
+                raise Failed(f"{label}: choice words differ from plain")
+        else:
+            check(f"{label} (first {n} instances)", g, w, 0.0, 0.0)
+    ms = time_cuda(lambda: fn(*args, **kwargs), reps=20)
+    bound_ms, bound_by, slot_ms = _bound(name, args, kwargs, got)
+    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, plain_instances=n,
+               instances=T, bound_ms=bound_ms, bound_by=bound_by,
+               slot_bound_ms=slot_ms)
+    copy = ""
+    if tape_copy:
+        w1, w2, imm = (a[:1] for a in args[:3])
+        row["tape_copy_ms"] = time_cuda(
+            lambda: [a.expand(T, a.shape[1]).contiguous() for a in (w1, w2, imm)],
+            reps=20)
+        copy = f"; tape copy over {T} instances {row['tape_copy_ms']:.4f} ms"
+    log(f"kernel {label}: inputs {tuple(args[4].shape)}, nf {kwargs['nf']}, "
+        f"op_order {'set' if kwargs.get('op_order') else 'none'}; bit-equal "
+        f"to plain on {n} of {T} instances; {ms:.4f} ms, plain "
+        f"{plain_ms:.1f} ms on {n} instances, bound {bound_ms:.5f} ms "
+        f"({bound_by}), scheduler-slot bound {slot_ms:.5f} ms{copy}")
+    return row
+
+
+def phase_mesh(port, cuda, rows, depth=MESH_DEPTH, dev="cuda"):
+    """`build_mesh` at depth 8 (collapse on) on the 3,303-op sphere union
+    and the gyroid sphere, inside the cube by MESH_VIEW, launch counts
+    set to 0 before the two builds and read after; each mesh held by
+    `check_mesh`. A depth-5 sphere mesh built on the card equal to the
+    same build on the CPU (triangles equal, vertices within 1e-5). Warm
+    builds timed, stage by stage (`_StageClock`, synchronized at each
+    stage's end). K1, K3 and K4 on the inputs the depth-8 builds gave
+    them: kernel against plain version (max abs err 0; signs, choices
+    exact), time and bound, kept in `rows` under `at_mesh_union` /
+    `at_mesh_gyroid`; and the cost of the tape copies."""
+    from fidget_tpu_torch import mesh as mesh_mod
+    from fidget_tpu_torch.eval import bulk
+    from fidget_tpu_torch.mesh import collapse
+
+    dev = torch.device(dev)
+    settings = port.MeshSettings(depth=depth, world_to_model=MESH_VIEW,
+                                 device=dev)
+    scenes = _mesh_scenes(port)
+    captured = {}
+    for tag, label, scene in scenes:  # warm-up; its inputs feed the rows
+        targets = [(bulk, n, lambda a, k, n=n, tag=tag: f"{n}@{tag}")
+                   for n in KERNELS_MESH]
+        with capture_kernel_inputs(targets, captured):
+            port.build_mesh(scene, settings)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    meshes, boxes = [], []
+    for _, label, scene in scenes:
+        with _cell_boxes(collapse, boxes):
+            meshes.append(port.build_mesh(scene, settings))
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    log(f"mesh path launches over {len(scenes)} depth-{depth} builds: "
+        f"{launches}")
+    missing = [k for k in KERNELS_MESH if launches[k] == 0]
+    if missing:
+        raise Failed(f"mesh path never launched {missing}")
+    for (_, label, scene), m, bx in zip(scenes, meshes, boxes):
+        tape = scene.tape() if isinstance(scene, port.Shape) else scene
+        ev = mesh_mod._get_evaluator(tape, dev)
+        check_mesh(label, m, ev, bx, MESH_VIEW)
+
+    ctx = port.Context()
+    x, y, z = ctx.x(), ctx.y(), ctx.z()
+    sphere = port.lower(ctx, [ctx.sub(ctx.sqrt(ctx.add(
+        ctx.square(x), ctx.add(ctx.square(y), ctx.square(z)))), 0.6)])
+    got = port.build_mesh(sphere, port.MeshSettings(depth=MESH_DEPTH_CPU,
+                                                    device=dev))
+    want = port.build_mesh(sphere, port.MeshSettings(depth=MESH_DEPTH_CPU,
+                                                     device="cpu"))
+    if not (np.array_equal(got.triangles, want.triangles)
+            and np.allclose(got.vertices, want.vertices, rtol=0, atol=1e-5)):
+        raise Failed("the depth-5 sphere mesh on the card differs from the CPU's")
+    log(f"depth-{MESH_DEPTH_CPU} sphere: card mesh equals the CPU's "
+        f"({len(got.triangles)} triangles, max vertex difference "
+        f"{np.abs(got.vertices - want.vertices).max():.3g})")
+
+    for _, label, scene in scenes:
+        totals, stages = [], []
+        for _ in range(MESH_REPS):
+            clock = mesh_mod._StageClock(True, dev, echo=False)
+            t0 = time.perf_counter()
+            port.build_mesh(scene, settings, clock=clock)
+            torch.cuda.synchronize()
+            totals.append((time.perf_counter() - t0) * 1e3)
+            stages.append(_stage_table(clock.stages))
+        k = int(np.argsort(totals)[len(totals) // 2])
+        log(f"mesh build, {label}, depth {depth}: warm median "
+            f"{float(np.median(totals)):.1f} ms, min {min(totals):.1f} ms over "
+            f"{MESH_REPS} builds (host clock); stages of the median build "
+            f"(ms): " + ", ".join(f"{s} {ms:.1f}" for s, ms in stages[k].items()))
+        _log_busy(f"{label} build", _device_busy(
+            lambda: port.build_mesh(scene, settings), 1), float(np.median(totals)))
+
+    for key in sorted(captured):
+        name, tag = key.split("@")
+        args, kwargs = captured[key]
+        rows[name][f"at_mesh_{tag}"] = dict(
+            launches=launches[name],
+            **_measure_sliced(f"{name} at the {tag} mesh's bulk shape",
+                              name, args, kwargs, tape_copy=True))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1731,6 +2208,9 @@ def main() -> int:
     phase_union3d(port, cuda)
     phase_kernels3d(r3, captured3, launches3, n3, rows)
     phase_stages3d(r3, VIEWS3[1][1])
+
+    phase_grad(port, cuda, rows)
+    phase_mesh(port, cuda, rows)
 
     log(smi)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

@@ -6,8 +6,10 @@ in point, interval and dual-number modes across pixel and voxel lanes
 by hand-written CUDA kernels for Hopper (csrc/), with a plain PyTorch
 version of each kernel for the CPU. The 2D renderer (`PixelRenderer`)
 and the 3D heightmap + normals renderer (`VoxelRenderer`) are built on
-them. Entry points run on the card unless the caller passes
-`device="cpu"`.
+them, and so are bulk evaluation (`BulkEvaluator`), Manifold Dual
+Contouring meshing (`build_mesh`) and shape-parameter gradients of the
+2D frame (`interp_float` is a `torch.autograd.Function`). Entry points
+run on the card unless the caller passes `device="cpu"`.
 
 This package imports neither JAX nor `fidget_tpu`.
 """
@@ -19,6 +21,9 @@ from .core.context import Context
 from .core.ops import BinaryOp, UnaryOp
 from .core.tree import Tree, tree_max, tree_min
 from .core.var import Var, VarMap
+from .eval.bulk import BulkEvaluator
+from .mesh import Mesh, build_mesh
+from .mesh import Settings as MeshSettings
 from .render.region import ImageSize, VoxelSize
 from .render.render2d import Image2D, PixelRenderer
 from .render.render2d import render as render2d
@@ -30,10 +35,13 @@ __version__ = "0.1.0"
 
 __all__ = [
     "BinaryOp",
+    "BulkEvaluator",
     "Context",
     "Image2D",
     "Image3D",
     "ImageSize",
+    "Mesh",
+    "MeshSettings",
     "PixelRenderer",
     "Shape",
     "ShapeVars",
@@ -45,6 +53,7 @@ __all__ = [
     "VarMap",
     "VoxelRenderer",
     "VoxelSize",
+    "build_mesh",
     "lower",
     "render2d",
     "render3d",

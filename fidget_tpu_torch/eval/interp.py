@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ..compiler.pack import IMM12
 from ..compiler.tape import CHOICE_TAPE_OPS, TapeOp
@@ -122,6 +123,14 @@ def _check_planes(x, T, V, s0):
         )
 
 
+def _carries_gradient(t) -> bool:
+    """Whether `t` takes part in reverse mode (it requires grad while
+    grad mode is on) or in forward mode (it is a dual tensor)."""
+    if t.requires_grad and torch.is_grad_enabled():
+        return True
+    return fwAD.unpack_dual(t).tangent is not None
+
+
 # ======================================================================
 # float mode (K3)
 
@@ -131,6 +140,14 @@ def interp_float(
     s0: int, op_order: tuple | None = None,
 ):
     """Evaluates packed tapes in bulk float mode.
+
+    Differentiable in `vars_`, in reverse mode (`backward`,
+    `torch.func.grad`) and forward mode (`torch.autograd.forward_ad`,
+    `torch.func.jvp` / `jacfwd`), through `_FloatDiff` on both devices:
+    the Jacobian comes from the dual-number pass (`interp_grad`), as the
+    reference's custom JVP (fidget_tpu/eval/pallas_interp.py:239-298)
+    builds it. The tape words, immediates and lengths get no gradient:
+    parameters enter as `Var` input planes.
 
     Args:
       w1/w2/imm: [T, L] packed arena (compiler/pack.py).
@@ -143,6 +160,137 @@ def interp_float(
     """
     T, L = _check_arena(w1, w2, imm, lengths)
     _check_planes(vars_, T, n_inputs, s0)
+    order = None if op_order is None else tuple(int(o) for o in op_order)
+    return _FloatDiff.apply(
+        w1, w2, imm, lengths, vars_, (nf, n_inputs, n_outputs, s0, order)
+    )
+
+
+class _FloatDiff(torch.autograd.Function):
+    """`interp_float` with its derivative in `vars_`.
+
+    The primal is K3 (the plain version on the CPU). The Jacobian
+    J[t, o, i] comes from ceil(V/3) passes of the dual-number kernel K4
+    (`interp_grad_plain` on the CPU), each seeding one-hot tangents on
+    three inputs, with the same `op_order`; partials that are not
+    finite (sqrt, abs and recip at their kinks) read as 0, so that a
+    kink cannot poison every parameter through a zero tangent.
+    `backward` contracts the incoming gradient with J, `jvp` contracts
+    J with the tangent. The CPU takes the same route, never autograd
+    of the plain version's own ops, so both devices differentiate
+    alike. The Jacobian is built only when a derivative is asked for:
+    a plain forward costs one K3 launch."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(w1, w2, imm, lengths, vars_, cfg):
+        nf, n_inputs, n_outputs, s0, order = cfg
+        return _interp_float_value(
+            w1, w2, imm, lengths, vars_, nf=nf, n_inputs=n_inputs,
+            n_outputs=n_outputs, s0=s0, op_order=order,
+        )
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.cfg = inputs[5]
+        ctx.save_for_backward(*inputs[:5])
+        ctx.save_for_forward(*inputs[:5])
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        J = _FloatJacobian.apply(*ctx.saved_tensors, ctx.cfg)
+        grad_vars = (grad_out[:, :, None] * J).sum(dim=1)
+        return None, None, None, None, grad_vars, None
+
+    @staticmethod
+    def jvp(ctx, dw1, dw2, dimm, dlengths, dvars, dcfg):
+        if dvars is None:  # a tangent on the immediates only
+            _, n_inputs, n_outputs, s0, _ = ctx.cfg
+            vars_ = ctx.saved_tensors[4]
+            return vars_.new_zeros((vars_.shape[0], n_outputs, s0, 128))
+        J = _FloatJacobian.apply(*ctx.saved_tensors, ctx.cfg)
+        return (J * dvars[:, None]).sum(dim=2)
+
+
+class _FloatJacobian(torch.autograd.Function):
+    """J [T, O, V, S0, 128] of `interp_float` in `vars_`, non-finite
+    partials set to 0 (see `_FloatDiff`); a constant of the derivative
+    rules. A Function of its own, so that under `torch.func` transforms
+    the kernels get the plain tensors the transform wraps."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(w1, w2, imm, lengths, vars_, cfg):
+        nf, n_inputs, n_outputs, s0, order = cfg
+        T = vars_.shape[0]
+        cols = []
+        for i0 in range(0, n_inputs, 3):
+            kk = min(3, n_inputs - i0)
+            duals = vars_.new_zeros((T, n_inputs, 4, s0, 128))
+            duals[:, :, 0] = vars_
+            for c in range(kk):
+                duals[:, i0 + c, 1 + c] = 1.0
+            g = interp_grad(
+                w1, w2, imm, lengths, duals, nf=nf, n_inputs=n_inputs,
+                n_outputs=n_outputs, s0=s0, op_order=order,
+            )
+            cols.append(g[:, :, 1:1 + kk])
+        J = torch.cat(cols, dim=2)
+        return torch.where(torch.isfinite(J), J, torch.zeros_like(J))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, grad_J):
+        return None, None, None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        return None
+
+
+def untracked(fn, *args):
+    """`fn(*args)` as a constant of differentiation: its outputs (a tuple
+    of tensors and Nones) carry no gradient in reverse or forward mode,
+    and under `torch.func` transforms `fn` sees plain tensors, which the
+    kernels and the host-side tape walks need (a transform's wrapped
+    tensors have no storage)."""
+    return _Untracked.apply(fn, *args)
+
+
+class _Untracked(torch.autograd.Function):
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, *args):
+        return fn(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.n_inputs = len(inputs)
+        ctx.mark_non_differentiable(
+            *[o for o in output if isinstance(o, torch.Tensor)]
+        )
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) * ctx.n_inputs
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        return None
+
+
+def _interp_float_value(
+    w1, w2, imm, lengths, vars_, *, nf, n_inputs, n_outputs, s0, op_order,
+):
+    """The value of `interp_float`: K3 on CUDA, the plain version on the
+    CPU."""
+    T, L = w1.shape
     if vars_.device.type == "cpu":
         return interp_float_plain(
             w1, w2, imm, lengths, vars_, nf=nf, n_inputs=n_inputs,
@@ -243,6 +391,9 @@ def interp_interval(
     T, L = _check_arena(w1, w2, imm, lengths)
     _check_planes(var_lo, T, n_inputs, s0)
     _check_planes(var_hi, T, n_inputs, s0)
+    # no gradient flows through an interval proof (the reference's zero
+    # JVP, pallas_interp.py:746-758)
+    var_lo, var_hi = var_lo.detach(), var_hi.detach()
     if var_lo.device.type == "cpu":
         return interp_interval_plain(
             w1, w2, imm, lengths, var_lo, var_hi, nf=nf, n_inputs=n_inputs,
@@ -430,6 +581,8 @@ def interp_voxel_depth(
     _check_planes(vars_, T, n_inputs, s0)
     if (sub * sub) % 128 or sub**3 != s0 * 128:
         raise ValueError(f"sub={sub} needs sub^2 % 128 == 0 and sub^3 == s0*128")
+    # integer depths carry no gradient (pallas_interp.py:482-490)
+    vars_ = vars_.detach()
     if vars_.device.type == "cpu":
         return interp_voxel_depth_plain(
             w1, w2, imm, lengths, vars_, nf=nf, n_inputs=n_inputs, s0=s0,
@@ -539,6 +692,11 @@ def interp_float_coded(
         if t.dtype != dt:
             raise ValueError(f"arena dtype {t.dtype}, expected {dt}")
     _check_planes(vars_, T, n_inputs, s0)
+    if _carries_gradient(vars_):
+        raise ValueError(
+            "interp_float_coded has no derivative (nor has the reference's "
+            "K6): differentiate a frame without leaf_coded"
+        )
     if vars_.device.type == "cpu":
         return interp_float_coded_plain(
             w1, w2, imm, lengths, codes, vars_, nf=nf, n_inputs=n_inputs,

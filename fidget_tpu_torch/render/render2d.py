@@ -32,12 +32,16 @@ The counterpart of `fidget_tpu.render.render2d` on the interpreter:
 
 On CUDA every kernel is hand-written (fidget_tpu_torch/csrc); on the
 CPU the plain PyTorch versions run instead. The choice is made by the
-renderer's device alone. The unrolled and dense modes are not ported
+renderer's device alone. A frame is differentiable in its var vector
+through the leaf pass alone (`interp_float` is an autograd Function);
+stages 1-4 run as one constant of differentiation (`_cull` behind
+`untracked`). The unrolled and dense modes are not ported
 yet.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -52,6 +56,7 @@ from ..eval.interp import (
     interp_float_coded,
     interp_interval,
     tape_n_ops,
+    untracked,
 )
 from ..eval.simplify_device import (
     DeviceSimplifier,
@@ -316,30 +321,20 @@ class _ConstBind(_Bind):
         )
 
 
-def _frame_core(
-    b, T0, T1, n0x, x0, y0, mat, z, var_vec, *,
-    pixel_perfect: bool, stop_after: str | None = None, stage_hook=None,
-):
-    """THE 2D frame pipeline: root interval cull -> per-tile tape
-    simplification -> (optional second level) -> dense leaf pass ->
-    assembly, on the tape binding `b` (_TracedBind | _ConstBind).
-    `stop_after` ("root" | "codes" | "simplify" | "leaf") returns that
-    stage's intermediates, as the reference's `_frame_core` does (the
-    coded binding builds no child tapes: "simplify" gives Nones there);
-    `stage_hook(name)`, if given, is called as each stage is enqueued
-    (the chip smoke test records CUDA events there)."""
-    hook = stage_hook if stage_hook is not None else (lambda name: None)
+def _cull(b, T0, T1, n0x, x0, y0, mat, z, var_iv, *, pixel_perfect,
+          stop_after, hook):
+    """Stages 1-4 of `_frame_core`: the root interval pass, per-tile
+    codes and child tapes, and the optional second level. Returns the
+    leaf arenas, tile corners, activity and fills (or, with
+    `stop_after`, that stage's intermediates)."""
     n0 = x0.shape[0]
-    n0y = n0 // n0x
     s0r = max(8, _ceil_to(-(-n0 // 128), 8))
-    s0l = (T1 * T1) // 128
     V = b.V
     im = IntervalMode(torch)
-    dev = x0.device
 
     # ---- stage 1: root interval pass (lanes = root tiles) -----------
     var_lo, var_hi = _interval_vars(
-        b, im, mat, z, var_vec, (x0, x0 + T0), (y0, y0 + T0), s0r, (1,)
+        b, im, mat, z, var_iv, (x0, x0 + T0), (y0, y0 + T0), s0r, (1,)
     )
     w1r, w2r, immr, lensr = b.arena
     olo, ohi, choices0 = interp_interval(
@@ -385,10 +380,45 @@ def _frame_core(
         (w1c, w2c, immc, lensc, cx0, cy0, leaf_active, fill_child) = (
             b.second_level(
                 w1s, w2s, imms, lens0a, x0, y0, root_active, root_in,
-                pixel_perfect, im, mat, z, var_vec,
+                pixel_perfect, im, mat, z, var_iv,
             )
         )
         hook("subtiles")
+    return w1c, w2c, immc, lensc, cx0, cy0, leaf_active, fill_child
+
+
+
+def _frame_core(
+    b, T0, T1, n0x, x0, y0, mat, z, var_vec, *,
+    pixel_perfect: bool, stop_after: str | None = None, stage_hook=None,
+):
+    """THE 2D frame pipeline: root interval cull -> per-tile tape
+    simplification -> (optional second level) -> dense leaf pass ->
+    assembly, on the tape binding `b` (_TracedBind | _ConstBind).
+    `stop_after` ("root" | "codes" | "simplify" | "leaf") returns that
+    stage's intermediates, as the reference's `_frame_core` does (the
+    coded binding builds no child tapes: "simplify" gives Nones there);
+    `stage_hook(name)`, if given, is called as each stage is enqueued
+    (the chip smoke test records CUDA events there).
+
+    Only the leaf pass carries a gradient in `var_vec`: the cull stages
+    (interval proofs, codes, child tapes, fills) run as one constant of
+    differentiation (`untracked`) on its values, which also hands their
+    kernels plain tensors under `torch.func` transforms."""
+    hook = stage_hook if stage_hook is not None else (lambda name: None)
+    n0 = x0.shape[0]
+    n0y = n0 // n0x
+    s0l = (T1 * T1) // 128
+    V = b.V
+    dev = x0.device
+    out = untracked(
+        functools.partial(_cull, b, T0, T1, n0x, pixel_perfect=pixel_perfect,
+                          stop_after=stop_after, hook=hook),
+        x0, y0, mat, z, var_vec.detach(),
+    )
+    if stop_after in ("root", "codes", "simplify"):
+        return out
+    w1c, w2c, immc, lensc, cx0, cy0, leaf_active, fill_child = out
 
     # ---- stage 5: leaf pass (one instance per leaf tile) -------------
     if lensc is not None:
@@ -602,8 +632,15 @@ class PixelRenderer:
     def _frame(self, mat, z, var_vec, *, pixel_perfect=False,
                stop_after=None, stage_hook=None, leaf_coded=False):
         """One frame through `_frame_core` from host inputs: `mat` a
-        [4, 4] array, `z` a float, `var_vec` a [V] array. `leaf_coded`
-        runs the leaf as `interp_float_coded` over the shared tape."""
+        [4, 4] array, `z` a float, `var_vec` a [V] array or tensor.
+        `leaf_coded` runs the leaf as `interp_float_coded` over the
+        shared tape.
+
+        Differentiable in `var_vec` (a tensor on the render device):
+        reverse mode (`backward()`, `torch.func.grad`) and forward mode
+        (`torch.func.jvp` / `jacfwd`, `torch.autograd.forward_ad`). Only
+        evaluated pixels carry a derivative; proven fills carry none
+        (0). The coded leaf has no derivative and raises."""
         dev = self.device
         return _frame_core(
             self._bind(leaf_coded), self.T0, self.T1, self.n0x,

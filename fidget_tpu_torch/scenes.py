@@ -1,10 +1,12 @@
-"""Seeded procedural scenes that the port's checks render.
+"""Seeded procedural scenes that the port's checks render and mesh.
 
-`standin_shape` stands in for prospero in 2D, `gyroid_sphere` is the
-3D gyroid sphere of the reference's own tests, and `sphere_union_shape`
-is a tape-heavy 3D union. Every builder uses only the graph API that
-this package and the reference package share, so a test can build the
-same scene in both and compare the tapes they lower to.
+`standin_shape` stands in for prospero in 2D (`param_standin_shape`
+with two shape parameters, for gradients), `gyroid_sphere` is the 3D
+gyroid sphere of the reference's own tests, and `sphere_union_shape` is
+a tape-heavy 3D union; the last two are also the mesher's scenes. Every
+scene function uses only the graph API that this package and the
+reference package share, so a test can build the same scene in both and
+compare the tapes they lower to.
 `seeded_action_codes` makes per-tile action codes for the coded leaf
 kernel without an interval pass.
 """
@@ -25,15 +27,17 @@ def _min_tree(ctx, parts):
     return parts[0]
 
 
-def standin_shape(ctx, n=800, seed=0):
+def standin_shape(ctx, n=800, seed=0, x=None):
     """Seeded 2D stand-in of prospero's size: n circles (radii
     0.01-0.06, centres in [-1, 1]), every third clipped to a horizontal
     band by a `max`, reduced by a balanced tree of `min`s. Lowered:
-    7,203 ops, 13 registers, 1,066 choices."""
+    7,203 ops, 13 registers, 1,066 choices. `x` replaces the x axis
+    node (see `param_standin_shape`)."""
     rng = np.random.default_rng(seed)
     c = rng.uniform(-1, 1, size=(n, 2))
     r = rng.uniform(0.01, 0.06, size=n)
-    x, y = ctx.x(), ctx.y()
+    x = ctx.x() if x is None else x
+    y = ctx.y()
     parts = []
     for i in range(n):
         dx = ctx.sub(x, float(c[i, 0]))
@@ -45,6 +49,16 @@ def standin_shape(ctx, n=800, seed=0):
             d = ctx.max(d, ctx.sub(ctx.abs(dy), float(r[i]) * 0.5))
         parts.append(d)
     return _min_tree(ctx, parts)
+
+
+def param_standin_shape(ctx, shift, grow, n=800, seed=0):
+    """`standin_shape` with two shape parameters, the context nodes
+    `shift` and `grow` (e.g. `ctx.input(var)`): every circle moves by
+    `shift` along x, and the field is offset by `-grow`, which grows
+    every part alike. Four inputs (x, y and the two vars). Lowered with
+    two `Var`s at n = 800: 7,207 ops, 14 registers, 1,066 choices."""
+    parts = standin_shape(ctx, n, seed, x=ctx.sub(ctx.x(), shift))
+    return ctx.sub(parts, grow)
 
 
 def gyroid_sphere(pkg, scale=4.0):

@@ -170,6 +170,7 @@ DOC_MODULES = [
     fidget_tpu_torch.compiler.lower,
     fidget_tpu_torch.compiler.tape,
     fidget_tpu_torch.eval.unrolled,
+    fidget_tpu_torch.mesh,
     fidget_tpu_torch.render.region,
     fidget_tpu_torch.shape,
 ]
@@ -190,7 +191,8 @@ def test_port_imports_no_jax():
         "fidget_tpu_torch.render.render3d, fidget_tpu_torch.shape, "
         "fidget_tpu_torch.scenes, fidget_tpu_torch.eval.cuda, "
         "fidget_tpu_torch.compiler.simplify, "
-        "fidget_tpu_torch.eval.simplify_device\n"
+        "fidget_tpu_torch.eval.simplify_device, fidget_tpu_torch.eval.bulk, "
+        "fidget_tpu_torch.mesh.collapse, fidget_tpu_torch.native\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fidget_tpu' or m.startswith('fidget_tpu.')]\n"
         "assert not bad, bad\n"

@@ -550,3 +550,103 @@ def test_adversarial_coded_matches_plain(card, s0, nf_pad):
         want = interp_float_coded_plain(*shared, lengths, words, vars_, **kw)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), name
         assert (got[4] == 0).all()
+
+
+def _param_circle():
+    """The circle of tests/test_grad_parity.py, sqrt((x-cx)^2 + y^2) - r,
+    with its two Vars and their indices."""
+    ctx = port.Context()
+    cx, rv = port.Var.new(), port.Var.new()
+    x, y = ctx.x(), ctx.y()
+    dx = ctx.sub(x, ctx.input(cx))
+    f = ctx.sub(ctx.sqrt(ctx.add(ctx.square(dx), ctx.square(y))), ctx.input(rv))
+    tape = port.lower(ctx, [f])
+    return tape, tape.var_map[cx], tape.var_map[rv]
+
+
+@pytest.mark.cuda
+def test_float_diff_on_card_matches_plain(card):
+    """interp_float's derivative rules on the card (K3 primal, K4
+    Jacobian in two passes for V = 4) against the same Function on the
+    CPU's plain versions: primal 2e-5, reverse and forward derivatives
+    1e-4, as the grad mode is held elsewhere."""
+    import torch.autograd.forward_ad as fwAD
+
+    tape, icx, irv = _param_circle()
+    p = pack_tapes([tape], op_order=frequency_op_order(tape))
+    rng = np.random.default_rng(5)
+    vals = rng.uniform(-1, 1, size=(3, 4, S0, 128)).astype(np.float32)
+    vals[:, icx], vals[:, irv] = 0.1, 0.5
+    dv = rng.normal(size=vals.shape).astype(np.float32)
+    w = rng.normal(size=(3, 1, S0, 128)).astype(np.float32)
+    kw = dict(nf=tape.reg_count, n_inputs=4, n_outputs=1, s0=S0,
+              op_order=frequency_op_order(tape))
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        arena = [torch.from_numpy(np.repeat(a, 3, axis=0)).to(dev)
+                 for a in (p.w1, p.w2, p.imm)]
+        arena.append(torch.full((3,), len(tape), dtype=torch.int32, device=dev))
+        v = torch.from_numpy(vals).to(dev).requires_grad_(True)
+        cuda.reset_launches()
+        prim = interp_float(*arena, v, **kw)
+        (prim * torch.from_numpy(w).to(dev)).sum().backward()
+        with fwAD.dual_level():
+            d = fwAD.make_dual(torch.from_numpy(vals).to(dev),
+                               torch.from_numpy(dv).to(dev))
+            tang = fwAD.unpack_dual(interp_float(*arena, d, **kw)).tangent
+        if dev.type == "cuda":
+            assert cuda.LAUNCHES["interp_float"] == 2
+            assert cuda.LAUNCHES["interp_grad"] == 4  # two passes a mode
+        out[dev.type] = [t.detach().cpu() for t in (prim, v.grad, tang)]
+    (p_g, g_g, t_g), (p_c, g_c, t_c) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(p_g, p_c, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(g_g, g_c, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(t_g, t_c, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_bulk_evaluator_on_card_matches_cpu(card):
+    """BulkEvaluator's four modes on the card (K3, K1, K4 over the tape
+    copied on a power-of-two instance count) against the CPU's plain
+    versions: values 2e-5, duals 1e-4, signs, classification and choice
+    words exact, over a ragged count that spans three instances."""
+    from fidget_tpu_torch.eval.bulk import LANE_ROWS, BulkEvaluator
+
+    ctx = port.Context()
+    tape = port.lower(ctx, [sphere_union_shape(ctx, n=40)])
+    n = 2 * LANE_ROWS * 128 + 77
+    rng = np.random.default_rng(6)
+    pts = [rng.uniform(-1, 1, n).astype(np.float32) for _ in range(3)]
+    ivs = [(a, a + 0.05) for a in pts]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        ev = BulkEvaluator(tape, device=dev)
+        (lo, hi), ch, _ = ev.eval_interval(*ivs, capture=True)
+        res[dev] = [t.cpu() for t in (
+            ev.eval(*pts), ev.eval(*pts, signs=True), lo, hi,
+            ev.eval_interval(*ivs, classify=True), ch, ev.eval_grad(*pts),
+        )]
+    g, c = res["cuda"], res["cpu"]
+    for i in (0, 2, 3):
+        torch.testing.assert_close(g[i], c[i], rtol=2e-5, atol=2e-5)
+    for i in (1, 4, 5):
+        assert torch.equal(g[i], c[i])
+    torch.testing.assert_close(g[6], c[6], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_build_mesh_on_card_matches_cpu(card):
+    """A depth-5 mesh of a 40-sphere union (collapse on) built on the
+    card equals the same build on the CPU's plain versions: triangles
+    equal, vertices within 1e-5; K1, K3 and K4 all launched."""
+    ctx = port.Context()
+    tape = port.lower(ctx, [sphere_union_shape(ctx, n=40)])
+    cuda.reset_launches()
+    got = port.build_mesh(tape, port.MeshSettings(depth=5))
+    launched = dict(cuda.LAUNCHES)
+    want = port.build_mesh(tape, port.MeshSettings(depth=5, device="cpu"))
+    for k in ("interp_interval", "interp_float", "interp_grad"):
+        assert launched[k] > 0, k
+    assert len(got.triangles) > 1000
+    np.testing.assert_array_equal(got.triangles, want.triangles)
+    np.testing.assert_allclose(got.vertices, want.vertices, rtol=0, atol=1e-5)
