@@ -2,15 +2,19 @@
 """Bring-up check of fidget_tpu_torch on one CUDA card.
 
 Builds the six CUDA kernels of the port from the sources in
-fidget_tpu_torch/csrc, holds each against its plain PyTorch version on
+fidget_tpu_torch/csrc and the two it generates per tape (from
+csrc/unrolled.cuh), holds each against its plain PyTorch version on
 the card, and drives the port's main paths: the 2D frame
 (`PixelRenderer.render()` at 1024^2 on a 7,203-op procedural shape)
 under each of its tape bindings (bucketed, coded leaf, per-shape
 arena, two tile levels) and the 3D heightmap + normals renderer
 (`VoxelRenderer.render()` at 512^3 on the 28-op gyroid sphere, and at
 128^3 on a 3,303-op union of 300 spheres), holding every frame against
-the numpy oracles; then the shape-parameter gradient of the 2D frame
-and the mesher (`build_mesh` at depth 8 on the sphere union and the
+the numpy oracles; the per-shape compiled 2D path
+(`render_unrolled` with the union and the full leaf, `render_dense`)
+on the two kernels generated for the stand-in (U1 `unrolled_float`,
+U2 `unrolled_interval`); then the shape-parameter gradient of the 2D
+frames and the mesher (`build_mesh` at depth 8 on the sphere union and the
 gyroid sphere), on `BulkEvaluator`. Run from the root of the
 repository:
 
@@ -80,6 +84,25 @@ Phases (any failure exits non-zero and prints no result):
    over the 32-px leaves): kernel against plain version with the same
    order, CUDA-event time and bound; stages of a warm frame of each;
    then warm frames of all four bindings timed in turns;
+6c. unrolled build: the union plan of the stand-in at 1024^2 (8-px
+   tiles, 256-px blocks, the first view) built on the host and timed;
+   U1 of the full tape and of the plan's programs plus the full-tape
+   fallback (one translation unit a program, linked with -rdc), U2
+   with the two epilogues the frames launch (proofs, violation), and
+   U1 of the parametrized stand-in, all nvcc processes started
+   together: cold and cached build seconds per step, registers and
+   spills (U2's capture epilogue, which no frame launches, is held to
+   its plain version by tests/test_torch_cuda.py);
+6d. unrolled frames: `render_unrolled(leaf="union")`, `leaf="full"`
+   with `cull` unrolled and interp, and `render_dense` over the three
+   views, launch counts set to 0 before each mode's frames and read
+   after (U1 and U2, or K1 and U1, or U1 alone); each frame held to
+   `render_brute` as in phase 4 and its occupancy equal to `render()`'s;
+   the union frames' fallback share; warm frames (median and min ms,
+   Mpix/s, device busy share, device ops a frame); then U1 and U2 on
+   the inputs each mode gave them against their plain versions (U1 at
+   rtol = atol = 2e-5, U2's flags and words exactly), with CUDA-event
+   and profiler device times and the bound;
 7. 3D main path: the gyroid sphere at 512^3 (tile 64, subtile 16)
    under three views in normals mode and one heightmap frame, then the
    sphere union at 128^3 (tile 32, subtile 16), launch counts set to 0
@@ -108,7 +131,14 @@ Phases (any failure exits non-zero and prints no result):
    2e-2, atol 1e-3); without pixel_perfect, on the zoomed-out view,
    proven fills have a zero or NaN tangent (`torch.func.jvp`); forward
    and step times, the step's launches and device busy time, and K3 and
-   K4 on the step's inputs against their plain versions;
+   K4 on the step's inputs against their plain versions; then the same
+   loss through the dense frame (`_dense`) and the pixel_perfect
+   unrolled frame (`_frame_unrolled`, K1 cull), whose leaf is U1 and
+   whose Jacobian comes from K4: reverse mode held to `_frame`'s
+   gradient on the same tape and vector (rtol 1e-4; every pixel is
+   evaluated in all three), exactly 0 at the axis entries, which the
+   transform overwrites, and to `torch.func.jacfwd` (rtol 1e-5, atol
+   1e-6) and central differences (h = 1e-2; rtol 2e-2, atol 1e-5);
 11. mesh: `build_mesh` at depth 8, collapse on, on the sphere union and
    the gyroid sphere (world [-1, 1]^3 viewing model [-1.1, 1.1]^3),
    launch counts set to 0 before and read after; each mesh a closed
@@ -305,7 +335,7 @@ def phase_build(cuda):
     t0 = time.time()
     out = cuda.build()
     log(f"build: {time.time() - t0:.1f} s into {out.relative_to(ROOT)}")
-    for stem in sorted({s for s, _ in cuda.KERNELS.values()}):
+    for stem in sorted({s for s, _ in cuda.KERNELS.values() if s}):
         for line in (out / f"{stem}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {stem}: {line.strip()}")
@@ -2147,6 +2177,361 @@ def phase_mesh(port, cuda, rows, depth=MESH_DEPTH, dev="cuda"):
                               name, args, kwargs, tape_copy=True))
 
 
+#: the per-shape compiled path (render/unrolled2d.py) at its defaults:
+#: 8-px cull tiles, 256-px union blocks; U1 and U2 replace the Pallas
+#: probe P1 (U2 is its interval twin)
+UNROLLED_T0 = 8
+UNROLLED_BLOCK = 256
+UNROLLED_SOURCE = "fidget_tpu_torch/csrc/unrolled.cuh"
+UNROLLED_REPLACES = "demos/exp_unrolled_kernel.py:49"
+UNROLLED_KERNELS = ("unrolled_float", "unrolled_interval")
+#: frames of each unrolled mode: the kernels it must launch
+UNROLLED_MODES = {
+    "union": ("unrolled_interval", "unrolled_float"),
+    "full": ("unrolled_interval", "unrolled_float"),
+    "full-interp": ("interp_interval", "unrolled_float"),
+    "dense": ("unrolled_float",),
+}
+
+
+def _ptxas_lines(unit):
+    """(registers / spill lines of nvcc's logs of a generated unit and its
+    program objects, total spill bytes)."""
+    import re
+
+    logs = [unit.dir / "kernel.log"] + [o.dir / "prog.log" for o in unit.objects]
+    lines, spill = [], 0
+    for p in dict.fromkeys(logs):
+        if not p.exists():
+            continue
+        for line in p.read_text().splitlines():
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spill += int(m.group(1)) + int(m.group(2))
+            if "registers" in line or (m and int(m.group(1)) + int(m.group(2))):
+                lines.append(line.strip())
+    return lines, spill
+
+
+def phase_unrolled_build(port, tape, param_tape):
+    """Builds every generated kernel of the unrolled phases in one batch,
+    all nvcc processes started together: U1 of the stand-in's full tape
+    and of its union plan (the programs of 256-px blocks at the first
+    view, plus the full-tape fallback), U2 with the proofs and the
+    violation epilogues, and U1 of the parametrized stand-in (the
+    gradient phase). Prints the union plan's host build time, the cold and the
+    cached build seconds (each step, and the batch's wall) and every
+    generated kernel's registers and spills. Returns the renderer (its
+    plan installed), the plan's build ms and the build record."""
+    from fidget_tpu_torch.compiler.unions import build_union_plan
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+    from fidget_tpu_torch.render import unrolled2d as u2
+
+    r = port.PixelRenderer(tape, port.ImageSize(SIZE, SIZE))
+    T0 = UNROLLED_T0
+    n0x = n0y = SIZE // T0
+    t0 = time.perf_counter()
+    plan = build_union_plan(tape, T0, n0x, n0y, r._mat4(FRAMES[0]), 0.0,
+                            r._var_vec(None), r.axis_of,
+                            block_px=UNROLLED_BLOCK)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    st = u2.state(r)
+    st.plans[(T0, UNROLLED_BLOCK)] = plan
+    fb_cap = max(128, -(-(n0x * n0y // 64) // 128) * 128)
+    union = u2.union_tables(r, plan, fb_cap).kernel
+    log(f"unrolled: union plan of {n0x * n0y} tiles at {T0} px, "
+        f"{UNROLLED_BLOCK}-px blocks, built on the host in {plan_ms:.1f} ms: "
+        f"{plan.stats()}")
+    rp = port.PixelRenderer(param_tape, port.ImageSize(SIZE, SIZE))
+    kernels = {"U1 full": st.float_full, "U1 union": union,
+               **{f"U2 {e}": st.interval(e) for e in ("proofs", "violation")},
+               "U1 full (parametrized)": u2.state(rp).float_full}
+    t0 = time.perf_counter()
+    steps = uc.build_kernels(list(kernels.values()))
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = uc.build_kernels(list(kernels.values()))
+    cached = time.perf_counter() - t0
+    if again or not uc.built(list(kernels.values())):
+        raise Failed(f"generated kernels not cached after a build: {again}")
+    names = {k.unit().key: label for label, k in kernels.items()}
+    for label, k in kernels.items():
+        part = "program" if isinstance(k, uc.FloatKernel) else "chunk"
+        for o in k.unit().objects:
+            names.setdefault(o.key, f"{part} of {label}")
+    log(f"unrolled build: {len(steps)} nvcc steps (program objects, kernel "
+        f"units, links) in {cold:.1f} s wall, cold; cached {cached:.3f} s "
+        f"(nothing rebuilt)")
+    for key, sec in sorted(steps.items(), key=lambda p: p[1]):
+        base = key.split(":")[0]
+        log(f"  {names.get(base, base)}{' link' if ':' in key else ''} "
+            f"({base}): done at {sec:.1f} s")
+    record = {"cold_s": cold, "cached_s": cached, "steps": steps,
+              "plan_ms": plan_ms, "spill_bytes": {}}
+    for label, k in kernels.items():
+        lines, spill = _ptxas_lines(k.unit())
+        record["spill_bytes"][label] = spill
+        log(f"  {label}: {len(k.unit().objects) + 1} unit(s), spill bytes "
+            f"{spill}; " + " | ".join(lines[:4]))
+    return r, rp, record
+
+
+def _unrolled_bound(name, args, kwargs, out):
+    """(bound_ms, bound_by, slot_bound_ms) of one U1 / U2 call: U1 counts
+    one operation per row of the program a valid slot runs, per pixel
+    (the work this call's data needs), and moves the slot corners and
+    flags once and its distances once; U2 counts two operations (lo,
+    hi) per row per tile and moves the tile corners, the flags and the
+    epilogue's words."""
+    kern = args[0]
+    if name == "unrolled_float":
+        _, cx0, _, valid, params, seg = args[:6]
+        n, pp = cx0.shape[0], kwargs["pp"]
+        bounds = list(seg) + [n]
+        ops = sum(int(valid[bounds[s]:bounds[s + 1]].sum()) * pp * len(t)
+                  for s, t in enumerate(kern.tapes))
+        nbytes = n * 9 + params.nbytes + out.nbytes
+    else:
+        x0 = args[1]
+        n = x0.shape[0]
+        ops = 2 * n * len(kern.tape)
+        extra = out[2]
+        u = args[5] if len(args) > 5 else None
+        nbytes = n * 10 + (0 if extra is None else extra.nbytes) + (
+            0 if u is None else u.nbytes)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, _slot_bound_ms(ops), ops, nbytes
+
+
+def _measure_unrolled(label, name, args, kwargs):
+    """One captured U1 / U2 call: kernel against its plain version on the
+    card (U1 distances at K3's standard, rtol = atol = 2e-5; U2 flags and
+    words exactly), CUDA-event ms (which holds the host's enqueue where
+    that is slower than the kernel), the profiler's device ms, plain ms
+    and the bound."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+
+    fn = getattr(uc, name)
+    plain = getattr(uc, name + "_plain")
+    got = fn(*args, **kwargs)
+    want, plain_ms = _time_plain(plain, args, kwargs)
+    if name == "unrolled_float":
+        err = check(f"{name} {label}", got, want, 2e-5, 2e-5)
+    else:
+        for g, w in zip(got, want):
+            if (g is None) != (w is None) or (g is not None
+                                              and not torch.equal(g, w)):
+                raise Failed(f"{name} {label}: flags or words differ from "
+                             f"plain")
+        err = 0.0
+    ms = time_cuda(lambda: fn(*args, **kwargs), reps=20)
+    dms = device_ms(lambda: fn(*args, **kwargs), "fidget_" + name)
+    bound_ms, by, slot_ms, ops, nbytes = _unrolled_bound(name, args, kwargs,
+                                                         got)
+    shape = tuple(args[1].shape)
+    log(f"kernel {name} ({label}): {shape[0]} lanes-or-slots, "
+        f"{ops} operations, {nbytes} bytes; max abs err {err:.3g}, "
+        f"{ms:.4f} ms (CUDA events), device {dms} ms (profiler), plain "
+        f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({by}), "
+        f"scheduler-slot bound {slot_ms:.5f} ms")
+    return dict(max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, slot_bound_ms=slot_ms)
+
+
+def _wait_refresh(r, timeout=600):
+    """Waits for a union plan's background refresh (and its nvcc) to end."""
+    from fidget_tpu_torch.render import unrolled2d as u2
+
+    st = u2.state(r)
+    t0 = time.time()
+    while any(st.refreshing.values()):
+        if time.time() - t0 > timeout:
+            raise Failed("a union plan refresh did not finish")
+        time.sleep(0.2)
+
+
+def phase_unrolled(r, cuda, std_images, brutes, build, rows):
+    """The per-shape compiled path on the stand-in at 1024^2 over the
+    three views: `render_unrolled(leaf="union")`, `leaf="full"` with
+    `cull` unrolled and interp, and `render_dense`, each with the launch
+    counts set to 0 before its three frames and read after; occupancy
+    equal to `render_brute` and to `render()`'s, distances allclose
+    (1e-5, 1e-6) where evaluated; U1 and U2 on the inputs each mode gave
+    them against their plain versions; warm frames timed (median and min ms, Mpix/s, device busy share and ops
+    a frame). Adds the U1 and U2 rows to `rows`."""
+    from fidget_tpu_torch.render import unrolled2d as u2
+
+    modes = {
+        "union": lambda v: r.render_unrolled(v, leaf="union"),
+        "full": lambda v: r.render_unrolled(v, leaf="full"),
+        "full-interp": lambda v: r.render_unrolled(v, leaf="full",
+                                                   cull="interp"),
+        "dense": lambda v: r.render_dense(v),
+    }
+    captured = {}
+    saved = {n: getattr(u2, n) for n in UNROLLED_KERNELS}
+    current = [None]
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            if current[0] is not None:
+                captured[(current[0], name)] = (args, kwargs)
+            return saved[name](*args, **kwargs)
+        return call
+
+    totals = dict.fromkeys(UNROLLED_KERNELS, 0)
+    n_frames = 0
+    timing = {}
+    for n in UNROLLED_KERNELS:
+        setattr(u2, n, recorder(n))
+    try:
+        for label, fn in modes.items():
+            current[0] = label
+            fn(FRAMES[0])  # warm-up; its inputs feed the kernel checks
+            current[0] = None
+            _wait_refresh(r)
+            torch.cuda.synchronize()
+            cuda.reset_launches()
+            images, stats = [], []
+            for view in FRAMES:
+                images.append(fn(view))
+                stats.append(getattr(r, "union_stats", None))
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+            log(f"unrolled {label}: launches over {len(FRAMES)} frames: "
+                f"{launches}")
+            missing = [k for k in UNROLLED_MODES[label] if not launches.get(k)]
+            extra = set(launches) - set(UNROLLED_MODES[label])
+            if missing or extra:
+                raise Failed(f"unrolled {label} frames launched {launches}")
+            for k in UNROLLED_KERNELS:
+                totals[k] += launches.get(k, 0)
+            n_frames += len(FRAMES)
+            for k, (img, view) in enumerate(zip(images, FRAMES)):
+                ink, evaluated = check_frame(r, img, view, brutes[k])
+                if not torch.equal(img.inside(), std_images[k].inside()):
+                    raise Failed(f"unrolled {label} frame {k}: occupancy "
+                                 f"differs from render()'s")
+                fb = ""
+                if label == "union":
+                    s = stats[k]
+                    fb = (f"; fallback {s['n_fallback']} of {s['n_active']} "
+                          f"active tiles "
+                          f"({s['n_fallback'] / max(1, s['n_active']):.4f})")
+                log(f"unrolled {label} frame {k}: occupancy equals "
+                    f"render_brute and render() ({ink:.4f} inside, "
+                    f"{evaluated:.3f} of pixels evaluated){fb}")
+            _wait_refresh(r)
+            fn(FRAMES[1])  # settle the plan at the timed view
+            _wait_refresh(r)
+            med, mn = _median_ms(lambda: fn(FRAMES[1]), 10)
+            mpix = SIZE * SIZE / (med * 1e-3) / 1e6
+            log(f"unrolled {label} warm frame (view 1): median {med:.3f} ms, "
+                f"min {mn:.3f} ms, {mpix:.1f} Mpix/s (host clock, "
+                f"synchronized, 10 frames)")
+            busy = _device_busy(lambda: fn(FRAMES[1]), 5)
+            _log_busy(f"unrolled {label}", busy, med)
+            _wait_refresh(r)
+            timing[label] = {"median_ms": med, "min_ms": mn, "mpix_s": mpix,
+                             "device_busy_ms": None if busy is None else busy[0],
+                             "device_ops": None if busy is None else busy[2]}
+            if label == "union":
+                s = r.union_stats
+                timing[label]["fallback_share"] = (
+                    s["n_fallback"] / max(1, s["n_active"]))
+    finally:
+        current[0] = None
+        for n, f in saved.items():
+            setattr(u2, n, f)
+
+    measured = {}
+    for (label, name), (args, kwargs) in sorted(captured.items()):
+        measured[(label, name)] = _measure_unrolled(label, name, args, kwargs)
+
+    for name in UNROLLED_KERNELS:
+        head = measured[("union", name)]
+        rows[name] = {
+            "name": name, "route": "cuda", "source": UNROLLED_SOURCE,
+            "replaces": UNROLLED_REPLACES, "launches": totals[name],
+            "launches_per_frame": totals[name] / n_frames, **head,
+            "library_ms": None,
+            "at": {f"{label}": m for (label, n), m in measured.items()
+                   if n == name and label != "union"},
+            "build": {"cold_s": build["cold_s"], "cached_s": build["cached_s"],
+                      "spill_bytes": build["spill_bytes"]},
+            "frames": timing, "union_plan_ms": build["plan_ms"],
+        }
+
+
+def phase_grad_unrolled(rp, vars_, N=SIZE, reps=5):
+    """The shape-parameter gradient through the per-shape compiled
+    frames of the parametrized stand-in: `_dense` and the pixel_perfect
+    full-leaf unrolled frame (`_frame_unrolled`, K1 cull); loss
+    sum(img^2) / N^2 by backward() held to phase 10's loss through the
+    interpreter frame `_frame` on the same tape and vector (rtol 1e-4:
+    all three evaluate every pixel), exactly 0 at the axis entries of
+    the var vector, which the transform overwrites, and held to
+    `torch.func.jacfwd` (rtol 1e-5, atol 1e-6) and central differences
+    (h = 1e-2; rtol 2e-2, atol 1e-5, against gradients of 3e-4 to
+    6e-3); forward + backward step times."""
+    dev = rp.device
+    mat = rp._mat4(None)
+    vec0 = rp._var_vec(vars_)
+    V = len(vec0)
+    axes = [rp.axis_of[k] for k in ("x", "y", "z") if k in rp.axis_of]
+    v = torch.tensor(vec0, device=dev, requires_grad=True)
+    ((rp._frame(mat, 0.0, v, pixel_perfect=True)[0][:N, :N] ** 2).sum()
+     / (N * N)).backward()
+    g_ref = v.grad.double().cpu().numpy()
+    if not np.any(g_ref) or np.any(g_ref[axes]):
+        raise Failed(f"_frame's gradient {g_ref}: all zero, or not 0 at "
+                     f"the axis entries {axes}")
+    frames = {
+        "dense": lambda v: rp._dense(mat, 0.0, v),
+        "unrolled": lambda v: rp._frame_unrolled(
+            mat, 0.0, v, pixel_perfect=True, cull="interp")[0][:N, :N],
+    }
+    for label, frame in frames.items():
+        loss = lambda v: (frame(v) ** 2).sum() / (N * N)
+
+        def step():
+            v = torch.tensor(vec0, device=dev, requires_grad=True)
+            loss(v).backward()
+            return v.grad
+
+        step()
+        g_rev = step().double().cpu().numpy()
+        g_fwd = torch.func.jacfwd(loss)(torch.tensor(vec0, device=dev))
+        g_fwd = g_fwd.double().cpu().numpy()
+        if np.any(g_rev[axes]):
+            raise Failed(f"{label}: reverse {g_rev} is not 0 at the axis "
+                         f"entries {axes}")
+        if not np.allclose(g_rev, g_ref, rtol=1e-4, atol=0.0):
+            raise Failed(f"{label}: reverse {g_rev} differs from _frame's "
+                         f"{g_ref}")
+        if not np.allclose(g_rev, g_fwd, rtol=1e-5, atol=1e-6):
+            raise Failed(f"{label}: reverse {g_rev} differs from forward "
+                         f"mode {g_fwd}")
+        fd = np.zeros(V)
+        with torch.no_grad():
+            for k in range(V):
+                e = np.zeros(V, np.float32)
+                e[k] = H_FD
+                lo = float(loss(torch.tensor(vec0 - e, device=dev)))
+                hi = float(loss(torch.tensor(vec0 + e, device=dev)))
+                fd[k] = (hi - lo) / (2 * H_FD)
+        if not np.allclose(g_rev, fd, rtol=2e-2, atol=1e-5):
+            raise Failed(f"{label}: reverse {g_rev} differs from central "
+                         f"differences {fd}")
+        step_ms = _median_ms(step, reps)
+        log(f"gradient through the {label} frame: reverse {g_rev.tolist()} "
+            f"(_frame's {g_ref.tolist()}, axis entries {axes} exactly 0), "
+            f"jacfwd {g_fwd.tolist()}, central differences {fd.tolist()}; "
+            f"step {step_ms[0]:.3f} ms median ({step_ms[1]:.3f} min)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2202,6 +2587,10 @@ def main() -> int:
                                 simplify_device, rows)
     phase_compare_frames(r, per_shape, FRAMES[1])
 
+    param_tape, shift, grow = _param_standin(port)
+    ru, rp, build = phase_unrolled_build(port, tape, param_tape)
+    phase_unrolled(ru, cuda, images, brutes, build, rows)
+
     r3, captured3, launches3, n3 = phase_main3d(
         port, cuda, render3d, render2d, simplify_device
     )
@@ -2210,6 +2599,7 @@ def main() -> int:
     phase_stages3d(r3, VIEWS3[1][1])
 
     phase_grad(port, cuda, rows)
+    phase_grad_unrolled(rp, {shift: GRAD_PARAMS[0], grow: GRAD_PARAMS[1]})
     phase_mesh(port, cuda, rows)
 
     log(smi)

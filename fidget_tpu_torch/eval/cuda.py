@@ -195,7 +195,9 @@ def _voxel_cols(sub: int, r: int) -> int:
     return min(fits, default=0)
 
 
-#: kernel name -> (source stem, C entry point)
+#: kernel name -> (source stem, C entry point); the kernels generated per
+#: tape have no stem of their own and are built and launched by
+#: eval/unrolled_cuda.py
 KERNELS = {
     "interp_interval": ("interp_interval", "fidget_interp_interval"),
     "liveness_codes": ("liveness", "fidget_liveness_codes"),
@@ -203,6 +205,8 @@ KERNELS = {
     "interp_grad": ("interp_grad", "fidget_interp_grad"),
     "interp_voxel_depth": ("interp_voxel_depth", "fidget_interp_voxel_depth"),
     "interp_float_coded": ("interp_float_coded", "fidget_interp_float_coded"),
+    "unrolled_float": (None, "fidget_unrolled_float_launch"),
+    "unrolled_interval": (None, "fidget_unrolled_interval_launch"),
 }
 
 #: launches per kernel name since the last `reset_launches()`
@@ -299,7 +303,7 @@ def build() -> pathlib.Path:
     parallel; returns the build directory. `<stem>.log` beside each
     library keeps nvcc's output (registers, spills, shared memory)."""
     out = build_dir()
-    stems = sorted({stem for stem, _ in KERNELS.values()})
+    stems = sorted({stem for stem, _ in KERNELS.values() if stem})
     todo = [s for s in stems if not (out / f"lib{s}.so").exists()]
     if not todo:
         return out

@@ -35,8 +35,9 @@ CPU the plain PyTorch versions run instead. The choice is made by the
 renderer's device alone. A frame is differentiable in its var vector
 through the leaf pass alone (`interp_float` is an autograd Function);
 stages 1-4 run as one constant of differentiation (`_cull` behind
-`untracked`). The unrolled and dense modes are not ported
-yet.
+`untracked`). The per-shape compiled modes (`render_unrolled`,
+`render_dense`) run kernels generated per tape; their frames live in
+render/unrolled2d.py.
 """
 
 from __future__ import annotations
@@ -696,6 +697,106 @@ class PixelRenderer:
             pixel_perfect=pixel_perfect,
         )
         return Image2D(img[: self.H, : self.W], fill[: self.H, : self.W])
+
+    def render_unrolled(
+        self,
+        world_to_model: np.ndarray | None = None,
+        *,
+        z: float = 0.0,
+        vars: ShapeVars | dict | None = None,
+        pixel_perfect: bool = False,
+        tile_size: int = 8,
+        cap: int | None = None,
+        max_retries: int = 3,
+        cull: str = "unrolled",
+        warmup: str = "block",
+        leaf: str = "full",
+        block_px: int = 256,
+        cancel=None,
+    ) -> Image2D:
+        """Tiled-unrolled render: interval culling at `tile_size`-px
+        tiles, then the whole tape as straight-line code over only the
+        active tiles, on two kernels generated for this tape (U2
+        `unrolled_interval` culls, U1 `unrolled_float` evaluates; see
+        render/unrolled2d.py). The first render sizes the worklist by a
+        cull-only pass (K1); capacities are 8% over the active count,
+        rounded to 128 slots, and an overflow retries at the next size.
+
+        cull: "unrolled" (U2) or "interp" (K1 on the canonical bucket
+        arena; no interval kernel to build). Proofs agree on NaN-free
+        paths (eval/unrolled_fast.py's documented relaxation).
+
+        warmup: "block" builds the frame's kernels on first use (nvcc,
+        all together; cached under fidget_tpu_torch/_build/). "interp"
+        never blocks on that build: while it runs in a background
+        thread, frames are served by `render()`; a failed build raises
+        on the next call.
+
+        leaf: "full" evaluates the whole tape on every active tile;
+        "union" evaluates per-block union-simplified tapes (a
+        `UnionPlan` of `block_px`-px blocks, built on the host at the
+        first render's camera) with per-frame validity routing: tiles
+        whose captured choice trace escapes their block's union run
+        the full tape on a fallback worklist, so results are exact for
+        any camera. An overflow rebuilds the plan at the current camera
+        with more headroom; above 5% fallback the plan is rebuilt in
+        the background. `union_stats` holds the last frame's counts.
+
+        Returns an `Image2D` on the render device."""
+        from .unrolled2d import render_unrolled
+
+        return render_unrolled(
+            self, world_to_model, z=z, vars=vars,
+            pixel_perfect=pixel_perfect, tile_size=tile_size, cap=cap,
+            max_retries=max_retries, cull=cull, warmup=warmup, leaf=leaf,
+            block_px=block_px, cancel=cancel,
+        )
+
+    def render_dense(
+        self,
+        world_to_model: np.ndarray | None = None,
+        *,
+        z: float = 0.0,
+        vars: ShapeVars | dict | None = None,
+    ) -> Image2D:
+        """Compiled-per-shape dense render: the whole tape over every
+        pixel, one U1 launch, no culling. Every pixel carries a true
+        distance (fill is FILL_NONE everywhere); `_dense` is its
+        differentiable form."""
+        from .unrolled2d import render_dense
+
+        return render_dense(self, world_to_model, z=z, vars=vars)
+
+    def _dense(self, mat, z, var_vec):
+        """The dense frame from host or device inputs: f32 [H, W],
+        differentiable in `var_vec` (reverse and forward mode; the
+        Jacobian from K4 passes)."""
+        from .unrolled2d import _device_args, frame_dense, ready, state
+
+        ready(self, [state(self).float_full], "block")
+        return frame_dense(self, *_device_args(self, mat, z, var_vec))
+
+    def _frame_unrolled(self, mat, z, var_vec, *, tile_size=8, cap=None,
+                        pixel_perfect=False, cull="unrolled"):
+        """One full-leaf unrolled frame at `cap` leaf slots (all tiles
+        when None): (img, fill, n_active), the padded frame;
+        differentiable in `var_vec` through the leaf (fills carry no
+        derivative)."""
+        from .unrolled2d import (
+            _device_args, frame_unrolled, ready, state,
+        )
+
+        T0 = int(tile_size)
+        n0 = (-(-self.W // T0)) * (-(-self.H // T0))
+        st = state(self)
+        kernels = [st.float_full]
+        if cull == "unrolled":
+            kernels.append(st.interval("proofs"))
+        ready(self, kernels, "block")
+        return frame_unrolled(
+            self, T0, n0 if cap is None else cap, pixel_perfect, cull,
+            *_device_args(self, mat, z, var_vec),
+        )
 
     def render_brute(
         self,

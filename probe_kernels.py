@@ -40,6 +40,20 @@ bindings and the 512^3 gyroid normals frame, one frame of each side by
 turns, the side that goes first alternating, on the host clock around
 a synchronized frame. Both sides see the same drift of a shared host,
 which two separate runs do not.
+
+    python3 probe_kernels.py --unrolled-builds
+
+instead builds the kernels generated for the 2D stand-in
+(eval/unrolled_cuda.py: U1 of the full tape and of the union plan of
+`chip_smoke.py`'s phase 6c, U2 with each epilogue) cold, one kernel at
+a time, each into an empty build directory under `--out`: the wall time
+of its nvcc steps, the ptxas compile time its logs report, and a
+second, cached build; then the union kernel once more as a single
+translation unit without -rdc (the programs and the kernel in one
+file), the alternative to one unit a program; last, U2 (proofs) with
+its body in one chunk against the default chunks: each one's cold
+build and its time on the stand-in's tiles at the pan view, and their
+proofs equal.
 """
 
 from __future__ import annotations
@@ -266,6 +280,100 @@ def frames_in_turns(cs, sides, rounds):
               f"{rounds} rounds", flush=True)
 
 
+def unrolled_builds(cs, port, out):
+    """Cold builds of the stand-in's generated kernels, one kernel at a
+    time (see the module doc)."""
+    import re
+    import tempfile
+
+    from fidget_tpu_torch.compiler.unions import build_union_plan
+    from fidget_tpu_torch.eval import cuda
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+    from fidget_tpu_torch.render import unrolled2d as u2
+    from fidget_tpu_torch.scenes import standin_shape
+
+    ctx = port.Context()
+    tape = port.lower(ctx, [standin_shape(ctx)])
+    r = port.PixelRenderer(tape, port.ImageSize(cs.SIZE, cs.SIZE))
+    T0 = cs.UNROLLED_T0
+    n0x = cs.SIZE // T0
+    plan = build_union_plan(tape, T0, n0x, n0x, r._mat4(cs.FRAMES[0]), 0.0,
+                            r._var_vec(None), r.axis_of,
+                            block_px=cs.UNROLLED_BLOCK)
+    st = u2.state(r)
+    union = u2.union_tables(r, plan, max(128, -(-(n0x * n0x // 64) // 128)
+                                         * 128)).kernel
+    kernels = {"U1 full": st.float_full, "U1 union": union,
+               **{f"U2 {e}": st.interval(e) for e in uc.EPILOGUES}}
+
+    def ptxas_ms(d):
+        times = [float(m) for p in pathlib.Path(d).rglob("*.log")
+                 for m in re.findall(r"Compile time = ([0-9.]+) ms",
+                                     p.read_text())]
+        return sum(times), max(times, default=0.0)
+
+    out.mkdir(parents=True, exist_ok=True)
+    root = cuda.BUILD_ROOT
+    chunk_rows = uc.INTERVAL_CHUNK_ROWS
+    try:
+        for label, k in kernels.items():
+            with tempfile.TemporaryDirectory(dir=out) as d:
+                cuda.BUILD_ROOT = pathlib.Path(d)
+                k._unit = None
+                t0 = time.perf_counter()
+                steps = uc.build_kernels([k])
+                cold = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                again = uc.build_kernels([k])
+                cached = time.perf_counter() - t0
+                total, most = ptxas_ms(d)
+                print(f"{label}: {len(steps)} nvcc steps, cold {cold:.1f} s "
+                      f"wall; ptxas {total / 1e3:.1f} s in all, "
+                      f"{most / 1e3:.1f} s at most in one unit; cached "
+                      f"{cached:.3f} s ({len(again)} steps)", flush=True)
+            k._unit = None
+        with tempfile.TemporaryDirectory(dir=out) as d:
+            unit = union.unit()
+            progs = {o.key: o.source for o in unit.objects}
+            src = pathlib.Path(d) / "union_one_unit.cu"
+            src.write_text("".join(progs.values()) + unit.source)
+            cmd = [cuda._nvcc(), *cuda.NVCC_FLAGS, "-I", str(cuda.CSRC),
+                   "-o", str(pathlib.Path(d) / "lib.so"), str(src)]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            wall = time.perf_counter() - t0
+            (pathlib.Path(d) / "one.log").write_text(res.stdout + res.stderr)
+            total, _ = ptxas_ms(d)
+            print(f"U1 union as one translation unit ({len(progs)} programs, "
+                  f"no -rdc): nvcc exit {res.returncode}, {wall:.1f} s wall, "
+                  f"ptxas {total / 1e3:.1f} s", flush=True)
+        x0, y0 = st.tiles(T0)
+        params = uc.params_tensor(*u2._device_args(
+            r, r._mat4(cs.FRAMES[1]), 0.0, r._var_vec(None)))
+        first = None
+        for rows in (chunk_rows, len(tape)):
+            with tempfile.TemporaryDirectory(dir=out) as d:
+                cuda.BUILD_ROOT = pathlib.Path(d)
+                uc.INTERVAL_CHUNK_ROWS = rows
+                k = uc.IntervalKernel(tape, r.axis_of, r.n_inputs, "proofs")
+                t0 = time.perf_counter()
+                uc.build_kernels([k])
+                cold = time.perf_counter() - t0
+                got = uc.unrolled_interval(k, x0, y0, params, T0)
+                first = got if first is None else first
+                same = all(torch.equal(g, w) for g, w in zip(got[:2],
+                                                             first[:2]))
+                ms = cs.time_cuda(
+                    lambda: uc.unrolled_interval(k, x0, y0, params, T0), 20)
+                print(f"U2 proofs in {len(k.unit().objects)} chunk(s) of up "
+                      f"to {rows} rows: cold build {cold:.1f} s, "
+                      f"{ms:.4f} ms a launch over {x0.shape[0]} tiles, "
+                      f"proofs equal to the default's: {same}", flush=True)
+    finally:
+        cuda.BUILD_ROOT = root
+        uc.INTERVAL_CHUNK_ROWS = chunk_rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variant", action="append", default=[])
@@ -273,6 +381,7 @@ def main() -> int:
     ap.add_argument("--out", type=pathlib.Path, default=ROOT / "probe_out")
     ap.add_argument("--frames-against", type=pathlib.Path, default=None)
     ap.add_argument("--rounds", type=int, default=30)
+    ap.add_argument("--unrolled-builds", action="store_true")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_kernels: no CUDA device", file=sys.stderr)
@@ -291,6 +400,9 @@ def main() -> int:
         capture_output=True, text=True,
     )
     print("SM clock now / max:", smi.stdout.strip(), flush=True)
+    if opts.unrolled_builds:
+        unrolled_builds(cs, port, opts.out)
+        return 0
     if opts.frames_against is not None:
         other = load_package(opts.frames_against, "fidget_tpu_torch_other")
         frames_in_turns(cs, {"tree": port, "other": other}, opts.rounds)

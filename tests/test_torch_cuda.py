@@ -453,6 +453,7 @@ def test_two_level_render_on_card_matches_brute(card):
     assert cuda.LAUNCHES == {
         "interp_interval": 2, "liveness_codes": 2, "interp_float": 1,
         "interp_grad": 0, "interp_voxel_depth": 0, "interp_float_coded": 0,
+        "unrolled_float": 0, "unrolled_interval": 0,
     }
     brute = r.render_brute()
     dist, fill = img.distance.cpu().numpy(), img.fill.cpu().numpy()
@@ -650,3 +651,143 @@ def test_build_mesh_on_card_matches_cpu(card):
     assert len(got.triangles) > 1000
     np.testing.assert_array_equal(got.triangles, want.triangles)
     np.testing.assert_allclose(got.vertices, want.vertices, rtol=0, atol=1e-5)
+
+
+# ----------------------------------------------------------------------
+# the kernels generated per tape (eval/unrolled_cuda.py)
+
+
+def _nan_div_tape():
+    """NaN, an immediate denominator of 0 and one that spans zero, under
+    min/max, and AND/OR choices."""
+    ctx = port.Context()
+    x, y = ctx.x(), ctx.y()
+    r = ctx.sqrt(ctx.add(ctx.square(x), ctx.square(y)))
+    d = ctx.min(ctx.sub(r, 0.6),
+                ctx.max(ctx.sqrt(ctx.sub(x, 0.25)), ctx.sub(ctx.abs(x), 0.9)))
+    d = ctx.max(d, ctx.min(ctx.div(ctx.sub(y, 0.1), 0.0), ctx.sub(r, 0.95)))
+    d = ctx.min(d, ctx.max(ctx.div(ctx.sub(x, 0.3), ctx.add(y, 0.05)),
+                           ctx.sub(r, 0.4)))
+    return port.lower(ctx, [ctx.or_(ctx.and_(d, ctx.sub(r, 0.5)),
+                                    ctx.sub(ctx.abs(y), 0.8))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["union", "nan_div"])
+def test_unrolled_kernels_match_plain(card, which):
+    """U2 with each epilogue (flags and words exact) and U1 over a union
+    plan's programs and the fallback in one launch (2e-5) against their
+    plain versions on the card, on the tiles and worklist of a 256^2
+    union frame; each launch counted under its own name."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+    from fidget_tpu_torch.render import unrolled2d as u2
+
+    tape = _union_tape(40) if which == "union" else _nan_div_tape()
+    r = port.PixelRenderer(tape, port.ImageSize(256, 256))
+    r.render_unrolled(leaf="union", block_px=64)
+    st = u2.state(r)
+    plan = st.plans[(8, 64)]
+    tb = u2.union_tables(r, plan, 128)
+    x0, y0 = st.tiles(8)
+    mat, z, vec = u2._device_args(r, r._mat4(None), 0.0, r._var_vec(None))
+    params = uc.params_tensor(mat, z, vec)
+    xp, yp = x0[tb.perm], y0[tb.perm]
+    cuda.reset_launches()
+    for epi in uc.EPILOGUES:
+        k = st.interval(epi)
+        u = tb.u_tile if epi == "violation" else None
+        got = uc.unrolled_interval(k, xp, yp, params, 8.0, u)
+        want = uc.unrolled_interval_plain(k, xp, yp, params, 8.0, u)
+        for g, w in zip(got, want):
+            assert (g is None and w is None) or torch.equal(g, w), epi
+    assert cuda.LAUNCHES["unrolled_interval"] == 3
+    n = tb.total
+    idx = torch.randint(0, x0.shape[0], (n,), generator=torch.Generator()
+                        .manual_seed(2)).to(card)
+    valid = torch.arange(n, device=card) % 7 != 3
+    got = uc.unrolled_float(tb.kernel, x0[idx], y0[idx], valid, params,
+                            tb.seg, tw=8, pp=64)
+    want = uc.unrolled_float_plain(tb.kernel, x0[idx], y0[idx], valid,
+                                   params, tb.seg, tw=8, pp=64)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert (got[~valid] == 0).all()
+    assert cuda.LAUNCHES["unrolled_float"] == 1
+
+
+@pytest.mark.cuda
+def test_render_unrolled_on_card_matches_brute(card):
+    """render_unrolled (union and full leaf, cull unrolled and interp,
+    8- and 16-px tiles) and render_dense on the card: occupancy equal to
+    render_brute and to render()'s, distances allclose where evaluated,
+    each mode through its own kernels."""
+    tape = _union_tape(40)
+    r = port.PixelRenderer(tape, port.ImageSize(256, 256))
+    pan = np.array([[1.1, 0.0, 0.05], [0.0, 1.1, -0.03], [0.0, 0.0, 1.0]])
+    brute = r.render_brute(pan)
+    occ = r.render(pan).inside().cpu().numpy()
+    modes = [
+        (dict(leaf="union", block_px=64), {"unrolled_interval",
+                                            "unrolled_float"}),
+        (dict(leaf="full"), {"unrolled_interval", "unrolled_float"}),
+        (dict(leaf="full", cull="interp", tile_size=16),
+         {"interp_interval", "unrolled_float"}),
+        (None, {"unrolled_float"}),
+    ]
+    for kw, kernels in modes:
+        if kw is not None:
+            r.render_unrolled(pan, **kw)  # builds, sizes the worklist
+        cuda.reset_launches()
+        img = (r.render_dense(pan) if kw is None
+               else r.render_unrolled(pan, **kw))
+        torch.cuda.synchronize()
+        assert {k for k, v in cuda.LAUNCHES.items() if v} == kernels, kw
+        dist, fill = img.distance.cpu().numpy(), img.fill.cpu().numpy()
+        ev = fill == FILL_NONE
+        np.testing.assert_allclose(dist[ev], brute[ev], rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(img.inside().cpu().numpy(), brute < 0)
+        np.testing.assert_array_equal(img.inside().cpu().numpy(), occ)
+
+
+@pytest.mark.cuda
+def test_unrolled_gradients_on_card_match_cpu(card):
+    """The dense and the pixel_perfect unrolled frame are differentiable
+    on the card (U1 value, K4 Jacobian): reverse mode equals forward
+    mode there and the CPU's gradient."""
+    cx = port.Var.new()
+    ctx = port.Context()
+    x, y = ctx.x(), ctx.y()
+    dx = ctx.sub(x, ctx.input(cx))
+    tape = port.lower(ctx, [ctx.sub(
+        ctx.sqrt(ctx.add(ctx.square(dx), ctx.square(y))), 0.5)])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        r = port.PixelRenderer(tape, port.ImageSize(64, 64), device=dev)
+        mat, vec = r._mat4(None), r._var_vec({cx: 0.1})
+        for label, frame in (
+            ("dense", lambda v: r._dense(mat, 0.0, v)),
+            ("unrolled", lambda v: r._frame_unrolled(
+                mat, 0.0, v, tile_size=16, pixel_perfect=True)[0]),
+        ):
+            loss = lambda v: (frame(v) ** 2).sum()
+            v = torch.tensor(vec, device=dev, requires_grad=True)
+            loss(v).backward()
+            g_fwd = torch.func.jacfwd(loss)(torch.tensor(vec, device=dev))
+            torch.testing.assert_close(v.grad, g_fwd, rtol=1e-5, atol=1e-6)
+            out[(dev, label)] = v.grad.cpu()
+    for label in ("dense", "unrolled"):
+        torch.testing.assert_close(out[("cuda", label)], out[("cpu", label)],
+                                   rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_unrolled_build_is_cached(card):
+    """A second build of the same kernels runs no nvcc."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+
+    tape = _union_tape(8, seed=4)
+    axis = {v.kind: i for v, i in tape.var_map.items()}
+    kernels = [uc.FloatKernel([tape], axis, 2),
+               uc.IntervalKernel(tape, axis, 2, "capture")]
+    uc.build_kernels(kernels)
+    assert uc.built(kernels)
+    assert uc.build_kernels(kernels) == {}
