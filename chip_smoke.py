@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Bring-up check of fidget_tpu_torch on one CUDA card.
 
-Builds the six CUDA kernels of the port from the sources in
+Builds the eight CUDA kernels of the port from the sources in
 fidget_tpu_torch/csrc and the two it generates per tape (from
 csrc/unrolled.cuh), holds each against its plain PyTorch version on
 the card, and drives the port's main paths: the 2D frame
@@ -15,8 +15,9 @@ the numpy oracles; the per-shape compiled 2D path
 on the two kernels generated for the stand-in (U1 `unrolled_float`,
 U2 `unrolled_interval`); then the shape-parameter gradient of the 2D
 frames and the mesher (`build_mesh` at depth 8 on the sphere union and the
-gyroid sphere), on `BulkEvaluator`. Run from the root of the
-repository:
+gyroid sphere), on `BulkEvaluator`; last the ports of the Pallas probes
+P2 and P3, each through its own probe (`fidget_tpu_torch.demos`). Run
+from the root of the repository:
 
     python3 chip_smoke.py
 
@@ -150,7 +151,27 @@ Phases (any failure exits non-zero and prints no result):
    (`_StageClock`) with the device's busy time; and K1, K3 and K4 on the
    inputs the depth-8 builds gave them, bit-equal to their plain
    versions on the first instances (NaN where plain is NaN), with time,
-   bound and the cost of copying the tape over the instances.
+   bound and the cost of copying the tape over the instances;
+12. the interleave probe (P2, `demos/exp_interleave.py`): the
+   two-stream kernel `interp_float2` against its plain version bit for
+   bit on the reference's tapes at its shapes (128 instances of two
+   streams, Lcap 1024, nf 32, S0 32), on INPUT-prefixed random tapes
+   with full lens and with lens short of Lcap (the kernel walks Lcap
+   rows either way), and on one tape per opcode 0-30, 31, 40 and 127
+   with immediates, an aux past V and registers past nf, each at 4, 2
+   and 1 lanes a thread; then the probe's `main()`, launch counts set
+   to 0 before and read after (K3 for variant A, P2 for B); A, B and B
+   at A's lanes a thread by CUDA events and profiler device time, B's
+   bound and the plain version's time;
+13. the grid-overhead probe (P3, `demos/exp_grid_overhead.py`): the
+   kernel `grid_step` against its plain version bit for bit at T in
+   {1024, 4096, 16384} and G in {1, 4, 16}; then the probe's `main()`,
+   launch counts set to 0 before and read after: ms per call and us
+   per grid step of its 64-call driver `many` in one CUDA graph and
+   launched eagerly, the graph's sum equal to the eager one, each
+   mode's fit of ms per call against CTAs; then the kernel alone at
+   every (T, G) by CUDA events and profiler device time beside its
+   byte bound.
 
 The last two lines of standard output are the `kernels` JSON line and
 the device JSON line.
@@ -198,16 +219,6 @@ FRAMES = [
     np.array([[2.0, 0.0, -0.05], [0.0, 2.0, 0.07], [0.0, 0.0, 1.0]]),
 ]
 
-SPICY = np.array(
-    [
-        0.0, -0.0, 1.0, -1.0, 0.5, -0.5, 2.0, -2.0, 100.0, -100.0,
-        math.pi, -math.pi, math.pi / 2, -math.pi / 2, 2 * math.pi,
-        0.1, -0.1, 1e6, -1e6, math.nan, math.inf, -math.inf,
-        8388609.0, -8388609.0, 2.5, -2.5, 0.49999997,
-    ],
-    dtype=np.float32,
-)
-
 KERNEL_INFO = {
     "interp_interval": (
         "fidget_tpu_torch/csrc/interp_interval.cu",
@@ -232,6 +243,15 @@ KERNEL_INFO = {
     "interp_float_coded": (
         "fidget_tpu_torch/csrc/interp_float_coded.cu",
         "fidget_tpu/eval/pallas_interp.py:518",
+    ),
+    # the Pallas probes P2 and P3, driven by their own probes (phases 12-13)
+    "interp_float2": (
+        "fidget_tpu_torch/csrc/interleave.cu",
+        "demos/exp_interleave.py:58",
+    ),
+    "grid_step": (
+        "fidget_tpu_torch/csrc/grid_step.cu",
+        "demos/exp_grid_overhead.py:29",
     ),
 }
 
@@ -392,6 +412,7 @@ def _matrix_tolerance(name):
 def phase_op_matrix(port, dev):
     from fidget_tpu_torch.compiler.pack import pack_tapes
     from fidget_tpu_torch.eval import interp, simplify_device
+    from fidget_tpu_torch.scenes import SPICY
 
     cases = _matrix_tapes(port)
     packed = pack_tapes([t for _, t in cases], capacity=32)
@@ -1095,23 +1116,27 @@ def phase_kernels(captured, launches, n_frames, n_tiles):
 
 def device_ms(fn, name, reps=20):
     """Mean device time per call of the kernels whose name holds `name`
-    over `reps` calls, from the profiler (None when it records none);
-    beside `time_cuda`, which also counts the host's enqueue where it is
-    slower than the kernel."""
+    over `reps` calls, from the profiler; beside `time_cuda`, which also
+    counts the host's enqueue where it is slower than the kernel. A
+    session that records no device event for them is run again, up to
+    three sessions (back-to-back sessions on the card have come back
+    empty every other time); None when none records one."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if name in e.key and e.self_device_time_total > 0]
-    count = sum(e.count for e in events)
-    if not count:
-        return None
-    return sum(e.self_device_time_total for e in events) / 1e3 / count
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if name in e.key and e.self_device_time_total > 0]
+        count = sum(e.count for e in events)
+        if count:
+            return sum(e.self_device_time_total for e in events) / 1e3 / count
+    return None
 
 
 def _renumbered(w1, order):
@@ -2532,6 +2557,216 @@ def phase_grad_unrolled(rp, vars_, N=SIZE, reps=5):
             f"step {step_ms[0]:.3f} ms median ({step_ms[1]:.3f} min)")
 
 
+def _same_or_nan(got, want):
+    """Bit for bit, any NaN matching any NaN."""
+    return bool(((got.view(torch.int32) == want.view(torch.int32))
+                 | (torch.isnan(got) & torch.isnan(want))).all())
+
+
+def _interleave_cases(dev):
+    """(label, args, nf, s0) of the inputs phase 12 holds P2 to its plain
+    version on."""
+    from fidget_tpu_torch.demos import exp_interleave as p2
+    from fidget_tpu_torch.scenes import interleave_op_arena, prefixed_random_tapes
+
+    on = lambda arrays: [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                         for a in arrays]
+    ref = p2.split_streams(*p2.reference_inputs(dev))
+    w1, w2, imm, rng = prefixed_random_tapes(2 * 64, p2.L_REF, p2.NF_REF, 3,
+                                             seed=7)
+    vars_ = rng.normal(size=(64, 3, p2.S0_REF, 128)).astype(np.float32)
+    full = np.full(64, p2.NF_REF + p2.L_REF, np.int32)
+    short = rng.integers(0, p2.NF_REF + p2.L_REF, 64).astype(np.int32)
+    pre = (w1[:64], w2[:64], imm[:64], w1[64:], w2[64:], imm[64:])
+    *ops, ops_vars, _ = interleave_op_arena(8, past_nf=True)
+    ops_lens = np.full(ops[0].shape[0], ops[0].shape[1], np.int32)
+    return [
+        ("reference tapes (random_tape, registers from 0)", ref, p2.NF_REF,
+         p2.S0_REF),
+        ("INPUT-prefixed random tapes", on((*pre, full, vars_)), p2.NF_REF,
+         p2.S0_REF),
+        ("the same with lens short of Lcap", on((*pre, short, vars_)),
+         p2.NF_REF, p2.S0_REF),
+        ("one tape per opcode 0-30, 31, 40, 127, registers past nf",
+         on((*ops, ops_lens, ops_vars)), 8, 8),
+    ]
+
+
+def phase_interleave(cuda, dev="cuda"):
+    """12. The probe P2 (`fidget_tpu_torch.demos.exp_interleave`): the
+    two-stream kernel against its plain version bit for bit on the
+    reference's tapes at its shapes (T / 2 = 128 instances, Lcap 1024,
+    nf 32, S0 32), on INPUT-prefixed random tapes with full and short
+    lens (equal to each other too), and on one tape per opcode with
+    immediates, an aux past V and registers past nf, each at the
+    geometry's lanes a thread and at 4, 2 and 1; then the probe's
+    `main()` with the launch counts set to 0 before and read after
+    (variant A launches K3, variant B P2); then A, B and B at A's lanes
+    a thread timed by CUDA events and the profiler's device time, the
+    bound of B and the plain version's time."""
+    from fidget_tpu_torch.demos import exp_interleave as p2
+    from fidget_tpu_torch.eval.interp import interp_float
+
+    dev = torch.device(dev)
+    results = {}
+    for label, args, nf, s0 in _interleave_cases(dev):
+        want = p2.interp_float2_plain(*args, nf=nf, s0=s0)
+        for r in (0, 4, 2, 1):  # the geometry's choice, then each layout
+            got = p2.interp_float2(*args, nf=nf, s0=s0, lanes_per_thread=r)
+            if not _same_or_nan(got, want):
+                raise Failed(f"interp_float2 on {label} at lanes_per_thread "
+                             f"{r} differs from plain")
+        results[label] = got
+        log(f"interp_float2 on {label} {tuple(args[7].shape)}: bit-equal to "
+            f"plain; {int(torch.isfinite(got).sum())} of {got.numel()} "
+            f"outputs finite")
+    full, short = (results[k] for k in list(results)[1:3])
+    if not _same_or_nan(full, short):
+        raise Failed("interp_float2 read lens: short lens changed its result")
+
+    cuda.reset_launches()
+    res = p2.main(device=dev)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    log(f"probe launches: {launches}")
+    missing = [k for k in ("interp_float", "interp_float2") if not launches[k]]
+    if missing:
+        raise Failed(f"the interleave probe never launched {missing}")
+
+    w1, w2, imm, lens, vars_ = p2.reference_inputs(dev)
+    args_b = p2.split_streams(w1, w2, imm, lens, vars_)
+    nf, s0, T, L = p2.NF_REF, p2.S0_REF, w1.shape[0], w1.shape[1]
+    run_a = lambda: interp_float(w1, w2, imm, lens, vars_, nf=nf,
+                                 n_inputs=p2.V_REF, n_outputs=1, s0=s0)
+    run_b = lambda: p2.interp_float2(*args_b, nf=nf, s0=s0)
+    r_a = res["geometry_a"].r
+    run_b_at_a = lambda: p2.interp_float2(*args_b, nf=nf, s0=s0,
+                                          lanes_per_thread=r_a)
+    ms_a, ms_b = time_cuda(run_a, reps=20), time_cuda(run_b, reps=20)
+    ms_b_at_a = time_cuda(run_b_at_a, reps=20)
+    dev_a = device_ms(run_a, "interp_float_kernel")
+    dev_b = device_ms(run_b, "interp_float2_kernel")
+    dev_b_at_a = device_ms(run_b_at_a, "interp_float2_kernel")
+    _, plain_ms = _time_plain(
+        lambda *a: p2.interp_float2_plain(*a, nf=nf, s0=s0), args_b, {})
+    lanes = s0 * 128
+    ops = T * L * lanes  # one per lane, row and stream (B: T / 2 x 2 streams)
+    nbytes = 12 * T * L + vars_[: T // 2].nbytes + T * lanes * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    bound_ms, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                         else "operations")
+    slot_ms = _slot_bound_ms(ops)
+    steps = T * L
+    log(f"interleave probe: A (K3, {T} instances, "
+        f"{res['geometry_a'].r} lanes a thread) {ms_a:.4f} ms, device "
+        f"{dev_a} ms, {ms_a / steps * 1e6:.4f} ns/step; B (P2, {T // 2} "
+        f"instances of 2 streams, {res['geometry_b'].r} lanes a thread) "
+        f"{ms_b:.4f} ms, device {dev_b} ms, {ms_b / steps * 1e6:.4f} "
+        f"ns/step; B's speedup x{ms_a / ms_b:.3f} (events), "
+        f"x{(dev_a or 0) / (dev_b or 1):.3f} (device); B at A's {r_a} "
+        f"lanes a thread {ms_b_at_a:.4f} ms, device {dev_b_at_a} ms; "
+        f"{ops} operations, "
+        f"{nbytes} bytes: bound {bound_ms:.5f} ms ({by}), scheduler-slot "
+        f"bound {slot_ms:.5f} ms; plain {plain_ms:.1f} ms")
+    src, replaces = KERNEL_INFO["interp_float2"]
+    return {
+        "name": "interp_float2", "route": "cuda", "source": src,
+        "replaces": replaces, "launches": launches["interp_float2"],
+        "max_abs_err": 0.0, "ms": ms_b, "device_ms": dev_b,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+        "slot_bound_ms": slot_ms, "library_ms": None,
+        "ns_per_step": ms_b / steps * 1e6,
+        "lanes_per_thread": res["geometry_b"].r,
+        "variant_a": {"ms": ms_a, "device_ms": dev_a,
+                      "ns_per_step": ms_a / steps * 1e6,
+                      "lanes_per_thread": r_a},
+        "b_at_a_lanes": {"ms": ms_b_at_a, "device_ms": dev_b_at_a,
+                         "ns_per_step": ms_b_at_a / steps * 1e6},
+        "probe": {k: res[k] for k in ("ms_a", "ms_b", "ns_a", "ns_b",
+                                      "speedup")},
+    }
+
+
+def phase_grid_overhead(cuda, dev="cuda"):
+    """13. The probe P3 (`fidget_tpu_torch.demos.exp_grid_overhead`): the
+    grid-step kernel against its plain version bit for bit at every
+    (T, G) of the probe; then the probe's `main()` with the launch counts
+    set to 0 before and read after: ms per call and us per grid step of
+    `many` (K = 64 calls) in one CUDA graph and eagerly, each mode's fit
+    of ms per call against CTAs, and the graph's acc equal to the eager
+    one; then the kernel alone at each (T, G) by CUDA events and the
+    profiler's device time beside its bound (2 T 4 KiB over the memory
+    rate), and the bound of one call of `many` with the glue's bytes
+    (the scaling reads and writes x, the kernel reads and writes it, the
+    sum reads two floats and writes one: 4 T 4 KiB + 12 bytes)."""
+    from fidget_tpu_torch.demos import exp_grid_overhead as p3
+
+    dev = torch.device(dev)
+    xs = {}
+    for T in p3.TS:
+        xs[T] = torch.from_numpy((np.random.default_rng(T).normal(
+            size=(T, 8, 128)) * 1000).astype(np.float32)).to(dev)
+        for G in p3.GS:
+            if not torch.equal(p3.grid_step(xs[T], G),
+                               p3.grid_step_plain(xs[T], G)):
+                raise Failed(f"grid_step at T={T}, G={G} differs from plain")
+    log(f"grid_step bit-equal to plain at T in {p3.TS}, G in {p3.GS}")
+
+    cuda.reset_launches()
+    res = p3.main(device=dev)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    log(f"probe launches: {launches}")
+    if not launches["grid_step"]:
+        raise Failed("the grid-overhead probe never launched grid_step")
+    for (T, G), (graph_acc, eager_acc) in res["acc"].items():
+        if graph_acc != eager_acc:
+            raise Failed(f"many at T={T}, G={G}: graph acc {graph_acc} "
+                         f"differs from eager {eager_acc}")
+
+    probe = {mode: {(r["T"], r["G"]): r for r in res[mode]}
+             for mode in ("graph", "eager")}
+    at = {}
+    for T in p3.TS:
+        nbytes = 2 * T * 8 * 128 * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * p3.REPS * T * 8 * 128 / F32_OPS_PER_S * 1e3
+        call_ms = (2 * nbytes + 12) / HBM_BYTES_PER_S * 1e3
+        for G in p3.GS:
+            run = lambda: p3.grid_step(xs[T], G)
+            ms = time_cuda(run, reps=20)
+            dms = device_ms(run, "grid_step_kernel")
+            row = at[f"T={T},G={G}"] = {
+                "ms": ms, "device_ms": dms, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "call_bound_ms": call_ms,
+            }
+            for mode, by_size in probe.items():
+                got = by_size.get((T, G), {})
+                row[f"{mode}_ms_per_call"] = got.get("ms")
+                row[f"{mode}_us_per_step"] = got.get("us_per_step")
+            log(f"grid_step T={T} G={G} ({T // G} CTAs): kernel {ms:.4f} ms "
+                f"(events), device {dms} ms, bound {max(t_bytes, t_ops):.5f} "
+                f"ms ({nbytes} bytes); many per call: graph "
+                f"{row['graph_ms_per_call']} ms, eager "
+                f"{row['eager_ms_per_call']} ms, bound with the glue "
+                f"{call_ms:.5f} ms")
+    T, G = p3.TS[-1], p3.GS[0]
+    _, plain_ms = _time_plain(p3.grid_step_plain, (xs[T], G), {})
+    main_row = at[f"T={T},G={G}"]
+    src, replaces = KERNEL_INFO["grid_step"]
+    return {
+        "name": "grid_step", "route": "cuda", "source": src,
+        "replaces": replaces, "launches": launches["grid_step"],
+        "max_abs_err": 0.0, "ms": main_row["ms"],
+        "device_ms": main_row["device_ms"], "plain_ms": plain_ms,
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": None, "shape": f"T={T},G={G}", "at": at,
+        "fit": res["fit"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2601,6 +2836,9 @@ def main() -> int:
     phase_grad(port, cuda, rows)
     phase_grad_unrolled(rp, {shift: GRAD_PARAMS[0], grow: GRAD_PARAMS[1]})
     phase_mesh(port, cuda, rows)
+
+    rows["interp_float2"] = phase_interleave(cuda)
+    rows["grid_step"] = phase_grid_overhead(cuda)
 
     log(smi)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

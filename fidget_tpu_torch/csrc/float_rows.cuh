@@ -1,6 +1,7 @@
 // The row loop shared by the value-mode interpreters: interp_float.cu
-// (K3), interp_float_coded.cu (K6), interp_voxel_depth.cu (K5) and
-// interp_grad.cu (K4). A thread owns R = 4 (2, 1) neighbouring lanes,
+// (K3), interp_float_coded.cu (K6), interp_voxel_depth.cu (K5),
+// interp_grad.cu (K4) and the two-stream probe interleave.cu (P2, which
+// takes `row_value` alone). A thread owns R = 4 (2, 1) neighbouring lanes,
 // and a block walks rows already decoded into a `TapeRing` buffer
 // (ops.cuh `stage_row`), one 16-byte broadcast row and its immediate at
 // a time. The loop is written once, over two parameters:
@@ -191,16 +192,15 @@ struct KeepOutput {
     r = Mode::template binary<OP>(va, vb);     \
     break;
 
-// One tape row on the thread's R lanes: both operand loads first, then
-// one flat switch with a constant opcode per case.
+// The value of one tape row on the thread's R lanes from its operands:
+// one flat switch with a constant opcode per case. OUTPUT hands `va` to
+// the sink and passes it on; COPY (and any opcode past the switch)
+// passes `va` through.
 template <class Mode, class Sink>
-__device__ __forceinline__ void run_row(const Mode& m, Sink& sink,
-                                        const Row cur, const float iv,
-                                        unsigned char* regs,
-                                        const float* tvars, int lanes) {
+__device__ __forceinline__ typename Mode::Val row_value(
+    const Mode& m, Sink& sink, const Row cur, const typename Mode::Val& va,
+    const typename Mode::Val& vb, const float* tvars, int lanes) {
   using Val = typename Mode::Val;
-  const Val va = m.load(regs, cur.a, iv);
-  const Val vb = m.load(regs, cur.b, iv);
   const int pay = cur.op_pay >> 8;
   Val r;
   switch (cur.op_pay & 0xFF) {
@@ -225,7 +225,20 @@ __device__ __forceinline__ void run_row(const Mode& m, Sink& sink,
       r = va;
       break;
   }
-  m.store(regs, cur.out, r);
+  return r;
+}
+
+// One tape row on the thread's R lanes: both operand loads first, then
+// the row's value, then its store.
+template <class Mode, class Sink>
+__device__ __forceinline__ void run_row(const Mode& m, Sink& sink,
+                                        const Row cur, const float iv,
+                                        unsigned char* regs,
+                                        const float* tvars, int lanes) {
+  using Val = typename Mode::Val;
+  const Val va = m.load(regs, cur.a, iv);
+  const Val vb = m.load(regs, cur.b, iv);
+  m.store(regs, cur.out, row_value(m, sink, cur, va, vb, tvars, lanes));
 }
 
 #undef FIDGET_UNARY

@@ -71,12 +71,12 @@ def live_ring_bytes(chunk: int) -> int:
 class Geometry:
     """How one launch of an interpreter kernel is laid out.
 
-    r: lanes a thread owns (K3, K5, K6: 4, 2 or 1; K4: GRAD_LANES; K1,
+    r: lanes a thread owns (K3, K5, K6, P2: 4, 2 or 1; K4: GRAD_LANES; K1,
       K2: 1).
     chunk: tape rows per ring buffer.
     smem: bytes of dynamic shared memory of a block.
-    regs_shared: the register file (K4: the four files; K2: the
-      liveness bits) lies in registers or shared memory; else the
+    regs_shared: the register file (K4: the four files; P2: the two;
+      K2: the liveness bits) lies in registers or shared memory; else the
       wrapper allocates a global scratch.
     choices_shared: K1's choice words accumulate in shared memory (else
       the wrapper hands the kernel zeroed device memory to OR into); K2
@@ -99,12 +99,13 @@ class Geometry:
 
 @functools.lru_cache(maxsize=None)
 def launch_geometry(kernel: str, *, nf: int, lanes: int, T: int,
-                    cw: int = 0, sub: int = 0) -> Geometry:
+                    cw: int = 0, sub: int = 0, r: int = 0) -> Geometry:
     """The launch geometry of `interp_float` (K3), `interp_float_coded`
     (K6), `interp_grad` (K4), `interp_voxel_depth` (K5, over sub^3 lanes
-    of `sub`^2 columns), `interp_interval` (K1) or `liveness_codes` (K2)
-    for T instances of `lanes` lanes, an `nf`-register file and `cw`
-    choice words a lane. Everything stays in shared memory as long as
+    of `sub`^2 columns), `interp_interval` (K1), `liveness_codes` (K2)
+    or the two-stream probe `interp_float2` (P2: two rings and two
+    register files, laid out as K3 lays out one) for T instances of
+    `lanes` lanes, an `nf`-register file and `cw` choice words a lane. Everything stays in shared memory as long as
     one block's 227 KB hold it.
 
     K3, K4, K5 and K6 take the most lanes a thread (K4: of GRAD_LANES;
@@ -123,7 +124,8 @@ def launch_geometry(kernel: str, *, nf: int, lanes: int, T: int,
     thread and its liveness in registers, one 32-bit mask word a lane up
     to nf 32 and two up to nf 64; above that a byte plane `[nf][BLOCK]`,
     in shared memory if it fits beside the ring and the choice words,
-    which come first."""
+    which come first. `r` (P2 only) asks for that many lanes a thread,
+    so that the probe can compare layouts."""
     if lanes <= 0 or lanes % BLOCK:
         raise ValueError(f"lanes must be a positive multiple of {BLOCK}")
     chunk = TAPE_CHUNK
@@ -154,6 +156,12 @@ def launch_geometry(kernel: str, *, nf: int, lanes: int, T: int,
     blocks = lambda r: T * (lanes // (BLOCK * r))
     if kernel in ("interp_float", "interp_float_coded"):
         rs = [r for r in (4, 2, 1) if lanes % (BLOCK * r) == 0]
+    elif kernel == "interp_float2":
+        planes, ring = 2, 2 * ring
+        rs = [x for x in (4, 2, 1)
+              if lanes % (BLOCK * x) == 0 and x == (r or x)]
+        if not rs:
+            raise ValueError(f"{r} lanes a thread do not divide {lanes}")
     elif kernel == "interp_grad":
         planes = 4
         rs = [r for r in GRAD_LANES if lanes % (BLOCK * r) == 0]
@@ -207,6 +215,9 @@ KERNELS = {
     "interp_float_coded": ("interp_float_coded", "fidget_interp_float_coded"),
     "unrolled_float": (None, "fidget_unrolled_float_launch"),
     "unrolled_interval": (None, "fidget_unrolled_interval_launch"),
+    # the ports of the Pallas probes P2 and P3 (fidget_tpu_torch/demos/)
+    "interp_float2": ("interleave", "fidget_interp_float2"),
+    "grid_step": ("grid_step", "fidget_grid_step"),
 }
 
 #: launches per kernel name since the last `reset_launches()`
@@ -237,6 +248,11 @@ _ARGTYPES = {
     # w1 w2 imm lengths codes vars out scratch | T L LW nf V O lanes r
     # chunk smem
     "fidget_interp_float_coded": [_P] * 8 + [_I] * 10 + [_P],
+    # w1a w2a imma w1b w2b immb vars out scratch | T L nf V lanes r chunk
+    # smem
+    "fidget_interp_float2": [_P] * 9 + [_I] * 8 + [_P],
+    # x y | T G
+    "fidget_grid_step": [_P] * 2 + [_I] * 2 + [_P],
 }
 
 _LOCK = threading.Lock()

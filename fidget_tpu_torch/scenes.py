@@ -8,7 +8,11 @@ scene function uses only the graph API that this package and the
 reference package share, so a test can build the same scene in both and
 compare the tapes they lower to.
 `seeded_action_codes` makes per-tile action codes for the coded leaf
-kernel without an interval pass.
+kernel without an interval pass; `adversarial_arena` and
+`interleave_op_arena` hand-pack tapes that stress the interpreters'
+staging and the two-stream probe's semantics, and
+`prefixed_random_tapes` gives that probe random tapes that read no
+register before writing it.
 """
 
 from __future__ import annotations
@@ -283,3 +287,129 @@ def adversarial_arena(chunk, liveness=False):
         lengths[t] = n
     return dict(w1=w1, w2=w2, imm=imm, lengths=lengths, names=list(tapes),
                 nf=6, n_inputs=2, n_outputs=2, n_choices=n_choices)
+
+
+#: special values the op checks pair with each other: signed zeros,
+#: units, halves, pi multiples, large and huge values, NaN, infinities,
+#: integers past 2^23 and the float just below one half
+SPICY = np.array(
+    [
+        0.0, -0.0, 1.0, -1.0, 0.5, -0.5, 2.0, -2.0, 100.0, -100.0,
+        np.pi, -np.pi, np.pi / 2, -np.pi / 2, 2 * np.pi,
+        0.1, -0.1, 1e6, -1e6, np.nan, np.inf, -np.inf,
+        8388609.0, -8388609.0, 2.5, -2.5, 0.49999997,
+    ],
+    dtype=np.float32,
+)
+
+#: the opcodes `interleave_op_arena` covers: every dispatchable one and
+#: three past the switch
+INTERLEAVE_OPCODES = tuple(range(31)) + (31, 40, 127)
+#: (name, a, b, immediate) of the op row per (instance parity, stream);
+#: 1 and 2 are registers, None the immediate operand
+_INTERLEAVE_VARIANTS = {
+    (0, 0): ("reg_reg", 1, 2, 0.0),
+    (0, 1): ("imm_reg", None, 2, 0.5),
+    (1, 0): ("reg_imm", 1, None, -2.0),
+    (1, 1): ("reg_reg_swapped", 2, 1, 0.0),
+}
+
+
+def interleave_op_arena(s0, nf=8, V=3, past_nf=False):
+    """Two-stream tapes (the probe `interp_float2`) with one op row each:
+    two instances per opcode of INTERLEAVE_OPCODES, whose four streams
+    put the op's operands as register-register, immediate-register,
+    register-immediate and swapped registers. Every stream first loads
+    register k from input k (nf INPUT rows; aux k past V - 1 clamps to
+    the last input), then runs the op into register 5 with aux V + 3
+    (INPUT then reads past V) and copies register 5 to register 0, the
+    stream's result. Input 1 and 2 pair every SPICY value with every
+    other across the lanes (s0 * 128 >= len(SPICY)^2), input 0 is a
+    ramp. `past_nf` adds an instance whose registers lie past nf - 1 in
+    both streams (the port clamps them; the reference does not).
+
+    Returns (w1a, w2a, imma, w1b, w2b, immb, vars_, labels) as numpy
+    arrays, labels[(t, s)] = (opcode, variant)."""
+    from .compiler.pack import IMM12
+    from .compiler.tape import TapeOp
+
+    lanes = s0 * 128
+    n = len(SPICY)
+    if lanes < n * n or nf < 6:
+        raise ValueError(f"needs s0 * 128 >= {n * n} lanes and nf >= 6")
+
+    def word(op, out, a, b, aux=0):
+        return (op | (out << 7) | (a << 19)), (b | (aux << 12))
+
+    def stream(op, a, b):
+        rows = [word(int(TapeOp.INPUT), k, 0, 0, k) for k in range(nf)]
+        rows.append(word(op, 5, IMM12 if a is None else a,
+                         IMM12 if b is None else b, V + 3))
+        rows.append(word(int(TapeOp.COPY), 0, 5, 0))
+        return rows
+
+    tapes, imms, labels = [], [], {}
+    for i, op in enumerate(INTERLEAVE_OPCODES):
+        for par in (0, 1):
+            pair, pimm = [], []
+            for s in (0, 1):
+                name, a, b, iv = _INTERLEAVE_VARIANTS[(par, s)]
+                pair.append(stream(op, a, b))
+                pimm.append(iv)
+                labels[(2 * i + par, s)] = (op, name)
+            tapes.append(pair)
+            imms.append(pimm)
+    if past_nf:
+        far = nf + 7
+        for s in (0, 1):
+            labels[(len(tapes), s)] = (int(TapeOp.ADD), "registers past nf")
+        rows = [word(int(TapeOp.INPUT), k, 0, 0, k) for k in range(nf)]
+        tapes.append([rows + [word(int(TapeOp.ADD), far, 1, far),
+                              word(int(TapeOp.COPY), 0, far, 0)],
+                      rows + [word(int(TapeOp.ADD), far, 1, 2),
+                              word(int(TapeOp.MUL), 0, far, far)]])
+        imms.append([0.0, 0.0])
+    T, L = len(tapes), nf + 2
+    w1 = np.zeros((2, T, L), np.int64)
+    w2 = np.zeros((2, T, L), np.int64)
+    imm = np.zeros((2, T, L), np.float32)
+    for t, pair in enumerate(tapes):
+        for s, rows in enumerate(pair):
+            w1[s, t] = [r[0] for r in rows]
+            w2[s, t] = [r[1] for r in rows]
+            imm[s, t, nf] = imms[t][s]
+    vars_ = np.zeros((T, V, lanes), np.float32)
+    vars_[:, 0] = np.linspace(-4.0, 4.0, lanes, dtype=np.float32)
+    pa = np.pad(np.repeat(SPICY, n), (0, lanes - n * n))
+    pb = np.pad(np.tile(SPICY, n), (0, lanes - n * n))
+    if V > 1:
+        vars_[:, 1] = pa
+    if V > 2:
+        vars_[:, 2] = pb
+    w1, w2 = w1.astype(np.int32), w2.astype(np.int32)
+    return (w1[0], w2[0], imm[0], w1[1], w2[1], imm[1],
+            vars_.reshape(T, V, s0, 128), labels)
+
+
+def prefixed_random_tapes(T, L, nf, V, seed):
+    """T `random_tape`s of the two-stream probe (demos/exp_interleave.py)
+    drawn in turn from one seeded generator, each behind nf INPUT rows
+    that load register k from input k % V, so that no row reads a
+    register the walk has not written. Returns numpy (w1, w2, imm, rng):
+    [T, nf + L] words, normal immediates, and the generator for the
+    caller's inputs."""
+    from .compiler.tape import TapeOp
+    from .demos.exp_interleave import random_tape
+
+    rng = np.random.default_rng(seed)
+    pre1 = np.array([int(TapeOp.INPUT) | (k << 7) for k in range(nf)],
+                    np.int32)
+    pre2 = np.array([(k % V) << 12 for k in range(nf)], np.int32)
+    w1 = np.zeros((T, nf + L), np.int32)
+    w2 = np.zeros((T, nf + L), np.int32)
+    for i in range(T):
+        a, b = random_tape(L, nf, rng)
+        w1[i] = np.concatenate([pre1, a])
+        w2[i] = np.concatenate([pre2, b])
+    imm = rng.normal(size=w1.shape).astype(np.float32)
+    return w1, w2, imm, rng

@@ -10,7 +10,10 @@ bucket's nf 64), the two-level (128, 32) binding (K1 and K2 at the root
 under the shape's `op_order` and per instance at the subtiles, K3 over
 the leaves) and the 512^3 gyroid frame (K2 shared and per instance; K4
 over the normals and K5 on its heaviest stratum, at the tape's
-registers and again at the bucket's nf 64). Then, for this tree and for every
+registers and again at the bucket's nf 64), and the interleave probe's
+variants on the reference's tapes (`fidget_tpu_torch.demos.
+exp_interleave`: K3 on 256 instances, the two-stream kernel on 128 at
+its geometry's lanes a thread and at 4). Then, for this tree and for every
 `--variant NAME=DIR`, it times each kernel on those inputs by CUDA
 events, in turns (tree, variants..., tree). DIR is either a full copy
 of `fidget_tpu_torch/csrc` with an experiment edited in (built and
@@ -73,14 +76,15 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 STEMS = ("interp_float", "interp_interval", "liveness", "interp_float_coded",
          "interp_grad", "interp_voxel_depth")
-#: kernel name -> (module under fidget_tpu_torch.eval, wrapper)
+#: kernel name -> (module under fidget_tpu_torch, wrapper)
 WRAPPERS = {
-    "interp_float": ("interp", "interp_float"),
-    "interp_interval": ("interp", "interp_interval"),
-    "liveness_codes": ("simplify_device", "liveness_codes"),
-    "interp_float_coded": ("interp", "interp_float_coded"),
-    "interp_grad": ("interp", "interp_grad"),
-    "interp_voxel_depth": ("interp", "interp_voxel_depth"),
+    "interp_float": ("eval.interp", "interp_float"),
+    "interp_interval": ("eval.interp", "interp_interval"),
+    "liveness_codes": ("eval.simplify_device", "liveness_codes"),
+    "interp_float_coded": ("eval.interp", "interp_float_coded"),
+    "interp_grad": ("eval.interp", "interp_grad"),
+    "interp_voxel_depth": ("eval.interp", "interp_voxel_depth"),
+    "interp_float2": ("demos.exp_interleave", "interp_float2"),
 }
 
 
@@ -147,6 +151,16 @@ def capture_inputs(port, cs, render2d, render3d, simplify_device):
         if key.startswith(("interp_grad", "interp_voxel_depth")):
             calls[f"3D {key} nf {vox.nf_b}"] = (
                 key.split("@")[0], args, dict(kwargs, nf=vox.nf_b))
+    # the interleave probe's variants A and B on the reference's tapes
+    from fidget_tpu_torch.demos import exp_interleave as p2
+
+    ref = p2.reference_inputs(torch.device("cuda"))
+    calls["probe interp_float@reference"] = ("interp_float", ref, dict(
+        nf=p2.NF_REF, n_inputs=p2.V_REF, n_outputs=1, s0=p2.S0_REF))
+    for r in (0, 4):  # the geometry's choice, then K3's lanes a thread
+        label = "probe interp_float2@reference" + (f" lanes {r}" if r else "")
+        calls[label] = ("interp_float2", p2.split_streams(*ref),
+                        dict(nf=p2.NF_REF, s0=p2.S0_REF, lanes_per_thread=r))
     return calls
 
 
@@ -414,8 +428,9 @@ def main() -> int:
     tree = cuda.CSRC
     calls = capture_inputs(port, cs, render2d, render3d, simplify_device)
     for label, (name, args, kwargs) in calls.items():
-        lens = args[2] if name == "liveness_codes" else args[3]
-        planes = {"liveness_codes": 3, "interp_float_coded": 5}.get(name, 4)
+        lens = args[{"liveness_codes": 2, "interp_float2": 6}.get(name, 3)]
+        planes = {"liveness_codes": 3, "interp_float_coded": 5,
+                  "interp_float2": 7}.get(name, 4)
         print(f"{label}: arena {tuple(args[0].shape)}, planes "
               f"{tuple(args[planes].shape)}, {int(lens.clamp(min=0).sum())} "
               f"rows, { {k: v for k, v in kwargs.items() if k != 'op_order'} }"
@@ -438,8 +453,12 @@ def main() -> int:
         dump(bcuda, bname.replace(" ", "_"), opts.out)
         for label, (name, args, kwargs) in calls.items():
             mod, wrapper = WRAPPERS[name]
-            fn = getattr(importlib.import_module(f"{pkg.__name__}.eval.{mod}"),
-                         wrapper)
+            try:
+                fn = getattr(importlib.import_module(f"{pkg.__name__}.{mod}"),
+                             wrapper)
+            except ModuleNotFoundError:  # a checkout from before the probe
+                print(f"{bname:>14} | {label:<34} not in this checkout")
+                continue
             got = fn(*args, **kwargs)
             got = got if isinstance(got, tuple) else (got,)
             torch.cuda.synchronize()

@@ -791,3 +791,101 @@ def test_unrolled_build_is_cached(card):
     uc.build_kernels(kernels)
     assert uc.built(kernels)
     assert uc.build_kernels(kernels) == {}
+
+
+# ----------------------------------------------------------------------
+# the probes P2 (two tape streams an instance) and P3 (a grid step)
+
+
+def _bit_equal(got, want):
+    return bool(((got.view(torch.int32) == want.view(torch.int32))
+                 | (torch.isnan(got) & torch.isnan(want))).all())
+
+
+def _interleave_case(which, dev):
+    """(args, nf, s0) of the inputs chip_smoke.py's phase 12 checks."""
+    from fidget_tpu_torch.demos import exp_interleave as p2
+    from fidget_tpu_torch.scenes import interleave_op_arena, prefixed_random_tapes
+
+    if which == "reference":
+        return p2.split_streams(*p2.reference_inputs(dev)), p2.NF_REF, p2.S0_REF
+    if which == "ops":
+        *tapes, vars_, _ = interleave_op_arena(8, past_nf=True)
+        T, L = tapes[0].shape
+        lens = np.full(T, L, np.int32)
+        return [torch.from_numpy(a).to(dev) for a in (*tapes, lens, vars_)], 8, 8
+    # INPUT-prefixed random tapes; "scratch" with files no block holds
+    T, L, nf, s0 = (64, 700, 32, 8) if which == "prefixed" else (8, 100, 600, 1)
+    w1, w2, imm, rng = prefixed_random_tapes(2 * T, L, nf, 3, seed=7)
+    vars_ = rng.normal(size=(T, 3, s0, 128)).astype(np.float32)
+    lens = rng.integers(0, nf + L, T).astype(np.int32)
+    arrays = (w1[:T], w2[:T], imm[:T], w1[T:], w2[T:], imm[T:], lens, vars_)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in arrays], nf, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["reference", "prefixed", "ops", "scratch"])
+def test_interleave_kernel_matches_plain(card, which):
+    """P2 against its plain version, bit for bit: the reference's own
+    tapes at its shapes, INPUT-prefixed random tapes (with `lens` short
+    of Lcap, which the kernel must ignore), one tape per opcode 0-30 and
+    31, 40, 127 with immediates, an aux past V and registers past nf, and
+    register files in the global scratch (nf 600)."""
+    from fidget_tpu_torch.demos import exp_interleave as p2
+
+    args, nf, s0 = _interleave_case(which, card)
+    g = cuda.launch_geometry("interp_float2", nf=nf, lanes=s0 * 128,
+                             T=args[0].shape[0])
+    assert g.regs_shared == (which != "scratch")
+    before = cuda.LAUNCHES["interp_float2"]
+    got = p2.interp_float2(*args, nf=nf, s0=s0)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["interp_float2"] == before + 1
+    want = p2.interp_float2_plain(*args, nf=nf, s0=s0)
+    assert _bit_equal(got, want)
+    full = list(args)
+    full[6] = torch.full_like(args[6], args[0].shape[1])
+    assert _bit_equal(p2.interp_float2(*full, nf=nf, s0=s0), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [4, 2, 1])
+def test_interleave_each_layout_matches_plain(card, r):
+    """P2 at each lanes a thread (4: one block an SM at nf 32) on the
+    INPUT-prefixed random tapes, bit for bit."""
+    from fidget_tpu_torch.demos import exp_interleave as p2
+
+    args, nf, s0 = _interleave_case("prefixed", card)
+    got = p2.interp_float2(*args, nf=nf, s0=s0, lanes_per_thread=r)
+    assert _bit_equal(got, p2.interp_float2_plain(*args, nf=nf, s0=s0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1024, 4096, 16384])
+@pytest.mark.parametrize("G", [1, 4, 16])
+def test_grid_step_matches_plain(card, T, G):
+    """P3 against its plain version, bit for bit (a multiply and an add,
+    each rounded, on both sides)."""
+    from fidget_tpu_torch.demos import exp_grid_overhead as p3
+
+    x = torch.from_numpy((np.random.default_rng(T + G).normal(
+        size=(T, 8, 128)) * 1000).astype(np.float32)).to(card)
+    assert torch.equal(p3.grid_step(x, G), p3.grid_step_plain(x, G))
+
+
+@pytest.mark.cuda
+def test_grid_step_graph_matches_eager(card):
+    """`many` replayed from a CUDA graph gives the eager acc bit for bit;
+    the kernel's launches count at capture, not at replay."""
+    from fidget_tpu_torch.demos import exp_grid_overhead as p3
+
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(1024, 8, 128)).astype(np.float32)).to(card)
+    eager = float(p3.many(x, 8, 4))
+    graph, static_x, acc = p3.capture(x, 8, 4)
+    before = cuda.LAUNCHES["grid_step"]
+    graph.replay()
+    graph.replay()
+    assert float(acc) == eager
+    assert cuda.LAUNCHES["grid_step"] == before
