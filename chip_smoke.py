@@ -89,11 +89,11 @@ Phases (any failure exits non-zero and prints no result):
    tiles, 256-px blocks, the first view) built on the host and timed;
    U1 of the full tape and of the plan's programs plus the full-tape
    fallback (one translation unit a program, linked with -rdc), U2
-   with the two epilogues the frames launch (proofs, violation), and
-   U1 of the parametrized stand-in, all nvcc processes started
-   together: cold and cached build seconds per step, registers and
-   spills (U2's capture epilogue, which no frame launches, is held to
-   its plain version by tests/test_torch_cuda.py);
+   with the two epilogues the frames launch (proofs, violation; one
+   unit a warp's stream), and U1 of the parametrized stand-in, all
+   nvcc processes started together: cold and cached build seconds per
+   step, registers and spills (U2's capture epilogue, which no frame
+   launches, is held to its plain version by phase 6e);
 6d. unrolled frames: `render_unrolled(leaf="union")`, `leaf="full"`
    with `cull` unrolled and interp, and `render_dense` over the three
    views, launch counts set to 0 before each mode's frames and read
@@ -101,9 +101,23 @@ Phases (any failure exits non-zero and prints no result):
    `render_brute` as in phase 4 and its occupancy equal to `render()`'s;
    the union frames' fallback share; warm frames (median and min ms,
    Mpix/s, device busy share, device ops a frame); then U1 and U2 on
-   the inputs each mode gave them against their plain versions (U1 at
-   rtol = atol = 2e-5, U2's flags and words exactly), with CUDA-event
-   and profiler device times and the bound;
+   the inputs each mode gave them against their plain versions (U1 and
+   U2's flags and words exactly), with CUDA-event
+   and profiler device times, the bound, and the SASS instructions a
+   row and lane by class (`cuobjdump -sass`) with the issue and MUFU
+   floors they give;
+6e. unrolled guard: U1 and U2 beyond the stand-in's seven opcodes, all
+   built in one batch: U1 over one launch of one program per op (every
+   unary op on x and on a var, every binary op, MIN / MAX / AND / OR
+   included, register with register, with an immediate on either
+   side), held exactly (at `_matrix_tolerance` for the transcendentals);
+   U1 alone (inlined) and U2 under all three epilogues on three tapes
+   that feed every op into a choice row (the exact ops with DIV by an
+   immediate 0 and by a denominator across 0; the transcendentals; the
+   nan_div shape of tests/test_torch_cuda.py), U1 exactly but on the
+   transcendental tape (2e-4), U2's flags, words and violation flags
+   exactly; at two matrices (one overflowing to infinities) with the
+   vars taking every SPICY value and three denormals;
 7. 3D main path: the gyroid sphere at 512^3 (tile 64, subtile 16)
    under three views in normals mode and one heightmap frame, then the
    sphere union at 128^3 (tile 32, subtile 16), launch counts set to 0
@@ -180,6 +194,7 @@ the device JSON line.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import math
 import pathlib
@@ -2281,7 +2296,7 @@ def phase_unrolled_build(port, tape, param_tape):
         raise Failed(f"generated kernels not cached after a build: {again}")
     names = {k.unit().key: label for label, k in kernels.items()}
     for label, k in kernels.items():
-        part = "program" if isinstance(k, uc.FloatKernel) else "chunk"
+        part = "program" if isinstance(k, uc.FloatKernel) else "warp stream"
         for o in k.unit().objects:
             names.setdefault(o.key, f"{part} of {label}")
     log(f"unrolled build: {len(steps)} nvcc steps (program objects, kernel "
@@ -2299,6 +2314,83 @@ def phase_unrolled_build(port, tape, param_tape):
         log(f"  {label}: {len(k.unit().objects) + 1} unit(s), spill bytes "
             f"{spill}; " + " | ".join(lines[:4]))
     return r, rp, record
+
+
+#: classes of SASS opcodes (`sass_counts`); every other opcode is "rest"
+SASS_CLASSES = {
+    "fp32": {"FADD", "FMUL", "FFMA", "FRND", "FCHK", "F2F", "F2I", "I2F",
+             "FSWZADD"},
+    "mufu": {"MUFU"},
+    "cmp_sel": {"FSETP", "FSEL", "FMNMX", "ISETP", "SEL", "PLOP3", "FCMP",
+                "ICMP", "P2R", "R2P"},
+    "branch": {"BRA", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "JMP", "JMX",
+               "BRX", "WARPSYNC", "BREAK"},
+    "local": {"LDL", "STL"},
+}
+#: MUFU results a clock on one SM of the H100 (four a quarter)
+MUFU_PER_SM_CLOCK = 16
+
+
+def sass_counts(lib):
+    """{class: static SASS instructions} of every function in the
+    library `lib` (`cuobjdump -sass`; NOPs not counted), with the most
+    registers and stack bytes a function of it uses (`max_regs`,
+    `max_stack`, from `cuobjdump -res-usage`), or None where cuobjdump
+    is missing or fails."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for what in ("-res-usage", "-sass"):
+        try:
+            res = subprocess.run([tool, what, str(lib)], capture_output=True,
+                                 text=True, timeout=300)
+        except (OSError, subprocess.TimeoutExpired):
+            return None
+        if res.returncode != 0:
+            return None
+        out[what] = res.stdout
+    counts = dict.fromkeys([*SASS_CLASSES, "rest"], 0)
+    counts["max_regs"] = max(
+        (int(r) for r in re.findall(r"REG:(\d+)", out["-res-usage"])),
+        default=0)
+    counts["max_stack"] = max(
+        (int(r) for r in re.findall(r"STACK:(\d+)", out["-res-usage"])),
+        default=0)
+    for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]+\s+)?([A-Z0-9_]+)",
+                         out["-sass"]):
+        op = m.group(1)
+        if op == "NOP":
+            continue
+        cls = next((c for c, ops in SASS_CLASSES.items() if op in ops), "rest")
+        counts[cls] += 1
+    return counts
+
+
+def unrolled_floors(kern, rows_lanes):
+    """SASS instructions a row and lane of a generated kernel (its
+    library's static count over its programs' rows, and U1's pixels a
+    thread), and the two floors they give for `rows_lanes` row-lane
+    evaluations: the issue floor (warp instructions over the card's
+    schedulers at SM_CLOCK_HZ) and the MUFU floor. None where the
+    disassembly is not at hand."""
+    counts = sass_counts(kern.unit().lib)
+    if counts is None or SM_CLOCK_HZ is None:
+        return None
+    if hasattr(kern, "tapes"):
+        rows = sum(len(t) for t in {id(t): t for t in kern.tapes}.values())
+        rows *= getattr(kern, "px", 1)
+    else:
+        rows = len(kern.tape)
+    total = sum(v for c, v in counts.items() if not c.startswith("max_"))
+    per_row = total / rows
+    issue_ms = rows_lanes * per_row / 32 / (SCHEDULERS * SM_CLOCK_HZ) * 1e3
+    mufu_ms = (rows_lanes * counts["mufu"] / rows
+               / (MUFU_PER_SM_CLOCK * SCHEDULERS / 4 * SM_CLOCK_HZ) * 1e3)
+    return {"sass": counts, "sass_per_row": per_row,
+            "mufu_per_row": counts["mufu"] / rows,
+            "issue_floor_ms": issue_ms, "mufu_floor_ms": mufu_ms}
 
 
 def _unrolled_bound(name, args, kwargs, out):
@@ -2332,10 +2424,12 @@ def _unrolled_bound(name, args, kwargs, out):
 
 def _measure_unrolled(label, name, args, kwargs):
     """One captured U1 / U2 call: kernel against its plain version on the
-    card (U1 distances at K3's standard, rtol = atol = 2e-5; U2 flags and
-    words exactly), CUDA-event ms (which holds the host's enqueue where
-    that is slower than the kernel), the profiler's device ms, plain ms
-    and the bound."""
+    card (U1 distances exactly, or at K3's standard, rtol = atol = 2e-5,
+    where a program holds an op outside EXACT_OPS; U2 flags and words
+    exactly), CUDA-event ms (which holds the host's enqueue where that is
+    slower than the kernel), the profiler's device ms, plain ms, the
+    bound, and the SASS counts and floors (`unrolled_floors`)."""
+    from fidget_tpu_torch.compiler.tape import TapeOp
     from fidget_tpu_torch.eval import unrolled_cuda as uc
 
     fn = getattr(uc, name)
@@ -2343,7 +2437,11 @@ def _measure_unrolled(label, name, args, kwargs):
     got = fn(*args, **kwargs)
     want, plain_ms = _time_plain(plain, args, kwargs)
     if name == "unrolled_float":
-        err = check(f"{name} {label}", got, want, 2e-5, 2e-5)
+        inexact = {TapeOp(int(o)).name for t in args[0].tapes
+                   for o in np.unique(t.op)} - EXACT_OPS - {
+            "INPUT", "OUTPUT", "COPY", "LOAD", "STORE"}
+        tol = 2e-5 if inexact else 0.0
+        err = check(f"{name} {label}", got, want, tol, tol)
     else:
         for g, w in zip(got, want):
             if (g is None) != (w is None) or (g is not None
@@ -2355,14 +2453,240 @@ def _measure_unrolled(label, name, args, kwargs):
     dms = device_ms(lambda: fn(*args, **kwargs), "fidget_" + name)
     bound_ms, by, slot_ms, ops, nbytes = _unrolled_bound(name, args, kwargs,
                                                          got)
+    floors = unrolled_floors(args[0], ops if name == "unrolled_float"
+                             else ops // 2)
     shape = tuple(args[1].shape)
+    fl = ("SASS not measured" if floors is None else
+          f"{floors['sass_per_row']:.2f} SASS instructions a row and lane "
+          f"({floors['mufu_per_row']:.3f} MUFU; {floors['sass']}), issue "
+          f"floor {floors['issue_floor_ms']:.5f} ms, MUFU floor "
+          f"{floors['mufu_floor_ms']:.5f} ms")
     log(f"kernel {name} ({label}): {shape[0]} lanes-or-slots, "
         f"{ops} operations, {nbytes} bytes; max abs err {err:.3g}, "
         f"{ms:.4f} ms (CUDA events), device {dms} ms (profiler), plain "
         f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({by}), "
-        f"scheduler-slot bound {slot_ms:.5f} ms")
+        f"scheduler-slot bound {slot_ms:.5f} ms; {fl}")
     return dict(max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by, slot_bound_ms=slot_ms)
+                bound_ms=bound_ms, bound_by=by, slot_bound_ms=slot_ms,
+                **(floors or {}))
+
+
+#: the unrolled guard's var values: SPICY and three denormals
+GUARD_DENORMALS = [1e-40, -1e-40, 1.4e-45]
+#: the guard's image (256^2 in 8-px tiles) and its two screen -> model
+#: matrices: the unit square, and one that scales by 1e30 (so squares
+#: and products overflow to infinities)
+GUARD_SIZE = 256
+
+
+def _guard_matrices():
+    n = GUARD_SIZE
+    unit = np.array([[2.0 / n, 0, 0, -1.0], [0, -2.0 / n, 0, 1.0],
+                     [0, 0, 1, 0], [0, 0, 0, 1]], np.float32)
+    wide = unit.copy()
+    wide[:2] *= np.float32(1e30)
+    return unit, wide
+
+
+def _common_inputs(pkg, tape, kinds):
+    """`tape` with its INPUT rows renumbered to the layout `kinds` (a
+    list of "x", "y" or Vars), so that tapes of different inputs share
+    one U1 launch."""
+    from_arrays = importlib.import_module(
+        pkg.__name__ + ".compiler.tape").Tape.from_arrays
+    index = {(v.kind if v.kind in "xyz" else v): i
+             for v, i in tape.var_map.items()}
+    back = {i: kinds.index(k) for k, i in index.items()}
+    aux = np.array(tape.aux)
+    inp = np.asarray(tape.op) == 1  # TapeOp.INPUT
+    aux[inp] = [back[int(a)] for a in aux[inp]]
+    return from_arrays(tape.op, tape.out, tape.a, tape.b, tape.imm, aux,
+                       tape.reg_count, tape.mem_count, tape.choice_count,
+                       tape.output_count, kinds)
+
+
+def _guard_tapes(pkg):
+    """(op tapes, combined tapes, kinds): one tape per unary op over each
+    input and per binary op (MIN / MAX / AND / OR included) register with
+    register, register with immediate and immediate with register, over
+    the inputs x, y, a, b; and combined tapes that hold every exact op
+    (`EXACT_OPS`), every other op, and the nan_div shape of
+    tests/test_torch_cuda.py, each op feeding a choice row. Every tape in
+    the layout kinds = [x, y, a, b]."""
+    ops = importlib.import_module(pkg.__name__ + ".core.ops")
+    a_var, b_var = pkg.Var.new(), pkg.Var.new()
+    kinds = ["x", "y", a_var, b_var]
+    op_tapes = []
+    for op in ops.UnaryOp:
+        for src in ("x", "a"):
+            ctx = pkg.Context()
+            v = ctx.x() if src == "x" else ctx.input(a_var)
+            op_tapes.append((op.name, pkg.lower(ctx, [ctx.op_unary(op, v)])))
+    for op in ops.BinaryOp:
+        for variant in ("x_a", "y_b", "b_imm", "imm_a"):
+            ctx = pkg.Context()
+            x, y = ctx.x(), ctx.y()
+            a, b = ctx.input(a_var), ctx.input(b_var)
+            l, r = {"x_a": (x, a), "y_b": (y, b), "b_imm": (b, 0.5),
+                    "imm_a": (-2.0, a)}[variant]
+            op_tapes.append((op.name,
+                             pkg.lower(ctx, [ctx.op_binary(op, l, r)])))
+
+    def combined(names):
+        ctx = pkg.Context()
+        x, y = ctx.x(), ctx.y()
+        a, b = ctx.input(a_var), ctx.input(b_var)
+        srcs = [x, y, a, b, ctx.op_binary(ops.BinaryOp.SUB, x, a),
+                ctx.op_binary(ops.BinaryOp.ADD, y, b)]
+        vals = []
+        for i, op in enumerate(u for u in ops.UnaryOp if u.name in names):
+            vals.append(ctx.op_unary(op, srcs[i % len(srcs)]))
+        for op in ops.BinaryOp:
+            if op.name not in names or op in ops.CHOICE_OPS:
+                continue
+            vals += [ctx.op_binary(op, x, a), ctx.op_binary(op, b, 0.5),
+                     ctx.op_binary(op, -2.0, y)]
+        if "DIV" in names:  # an immediate 0, and a denominator across 0
+            vals += [ctx.op_binary(ops.BinaryOp.DIV, y, 0.0),
+                     ctx.op_binary(ops.BinaryOp.DIV, x,
+                                   ctx.op_binary(ops.BinaryOp.ADD, y, a))]
+        folds = [ops.BinaryOp.MIN, ops.BinaryOp.MAX, ops.BinaryOp.AND,
+                 ops.BinaryOp.OR]
+        k = 0
+        while len(vals) > 1:
+            nxt = []
+            for i in range(0, len(vals) - 1, 2):
+                op = folds[k % 4]
+                imm = (0.25, -0.5, 0.0, 1.0)[k % 4]
+                nxt.append(ctx.op_binary(op, ctx.op_binary(op, vals[i], imm)
+                                         if k % 3 == 0 else vals[i],
+                                         vals[i + 1]))
+                k += 1
+            if len(vals) % 2:
+                nxt.append(vals[-1])
+            vals = nxt
+        return pkg.lower(ctx, vals)
+
+    exact = combined(EXACT_OPS)
+    other = combined({op.name for op in ops.UnaryOp} - EXACT_OPS | {"ATAN2"})
+    ctx = pkg.Context()
+    x, y = ctx.x(), ctx.y()
+    r = ctx.sqrt(ctx.add(ctx.square(x), ctx.square(y)))
+    d = ctx.min(ctx.sub(r, 0.6),
+                ctx.max(ctx.sqrt(ctx.sub(x, 0.25)), ctx.sub(ctx.abs(x), 0.9)))
+    d = ctx.max(d, ctx.min(ctx.div(ctx.sub(y, 0.1), 0.0), ctx.sub(r, 0.95)))
+    d = ctx.min(d, ctx.max(ctx.div(ctx.sub(x, 0.3), ctx.add(y, 0.05)),
+                           ctx.sub(r, 0.4)))
+    nan_div = pkg.lower(ctx, [ctx.or_(ctx.and_(d, ctx.sub(r, 0.5)),
+                                      ctx.sub(ctx.abs(y), 0.8))])
+    tapes = [(name, _common_inputs(pkg, t, kinds)) for name, t in op_tapes]
+    comb = [(name, _common_inputs(pkg, t, kinds), tol) for name, t, tol in (
+        ("exact ops", exact, 0.0), ("other ops", other, 2e-4),
+        ("nan_div", nan_div, 0.0))]
+    return tapes, comb, kinds
+
+
+def _guard_pairs():
+    """(a, b) var values: every SPICY value and denormal as a and as b."""
+    from fidget_tpu_torch.scenes import SPICY
+
+    vals = [float(v) for v in np.concatenate(
+        [SPICY, np.array(GUARD_DENORMALS, np.float32)])]
+    n = len(vals)
+    return ([(vals[i], vals[(7 * i + 3) % n]) for i in range(n)]
+            + [(vals[(11 * i + 5) % n], vals[i]) for i in range(n)])
+
+
+def phase_unrolled_guard(pkg, dev="cuda", label="tree"):
+    """U1 and U2 of `pkg` against their plain versions beyond the
+    stand-in (`_guard_tapes`): U1 over one launch of the op tapes (each
+    a program on its segment of slots, held at `_matrix_tolerance` of
+    its op) and over each combined tape alone (its program inlined;
+    exact but for the "other ops" tape, 2e-4), U2 under all three
+    epilogues on the combined tapes, flags and words exactly (the
+    violation flags against seeded words, every other lane's all ones);
+    over 256^2 in 8-px tiles at two matrices, with the vars a and b
+    taking every value of `_guard_pairs`. All kernels in one build
+    batch. Returns the phase's seconds."""
+    uc = importlib.import_module(pkg.__name__ + ".eval.unrolled_cuda")
+    t_start = time.perf_counter()
+    op_tapes, comb, kinds = _guard_tapes(pkg)
+    axis = {"x": 0, "y": 1}
+    V = len(kinds)
+    matrix = uc.FloatKernel([t for _, t in op_tapes], axis, V)
+    singles = [(name, uc.FloatKernel([t], axis, V), tol)
+               for name, t, tol in comb]
+    intervals = [(name, uc.IntervalKernel(t, axis, V, epi))
+                 for name, t, _ in comb for epi in uc.EPILOGUES]
+    kernels = [matrix] + [k for _, k, _ in singles] + [k for _, k in intervals]
+    t0 = time.perf_counter()
+    steps = uc.build_kernels(kernels)
+    build_s = time.perf_counter() - t0
+    n_t = GUARD_SIZE // UNROLLED_T0
+    gx, gy = np.meshgrid(np.arange(n_t) * UNROLLED_T0,
+                         np.arange(n_t) * UNROLLED_T0)
+    x0 = torch.tensor(gx.reshape(-1), dtype=torch.float32, device=dev)
+    y0 = torch.tensor(gy.reshape(-1), dtype=torch.float32, device=dev)
+    n = x0.shape[0]
+    valid = torch.arange(n, device=dev) % 9 != 4
+    P = len(op_tapes)
+    seg = [i * (n // P) for i in range(P)]
+    seg_op = np.repeat(np.arange(P), np.diff(seg + [n]))
+    tol = torch.tensor([_matrix_tolerance(name) for name, _ in op_tapes],
+                       device=dev)[torch.from_numpy(seg_op).to(dev)][:, None]
+    rng = np.random.default_rng(10)
+    errs = {}
+    launches = 0
+    for mat in _guard_matrices():
+        for a_val, b_val in _guard_pairs():
+            params = uc.params_tensor(
+                torch.tensor(mat, device=dev), torch.zeros((), device=dev),
+                torch.tensor([0.0, 0.0, a_val, b_val], dtype=torch.float32,
+                             device=dev))
+            kw = dict(tw=UNROLLED_T0, pp=UNROLLED_T0 * UNROLLED_T0)
+            args = (x0, y0, valid, params)
+            got = uc.unrolled_float(matrix, *args, seg, **kw)
+            want = uc.unrolled_float_plain(matrix, *args, seg, **kw)
+            errs["op matrix"] = max(errs.get("op matrix", 0.0), check(
+                f"unrolled guard ({label}) U1 op matrix at a={a_val}, "
+                f"b={b_val}", got, want, tol, tol))
+            for name, k, t in singles:
+                got = uc.unrolled_float(k, *args, [0], **kw)
+                want = uc.unrolled_float_plain(k, *args, [0], **kw)
+                errs[name] = max(errs.get(name, 0.0), check(
+                    f"unrolled guard ({label}) U1 {name} at a={a_val}, "
+                    f"b={b_val}", got, want, t, t))
+            for name, k in intervals:
+                u = None
+                if k.epilogue == "violation":
+                    w = rng.integers(0, 2**32, (k.cw, n), dtype=np.uint64)
+                    w[:, ::2] = 2**32 - 1
+                    u = torch.from_numpy(w.astype(np.uint32).view(np.int32)
+                                         ).to(dev)
+                got = uc.unrolled_interval(k, x0, y0, params,
+                                           float(UNROLLED_T0), u)
+                want = uc.unrolled_interval_plain(k, x0, y0, params,
+                                                  float(UNROLLED_T0), u)
+                for g, w_ in zip(got, want):
+                    if (g is None) != (w_ is None) or (
+                            g is not None and not torch.equal(g, w_)):
+                        raise Failed(
+                            f"unrolled guard ({label}) U2 {name} "
+                            f"{k.epilogue} at a={a_val}, b={b_val}: flags or "
+                            f"words differ from plain")
+            launches += 1 + len(singles) + len(intervals)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t_start
+    log(f"unrolled guard ({label}): {P} op tapes in one U1 launch, "
+        f"{len(singles)} combined tapes ({', '.join(n for n, _, _ in comb)}; "
+        f"{', '.join(str(len(t)) for _, t, _ in comb)} rows) through U1 and "
+        f"U2 x {len(uc.EPILOGUES)} epilogues, {2 * len(_guard_pairs())} "
+        f"var pairs and matrices, {launches} launches: all equal to plain "
+        f"(U2 flags and words exactly); U1 max abs err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; {len(steps)} nvcc steps in {build_s:.1f} s, phase "
+        f"{secs:.1f} s")
+    return secs
 
 
 def _wait_refresh(r, timeout=600):
@@ -2825,6 +3149,7 @@ def main() -> int:
     param_tape, shift, grow = _param_standin(port)
     ru, rp, build = phase_unrolled_build(port, tape, param_tape)
     phase_unrolled(ru, cuda, images, brutes, build, rows)
+    phase_unrolled_guard(port)
 
     r3, captured3, launches3, n3 = phase_main3d(
         port, cuda, render3d, render2d, simplify_device

@@ -5,38 +5,50 @@
 // compiled 2D path (`render_unrolled`, `render_dense`).
 //
 // fidget_tpu_torch/eval/unrolled_cuda.py emits one statement per tape row
-// on local variables, one per tape register and memory slot, calling
-// ops.cuh's f_* / i_* with constant opcodes so that every switch folds
-// away, and includes this file for the rest:
+// and includes this file for the rest:
 //
 // - U1 `fidget_unrolled_float`: lanes are pixels of a compacted worklist
-//   of tiles (or of one tile covering the whole image). A thread forms
-//   its pixel from its tile's origin, applies the screen -> model matrix
-//   in the f32 order of render/transform.py `transform_points`, and runs
-//   the program of the segment its slot lies in (a union frame's P
-//   programs and the full-tape fallback in one launch; each program is a
-//   device function of its own translation unit, linked with -rdc, so
-//   that the programs compile in parallel). Invalid slots get 0.
-// - U2 `fidget_unrolled_interval`: lanes are cull tiles. A thread forms
-//   its tile's box through `transform_intervals` (IntervalMode rules),
-//   runs the tape with eval_tape_interval_fast's rules (u_min / u_max /
-//   u_div below; every other op is ops.cuh's interval mode) and writes
-//   the proofs hi < 0 and lo > 0, plus one epilogue fixed when the code
-//   is generated (U_EPI): 0 nothing more; 1 the packed choice words
-//   [cw][n] (choice j in word j / 16 at bit 2 (j % 16)); 2 the fused
-//   violation flag ((w | u) != u per finished word, u [cw][n]). Its body
-//   is cut into chunks of rows, each a device function of its own
-//   translation unit (`UState` carries the thread's registers between
-//   them), because an interval row is tens of instructions and a long
-//   tape in one unit is the slowest build of a frame.
+//   of tiles (or of one tile covering the whole image). A thread owns
+//   U_PX neighbouring pixels of one slot (each row is emitted once per
+//   pixel, in adjacent statements), forms them from its tile's origin,
+//   applies the screen -> model matrix in the f32 order of
+//   render/transform.py `transform_points`, and runs the program of the
+//   segment its slot lies in: a launch of one program (the full leaf,
+//   the dense frame) and a union frame's P programs with the full-tape
+//   fallback alike: each program is a device function of its own
+//   translation unit, linked with -rdc, so that a frame's programs
+//   compile in parallel (inlining a lone program in the kernel's unit
+//   ran 4-11% slower and compiled slower still: PERF.md §6, PR 10).
+//   Invalid slots get 0.
+// - U2 `fidget_unrolled_interval`: lanes are cull tiles, 32 to a group,
+//   and a group's rows are spread over the U_K warps of one block. The
+//   emitter renames the tape into values (registers and memory slots
+//   disappear), orders them depth-first from the output and cuts that
+//   order into U_K runs of equal estimated cost, one a warp, so that a
+//   warp holds whole subtrees. A row that reads another warp's value
+//   runs in a later stage than it: the producer stores the value to
+//   shared memory (one Ival a tile, U_SH), and stages are separated by
+//   block barriers (U_BAR), a few per tape, not one a row. Every row
+//   keeps its operands and eval_tape_interval_fast's rules (u_min /
+//   u_max / u_div / u_abs / u_square below; the rest is ops.cuh's
+//   interval mode). Each
+//   warp's stream is a device function in its own translation unit.
+//   The warp that computes the output writes the proofs hi < 0 and
+//   lo > 0; the epilogue is fixed when the code is generated (U_EPI):
+//   0 nothing more; 1 the packed choice words [cw][n] (choice j in word
+//   j / 16 at bit 2 (j % 16)); 2 the fused violation flag, (w | u) != u
+//   per word. Each warp ORs its part of a word into the block's words in
+//   shared memory; after the last stage the warps write them out or
+//   test them against u together, one word in k each.
 //
-// What bounds them on the card: arithmetic. A row is one to a dozen
-// instructions on registers, with no tape to fetch or decode (the
-// interpreter kernels' cost), so the bound is the rows times the lanes
-// over the issue rate; the inputs are a few bytes a lane. The design is
-// the simple one: one lane a thread, registers allocated by ptxas.
-// Built with --fmad=false, as every kernel of the port, so that no a*b+c
-// rounds differently from the plain PyTorch versions.
+// What bounds them on the card: instruction issue and the latency of
+// dependent rows. A row is one to a few dozen instructions on
+// registers, with no tape to fetch or decode (the interpreter kernels'
+// cost), and the inputs are a few bytes a lane; U1's time falls with
+// every resident warp, U2 needed more warps than one a tile group to
+// hide its latency (PERF.md §6, PR 10). Built with --fmad=false, as
+// every kernel of the port, so that no a*b+c rounds differently from
+// the plain PyTorch versions.
 #pragma once
 
 #include <cstdint>
@@ -47,16 +59,31 @@ namespace fidget {
 
 constexpr int UBLOCK = 128;
 
+// numpy / torch minimum and maximum (NaN-propagating) as one min.NaN /
+// max.NaN instruction (sm_80+): NaN where either operand is NaN, fminf /
+// fmaxf's result elsewhere, as ops.cuh's nmin / nmax, which take a NaN
+// test, an fminf and a select
+__device__ __forceinline__ float u_fmin(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float u_fmax(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // eval_tape_interval_fast's MIN / MAX: NaN-propagating folds, no poison;
 // Left when a lies wholly below (MIN) / above (MAX) b, Right the mirror,
 // else Both (a NaN fails both compares)
 __device__ __forceinline__ Ival u_min(Ival a, Ival b, int& c) {
   c = a.hi < b.lo ? CHOICE_LEFT : (b.hi < a.lo ? CHOICE_RIGHT : CHOICE_BOTH);
-  return Ival{nmin(a.lo, b.lo), nmin(a.hi, b.hi)};
+  return Ival{u_fmin(a.lo, b.lo), u_fmin(a.hi, b.hi)};
 }
 __device__ __forceinline__ Ival u_max(Ival a, Ival b, int& c) {
   c = a.lo > b.hi ? CHOICE_LEFT : (b.lo > a.hi ? CHOICE_RIGHT : CHOICE_BOTH);
-  return Ival{nmax(a.lo, b.lo), nmax(a.hi, b.hi)};
+  return Ival{u_fmax(a.lo, b.lo), u_fmax(a.hi, b.hi)};
 }
 
 // DIV: NaN-propagating corner folds; poisoned only where the denominator
@@ -64,12 +91,29 @@ __device__ __forceinline__ Ival u_max(Ival a, Ival b, int& c) {
 __device__ __forceinline__ Ival u_div_corners(Ival a, Ival b) {
   const float q0 = a.lo / b.lo, q1 = a.lo / b.hi;
   const float q2 = a.hi / b.lo, q3 = a.hi / b.hi;
-  return Ival{nmin(nmin(q0, q1), nmin(q2, q3)),
-              nmax(nmax(q0, q1), nmax(q2, q3))};
+  return Ival{u_fmin(u_fmin(q0, q1), u_fmin(q2, q3)),
+              u_fmax(u_fmax(q0, q1), u_fmax(q2, q3))};
 }
 __device__ __forceinline__ Ival u_div(Ival a, Ival b) {
   const bool bad = !(b.lo > 0.f || b.hi < 0.f);
   return bad ? Ival{f_nan(), f_nan()} : u_div_corners(a, b);
+}
+
+// ops.cuh's interval ABS and SQUARE (interval.rs:67-94) with u_fmax for
+// nmax
+__device__ __forceinline__ Ival u_abs(Ival a) {
+  const float al = a.lo, au = a.hi;
+  return Ival{al < 0.f ? (au > 0.f ? 0.f : -au) : al,
+              al < 0.f ? (au > 0.f ? u_fmax(au, -al) : -al) : au};
+}
+__device__ __forceinline__ Ival u_square(Ival a) {
+  const float al = a.lo, au = a.hi;
+  const float lo2 = al * al, hi2 = au * au;
+  const float m = u_fmax(fabsf(al), fabsf(au));
+  const float mixed_hi = m * m;
+  const float lo = au < 0.f ? hi2 : (al > 0.f ? lo2 : 0.f);
+  const float hi = au < 0.f ? lo2 : (al > 0.f ? hi2 : mixed_hi);
+  return poison(has_nan(a), lo, hi);
 }
 
 // params: mat [4][4] row-major, z, then the V input values
@@ -119,9 +163,29 @@ __device__ __forceinline__ void u_inputs(const float* __restrict__ p, T x,
 
 }  // namespace fidget
 
-// Float programs: `float fidget_uprog_<key>(float i0, ...)`, one
-// translation unit each. The kernel's unit defines U_V / U_AX / U_AY /
-// U_AZ and `u_run(segment, in)`, then expands U_FLOAT_KERNEL.
+// U1. Every unit of a float kernel defines U_V / U_PX (and the kernel's
+// unit U_AX / U_AY / U_AZ) before including this file. A program body
+// reads its inputs in[k][p] and writes o[p]; U_P(s) runs statement s
+// once per pixel p of the thread.
+#define U_P(...) \
+  _Pragma("unroll") for (int p = 0; p < U_PX; ++p) { __VA_ARGS__; }
+
+#if defined(U_PX) && defined(U_V)
+namespace fidget {
+// a program's inputs and output when it is a function of its own unit
+struct UIn {
+  float v[U_V][U_PX];
+};
+struct UOut {
+  float o[U_PX];
+};
+}  // namespace fidget
+#endif
+
+// The kernel's unit defines `u_run(segment, in, o)` (the dispatch to the
+// segment's program; U_NSEG the number of programs), then expands
+// U_FLOAT_KERNEL. Thread g owns pixels
+// [j0, j0 + U_PX) of slot g / tps, tps = ceil(pp / U_PX) threads a slot.
 #define U_FLOAT_KERNEL                                                        \
   extern "C" __global__ void __launch_bounds__(fidget::UBLOCK)                \
       fidget_unrolled_float(const float* __restrict__ cx0,                    \
@@ -132,32 +196,42 @@ __device__ __forceinline__ void u_inputs(const float* __restrict__ p, T x,
                             float* __restrict__ out, int n_slots, int tw,     \
                             int pp) {                                         \
     const long long g = (long long)blockIdx.x * fidget::UBLOCK + threadIdx.x; \
-    if (g >= (long long)n_slots * pp) return;                                 \
-    const int slot = (int)(g / pp);                                           \
-    const int i = (int)(g - (long long)slot * pp);                            \
-    float d = 0.f;                                                            \
+    const long long tps = (pp + U_PX - 1) / U_PX;                             \
+    if (g >= (long long)n_slots * tps) return;                                \
+    const int slot = (int)(g / tps);                                          \
+    const int j0 = (int)(g - (long long)slot * tps) * U_PX;                   \
+    float o[U_PX];                                                            \
+    U_P(o[p] = 0.f);                                                          \
     if (valid[slot]) {                                                        \
-      float in[U_V];                                                          \
-      const float px = cx0[slot] + (float)(i % tw);                           \
-      const float py = cy0[slot] + (float)(i / tw);                           \
-      fidget::u_inputs<U_V, U_AX, U_AY, U_AZ, float>(                         \
-          params, px, py, params[fidget::U_PARAM_Z], in);                     \
-      /* the segment [seg[s], seg[s + 1]) that holds the slot */              \
-      int lo = 0, hi = nseg - 1;                                              \
-      while (lo < hi) {                                                       \
-        const int mid = (lo + hi + 1) >> 1;                                   \
-        if (slot >= seg[mid]) lo = mid;                                       \
-        else hi = mid - 1;                                                    \
+      float in[U_V][U_PX];                                                    \
+      const float z = params[fidget::U_PARAM_Z];                              \
+      _Pragma("unroll") for (int p = 0; p < U_PX; ++p) {                      \
+        const int i = min(j0 + p, pp - 1);                                    \
+        float v[U_V];                                                         \
+        fidget::u_inputs<U_V, U_AX, U_AY, U_AZ, float>(                       \
+            params, cx0[slot] + (float)(i % tw), cy0[slot] + (float)(i / tw), \
+            z, v);                                                            \
+        _Pragma("unroll") for (int k = 0; k < U_V; ++k) in[k][p] = v[k];      \
       }                                                                       \
-      d = u_run(lo, in);                                                      \
+      /* the segment [seg[s], seg[s + 1]) that holds the slot */              \
+      int lo = 0;                                                             \
+      if (U_NSEG > 1) {                                                       \
+        int hi = nseg - 1;                                                    \
+        while (lo < hi) {                                                     \
+          const int mid = (lo + hi + 1) >> 1;                                 \
+          if (slot >= seg[mid]) lo = mid;                                     \
+          else hi = mid - 1;                                                  \
+        }                                                                     \
+      }                                                                       \
+      u_run(lo, in, o);                                                       \
     }                                                                         \
-    out[g] = d;                                                               \
+    U_P(if (j0 + p < pp) out[(size_t)slot * pp + j0 + p] = o[p]);             \
   }                                                                           \
   extern "C" int fidget_unrolled_float_launch(                                \
       const float* cx0, const float* cy0, const bool* valid,                  \
       const float* params, const int32_t* seg, int nseg, float* out,          \
       int n_slots, int tw, int pp, void* stream) {                            \
-    const long long total = (long long)n_slots * pp;                          \
+    const long long total = (long long)n_slots * ((pp + U_PX - 1) / U_PX);    \
     const long long blocks = (total + fidget::UBLOCK - 1) / fidget::UBLOCK;   \
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;             \
     if (blocks > 0)                                                           \
@@ -167,72 +241,85 @@ __device__ __forceinline__ void u_inputs(const float* __restrict__ p, T x,
     return (int)cudaGetLastError();                                           \
   }
 
-// The choice epilogue of U2 (U_EPI, see the top of this file): the
-// generated body calls U_CHOICE(shift, code) after every choice op and
-// U_WORD(j) after the last choice of word j.
-#if defined(U_EPI) && U_EPI == 1
-#define U_CHOICE(s, c) (w_ |= (uint32_t)(c) << (s))
-#define U_WORD(j) (words[(size_t)(j) * n + lane] = (int32_t)w_, w_ = 0u)
-#elif defined(U_EPI) && U_EPI == 2
-#define U_CHOICE(s, c) (w_ |= (uint32_t)(c) << (s))
-#define U_WORD(j)                                                     \
-  do {                                                                \
-    const uint32_t u_ = (uint32_t)__ldg(u + (size_t)(j) * n + lane);  \
-    bad_ |= (w_ | u_) != u_;                                          \
-    w_ = 0u;                                                          \
+// U2. Every unit of an interval kernel defines U_EPI, U_V, U_AX / U_AY /
+// U_AZ and U_K (warps a group) before including this file.
+#if defined(U_K)
+namespace fidget {
+// The box of one tile through transform_intervals.
+__device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
+                                              const float* __restrict__ y0,
+                                              const float* __restrict__ p,
+                                              float T0, int tile, Ival* in) {
+  const float z = p[U_PARAM_Z];
+  u_inputs<U_V, U_AX, U_AY, U_AZ, Ival>(
+      p, Ival{x0[tile], x0[tile] + T0}, Ival{y0[tile], y0[tile] + T0},
+      Ival{z, z}, in);
+}
+}  // namespace fidget
+
+// A warp's stream: `void name(U_WARP_ARGS)`. `sh` points at the lane's
+// column of the block's hand-off slots (slot s at sh[32 s]), `wd` at its
+// column of the block's choice words (word j at wd[32 j]); `tile` is the
+// lane's tile (the last one for lanes past n, which compute and write
+// nothing).
+#define U_WARP_ARGS                                                        \
+  const float *__restrict__ x0, const float *__restrict__ y0,              \
+      const float *__restrict__ params, float T0, fidget::Ival *sh,        \
+      uint32_t *wd, bool *__restrict__ rin, bool *__restrict__ rout,       \
+      int tile, bool live
+
+#define U_WARP_BEGIN(name)                                                 \
+  extern "C" __device__ __noinline__ void name(U_WARP_ARGS) {              \
+    using namespace fidget;                                                \
+    Ival in[U_V];                                                          \
+    u_tile_inputs(x0, y0, params, T0, tile, in);                           \
+    [[maybe_unused]] uint32_t w_ = 0u;                                     \
+    [[maybe_unused]] int c_ = 0;                                           \
+    (void)sh;                                                              \
+    (void)wd;                                                              \
+    (void)rin;                                                             \
+    (void)rout;                                                            \
+    (void)live;
+
+#define U_WARP_END }
+
+// a hand-off slot of the lane; the barrier between stages
+#define U_SH(s) sh[32 * (s)]
+#define U_BAR() __syncthreads()
+// the proofs, from the output row's value
+#define U_OUT(v)                                                           \
+  do {                                                                     \
+    if (live) {                                                            \
+      rin[tile] = (v).hi < 0.f;                                            \
+      rout[tile] = (v).lo > 0.f;                                           \
+    }                                                                      \
   } while (0)
+
+// The choice epilogues: U_CHOICE(shift, code) after every choice row of
+// the warp, U_WORD(j) when the warp's next choice (or none) lies in
+// another word than j: the warp's part of word j is ORed into the
+// block's word in shared memory, which the kernel writes out (capture)
+// or tests against u (violation) once every warp is done.
+#if U_EPI != 0
+#define U_CHOICE(s, c) (w_ |= (uint32_t)(c) << (s))
+#define U_WORD(j) (atomicOr(wd + 32 * (j), w_), w_ = 0u)
 #else
 #define U_CHOICE(s, c) ((void)(c))
 #define U_WORD(j) ((void)0)
 #endif
 
-// U2's state between the chunks of its body: the tape's registers and
-// memory slots, the inputs, the output, the word being packed and the
-// violation flag. Each chunk is a device function of its own translation
-// unit (U_CHUNK below), so that a long tape's interval code compiles in
-// parallel; the thread's state stays in its local memory between them.
-#if defined(U_NR)
-namespace fidget {
-struct UState {
-  Ival r[U_NR];
-  Ival m[U_NM > 0 ? U_NM : 1];
-  Ival in[U_V];
-  Ival o;
-  uint32_t w;
-  bool bad;
-};
-}  // namespace fidget
-
-#define U_CHUNK_ARGS                                                       \
-  fidget::UState *__restrict__ s_, const int32_t *__restrict__ u,          \
-      int32_t *__restrict__ words, int n, int lane
-
-// A chunk opens with its state in locals (U_CHUNK_BEGIN(name), then the
-// generated loads `Ival rK = s_->r[K];`) and closes by storing them back
-// (the generated stores, then U_CHUNK_END).
-#define U_CHUNK_BEGIN(name)                                                \
-  extern "C" __device__ __noinline__ void name(U_CHUNK_ARGS) {             \
-    using namespace fidget;                                                \
-    [[maybe_unused]] const Ival* in = s_->in;                              \
-    [[maybe_unused]] uint32_t w_ = s_->w;                                  \
-    bool bad_ = s_->bad;                                                   \
-    Ival o_ = s_->o;                                                       \
-    (void)u;                                                               \
-    (void)words;                                                           \
-    (void)n;                                                               \
-    (void)lane;
-
-#define U_CHUNK_END                                                        \
-    s_->w = w_;                                                            \
-    s_->bad = bad_;                                                        \
-    s_->o = o_;                                                            \
-  }
-
-// The kernel's unit declares the chunks and defines
-// `u_chunks(s, u, words, n, lane)`, which calls them in order, then
-// expands U_INTERVAL_KERNEL.
+// The kernel's unit declares the warp streams and defines
+// `u_warps(warp, U_WARP_ARGS)`, which calls warp's stream, then expands
+// U_INTERVAL_KERNEL with U_SLOTS hand-off slots and U_CW choice words.
+// A block is one group: U_K warps over 32 tiles. Its dynamic shared
+// memory (u_shared_bytes) holds the slots, the words (epilogues 1, 2)
+// and the warps' violation flags (2).
+#define U_CWS (U_EPI != 0 ? U_CW : 0)
 #define U_INTERVAL_KERNEL                                                     \
-  extern "C" __global__ void __launch_bounds__(fidget::UBLOCK)                \
+  constexpr int u_shared_bytes =                                              \
+      (U_SLOTS * 32) * (int)sizeof(fidget::Ival) + U_CWS * 32 * 4 +           \
+      (U_EPI == 2 ? U_K * 32 : 0);                                            \
+  extern "C" __global__ void __launch_bounds__(U_K * 32)                      \
       fidget_unrolled_interval(                                               \
           const float* __restrict__ x0, const float* __restrict__ y0,         \
           const float* __restrict__ params, float T0,                         \
@@ -240,27 +327,49 @@ struct UState {
           bool* __restrict__ rout, int32_t* __restrict__ words,               \
           bool* __restrict__ viol, int n) {                                   \
     using namespace fidget;                                                   \
-    const int lane = blockIdx.x * UBLOCK + threadIdx.x;                       \
-    if (lane >= n) return;                                                    \
-    UState s = {};                                                            \
-    const float z = params[U_PARAM_Z];                                        \
-    u_inputs<U_V, U_AX, U_AY, U_AZ, Ival>(                                    \
-        params, Ival{x0[lane], x0[lane] + T0}, Ival{y0[lane], y0[lane] + T0}, \
-        Ival{z, z}, s.in);                                                    \
-    u_chunks(&s, u, words, n, lane);                                          \
-    rin[lane] = s.o.hi < 0.f;                                                 \
-    rout[lane] = s.o.lo > 0.f;                                                \
-    if (viol != nullptr) viol[lane] = s.bad;                                  \
+    extern __shared__ __align__(16) unsigned char u_smem_[];                  \
+    Ival* sh_ = reinterpret_cast<Ival*>(u_smem_);                             \
+    uint32_t* wd_ = reinterpret_cast<uint32_t*>(sh_ + U_SLOTS * 32);          \
+    bool* bad_ = reinterpret_cast<bool*>(wd_ + U_CWS * 32);                   \
+    const int l = threadIdx.x & 31;                                           \
+    const int w = threadIdx.x >> 5;                                           \
+    const int t = blockIdx.x * 32 + l;                                        \
+    const bool live = t < n;                                                  \
+    const int tile = live ? t : n - 1;                                        \
+    if (U_CWS > 0) {                                                          \
+      for (int i = threadIdx.x; i < U_CWS * 32; i += U_K * 32) wd_[i] = 0u;   \
+      __syncthreads();                                                        \
+    }                                                                         \
+    u_warps(w, x0, y0, params, T0, sh_ + l, wd_ + l, rin, rout, tile, live);  \
+    if (U_CWS > 0) __syncthreads();                                           \
+    if (U_EPI == 1 && live)                                                   \
+      for (int j = w; j < U_CWS; j += U_K)                                    \
+        words[(size_t)j * n + tile] = (int32_t)wd_[32 * j + l];               \
+    if (U_EPI == 2) {                                                         \
+      bool bad = false;                                                       \
+      for (int j = w; j < U_CWS; j += U_K) {                                  \
+        const uint32_t uj = (uint32_t)__ldg(u + (size_t)j * n + tile);        \
+        bad |= (wd_[32 * j + l] | uj) != uj;                                  \
+      }                                                                       \
+      bad_[threadIdx.x] = bad;                                                \
+      __syncthreads();                                                        \
+      if (w == 0 && live) {                                                   \
+        bool any = false;                                                     \
+        for (int k = 0; k < U_K; ++k) any |= bad_[32 * k + l];                \
+        viol[tile] = any;                                                     \
+      }                                                                       \
+    }                                                                         \
   }                                                                           \
   extern "C" int fidget_unrolled_interval_launch(                             \
       const float* x0, const float* y0, const float* params, float T0,        \
       const int32_t* u, bool* rin, bool* rout, int32_t* words, bool* viol,    \
       int n, void* stream) {                                                  \
-    const int blocks = (n + fidget::UBLOCK - 1) / fidget::UBLOCK;             \
+    const int blocks = (n + 31) / 32;                                         \
+    FIDGET_SET_SMEM(fidget_unrolled_interval, u_shared_bytes);                \
     if (blocks > 0)                                                           \
-      fidget_unrolled_interval<<<blocks, fidget::UBLOCK, 0,                   \
+      fidget_unrolled_interval<<<blocks, U_K * 32, u_shared_bytes,            \
                                  (cudaStream_t)stream>>>(                     \
           x0, y0, params, T0, u, rin, rout, words, viol, n);                  \
     return (int)cudaGetLastError();                                           \
   }
-#endif  // U_NR
+#endif  // U_K

@@ -16,12 +16,16 @@ kernel`). Two kernels, both written for Hopper in CUDA C++
   generated: "proofs", "capture" (packed choice words) or "violation"
   (the fused subset test against a plan's union words).
 
-The emitter writes one statement per tape row on local variables, one
-per tape register and memory slot, calling `ops.cuh`'s `f_*` / `i_*`
-with constant opcodes. Each float program, and each chunk of
-INTERVAL_CHUNK_ROWS rows of an interval kernel's body, is a device
-function in a translation unit of its own, linked into its kernel with
--rdc, so the units of a frame compile in parallel.
+The emitter writes one line per tape row. U1's thread owns
+FLOAT_PIXELS pixels of one slot, a scalar statement a pixel in each
+line; every program, a launch of one program included, is a device
+function of its own translation unit, linked into its kernel with
+-rdc. U2 renames the tape into values (`IntervalSchedule`) and spreads
+its rows over the INTERVAL_WARPS warps of a group of 32 tiles; values
+that cross warps go through shared memory, with a block barrier between
+stages; each warp's stream is a device function of its own unit. So
+the units of a frame compile in parallel. MIN / MAX (and the interval
+folds of ABS, SQUARE and DIV) are one min.NaN / max.NaN instruction.
 Builds use `cuda.NVCC_FLAGS` (without -shared for the objects) and go
 to `fidget_tpu_torch/_build/unrolled-<hash>/`, keyed by a hash of the
 emitter, the template, `ops.cuh`, the flags, the tape fields and the
@@ -66,10 +70,12 @@ TEMPLATE = cuda.CSRC / "unrolled.cuh"
 #: the files every generated build depends on besides its own source
 SOURCES = (pathlib.Path(__file__).resolve(), TEMPLATE, cuda.CSRC / "ops.cuh")
 EPILOGUES = {"proofs": 0, "capture": 1, "violation": 2}
-#: tape rows per chunk of U2's body, each chunk one translation unit: the
-#: interval code of a row is tens of instructions, and a 7,203-row tape
-#: in one unit took 39-47 s of nvcc (`probe_kernels.py --unrolled-builds`)
-INTERVAL_CHUNK_ROWS = 1024
+#: U1's pixels a thread (each row is emitted once per pixel, in adjacent
+#: statements): 1, since a second pixel costs more in registers and
+#: resident warps than it gains (`PERF.md` §6, PR 10)
+FLOAT_PIXELS = 1
+#: U2's warps a group of 32 tiles (4 beat 2, 8 and 16 on the stand-in)
+INTERVAL_WARPS = 4
 #: params layout of both kernels: mat [4, 4], z, then the V input values
 PARAM_VARS = 17
 
@@ -93,99 +99,59 @@ def _lit(x: float) -> str:
     return f"{x.hex()}f"
 
 
-def _decls(tape: Tape) -> str:
-    """A float local per tape register and memory slot."""
+def _decls(tape: Tape, px: int) -> str:
+    """A float per tape register and memory slot and pixel."""
     names = [f"r{i}" for i in range(max(tape.reg_count, 1))]
     names += [f"m{i}" for i in range(tape.mem_count)]
-    return "".join(f"  float {n} = 0.f;\n" for n in names)
+    return "".join(
+        "  float " + ", ".join(f"{n}_{p} = 0.f" for p in range(px)) + ";\n"
+        for n in names)
 
 
-def _float_rows(tape: Tape):
-    """One statement per tape row, float mode (eval_tape_float_fast)."""
-    rows = tape.rows()
-    for op, out, a, b, imm, aux in rows:
-        op = int(op)
-        A = _lit(imm) if a == IMM else f"r{a}"
-        B = _lit(imm) if b == IMM else f"r{b}"
-        name = TapeOp(op).name
-        if op == TapeOp.INPUT:
-            yield f"r{out} = i{aux};"
-        elif op == TapeOp.OUTPUT:
-            yield f"o = r{out};" if aux == 0 else f"/* OUTPUT[{aux}] */;"
-        elif op == TapeOp.COPY:
-            yield f"r{out} = {A};"
-        elif op == TapeOp.LOAD:
-            yield f"r{out} = m{aux};"
-        elif op == TapeOp.STORE:
-            yield f"m{aux} = r{out};"
-        elif op == TapeOp.MIN:
-            yield f"r{out} = nmin({A}, {B});"
-        elif op == TapeOp.MAX:
-            yield f"r{out} = nmax({A}, {B});"
-        elif op == TapeOp.AND:
-            yield f"r{out} = ({A} == 0.f) ? {A} : {B};"
-        elif op == TapeOp.OR:
-            yield f"r{out} = ({A} != 0.f) ? {A} : {B};"
-        elif op in _BINARY:
-            yield f"r{out} = f_binary(OP_{name}, {A}, {B});"
-        elif op in _UNARY:
-            yield f"r{out} = f_unary(OP_{name}, r{a});"
-        else:
-            raise ValueError(f"cannot emit op {op}")
-
-
-def _interval_rows(tape: Tape):
-    """One statement per tape row, interval mode
-    (eval_tape_interval_fast), choices through U_CHOICE / U_WORD."""
-    j = 0
+def _float_rows(tape: Tape, px: int):
+    """One line per tape row, float mode (eval_tape_float_fast): a
+    statement for each of the thread's px pixels, as plain scalar code
+    (no loop or array for nvcc to take apart)."""
     for op, out, a, b, imm, aux in tape.rows():
         op = int(op)
-        L = _lit(imm)
-        A = f"Ival{{{L}, {L}}}" if a == IMM else f"r{a}"
-        B = f"Ival{{{L}, {L}}}" if b == IMM else f"r{b}"
         name = TapeOp(op).name
-        if op in _CHOICE:
+
+        def stmt(p):
+            A = _lit(imm) if a == IMM else f"r{a}_{p}"
+            B = _lit(imm) if b == IMM else f"r{b}_{p}"
+            if op == TapeOp.INPUT:
+                return f"r{out}_{p} = in[{aux}][{p}];"
+            if op == TapeOp.OUTPUT:
+                return f"o[{p}] = r{out}_{p};"
+            if op == TapeOp.COPY:
+                return f"r{out}_{p} = {A};"
+            if op == TapeOp.LOAD:
+                return f"r{out}_{p} = m{aux}_{p};"
+            if op == TapeOp.STORE:
+                return f"m{aux}_{p} = r{out}_{p};"
             if op == TapeOp.MIN:
-                call = f"u_min({A}, {B}, c)"
-            elif op == TapeOp.MAX:
-                call = f"u_max({A}, {B}, c)"
-            else:
-                call = f"i_choice(OP_{name}, {A}, {B}, &c)"
-            s = f"{{ int c; r{out} = {call}; U_CHOICE({2 * (j % 16)}, c); }}"
-            if j % 16 == 15 or j == tape.choice_count - 1:
-                s += f" U_WORD({j // 16});"
-            j += 1
-            yield s
-        elif op == TapeOp.DIV:
-            if b != IMM:
-                yield f"r{out} = u_div({A}, {B});"
-            elif float(imm) != 0.0:
-                yield f"r{out} = u_div_corners({A}, {B});"
-            else:
-                yield f"r{out} = Ival{{f_nan(), f_nan()}};"
-        elif op == TapeOp.INPUT:
-            yield f"r{out} = in[{aux}];"
-        elif op == TapeOp.OUTPUT:
-            yield f"o_ = r{out};" if aux == 0 else f"/* OUTPUT[{aux}] */;"
-        elif op == TapeOp.COPY:
-            yield f"r{out} = {A};"
-        elif op == TapeOp.LOAD:
-            yield f"r{out} = m{aux};"
-        elif op == TapeOp.STORE:
-            yield f"m{aux} = r{out};"
-        elif op in _BINARY:
-            yield f"r{out} = i_binary(OP_{name}, {A}, {B});"
-        elif op in _UNARY:
-            yield f"r{out} = i_unary(OP_{name}, r{a});"
-        else:
+                return f"r{out}_{p} = u_fmin({A}, {B});"
+            if op == TapeOp.MAX:
+                return f"r{out}_{p} = u_fmax({A}, {B});"
+            if op == TapeOp.AND:
+                return f"r{out}_{p} = ({A} == 0.f) ? {A} : {B};"
+            if op == TapeOp.OR:
+                return f"r{out}_{p} = ({A} != 0.f) ? {A} : {B};"
+            if op in _BINARY:
+                return f"r{out}_{p} = f_binary(OP_{name}, {A}, {B});"
+            if op in _UNARY:
+                return f"r{out}_{p} = f_unary(OP_{name}, {A});"
             raise ValueError(f"cannot emit op {op}")
-    if j != tape.choice_count:
-        raise ValueError("tape.choice_count does not match its choice ops")
+
+        if op == TapeOp.OUTPUT and aux != 0:
+            yield f"/* OUTPUT[{aux}] */;"
+        else:
+            yield " ".join(stmt(p) for p in range(px))
 
 
-def _axis_defines(V: int, axis_of: dict) -> str:
+def _axis_defines(axis_of: dict) -> str:
     ax = [axis_of.get(k, -1) for k in ("x", "y", "z")]
-    return (f"#define U_V {V}\n#define U_AX {ax[0]}\n#define U_AY {ax[1]}\n"
+    return (f"#define U_AX {ax[0]}\n#define U_AY {ax[1]}\n"
             f"#define U_AZ {ax[2]}\n")
 
 
@@ -212,79 +178,325 @@ def cache_key(*parts) -> str:
     return h.hexdigest()[:20]
 
 
-def emit_float_program(tape: Tape, V: int, name: str) -> str:
-    """A float program: `float name(float i0, ..., float i{V-1})`."""
-    args = ", ".join(f"float i{k}" for k in range(V))
-    body = "".join(f"  {s}\n" for s in _float_rows(tape))
+def _float_defines(V: int, px: int) -> str:
+    return f"#define U_V {V}\n#define U_PX {px}\n"
+
+
+def _float_body(tape: Tape, px: int) -> str:
+    return _decls(tape, px) + "".join(f"  {s}\n"
+                                      for s in _float_rows(tape, px))
+
+
+def emit_float_program(tape: Tape, V: int, name: str, px: int = 1) -> str:
+    """A float program in a unit of its own:
+    `fidget::UOut name(fidget::UIn)`, the outputs of the thread's px
+    pixels from their V inputs each."""
     return (
-        '#include "unrolled.cuh"\nusing namespace fidget;\n'
-        f'extern "C" __device__ __noinline__ float {name}({args}) {{\n'
-        f"{_decls(tape)}  float o = 0.f;\n{body}  return o;\n}}\n"
+        f'{_float_defines(V, px)}#include "unrolled.cuh"\n'
+        "using namespace fidget;\n"
+        f'extern "C" __device__ __noinline__ UOut {name}(UIn in_) {{\n'
+        "  const auto& in = in_.v;\n  UOut out_;\n  auto& o = out_.o;\n"
+        f"  U_P(o[p] = 0.f);\n{_float_body(tape, px)}  return out_;\n}}\n"
     )
 
 
-def emit_float_kernel(names: list, V: int, axis_of: dict) -> str:
+def emit_float_kernel(names: list, V: int, axis_of: dict, px: int = 1) -> str:
     """U1's kernel unit: the dispatch of segment s to program names[s]
-    (the last segment and beyond: the last program)."""
-    args = ", ".join("float" for _ in range(V))
-    call = ", ".join(f"in[{k}]" for k in range(V))
-    decls = "".join(f'extern "C" __device__ float {n}({args});\n'
+    (the last segment and beyond: the last program), each a unit of its
+    own."""
+    decls = "".join(f'extern "C" __device__ fidget::UOut {n}(fidget::UIn);\n'
                     for n in dict.fromkeys(names))
-    cases = "".join(f"    case {s}: return {n}({call});\n"
+    cases = "".join(f"    case {s}: r = {n}(a); break;\n"
                     for s, n in enumerate(names[:-1]))
     return (
-        f'{_axis_defines(V, axis_of)}#include "unrolled.cuh"\n{decls}'
-        "static __device__ __forceinline__ float u_run(int s, const float* in) "
-        "{\n  switch (s) {\n"
-        f"{cases}    default: return {names[-1]}({call});\n  }}\n}}\n"
-        "U_FLOAT_KERNEL\n"
+        f"{_float_defines(V, px)}{_axis_defines(axis_of)}"
+        f'#include "unrolled.cuh"\n#define U_NSEG {len(names)}\n{decls}'
+        "static __device__ __forceinline__ void u_run(int s, const float "
+        "(&in)[U_V][U_PX], float (&o)[U_PX]) {\n"
+        "  (void)s;\n  fidget::UIn a;\n"
+        "  _Pragma(\"unroll\") for (int k = 0; k < U_V; ++k) "
+        "U_P(a.v[k][p] = in[k][p]);\n"
+        "  fidget::UOut r;\n  switch (s) {\n"
+        f"{cases}    default: r = {names[-1]}(a);\n  }}\n"
+        "  U_P(o[p] = r.o[p]);\n}\nU_FLOAT_KERNEL\n"
     )
 
 
-def _interval_defines(tape: Tape, V: int, axis_of: dict,
-                      epilogue: str) -> str:
-    return (f"#define U_EPI {EPILOGUES[epilogue]}\n"
-            f"{_axis_defines(V, axis_of)}#define U_NR {max(tape.reg_count, 1)}"
-            f"\n#define U_NM {tape.mem_count}\n")
+# ----------------------------------------------------------------------
+# U2: the tape's rows over the k warps of a group
+
+#: estimated SASS instructions of one interval row by op (the list
+#: schedule's weights; only their ratios matter)
+ROW_COST = {
+    "ADD": 2, "SUB": 2, "NEG": 2, "MUL": 14, "DIV": 40, "SQUARE": 12,
+    "SQRT": 20, "ABS": 8, "MIN": 10, "MAX": 10, "AND": 14, "OR": 14,
+    "COMPARE": 8, "MOD": 40, "RECIP": 20, "FLOOR": 4, "CEIL": 4,
+    "ROUND": 12, "NOT": 8, "ATAN2": 120,
+}
+_ROW_COST_DEFAULT = 60  # the transcendentals
+#: a group's hand-off slots (32 Ivals each) may take this much shared
+#: memory; a tape that needs more gets fewer warps a group
+SLOT_BUDGET = 40 * 1024
+#: shared memory a block of U2 may take in all (hand-off slots, choice
+#: words, violation flags): the card's 227 KB less room for the runtime
+SHARED_LIMIT = 200 * 1024
 
 
-def interval_chunks(tape: Tape) -> list:
-    """U2's body, one statement per tape row, cut into chunks of
-    INTERVAL_CHUNK_ROWS rows."""
-    rows = list(_interval_rows(tape))
-    k = INTERVAL_CHUNK_ROWS
-    return [rows[i:i + k] for i in range(0, len(rows), k)] or [[]]
+class IntervalSchedule:
+    """U2's rows spread over the k warps of a group.
+
+    The tape is renamed into values: a computing row defines the value
+    ("row", i); INPUT, COPY, LOAD and STORE only rename, so that a value
+    is ("row", i), ("in", aux) or ("imm", x) (an unwritten register or
+    memory slot reads ("imm", 0.0)). The computing rows are ordered
+    depth-first from the output (operand a before b; rows that do not
+    reach it follow in tape order), and that order is cut into k runs of
+    equal `ROW_COST`, one a warp. A row's stage is the latest of its
+    operands' stages, plus one for an operand of another warp; a warp
+    runs its rows stage by stage, in that order, with a block barrier
+    between stages. A value read by another warp goes to a hand-off slot,
+    stored in its producer's stage and read (once a consumer warp, at its
+    first use) in later ones; a slot is reused by a value stored after
+    the stage of the previous value's last read.
+
+    Attributes: k; order (computing rows); warp_of, stage_of; n_stages;
+    operands[i] = (A, B) value refs (B None for unary ops); b_imm[i] (b
+    is the row's immediate, which DIV treats apart); choice_of[i] = j;
+    slot_of[i] and last_read[i] of the values that cross warps; n_slots;
+    out, the output's value ref (None without an OUTPUT 0 row); runs[w]
+    = [[rows of stage s] for s]; flush[w] = {row: word} where warp w's
+    part of a word is done.
+    """
+
+    def __init__(self, tape: Tape, k: int):
+        self.tape = tape
+        self.k = k
+        self.operands, self.b_imm, self.choice_of = {}, {}, {}
+        self.op = {}
+        zero = ("imm", 0.0)
+        cur, mem = {}, {}
+        self.out = None
+        rows = []
+        for i, (op, out, a, b, imm, aux) in enumerate(tape.rows()):
+            op, out, a, b, aux = int(op), int(out), int(a), int(b), int(aux)
+
+            def ref(sel):
+                return ("imm", float(imm)) if sel == IMM else cur.get(sel, zero)
+
+            if op == TapeOp.INPUT:
+                cur[out] = ("in", aux)
+            elif op == TapeOp.OUTPUT:
+                if aux == 0:
+                    self.out = cur.get(out, zero)
+            elif op == TapeOp.COPY:
+                cur[out] = ref(a)
+            elif op == TapeOp.LOAD:
+                cur[out] = mem.get(aux, zero)
+            elif op == TapeOp.STORE:
+                mem[aux] = cur.get(out, zero)
+            elif op in _BINARY or op in _UNARY:
+                self.op[i] = op
+                self.operands[i] = (ref(a), ref(b) if op in _BINARY else None)
+                self.b_imm[i] = b == IMM
+                if op in _CHOICE:
+                    self.choice_of[i] = len(self.choice_of)
+                cur[out] = ("row", i)
+                rows.append(i)
+            else:
+                raise ValueError(f"cannot emit op {op}")
+        if len(self.choice_of) != tape.choice_count:
+            raise ValueError("tape.choice_count does not match its choice ops")
+        self.producers = {
+            i: [v[1] for v in self.operands[i] if v is not None and v[0] == "row"]
+            for i in rows
+        }
+        self.order = self._depth_first(rows)
+        self._partition()
+
+    def _depth_first(self, rows):
+        order, seen = [], set()
+        roots = ([self.out[1]] if self.out and self.out[0] == "row" else [])
+        for root in roots + rows:
+            stack = [(root, False)]
+            while stack:
+                i, done = stack.pop()
+                if done:
+                    order.append(i)
+                    continue
+                if i in seen:
+                    continue
+                seen.add(i)
+                stack.append((i, True))
+                stack.extend((p, False) for p in reversed(self.producers[i])
+                             if p not in seen)
+        return order
+
+    def cost(self, i) -> int:
+        return ROW_COST.get(TapeOp(self.op[i]).name, _ROW_COST_DEFAULT)
+
+    def _partition(self):
+        k = self.k
+        total = sum(self.cost(i) for i in self.order) or 1
+        self.warp_of, self.stage_of, at = {}, {}, 0
+        for i in self.order:
+            c = self.cost(i)
+            self.warp_of[i] = min(k - 1, int((at + c / 2) * k / total))
+            at += c
+        for i in self.order:
+            self.stage_of[i] = max(
+                [self.stage_of[p] + (self.warp_of[p] != self.warp_of[i])
+                 for p in self.producers[i]], default=0)
+        self.n_stages = max(self.stage_of.values(), default=0) + 1
+        self.runs = [[[] for _ in range(self.n_stages)] for _ in range(k)]
+        for i in self.order:
+            self.runs[self.warp_of[i]][self.stage_of[i]].append(i)
+        # the stage of each consumer warp's first read of a crossing value
+        first = {}
+        for i in self.order:
+            for p in set(self.producers[i]):
+                if self.warp_of[p] != self.warp_of[i]:
+                    key = (p, self.warp_of[i])
+                    first[key] = min(first.get(key, self.n_stages),
+                                     self.stage_of[i])
+        self.last_read = {}
+        for (p, _), s in first.items():
+            self.last_read[p] = max(self.last_read.get(p, 0), s)
+        pos = {i: n for n, i in enumerate(self.order)}
+        self.slot_of, free_at = {}, []
+        for p in sorted(self.last_read, key=lambda p: (self.stage_of[p],
+                                                       pos[p])):
+            s = self.stage_of[p]
+            slot = next((j for j, f in enumerate(free_at) if f <= s), None)
+            if slot is None:
+                slot = len(free_at)
+                free_at.append(0)
+            free_at[slot] = self.last_read[p] + 1
+            self.slot_of[p] = slot
+        self.n_slots = len(free_at)
+        self.flush = []
+        for w in range(k):
+            seq = [i for run in self.runs[w] for i in run if i in self.choice_of]
+            fl = {}
+            for i, nxt in zip(seq, seq[1:] + [None]):
+                word = self.choice_of[i] // 16
+                if nxt is None or self.choice_of[nxt] // 16 != word:
+                    fl[i] = word
+            self.flush.append(fl)
+
+    def shared_bytes(self) -> int:
+        """The hand-off slots' shared memory."""
+        return self.n_slots * 32 * 8
 
 
-def emit_interval_chunk(tape: Tape, V: int, axis_of: dict, epilogue: str,
-                        rows: list, name: str) -> str:
-    """One chunk of U2's body: a device function that takes the thread's
-    state (registers, memory slots, inputs, output, packed word,
-    violation flag) into locals, runs its rows and stores it back."""
-    regs = [f"r{i}" for i in range(max(tape.reg_count, 1))]
-    mems = [f"m{i}" for i in range(tape.mem_count)]
-    load = "".join(f"  Ival {v} = s_->{v[0]}[{v[1:]}];\n" for v in regs + mems)
-    store = "".join(f"  s_->{v[0]}[{v[1:]}] = {v};\n" for v in regs + mems)
-    body = "".join(f"  {r}\n" for r in rows)
+def schedule_interval(tape: Tape, warps: int) -> IntervalSchedule:
+    """The schedule at `warps` warps a group, or at half as many (down
+    to 1) while its hand-off slots exceed SLOT_BUDGET."""
+    k = warps
+    while True:
+        sched = IntervalSchedule(tape, k)
+        if k == 1 or sched.shared_bytes() <= SLOT_BUDGET:
+            return sched
+        k //= 2
+
+
+def _ival(v) -> str:
+    """The C++ expression of a value ref."""
+    kind, x = v
+    if kind == "row":
+        return f"v{x}"
+    if kind == "in":
+        return f"in[{x}]"
+    L = _lit(x)
+    return f"Ival{{{L}, {L}}}"
+
+
+def _interval_expr(sched: IntervalSchedule, i: int) -> str:
+    op = sched.op[i]
+    A, B = (_ival(v) if v is not None else None for v in sched.operands[i])
+    name = TapeOp(op).name
+    if op == TapeOp.MIN:
+        return f"u_min({A}, {B}, c_)"
+    if op == TapeOp.MAX:
+        return f"u_max({A}, {B}, c_)"
+    if op in (TapeOp.AND, TapeOp.OR):
+        return f"i_choice(OP_{name}, {A}, {B}, &c_)"
+    if op == TapeOp.DIV:
+        if not sched.b_imm[i]:
+            return f"u_div({A}, {B})"
+        if sched.operands[i][1][1] != 0.0:
+            return f"u_div_corners({A}, {B})"
+        return "Ival{f_nan(), f_nan()}"
+    if op == TapeOp.SQUARE:
+        return f"u_square({A})"
+    if op == TapeOp.ABS:
+        return f"u_abs({A})"
+    if op in _BINARY:
+        return f"i_binary(OP_{name}, {A}, {B})"
+    return f"i_unary(OP_{name}, {A})"
+
+
+def interval_warp_rows(sched: IntervalSchedule, w: int) -> list:
+    """Warp w's statements: its rows stage by stage with U_BAR() between
+    stages, crossing values loaded from their slots at first use and
+    stored after they are computed, the choices' U_CHOICE / U_WORD and
+    the output's U_OUT."""
+    lines, loaded = [], set()
+    if w == 0 and (sched.out is None or sched.out[0] != "row"):
+        v = ("imm", 0.0) if sched.out is None else sched.out
+        lines.append(f"U_OUT({_ival(v)});")
+    for s, run in enumerate(sched.runs[w]):
+        if s:
+            lines.append("U_BAR();")
+        for i in run:
+            for p in sched.producers[i]:
+                if sched.warp_of[p] != w and p not in loaded:
+                    loaded.add(p)
+                    lines.append(f"const Ival v{p} = U_SH({sched.slot_of[p]});")
+            line = f"const Ival v{i} = {_interval_expr(sched, i)};"
+            j = sched.choice_of.get(i)
+            if j is not None:
+                line += f" U_CHOICE({2 * (j % 16)}, c_);"
+                if i in sched.flush[w]:
+                    line += f" U_WORD({sched.flush[w][i]});"
+            lines.append(line)
+            if i in sched.slot_of:
+                lines.append(f"U_SH({sched.slot_of[i]}) = v{i};")
+            if sched.out == ("row", i):
+                lines.append(f"U_OUT(v{i});")
+    return lines
+
+
+def _interval_defines(V: int, axis_of: dict, epilogue: str, k: int) -> str:
+    return (f"#define U_EPI {EPILOGUES[epilogue]}\n#define U_V {V}\n"
+            f"{_axis_defines(axis_of)}#define U_K {k}\n")
+
+
+def emit_interval_warp(sched: IntervalSchedule, w: int, V: int,
+                       axis_of: dict, epilogue: str, name: str) -> str:
+    """Warp w's stream of U2 as a device function of its own unit."""
+    body = "".join(f"  {r}\n" for r in interval_warp_rows(sched, w))
     return (
-        f"{_interval_defines(tape, V, axis_of, epilogue)}"
-        f'#include "unrolled.cuh"\nU_CHUNK_BEGIN({name})\n{load}{body}'
-        f"{store}U_CHUNK_END\n"
+        f"{_interval_defines(V, axis_of, epilogue, sched.k)}"
+        f'#include "unrolled.cuh"\nU_WARP_BEGIN({name})\n{body}U_WARP_END\n'
     )
 
 
-def emit_interval_kernel(tape: Tape, V: int, axis_of: dict, epilogue: str,
-                         names: list) -> str:
-    """U2's kernel unit: the chunks `names` called in order."""
-    decls = "".join(f'extern "C" __device__ void {n}(U_CHUNK_ARGS);\n'
+def emit_interval_kernel(sched: IntervalSchedule, V: int, axis_of: dict,
+                         epilogue: str, names: list) -> str:
+    """U2's kernel unit: warp w calls the stream names[w]."""
+    decls = "".join(f'extern "C" __device__ void {n}(U_WARP_ARGS);\n'
                     for n in names)
-    calls = "".join(f"  {n}(s, u, words, n, lane);\n" for n in names)
+    args = "x0, y0, params, T0, sh, wd, rin, rout, tile, live"
+    cases = "".join(f"    case {w}: {n}({args}); break;\n"
+                    for w, n in enumerate(names[:-1]))
     return (
-        f"{_interval_defines(tape, V, axis_of, epilogue)}"
+        f"{_interval_defines(V, axis_of, epilogue, sched.k)}"
+        f"#define U_SLOTS {sched.n_slots}\n"
+        f"#define U_CW {-(-sched.tape.choice_count // 16)}\n"
         f'#include "unrolled.cuh"\n{decls}'
-        "static __device__ __forceinline__ void u_chunks(fidget::UState* s, "
-        "const int32_t* u, int32_t* words, int n, int lane) {\n"
-        f"{calls}}}\nU_INTERVAL_KERNEL\n"
+        "static __device__ __forceinline__ void u_warps(int w, U_WARP_ARGS) {\n"
+        f"  switch (w) {{\n{cases}    default: {names[-1]}({args});\n"
+        "  }\n}\nU_INTERVAL_KERNEL\n"
     )
 
 
@@ -294,8 +506,8 @@ def emit_interval_kernel(tape: Tape, V: int, axis_of: dict, epilogue: str,
 
 class _Unit:
     """One generated build product: a library (`lib.so`) linked from the
-    kernel's unit and the objects it calls (float programs or interval
-    chunks)."""
+    kernel's unit and the objects it calls (float programs or warp
+    streams)."""
 
     def __init__(self, key, source, objects):
         self.key = key
@@ -306,8 +518,8 @@ class _Unit:
 
 
 class _Object:
-    """A float program or an interval chunk, compiled into a relocatable
-    object."""
+    """A float program or a warp stream of an interval kernel, compiled
+    into a relocatable object."""
 
     def __init__(self, key, source):
         self.key = key
@@ -326,16 +538,17 @@ def _write_source(d: pathlib.Path, name: str, text: str) -> pathlib.Path:
 
 def build(units) -> dict:
     """Builds every unit of `units` that has no library yet: every
-    missing object (the programs or chunks, and each unit's kernel
-    source) with one `nvcc -rdc=true -c` each, all started together,
-    then the links, together. Returns {step: seconds since its batch
-    began, when it was seen done} of the steps that ran; raises with
-    nvcc's output if any fails. `<name>.log` beside each product keeps
-    nvcc's output (registers, spills)."""
+    missing object (programs or warp streams) and every kernel unit with
+    one `nvcc -rdc=true -c` each, all started together, then the links,
+    together.
+    Returns {step: seconds from its batch's start to its end}
+    of the steps that ran; raises with nvcc's output if any fails.
+    `<name>.log` beside each product keeps nvcc's output (registers,
+    spills)."""
     nvcc = cuda._nvcc()
     flags = [f for f in cuda.NVCC_FLAGS if f != "-shared"]
     compile_ = [nvcc, *flags, "-rdc=true", "-I", str(cuda.CSRC), "-c"]
-    todo = [u for u in units if not u.lib.exists()]
+    todo = list({u.key: u for u in units if not u.lib.exists()}.values())
     objs = {o.key: o for u in todo for o in u.objects if not o.obj.exists()}
     steps = [
         (o.key, [*compile_, str(_write_source(o.dir, "prog.cu", o.source))],
@@ -374,14 +587,20 @@ def _run(steps, seconds):
             procs.append((label, tmp, final, log, subprocess.Popen(
                 [*cmd, "-o", str(tmp)], stdout=f, stderr=subprocess.STDOUT)))
     failed = []
-    for label, tmp, final, log, proc in procs:
-        rc = proc.wait()
-        seconds[label] = time.perf_counter() - t0
-        if rc != 0:
-            failed.append((label, log))
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, final)
+    pending = list(procs)
+    while pending:
+        for item in list(pending):
+            label, tmp, final, log, proc = item
+            if proc.poll() is None:
+                continue
+            pending.remove(item)
+            seconds[label] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                failed.append((label, log))
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, final)
+        time.sleep(0.02)
     if failed:
         logs = "\n".join(
             f"{label}:\n{log.read_text()[-3000:]}" for label, log in failed
@@ -423,12 +642,14 @@ def _load(unit: _Unit) -> ctypes.CDLL:
 class FloatKernel:
     """U1 for a list of tapes sharing their inputs (V, axes): tape s
     serves the slots of segment s, the last one every slot from its
-    segment's first on."""
+    segment's first on; `px` pixels a thread (default FLOAT_PIXELS),
+    fixed when the code is emitted."""
 
-    def __init__(self, tapes: list, axis_of: dict, V: int):
+    def __init__(self, tapes: list, axis_of: dict, V: int, *, px=None):
         self.tapes = list(tapes)
         self.axis_of = dict(axis_of)
         self.V = V
+        self.px = FLOAT_PIXELS if px is None else px
         self._unit = None
         self._segs = {}
 
@@ -445,13 +666,13 @@ class FloatKernel:
         if self._unit is None:
             objects, names = [], []
             for t in self.tapes:
-                key = cache_key("float-program", self.V, _tape_digest(t))
+                src = emit_float_program(t, self.V, "@", self.px)
+                key = cache_key("float-program", _tape_digest(t), src)
                 name = f"fidget_uprog_{key}"
-                objects.append(
-                    _Object(key, emit_float_program(t, self.V, name))
-                )
+                objects.append(_Object(
+                    key, emit_float_program(t, self.V, name, self.px)))
                 names.append(name)
-            source = emit_float_kernel(names, self.V, self.axis_of)
+            source = emit_float_kernel(names, self.V, self.axis_of, self.px)
             key = cache_key("float-kernel", source)
             self._unit = _Unit(key, source, objects)
         return self._unit
@@ -459,34 +680,55 @@ class FloatKernel:
 
 class IntervalKernel:
     """U2 for one tape and one epilogue ("proofs", "capture",
-    "violation")."""
+    "violation"), its rows over `warps` warps a group (default
+    INTERVAL_WARPS; fewer where the hand-offs pass SLOT_BUDGET)."""
 
-    def __init__(self, tape: Tape, axis_of: dict, V: int, epilogue: str):
+    def __init__(self, tape: Tape, axis_of: dict, V: int, epilogue: str, *,
+                 warps=None):
         if epilogue not in EPILOGUES:
             raise ValueError(f"unknown epilogue {epilogue!r}")
         self.tape = tape
         self.axis_of = dict(axis_of)
         self.V = V
         self.epilogue = epilogue
+        self.warps = INTERVAL_WARPS if warps is None else warps
+        self._sched = None
         self._unit = None
 
     @property
     def cw(self) -> int:
         return -(-self.tape.choice_count // 16)
 
+    def schedule(self) -> IntervalSchedule:
+        if self._sched is None:
+            self._sched = schedule_interval(self.tape, self.warps)
+        return self._sched
+
+    def shared_bytes(self) -> int:
+        """A block's shared memory: hand-off slots, choice words (capture,
+        violation) and the warps' violation flags."""
+        words = 0 if self.epilogue == "proofs" else self.cw * 32 * 4
+        flags = self.schedule().k * 32 if self.epilogue == "violation" else 0
+        return self.schedule().shared_bytes() + words + flags
+
     def unit(self) -> _Unit:
         if self._unit is None:
-            args = (self.tape, self.V, self.axis_of, self.epilogue)
+            if self.shared_bytes() > SHARED_LIMIT:
+                raise ValueError(
+                    f"U2 needs {self.shared_bytes()} bytes of shared memory "
+                    f"a block ({self.cw} choice words), more than "
+                    f"{SHARED_LIMIT}")
+            sched = self.schedule()
+            args = (self.V, self.axis_of, self.epilogue)
             objects, names = [], []
-            for rows in interval_chunks(self.tape):
-                key = cache_key("interval-chunk", _tape_digest(self.tape),
-                                emit_interval_chunk(*args, rows, "@"))
-                name = f"fidget_uiv_{key}"
-                objects.append(
-                    _Object(key, emit_interval_chunk(*args, rows, name))
-                )
+            for w in range(sched.k):
+                src = emit_interval_warp(sched, w, *args, "@")
+                key = cache_key("interval-warp", _tape_digest(self.tape), src)
+                name = f"fidget_uiw_{key}"
+                objects.append(_Object(
+                    key, emit_interval_warp(sched, w, *args, name)))
                 names.append(name)
-            source = emit_interval_kernel(*args, names)
+            source = emit_interval_kernel(sched, *args, names)
             key = cache_key("interval-kernel", source)
             self._unit = _Unit(key, source, objects)
         return self._unit

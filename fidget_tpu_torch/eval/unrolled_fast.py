@@ -68,6 +68,39 @@ def _to_i32(w):
     return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
 
 
+def interval_row(im, op: int, va, vb, imm: float, b_is_imm: bool):
+    """One computing row of `eval_tape_interval_fast`: (value, choice),
+    choice the (left, right) masks of a choice op, else None. `va` /
+    `vb` are (lo, hi) pairs (`vb` None for a unary op); `imm` and
+    `b_is_imm` are the row's immediate and whether b is that immediate
+    (an immediate denominator of 0 poisons the whole result)."""
+    if op == _MIN or op == _MAX:
+        (al, au), (bl, bu) = va, vb
+        if op == _MIN:
+            return ((torch.minimum(al, bl), torch.minimum(au, bu)),
+                    (au < bl, bu < al))
+        return ((torch.maximum(al, bl), torch.maximum(au, bu)),
+                (al > bu, bl > au))
+    if op == _DIV:
+        (al, au), (bl, bu) = va, vb
+        q0, q1, q2, q3 = al / bl, al / bu, au / bl, au / bu
+        lo = torch.minimum(torch.minimum(q0, q1), torch.minimum(q2, q3))
+        hi = torch.maximum(torch.maximum(q0, q1), torch.maximum(q2, q3))
+        n = torch.full_like(lo, math.nan)
+        if b_is_imm:
+            return ((n, n) if imm == 0.0 else (lo, hi)), None
+        bad = ~((bl > 0.0) | (bu < 0.0))
+        return (torch.where(bad, n, lo), torch.where(bad, n, hi)), None
+    if op in _PLAIN_BIN:
+        return im.binary(TapeOp(op), va, vb), None
+    if op in _UNARY:
+        return im.unary(TapeOp(op), va), None
+    if op == _AND or op == _OR:
+        val, ch = im.choice_binary(TapeOp(op), va, vb)
+        return val, (ch == 1, ch == 2)
+    raise ValueError(f"cannot evaluate op {op}")
+
+
 def eval_tape_interval_fast(tape: Tape, inputs: list, *, capture=False,
                             u_words=None):
     """Interval evaluation of `tape` with the fast rules (module doc).
@@ -135,47 +168,10 @@ def eval_tape_interval_fast(tape: Tape, inputs: list, *, capture=False,
     auxs = tape.aux.tolist()
     for i in range(len(ops)):
         op, out, a, b = ops[i], outs_[i], aas[i], bbs[i]
-        if op == _MIN or op == _MAX:
-            al, au = operand(a, imms[i])
-            bl, bu = operand(b, imms[i])
-            if op == _MIN:
-                regs[out] = (torch.minimum(al, bl), torch.minimum(au, bu))
-                emit(au < bl, bu < al)
-            else:
-                regs[out] = (torch.maximum(al, bl), torch.maximum(au, bu))
-                emit(al > bu, bl > au)
-        elif op == _DIV:
-            al, au = operand(a, imms[i])
-            bl, bu = operand(b, imms[i])
-            q0, q1, q2, q3 = al / bl, al / bu, au / bl, au / bu
-            lo = torch.minimum(torch.minimum(q0, q1), torch.minimum(q2, q3))
-            hi = torch.maximum(torch.maximum(q0, q1), torch.maximum(q2, q3))
-            if b == IMM:
-                bad = imms[i] == 0.0
-                if bad:
-                    n = full(math.nan)
-                    lo, hi = n, n
-            else:
-                bad = ~((bl > 0.0) | (bu < 0.0))
-                n = full(math.nan)
-                lo, hi = torch.where(bad, n, lo), torch.where(bad, n, hi)
-            regs[out] = (lo, hi)
-        elif op in _PLAIN_BIN:
-            regs[out] = im.binary(
-                TapeOp(op), operand(a, imms[i]), operand(b, imms[i])
-            )
-        elif op in _UNARY:
-            regs[out] = im.unary(TapeOp(op), regs[a])
-        elif op == _INPUT:
+        if op == _INPUT:
             regs[out] = inputs[auxs[i]]
         elif op == _OUTPUT:
             los[auxs[i]], his[auxs[i]] = regs[out]
-        elif op == _AND or op == _OR:
-            val, ch = im.choice_binary(
-                TapeOp(op), operand(a, imms[i]), operand(b, imms[i])
-            )
-            regs[out] = val
-            emit(ch == 1, ch == 2)
         elif op == _COPY:
             regs[out] = operand(a, imms[i])
         elif op == _LOAD:
@@ -183,7 +179,12 @@ def eval_tape_interval_fast(tape: Tape, inputs: list, *, capture=False,
         elif op == _STORE:
             mem[auxs[i]] = regs[out]
         else:
-            raise ValueError(f"cannot evaluate op {op}")
+            va = operand(a, imms[i])
+            vb = operand(b, imms[i]) if op not in _UNARY else None
+            regs[out], choice = interval_row(im, op, va, vb, imms[i],
+                                             b == IMM)
+            if choice is not None:
+                emit(*choice)
 
     if n_choice != tape.choice_count:
         raise ValueError("tape.choice_count does not match its choice ops")

@@ -39,10 +39,32 @@ instead times whole frames of this tree against those of another
 checkout of the repository under DIR (its `fidget_tpu_torch` is
 imported beside the tree's under another name and builds its own
 kernels): warm `PixelRenderer.render()` at 1024^2 under the four tape
-bindings and the 512^3 gyroid normals frame, one frame of each side by
+bindings, the 512^3 gyroid normals frame and the four compiled 2D
+frames (`render_unrolled` with the union leaf, the full leaf under
+both culls, and `render_dense`), one frame of each side by
 turns, the side that goes first alternating, on the host clock around
 a synchronized frame. Both sides see the same drift of a shared host,
 which two separate runs do not.
+
+    python3 probe_kernels.py --unrolled [--variant NAME=DIR] [--guard]
+
+instead works on the two kernels generated per tape, U1 and U2
+(eval/unrolled_cuda.py): it builds the kernels of `chip_smoke.py`'s
+phase 6c cold, for this tree and for the checkout DIR (the parent,
+say), printing each batch's wall time and its slowest steps; captures
+the U1 and U2 calls of one frame of each compiled mode (union leaf,
+full leaf under the unrolled and the interpreter cull, dense) at the
+first view; times the tree's and DIR's kernels on them by turns; then
+builds the tree's emitter at other settings (U1 at 2 pixels a thread,
+U2 at 2 and 8 warps a group) and times them by turns with the
+tree, and last the dense frame through the stand-in at 100, 200 and
+400 circles (its full 800 is the tree's): time against issue floor by
+program length. Other emitters: DIR may be an edited copy of this
+checkout under `_archive/`.
+Each line gives the SASS instructions a row and lane by class
+(`cuobjdump -sass`) with the issue and MUFU floors they give
+(`chip_smoke.unrolled_floors`). `--guard` first runs `chip_smoke.py`'s
+unrolled guard (phase 6e) on DIR's kernels, then on the tree's.
 
     python3 probe_kernels.py --unrolled-builds
 
@@ -53,10 +75,10 @@ a time, each into an empty build directory under `--out`: the wall time
 of its nvcc steps, the ptxas compile time its logs report, and a
 second, cached build; then the union kernel once more as a single
 translation unit without -rdc (the programs and the kernel in one
-file), the alternative to one unit a program; last, U2 (proofs) with
-its body in one chunk against the default chunks: each one's cold
-build and its time on the stand-in's tiles at the pan view, and their
-proofs equal.
+file), the alternative to one unit a program; last, U2 (proofs) at
+INTERVAL_WARPS warps a group against one warp: each one's cold build
+and its time on the stand-in's tiles at the pan view, and their proofs
+equal.
 """
 
 from __future__ import annotations
@@ -269,10 +291,19 @@ def frames_in_turns(cs, sides, rounds):
             "specialized": lambda r=spec: r.render(view),
             "two-level": lambda r=two: r.render(view),
             "3D normals 512^3": lambda r=vox: r.render(view3),
+            "unrolled union": lambda r=std: r.render_unrolled(
+                view, leaf="union"),
+            "unrolled full": lambda r=std: r.render_unrolled(view,
+                                                             leaf="full"),
+            "unrolled full-interp": lambda r=std: r.render_unrolled(
+                view, leaf="full", cull="interp"),
+            "dense": lambda r=std: r.render_dense(view),
         }
         for fn in frames[side].values():
             fn()
+            _wait_refresh(pkg, std)
             fn()
+            _wait_refresh(pkg, std)
         torch.cuda.synchronize()
     labels = list(next(iter(frames.values())))
     wall = {(label, side): [] for label in labels for side in sides}
@@ -328,7 +359,6 @@ def unrolled_builds(cs, port, out):
 
     out.mkdir(parents=True, exist_ok=True)
     root = cuda.BUILD_ROOT
-    chunk_rows = uc.INTERVAL_CHUNK_ROWS
     try:
         for label, k in kernels.items():
             with tempfile.TemporaryDirectory(dir=out) as d:
@@ -365,11 +395,11 @@ def unrolled_builds(cs, port, out):
         params = uc.params_tensor(*u2._device_args(
             r, r._mat4(cs.FRAMES[1]), 0.0, r._var_vec(None)))
         first = None
-        for rows in (chunk_rows, len(tape)):
+        for warps in (uc.INTERVAL_WARPS, 1):
             with tempfile.TemporaryDirectory(dir=out) as d:
                 cuda.BUILD_ROOT = pathlib.Path(d)
-                uc.INTERVAL_CHUNK_ROWS = rows
-                k = uc.IntervalKernel(tape, r.axis_of, r.n_inputs, "proofs")
+                k = uc.IntervalKernel(tape, r.axis_of, r.n_inputs, "proofs",
+                                      warps=warps)
                 t0 = time.perf_counter()
                 uc.build_kernels([k])
                 cold = time.perf_counter() - t0
@@ -379,13 +409,243 @@ def unrolled_builds(cs, port, out):
                                                              first[:2]))
                 ms = cs.time_cuda(
                     lambda: uc.unrolled_interval(k, x0, y0, params, T0), 20)
-                print(f"U2 proofs in {len(k.unit().objects)} chunk(s) of up "
-                      f"to {rows} rows: cold build {cold:.1f} s, "
-                      f"{ms:.4f} ms a launch over {x0.shape[0]} tiles, "
-                      f"proofs equal to the default's: {same}", flush=True)
+                print(f"U2 proofs at {k.schedule().k} warp(s) a group "
+                      f"({len(k.unit().objects)} stream units): cold build "
+                      f"{cold:.1f} s, {ms:.4f} ms a launch over "
+                      f"{x0.shape[0]} tiles, proofs equal to the default's: "
+                      f"{same}", flush=True)
     finally:
         cuda.BUILD_ROOT = root
-        uc.INTERVAL_CHUNK_ROWS = chunk_rows
+
+
+#: the compiled frames' modes whose U1 / U2 calls `--unrolled` captures
+UNROLLED_MODES = {
+    "union": dict(leaf="union"),
+    "full": dict(leaf="full"),
+    "full-interp": dict(leaf="full", cull="interp"),
+    "dense": None,
+}
+
+
+def _wait_refresh(pkg, r):
+    u2 = importlib.import_module(pkg.__name__ + ".render.unrolled2d")
+    st = u2.state(r)
+    while any(st.refreshing.values()):
+        time.sleep(0.2)
+
+
+def _phase_6c(cs, pkg):
+    """The stand-in's renderer with chip_smoke's union plan installed,
+    and the kernels phase 6c builds (U1 full and union, U2 proofs and
+    violation, U1 of the parametrized stand-in), of package `pkg`."""
+    scenes = importlib.import_module(pkg.__name__ + ".scenes")
+    unions = importlib.import_module(pkg.__name__ + ".compiler.unions")
+    u2 = importlib.import_module(pkg.__name__ + ".render.unrolled2d")
+    ctx = pkg.Context()
+    tape = pkg.lower(ctx, [scenes.standin_shape(ctx)])
+    size = pkg.ImageSize(cs.SIZE, cs.SIZE)
+    r = pkg.PixelRenderer(tape, size)
+    T0, n0 = cs.UNROLLED_T0, cs.SIZE // cs.UNROLLED_T0
+    plan = unions.build_union_plan(tape, T0, n0, n0, r._mat4(cs.FRAMES[0]),
+                                   0.0, r._var_vec(None), r.axis_of,
+                                   block_px=cs.UNROLLED_BLOCK)
+    st = u2.state(r)
+    st.plans[(T0, cs.UNROLLED_BLOCK)] = plan
+    fb_cap = max(128, -(-(n0 * n0 // 64) // 128) * 128)
+    ctx = pkg.Context()
+    shift, grow = pkg.Var.new(), pkg.Var.new()
+    ptape = pkg.lower(ctx, [scenes.param_standin_shape(
+        ctx, ctx.input(shift), ctx.input(grow))])
+    rp = pkg.PixelRenderer(ptape, size)
+    kernels = [st.float_full, u2.union_tables(r, plan, fb_cap).kernel,
+               st.interval("proofs"), st.interval("violation"),
+               u2.state(rp).float_full]
+    return r, kernels
+
+
+def _step_kinds(kernels, steps):
+    """The build steps' finishing times (s) by kind and kernel: kernel
+    units, their links, and the objects they call."""
+    names = ["U1 full", "U1 union", "U2 proofs", "U2 violation",
+             "U1 full (parametrized)"]
+    label = {}
+    for name, k in zip(names, kernels):
+        u = k.unit()
+        label[u.key] = f"{name} kernel unit ({len(u.source) // 1024} KiB)"
+        label[u.key + ":link"] = f"{name} link"
+        for o in u.objects:
+            label.setdefault(o.key, f"{name} object "
+                                    f"({len(o.source) // 1024} KiB)")
+    done = sorted(steps.items(), key=lambda kv: kv[1])
+    return "; ".join(f"{label.get(k, k)} {v:.1f}" for k, v in done[-8:])
+
+
+def _time_runs(cs, runs, opts, what):
+    """Times each run (variant, module, mode, kernel name, kernel, args,
+    kwargs) by CUDA events, every run once a round, in reversed order
+    every other round; prints each with its agreement with the first run
+    of its mode and its SASS counts and floors."""
+    want = {}
+    sames = []
+    for vlabel, mod, mode, name, k, args, kwargs in runs:
+        got = getattr(mod, name)(*args, **kwargs)
+        torch.cuda.synchronize()
+        key = (mode, name)
+        got = got if isinstance(got, tuple) else (got,)
+        want.setdefault(key, got)
+        sames.append(all((g is None and w is None) or torch.equal(
+            g.view(torch.int32) if g.dtype == torch.float32 else g,
+            w.view(torch.int32) if w.dtype == torch.float32 else w)
+            for g, w in zip(got, want[key])))
+    times = [[] for _ in runs]
+    order = list(range(len(runs)))
+    for rnd in range(opts.rounds_unrolled):
+        for i in (order if rnd % 2 == 0 else order[::-1]):
+            vlabel, mod, mode, name, k, args, kwargs = runs[i]
+            fn = getattr(mod, name)
+            times[i].append(cs.time_cuda(lambda: fn(*args, **kwargs),
+                                         opts.reps))
+    for i, (vlabel, mod, mode, name, k, args, kwargs) in enumerate(runs):
+        ms = np.array(times[i])
+        _, _, _, ops, _ = cs._unrolled_bound(
+            name, args, kwargs, getattr(mod, name)(*args, **kwargs))
+        fl = cs.unrolled_floors(k, ops if name == "unrolled_float"
+                                else ops // 2)
+        fl_s = ("SASS not measured" if fl is None else
+                f"{fl['sass_per_row']:.3f} SASS/row-lane "
+                f"({fl['mufu_per_row']:.3f} MUFU) issue floor "
+                f"{fl['issue_floor_ms']:.4f} ms, MUFU floor "
+                f"{fl['mufu_floor_ms']:.4f} ms, {fl['sass']}")
+        extra = (f", {k.schedule().k} warps, {k.schedule().n_stages} "
+                 f"stages, {k.schedule().n_slots} slots"
+                 if hasattr(k, "schedule") else
+                 f", {getattr(k, 'px', 1)} px a thread"
+                 if hasattr(k, "tapes") else "")
+        print(f"{what} {name} {mode:>11} | {vlabel:<30} median "
+              f"{np.median(ms):.4f} min {ms.min():.4f} ms ({len(ms)} "
+              f"rounds){extra}; "
+              f"{'equal to first' if sames[i] else 'DIFFERS from first'}; "
+              f"{fl_s}", flush=True)
+
+
+def unrolled_probe(cs, port, other, opts):
+    """`--unrolled` (see the module doc)."""
+    from fidget_tpu_torch.eval import cuda
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+    from fidget_tpu_torch.render import unrolled2d as u2
+
+    sides = {"tree": port, **({"parent": other} if other else {})}
+    if opts.guard:
+        for side, pkg in reversed(list(sides.items())):
+            cs.phase_unrolled_guard(pkg, label=side)
+    r = None
+    for side, pkg in sides.items():
+        ouc = importlib.import_module(pkg.__name__ + ".eval.unrolled_cuda")
+        rr, kernels = _phase_6c(cs, pkg)
+        cold = not any(k.unit().lib.exists() for k in kernels)
+        t0 = time.perf_counter()
+        steps = ouc.build_kernels(kernels)
+        print(f"phase 6c build | {side}: {len(steps)} nvcc steps, "
+              f"{time.perf_counter() - t0:.1f} s wall "
+              f"({'cold' if cold else 'NOT cold'})", flush=True)
+        print(f"phase 6c build | {side}: " + _step_kinds(kernels, steps),
+              flush=True)
+        if side == "tree":
+            r = rr
+    # the U1 / U2 calls of one frame of each mode, at the first view
+    calls = {}
+    saved = {n: getattr(u2, n) for n in cs.UNROLLED_KERNELS}
+    current = [None]
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            calls[(current[0], name)] = (args, kwargs)
+            return saved[name](*args, **kwargs)
+        return call
+
+    for n in cs.UNROLLED_KERNELS:
+        setattr(u2, n, recorder(n))
+    try:
+        for mode, kw in UNROLLED_MODES.items():
+            current[0] = mode
+            (r.render_dense(cs.FRAMES[0]) if kw is None
+             else r.render_unrolled(cs.FRAMES[0], **kw))
+            _wait_refresh(port, r)
+    finally:
+        for n, f in saved.items():
+            setattr(u2, n, f)
+    torch.cuda.synchronize()
+    # variants: (label, package's unrolled_cuda, kernel from the tree's,
+    # args from the tree's); None where a variant does not apply
+    variants = [("tree", uc, lambda k: k, None)]
+    if other is not None:
+        puc = importlib.import_module(other.__name__ + ".eval.unrolled_cuda")
+
+        def parent(k):
+            if hasattr(k, "tapes"):
+                return puc.FloatKernel(k.tapes, k.axis_of, k.V)
+            return puc.IntervalKernel(k.tape, k.axis_of, k.V, k.epilogue)
+
+        variants.append(("parent", puc, parent, None))
+
+    variants.append(("U1 2 px a thread", uc, lambda k: (
+        uc.FloatKernel(k.tapes, k.axis_of, k.V, px=2)
+        if hasattr(k, "tapes") else None), None))
+    for warps in (2, 8):
+        variants.append((f"U2 {warps} warps a group", uc, lambda k, w=warps: (
+            None if hasattr(k, "tapes") else uc.IntervalKernel(
+                k.tape, k.axis_of, k.V, k.epilogue, warps=w)), None))
+    # the dense frame through stand-ins of growing length (n circles)
+    scenes = importlib.import_module("fidget_tpu_torch.scenes")
+    dense_args = calls[("dense", "unrolled_float")]
+    prefixes = {}
+    for n_c in (100, 200, 400):
+        ctx = port.Context()
+        pt = port.lower(ctx, [scenes.standin_shape(ctx, n=n_c)])
+        prefixes[(len(pt) - 1, 1)] = uc.FloatKernel([pt], r.axis_of,
+                                                    r.n_inputs, px=1)
+    def collect(vs):
+        out = []
+        for vlabel, mod, make, fix in vs:
+            for (mode, name), (args, kwargs) in calls.items():
+                k = make(args[0])
+                if k is None:
+                    continue
+                out.append((vlabel, mod, mode, name, k,
+                            (k,) + tuple((fix or (lambda a: a))(args)[1:]),
+                            kwargs))
+        return out
+
+    n_main = 2 if other is not None else 1
+    main_runs = collect(variants[:n_main])
+    abl_runs = collect(variants[:1] + variants[n_main:])
+    _time_runs(cs, main_runs, opts, "main")
+    # build the ablations, each package's kernels in one batch
+    for mod in {id(m): m for _, m, *_ in abl_runs}.values():
+        ks = [k for _, m, _, _, k, _, _ in abl_runs if m is mod]
+        if mod is uc:
+            ks += list(prefixes.values())
+        t0 = time.perf_counter()
+        steps = mod.build_kernels(ks)
+        print(f"variant builds | {mod.__name__}: {len(ks)} kernels, "
+              f"{len(steps)} steps, {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    _time_runs(cs, abl_runs, opts, "ablations")
+    args, kwargs = dense_args
+    for (n, px), k in prefixes.items():
+        a = (k,) + tuple(args[1:])
+        uc.unrolled_float(*a, **kwargs)
+        ms = [cs.time_cuda(lambda: uc.unrolled_float(*a, **kwargs), opts.reps)
+              for _ in range(3)]
+        pix = args[1].shape[0] * kwargs["pp"]
+        fl = cs.unrolled_floors(k, pix * (n + 1))
+        print(f"unrolled_float dense stand-in | {n + 1:>5} rows, {px} px a "
+              f"thread: median {np.median(ms):.4f} ms, "
+              f"{np.median(ms) * 1e6 / (pix * (n + 1)) * 1e3:.4f} ps a "
+              f"row-pixel"
+              + ("" if fl is None else
+                 f"; issue floor {fl['issue_floor_ms']:.4f} ms, "
+                 f"{fl['sass_per_row']:.2f} SASS/row-pixel"), flush=True)
 
 
 def main() -> int:
@@ -396,6 +656,9 @@ def main() -> int:
     ap.add_argument("--frames-against", type=pathlib.Path, default=None)
     ap.add_argument("--rounds", type=int, default=30)
     ap.add_argument("--unrolled-builds", action="store_true")
+    ap.add_argument("--unrolled", action="store_true")
+    ap.add_argument("--guard", action="store_true")
+    ap.add_argument("--rounds-unrolled", type=int, default=5)
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_kernels: no CUDA device", file=sys.stderr)
@@ -416,6 +679,14 @@ def main() -> int:
     print("SM clock now / max:", smi.stdout.strip(), flush=True)
     if opts.unrolled_builds:
         unrolled_builds(cs, port, opts.out)
+        return 0
+    if opts.unrolled:
+        other = None
+        for spec in opts.variant:
+            vname, _, vdir = spec.partition("=")
+            other = load_package(ROOT / vdir, "fidget_tpu_torch_" + vname)
+        cuda.build()
+        unrolled_probe(cs, port, other, opts)
         return 0
     if opts.frames_against is not None:
         other = load_package(opts.frames_against, "fidget_tpu_torch_other")

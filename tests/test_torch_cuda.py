@@ -675,10 +675,12 @@ def _nan_div_tape():
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["union", "nan_div"])
 def test_unrolled_kernels_match_plain(card, which):
-    """U2 with each epilogue (flags and words exact) and U1 over a union
-    plan's programs and the fallback in one launch (2e-5) against their
-    plain versions on the card, on the tiles and worklist of a 256^2
-    union frame; each launch counted under its own name."""
+    """U2 with each epilogue (flags and words exact) at 4 and 8 warps a
+    group and U1 over a union plan's programs and the fallback in one
+    launch, and over the full tape alone (its program inlined), at 1, 2
+    and 4 pixels a thread (exact: these tapes hold no transcendental),
+    against their plain versions on the card, on the tiles and worklist
+    of a 256^2 union frame; each launch counted under its own name."""
     from fidget_tpu_torch.eval import unrolled_cuda as uc
     from fidget_tpu_torch.render import unrolled2d as u2
 
@@ -692,26 +694,35 @@ def test_unrolled_kernels_match_plain(card, which):
     mat, z, vec = u2._device_args(r, r._mat4(None), 0.0, r._var_vec(None))
     params = uc.params_tensor(mat, z, vec)
     xp, yp = x0[tb.perm], y0[tb.perm]
+    V = r.n_inputs
     cuda.reset_launches()
-    for epi in uc.EPILOGUES:
-        k = st.interval(epi)
-        u = tb.u_tile if epi == "violation" else None
-        got = uc.unrolled_interval(k, xp, yp, params, 8.0, u)
-        want = uc.unrolled_interval_plain(k, xp, yp, params, 8.0, u)
-        for g, w in zip(got, want):
-            assert (g is None and w is None) or torch.equal(g, w), epi
-    assert cuda.LAUNCHES["unrolled_interval"] == 3
+    for warps in (4, 8):
+        for epi in uc.EPILOGUES:
+            k = uc.IntervalKernel(tape, r.axis_of, V, epi, warps=warps)
+            u = tb.u_tile if epi == "violation" else None
+            got = uc.unrolled_interval(k, xp, yp, params, 8.0, u)
+            want = uc.unrolled_interval_plain(k, xp, yp, params, 8.0, u)
+            for g, w in zip(got, want):
+                assert (g is None and w is None) or torch.equal(g, w), epi
+    assert cuda.LAUNCHES["unrolled_interval"] == 6
     n = tb.total
     idx = torch.randint(0, x0.shape[0], (n,), generator=torch.Generator()
                         .manual_seed(2)).to(card)
     valid = torch.arange(n, device=card) % 7 != 3
-    got = uc.unrolled_float(tb.kernel, x0[idx], y0[idx], valid, params,
-                            tb.seg, tw=8, pp=64)
-    want = uc.unrolled_float_plain(tb.kernel, x0[idx], y0[idx], valid,
-                                   params, tb.seg, tw=8, pp=64)
-    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
-    assert (got[~valid] == 0).all()
-    assert cuda.LAUNCHES["unrolled_float"] == 1
+    launches = 0
+    for px in (1, 2, 4):
+        programs = list(plan.programs) + [tape]
+        for tapes, seg in ((programs, tb.seg), ([tape], (0,))):
+            k = uc.FloatKernel(tapes, r.axis_of, V, px=px)
+            got = uc.unrolled_float(k, x0[idx], y0[idx], valid, params, seg,
+                                    tw=8, pp=64)
+            want = uc.unrolled_float_plain(k, x0[idx], y0[idx], valid,
+                                           params, seg, tw=8, pp=64)
+            torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                       equal_nan=True)
+            assert (got[~valid] == 0).all()
+            launches += 1
+    assert cuda.LAUNCHES["unrolled_float"] == launches
 
 
 @pytest.mark.cuda

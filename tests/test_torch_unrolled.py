@@ -18,6 +18,8 @@ reference's `jax.jvp`. The emitter's sources and cache keys, and a
 build that cannot run raising, on the CPU.
 """
 
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -441,44 +443,62 @@ def _small_tape():
     return port.lower(ctx, [_nan_div_shape(ctx)])
 
 
-def test_emitter_one_statement_per_row(monkeypatch):
-    """One statement per tape row in U1's program and in U2's body, the
-    latter cut into chunks of INTERVAL_CHUNK_ROWS rows, each a unit of
-    its own, which the kernel unit calls in order."""
+def test_emitter_one_statement_per_row():
+    """One line per tape row: in U1's program (a scalar statement for
+    each of the thread's pixels), and in U2's warp streams, where
+    every computing row appears exactly once across the k units, which
+    the kernel unit calls by warp."""
     t = _small_tape()
     axis = {v.kind: i for v, i in t.var_map.items()}
-    prog = uc.emit_float_program(t, 2, "f")
-    body = prog.split("float o = 0.f;\n")[1].split("  return o;")[0]
-    assert len(body.strip().splitlines()) == len(t)
-    monkeypatch.setattr(uc, "INTERVAL_CHUNK_ROWS", 5)
-    chunks = uc.interval_chunks(t)
-    assert [len(c) for c in chunks[:-1]] == [5] * (len(chunks) - 1)
-    rows = [r for c in chunks for r in c]
-    assert len(rows) == len(t) and len(chunks) == -(-len(t) // 5)
-    # every choice lands in its word; the last one closes the last word
-    text = "\n".join(rows)
+    for px in (1, 3):
+        src = uc.FloatKernel([t], axis, 2, px=px).unit().objects[0].source
+        body = src.split("U_P(o[p] = 0.f);\n")[1].split("  return out_;")[0]
+        stmts = [ln.strip() for ln in body.strip().splitlines()
+                 if not ln.lstrip().startswith("float ")]
+        assert len(stmts) == len(t)
+        assert all(ln.count(";") == px or ln.startswith("/* OUTPUT")
+                   for ln in stmts)
+        assert all(f"_{px - 1} = " in ln or ln.startswith(("o[", "/*"))
+                   for ln in stmts)
+    k = uc.IntervalKernel(t, axis, 2, "violation", warps=4)
+    unit = k.unit()
+    sched = k.schedule()
+    assert len(unit.objects) == sched.k == 4
+    computing = [i for i, row in enumerate(t.rows()) if row[0] not in (
+        port.TapeOp.INPUT, port.TapeOp.OUTPUT, port.TapeOp.COPY,
+        port.TapeOp.LOAD, port.TapeOp.STORE)]
+    defined = []
+    for w, o in enumerate(unit.objects):
+        assert f"U_WARP_BEGIN(fidget_uiw_{o.key})" in o.source
+        assert f"case {w}: fidget_uiw_{o.key}(" in unit.source or (
+            w == sched.k - 1 and f"default: fidget_uiw_{o.key}("
+            in unit.source)
+        for ln in o.source.splitlines():
+            ln = ln.strip()
+            if ln.startswith("const Ival v") and "U_SH(" not in ln.split(
+                    "=")[1][:8]:
+                defined.append(int(ln.split()[2][1:]))
+        # every warp passes the same barriers
+        assert o.source.count("U_BAR();") == sched.n_stages - 1
+    assert sorted(defined) == computing
+    text = "\n".join(o.source for o in unit.objects)
     assert text.count("U_CHOICE(") == t.choice_count
-    assert text.count("U_WORD(") == -(-t.choice_count // 16)
-    unit = uc.IntervalKernel(t, axis, 2, "violation").unit()
-    assert len(unit.objects) == len(chunks)
-    calls = [line.split("(")[0].strip() for line in unit.source.splitlines()
-             if line.startswith("  fidget_uiv_")]
-    assert calls == [f"fidget_uiv_{o.key}" for o in unit.objects]
-    for o, c in zip(unit.objects, chunks):
-        assert f"U_CHUNK_BEGIN(fidget_uiv_{o.key})" in o.source
-        assert all(r in o.source for r in c)
 
 
 def test_emitter_sources_and_keys():
     """The same tape gives the same source and key; a changed tape,
-    epilogue or template changes the key."""
+    epilogue, pixel count or warp count changes the key."""
     t = _small_tape()
     axis = {v.kind: i for v, i in t.var_map.items()}
 
-    def keys(tape, epilogue="proofs"):
-        fk = uc.FloatKernel([tape], axis, 2).unit()
-        ik = uc.IntervalKernel(tape, axis, 2, epilogue).unit()
-        return fk.key, fk.objects[0].key, fk.source, ik.key, ik.source
+    def keys(tape, epilogue="proofs", **kw):
+        fk = uc.FloatKernel([tape], axis, 2,
+                            **{k: v for k, v in kw.items() if k == "px"})
+        ik = uc.IntervalKernel(tape, axis, 2, epilogue,
+                               **{k: v for k, v in kw.items() if k == "warps"})
+        u = uc.FloatKernel([tape, tape], axis, 2).unit()
+        return (fk.unit().key, u.objects[0].key, fk.unit().source,
+                ik.unit().key, ik.unit().source)
 
     a, b = keys(t), keys(_small_tape())
     assert a == b
@@ -488,28 +508,37 @@ def test_emitter_sources_and_keys():
     assert c[0] != a[0] and c[1] != a[1] and c[3] != a[3]
     assert keys(t, "capture")[3] != a[3]
     assert keys(t, "violation")[3] != keys(t, "capture")[3]
+    assert keys(t, px=uc.FLOAT_PIXELS + 1)[0] != a[0]
+    assert keys(t, warps=uc.INTERVAL_WARPS * 2)[3] != a[3]
 
 
 def test_template_change_changes_keys(monkeypatch, tmp_path):
-    """The key hashes the template's bytes: an edited copy of it gives
-    every unit a new key."""
+    """The key hashes the template's and the emitter's bytes: an edited
+    copy of either gives every unit a new key."""
     t = _small_tape()
     axis = {v.kind: i for v, i in t.var_map.items()}
-    before = uc.IntervalKernel(t, axis, 2, "proofs").unit().key
-    prog = uc.FloatKernel([t], axis, 2).unit().objects[0].key
-    assert uc.TEMPLATE in uc.SOURCES
-    edited = tmp_path / uc.TEMPLATE.name
-    edited.write_bytes(uc.TEMPLATE.read_bytes() + b"\n// edited\n")
-    monkeypatch.setattr(uc, "SOURCES", tuple(
-        edited if p == uc.TEMPLATE else p for p in uc.SOURCES))
-    assert uc.IntervalKernel(t, axis, 2, "proofs").unit().key != before
-    assert uc.FloatKernel([t], axis, 2).unit().objects[0].key != prog
+
+    def keys():
+        return (uc.IntervalKernel(t, axis, 2, "proofs").unit().key,
+                uc.FloatKernel([t], axis, 2).unit().key,
+                uc.FloatKernel([t, t], axis, 2).unit().objects[0].key)
+
+    before = keys()
+    for src in (uc.TEMPLATE, pathlib.Path(uc.__file__).resolve()):
+        assert src in uc.SOURCES
+        edited = tmp_path / src.name
+        edited.write_bytes(src.read_bytes() + b"\n// edited\n")
+        with monkeypatch.context() as m:
+            m.setattr(uc, "SOURCES", tuple(
+                edited if p == src else p for p in uc.SOURCES))
+            after = keys()
+        assert all(x != y for x, y in zip(before, after)), src.name
 
 
 def test_union_programs_share_objects():
     """A union kernel's programs are objects of their own, keyed by
-    tape: the full-tape fallback is the same object as the full leaf's
-    program, and every program is named by its key."""
+    tape: the full-tape fallback is the same object in two plans'
+    kernels, and the full leaf's; every program is named by its key."""
     _, pr = _pair("union", 128)
     pr.render_unrolled(leaf="union", block_px=32)
     st = u2.state(pr)
@@ -517,10 +546,284 @@ def test_union_programs_share_objects():
     kern = u2.union_tables(pr, plan, 128).kernel
     unit = kern.unit()
     assert len(unit.objects) == len(plan.programs) + 1
+    again = uc.FloatKernel([plan.programs[-1], pr.tape], pr.axis_of,
+                           pr.n_inputs).unit()
+    assert unit.objects[-1].key == again.objects[-1].key
     assert unit.objects[-1].key == st.float_full.unit().objects[0].key
     for o in unit.objects:
         assert f"fidget_uprog_{o.key}" in o.source
         assert f"fidget_uprog_{o.key}" in unit.source
+
+
+def test_float_kernel_forms():
+    """U1's emitted form: every program, a lone one too, a
+    `__noinline__` function of its own unit, dispatched by segment
+    (U_NSEG programs); FLOAT_PIXELS pixels a thread unless asked;
+    MIN/MAX as u_fmin / u_fmax (min.NaN / max.NaN)."""
+    t = _small_tape()
+    axis = {v.kind: i for v, i in t.var_map.items()}
+    one = uc.FloatKernel([t], axis, 2).unit()
+    assert len(one.objects) == 1 and "#define U_NSEG 1\n" in one.source
+    assert f"#define U_PX {uc.FLOAT_PIXELS}\n" in one.source
+    prog = one.objects[0].source
+    assert "__noinline__ UOut fidget_uprog_" in prog
+    assert "u_fmin(" in prog and "u_fmax(" in prog
+    four = uc.FloatKernel([t], axis, 2, px=4).unit()
+    assert "#define U_PX 4\n" in four.source
+    two = uc.FloatKernel([t, t], axis, 2).unit()
+    assert "#define U_NSEG 2\n" in two.source
+    assert "case 0: r = fidget_uprog_" in two.source
+    assert len({o.key for o in two.objects}) == 1
+
+
+# ----------------------------------------------------------------------
+# U2's warp schedule
+
+
+def _chain_tape(n=24):
+    """A left-deep union of n circles: every MIN reads the one before."""
+    rng = np.random.default_rng(3)
+    ctx = port.Context()
+    x, y = ctx.x(), ctx.y()
+    acc = None
+    for _ in range(n):
+        cx, cy = rng.uniform(-1, 1, 2)
+        c = ctx.sub(ctx.sqrt(ctx.add(ctx.square(ctx.sub(x, float(cx))),
+                                     ctx.square(ctx.sub(y, float(cy))))),
+                    0.2)
+        acc = c if acc is None else ctx.min(acc, c)
+    return ctx, acc
+
+
+def _schedule_tape(name):
+    if name == "standin40":
+        from fidget_tpu_torch.scenes import standin_shape
+
+        ctx = port.Context()
+        return port.lower(ctx, [standin_shape(ctx, n=40)])
+    if name == "nan_div":
+        return _small_tape()
+    if name == "chain":
+        ctx, root = _chain_tape()
+        return port.lower(ctx, [root])
+    if name == "spill":  # few registers: LOAD / STORE slots
+        ctx, root = _chain_tape(12)
+        t = port.lower(ctx, [root], reg_limit=3)
+        assert t.mem_count > 0
+        return t
+    return _tapes(name)[1]
+
+
+SCHEDULE_TAPES = ["standin40", "nan_div", "chain", "spill", "logic",
+                  "fuzz3", "fuzz8", "fuzz13"]
+
+
+@pytest.mark.parametrize("warps", [1, 4, 8])
+@pytest.mark.parametrize("name", SCHEDULE_TAPES)
+def test_interval_schedule_is_valid(name, warps):
+    """Every computing row is assigned to one warp exactly once; an
+    operand is produced earlier in its warp (a lower or equal stage and
+    earlier in the run) or crosses warps through a slot, stored in an
+    earlier stage than every read and not reused until after the last;
+    choice j shifts by 2 (j % 16) and its warp's part of word j / 16 is
+    done at or after it; every warp passes every barrier."""
+    t = _schedule_tape(name)
+    sched = uc.schedule_interval(t, warps)
+    assert sched.k == warps
+    runs = [i for w in range(sched.k) for run in sched.runs[w] for i in run]
+    assert sorted(runs) == sorted(sched.order) and len(set(runs)) == len(runs)
+    pos = {i: n for w in range(sched.k) for n, i in enumerate(
+        i for run in sched.runs[w] for i in run)}
+    for i in sched.order:
+        w, s = sched.warp_of[i], sched.stage_of[i]
+        assert i in sched.runs[w][s]
+        for p in sched.producers[i]:
+            if sched.warp_of[p] == w:
+                assert sched.stage_of[p] <= s and pos[p] < pos[i]
+            else:
+                assert sched.stage_of[p] < s <= sched.n_stages
+                assert sched.stage_of[p] < sched.last_read[p]
+    by_slot = {}
+    for p, slot in sched.slot_of.items():
+        by_slot.setdefault(slot, []).append(
+            (sched.stage_of[p], sched.last_read[p]))
+    for spans in by_slot.values():
+        spans.sort()
+        for (_, end), (start, _) in zip(spans, spans[1:]):
+            assert start > end
+    assert sched.shared_bytes() == sched.n_slots * 256
+    if warps == 1:
+        assert sched.n_slots == 0 and sched.n_stages == 1
+    for w in range(sched.k):
+        lines = uc.interval_warp_rows(sched, w)
+        assert sum(ln == "U_BAR();" for ln in lines) == sched.n_stages - 1
+        touched = set()
+        for ln in lines:
+            if "U_CHOICE(" not in ln:
+                continue
+            i = int(ln.split()[2][1:])
+            j = sched.choice_of[i]
+            assert f"U_CHOICE({2 * (j % 16)}, c_);" in ln
+            touched.add(j // 16)
+        flushed = {int(ln.split("U_WORD(")[1].split(")")[0])
+                   for ln in lines if "U_WORD(" in ln}
+        assert flushed == touched
+
+
+def _run_schedule(sched, inputs, u=None):
+    """Executes a schedule as the card would: warp by warp within a
+    stage, crossing values visible only after the stage that stores them
+    (a read and a store of one slot in one stage fail), rows by
+    `interval_row`; choice words as each warp's parts ORed into the
+    block's words, tested against u once all are done (violation).
+    Returns (lo, hi, words, viol)."""
+    from fidget_tpu_torch.eval.arith import IntervalMode
+    from fidget_tpu_torch.eval.unrolled_fast import (
+        _to_i32,
+        _word_bits,
+        interval_row,
+    )
+
+    im = IntervalMode(torch)
+    like = inputs[0][0]
+
+    def const(x):
+        c = torch.full_like(like, x)
+        return (c, c)
+
+    shared, local = {}, [dict() for _ in range(sched.k)]
+    zero = torch.zeros(like.shape, dtype=torch.int64)
+    part = [zero] * sched.k
+    words = {}
+    viol = torch.zeros(like.shape, dtype=torch.bool)
+    out = const(0.0) if sched.out is None else (
+        None if sched.out[0] == "row" else
+        inputs[sched.out[1]] if sched.out[0] == "in" else const(sched.out[1]))
+    for s in range(sched.n_stages):
+        pending, reads = {}, set()
+        for w in range(sched.k):
+            for i in sched.runs[w][s]:
+                vals = []
+                for ref in sched.operands[i]:
+                    if ref is None:
+                        vals.append(None)
+                    elif ref[0] == "row":
+                        p = ref[1]
+                        if sched.warp_of[p] != w and p not in local[w]:
+                            slot = sched.slot_of[p]
+                            assert shared[slot][0] == p
+                            reads.add(slot)
+                            local[w][p] = shared[slot][1]
+                        vals.append(local[w][p])
+                    elif ref[0] == "in":
+                        vals.append(inputs[ref[1]])
+                    else:
+                        vals.append(const(ref[1]))
+                b = sched.operands[i][1]
+                val, ch = interval_row(im, sched.op[i], vals[0], vals[1],
+                                       b[1] if b is not None else 0.0,
+                                       sched.b_imm[i])
+                local[w][i] = val
+                if ch is not None:
+                    j = sched.choice_of[i]
+                    part[w] = part[w] | _word_bits(*ch, 2 * (j % 16))
+                    if i in sched.flush[w]:
+                        word = sched.flush[w][i]
+                        words[word] = words.get(word, zero) | part[w]
+                        part[w] = zero
+                if i in sched.slot_of:
+                    assert sched.slot_of[i] not in pending
+                    pending[sched.slot_of[i]] = (i, val)
+                if sched.out == ("row", i):
+                    out = val
+        assert not reads & set(pending)
+        shared.update(pending)
+    assert all((p == 0).all() for p in part)
+    if u is not None:
+        for j, wj in words.items():
+            uj = u[j].to(torch.int64) & 0xFFFFFFFF
+            viol = viol | ((wj | uj) != uj)
+    return out[0], out[1], [_to_i32(words[j]) for j in sorted(words)], viol
+
+
+def _special_boxes(seed, V, n=512):
+    """`_boxes` with NaN, infinite, signed-zero and denormal bounds in
+    some lanes."""
+    lo, hi = _boxes(seed, V, n)
+    special = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-40, -1e-40],
+                       np.float32)
+    rng = np.random.default_rng(seed + 100)
+    for arr in (lo, hi):
+        idx = rng.integers(0, n, (V, n // 16))
+        for v in range(V):
+            arr[v, idx[v]] = rng.choice(special, n // 16)
+    return lo, hi
+
+
+@pytest.mark.parametrize("warps", [1, 4, 8])
+@pytest.mark.parametrize("name", SCHEDULE_TAPES)
+def test_interval_schedule_executor_matches_plain(name, warps):
+    """The schedule, executed warp by warp and stage by stage, equals
+    `eval_tape_interval_fast` bit for bit: the output's bounds, the
+    captured words and the violation flags (against another box set's
+    words, every third lane's taken from these boxes)."""
+    t = _schedule_tape(name)
+    sched = uc.schedule_interval(t, warps)
+    V = max(1, len(t.var_map))
+    lo, hi = _special_boxes(21, V)
+    ins = [(torch.from_numpy(a), torch.from_numpy(b)) for a, b in zip(lo, hi)]
+    wl, wh, ww = eval_tape_interval_fast(t, ins, capture=True)
+    lo2, hi2 = _boxes(22, V)
+    _, _, u = eval_tape_interval_fast(
+        t, [(torch.from_numpy(a), torch.from_numpy(b))
+            for a, b in zip(lo2, hi2)], capture=True)
+    u = torch.stack(u) if u else torch.zeros((0, lo.shape[1]),
+                                             dtype=torch.int32)
+    if ww:
+        u[:, ::3] = torch.stack(ww)[:, ::3]
+    _, _, want_viol = eval_tape_interval_fast(t, ins, u_words=u)
+    glo, ghi, gw, gviol = _run_schedule(sched, ins, u)
+
+    def bits(a):
+        return torch.where(torch.isnan(a), torch.full_like(a, np.nan),
+                           a).view(torch.int32)
+
+    assert torch.equal(bits(glo), bits(wl[0]))
+    assert torch.equal(bits(ghi), bits(wh[0]))
+    assert len(gw) == len(ww)
+    for g, w in zip(gw, ww):
+        assert torch.equal(g, w)
+    assert torch.equal(gviol, want_viol)
+
+
+def test_interval_schedule_spreads_the_standin():
+    """On the stand-in at 1,024^2's tape, 8 warps a group hold nearly
+    equal estimated costs, a few stages and few slots (the design's
+    premise: whole subtrees a warp, only their results cross)."""
+    from fidget_tpu_torch.scenes import standin_shape
+
+    ctx = port.Context()
+    t = port.lower(ctx, [standin_shape(ctx)])
+    sched = uc.schedule_interval(t, 8)
+    costs = [sum(sched.cost(i) for run in sched.runs[w] for i in run)
+             for w in range(8)]
+    assert max(costs) < 1.02 * min(costs)
+    assert sched.n_stages <= 8
+    assert sched.shared_bytes() <= uc.SLOT_BUDGET
+    stage0 = sum(len(sched.runs[w][0]) for w in range(8))
+    assert stage0 > 0.95 * len(sched.order)
+
+
+def test_slot_budget_halves_the_warps(monkeypatch):
+    """A tape whose hand-offs pass SLOT_BUDGET gets half the warps (down
+    to one, which needs none)."""
+    t = _schedule_tape("standin40")
+    need = uc.schedule_interval(t, 8).shared_bytes()
+    assert need > 0
+    monkeypatch.setattr(uc, "SLOT_BUDGET", need - 1)
+    assert uc.schedule_interval(t, 8).k < 8
+    monkeypatch.setattr(uc, "SLOT_BUDGET", 0)
+    assert uc.schedule_interval(t, 8).k == 1
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
