@@ -111,12 +111,13 @@ Phases (any failure exits non-zero and prints no result):
    unary op on x and on a var, every binary op, MIN / MAX / AND / OR
    included, register with register, with an immediate on either
    side), held exactly (at `_matrix_tolerance` for the transcendentals);
-   U1 alone (inlined) and U2 under all three epilogues on three tapes
+   U1 alone (one program) and U2 under all three epilogues on three tapes
    that feed every op into a choice row (the exact ops with DIV by an
    immediate 0 and by a denominator across 0; the transcendentals; the
    nan_div shape of tests/test_torch_cuda.py), U1 exactly but on the
    transcendental tape (2e-4), U2's flags, words and violation flags
-   exactly; at two matrices (one overflowing to infinities) with the
+   exactly, capture and violation also with the words in global memory
+   (a tape past `SHARED_LIMIT`'s route); at two matrices (one overflowing to infinities) with the
    vars taking every SPICY value and three denormals;
 7. 3D main path: the gyroid sphere at 512^3 (tile 64, subtile 16)
    under three views in normals mode and one heightmap frame, then the
@@ -2370,8 +2371,7 @@ def sass_counts(lib):
 
 def unrolled_floors(kern, rows_lanes):
     """SASS instructions a row and lane of a generated kernel (its
-    library's static count over its programs' rows, and U1's pixels a
-    thread), and the two floors they give for `rows_lanes` row-lane
+    library's static count over its programs' rows), and the two floors they give for `rows_lanes` row-lane
     evaluations: the issue floor (warp instructions over the card's
     schedulers at SM_CLOCK_HZ) and the MUFU floor. None where the
     disassembly is not at hand."""
@@ -2380,7 +2380,6 @@ def unrolled_floors(kern, rows_lanes):
         return None
     if hasattr(kern, "tapes"):
         rows = sum(len(t) for t in {id(t): t for t in kern.tapes}.values())
-        rows *= getattr(kern, "px", 1)
     else:
         rows = len(kern.tape)
     total = sum(v for c, v in counts.items() if not c.startswith("max_"))
@@ -2587,27 +2586,45 @@ def _guard_tapes(pkg):
 
 
 def _guard_pairs():
-    """(a, b) var values: every SPICY value and denormal as a and as b."""
+    """(a, b) var values at each of the two `_guard_matrices`: every
+    SPICY value and denormal as a at the first and as b at the second."""
     from fidget_tpu_torch.scenes import SPICY
 
     vals = [float(v) for v in np.concatenate(
         [SPICY, np.array(GUARD_DENORMALS, np.float32)])]
     n = len(vals)
-    return ([(vals[i], vals[(7 * i + 3) % n]) for i in range(n)]
-            + [(vals[(11 * i + 5) % n], vals[i]) for i in range(n)])
+    return ([(vals[i], vals[(7 * i + 3) % n]) for i in range(n)],
+            [(vals[(11 * i + 5) % n], vals[i]) for i in range(n)])
+
+
+def _violation_words(words, rng):
+    """Reference words u for U2's violation epilogue from a tape's own
+    choice words [cw, n] on the tiles (its plain capture): ORed with
+    random bits, so that no lane violates, but for every third lane,
+    where the lowest set bit of word lane % cw is cleared, so that it
+    violates in that word alone."""
+    w = words.cpu().numpy().view(np.uint32).astype(np.int64)
+    u = w | rng.integers(0, 2**32, w.shape, dtype=np.int64)
+    if w.shape[0]:
+        lanes = np.arange(1, w.shape[1], 3)
+        j = lanes % w.shape[0]
+        u[j, lanes] &= ~(w[j, lanes] & -w[j, lanes])
+    return torch.from_numpy(u.astype(np.uint32).view(np.int32)).to(
+        words.device)
 
 
 def phase_unrolled_guard(pkg, dev="cuda", label="tree"):
     """U1 and U2 of `pkg` against their plain versions beyond the
     stand-in (`_guard_tapes`): U1 over one launch of the op tapes (each
     a program on its segment of slots, held at `_matrix_tolerance` of
-    its op) and over each combined tape alone (its program inlined;
+    its op) and over each combined tape alone (one program a launch;
     exact but for the "other ops" tape, 2e-4), U2 under all three
     epilogues on the combined tapes, flags and words exactly (the
-    violation flags against seeded words, every other lane's all ones);
-    over 256^2 in 8-px tiles at two matrices, with the vars a and b
-    taking every value of `_guard_pairs`. All kernels in one build
-    batch. Returns the phase's seconds."""
+    violation flags against `_violation_words`), and capture and
+    violation on the exact ops again with the words in global memory (as
+    a tape's past `SHARED_LIMIT` are); over 256^2 in 8-px tiles at two
+    matrices, with the vars a and b taking the values of `_guard_pairs`.
+    All kernels in one build batch. Returns the phase's seconds."""
     uc = importlib.import_module(pkg.__name__ + ".eval.unrolled_cuda")
     t_start = time.perf_counter()
     op_tapes, comb, kinds = _guard_tapes(pkg)
@@ -2616,9 +2633,22 @@ def phase_unrolled_guard(pkg, dev="cuda", label="tree"):
     matrix = uc.FloatKernel([t for _, t in op_tapes], axis, V)
     singles = [(name, uc.FloatKernel([t], axis, V), tol)
                for name, t, tol in comb]
-    intervals = [(name, uc.IntervalKernel(t, axis, V, epi))
+    # (tape name, epilogue, kernels): U2 per tape and epilogue, and on the
+    # exact ops with the words in global memory, where a tape's past
+    # SHARED_LIMIT go
+    intervals = [(name, epi, [uc.IntervalKernel(t, axis, V, epi)])
                  for name, t, _ in comb for epi in uc.EPILOGUES]
-    kernels = [matrix] + [k for _, k, _ in singles] + [k for _, k in intervals]
+    limit = getattr(uc, "SHARED_LIMIT", None)
+    uc.SHARED_LIMIT = 0
+    try:
+        for name, epi, ks in intervals:
+            if name == comb[0][0] and epi != "proofs":
+                ks.append(uc.IntervalKernel(ks[0].tape, axis, V, epi))
+                ks[-1].unit()
+    finally:
+        uc.SHARED_LIMIT = limit
+    kernels = ([matrix] + [k for _, k, _ in singles]
+               + [k for _, _, ks in intervals for k in ks])
     t0 = time.perf_counter()
     steps = uc.build_kernels(kernels)
     build_s = time.perf_counter() - t0
@@ -2637,8 +2667,10 @@ def phase_unrolled_guard(pkg, dev="cuda", label="tree"):
     rng = np.random.default_rng(10)
     errs = {}
     launches = 0
-    for mat in _guard_matrices():
-        for a_val, b_val in _guard_pairs():
+    n_pairs = 0
+    for mat, pairs in zip(_guard_matrices(), _guard_pairs()):
+        n_pairs += len(pairs)
+        for a_val, b_val in pairs:
             params = uc.params_tensor(
                 torch.tensor(mat, device=dev), torch.zeros((), device=dev),
                 torch.tensor([0.0, 0.0, a_val, b_val], dtype=torch.float32,
@@ -2656,32 +2688,36 @@ def phase_unrolled_guard(pkg, dev="cuda", label="tree"):
                 errs[name] = max(errs.get(name, 0.0), check(
                     f"unrolled guard ({label}) U1 {name} at a={a_val}, "
                     f"b={b_val}", got, want, t, t))
-            for name, k in intervals:
-                u = None
-                if k.epilogue == "violation":
-                    w = rng.integers(0, 2**32, (k.cw, n), dtype=np.uint64)
-                    w[:, ::2] = 2**32 - 1
-                    u = torch.from_numpy(w.astype(np.uint32).view(np.int32)
-                                         ).to(dev)
-                got = uc.unrolled_interval(k, x0, y0, params,
-                                           float(UNROLLED_T0), u)
-                want = uc.unrolled_interval_plain(k, x0, y0, params,
+            captured = {}
+            for name, epi, ks in intervals:
+                u = (_violation_words(captured[name], rng)
+                     if epi == "violation" else None)
+                want = uc.unrolled_interval_plain(ks[0], x0, y0, params,
                                                   float(UNROLLED_T0), u)
-                for g, w_ in zip(got, want):
-                    if (g is None) != (w_ is None) or (
-                            g is not None and not torch.equal(g, w_)):
-                        raise Failed(
-                            f"unrolled guard ({label}) U2 {name} "
-                            f"{k.epilogue} at a={a_val}, b={b_val}: flags or "
-                            f"words differ from plain")
-            launches += 1 + len(singles) + len(intervals)
+                if epi == "capture":
+                    captured[name] = want[2]
+                for k in ks:
+                    got = uc.unrolled_interval(k, x0, y0, params,
+                                               float(UNROLLED_T0), u)
+                    for g, w_ in zip(got, want):
+                        if (g is None) != (w_ is None) or (
+                                g is not None and not torch.equal(g, w_)):
+                            raise Failed(
+                                f"unrolled guard ({label}) U2 {name} {epi}"
+                                f"{' (global words)' if k is not ks[0] else ''}"
+                                f" at a={a_val}, b={b_val}: flags or words "
+                                f"differ from plain")
+                launches += len(ks)
+            launches += 1 + len(singles)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t_start
     log(f"unrolled guard ({label}): {P} op tapes in one U1 launch, "
         f"{len(singles)} combined tapes ({', '.join(n for n, _, _ in comb)}; "
         f"{', '.join(str(len(t)) for _, t, _ in comb)} rows) through U1 and "
-        f"U2 x {len(uc.EPILOGUES)} epilogues, {2 * len(_guard_pairs())} "
-        f"var pairs and matrices, {launches} launches: all equal to plain "
+        f"U2 x {len(uc.EPILOGUES)} epilogues (and capture and violation "
+        f"of the {comb[0][0]} with the words in global memory), {n_pairs} "
+        f"var pairs over two matrices, {launches} launches: all equal to "
+        f"plain "
         f"(U2 flags and words exactly); U1 max abs err "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f"; {len(steps)} nvcc steps in {build_s:.1f} s, phase "
@@ -3095,6 +3131,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     import fidget_tpu_torch as port
     from fidget_tpu_torch.eval import cuda, simplify_device
@@ -3165,6 +3202,8 @@ def main() -> int:
     rows["interp_float2"] = phase_interleave(cuda)
     rows["grid_step"] = phase_grid_overhead(cuda)
 
+    log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s, "
+        f"builds included")
     log(smi)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({

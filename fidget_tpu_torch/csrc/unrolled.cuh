@@ -8,45 +8,43 @@
 // and includes this file for the rest:
 //
 // - U1 `fidget_unrolled_float`: lanes are pixels of a compacted worklist
-//   of tiles (or of one tile covering the whole image). A thread owns
-//   U_PX neighbouring pixels of one slot (each row is emitted once per
-//   pixel, in adjacent statements), forms them from its tile's origin,
-//   applies the screen -> model matrix in the f32 order of
-//   render/transform.py `transform_points`, and runs the program of the
-//   segment its slot lies in: a launch of one program (the full leaf,
-//   the dense frame) and a union frame's P programs with the full-tape
-//   fallback alike: each program is a device function of its own
-//   translation unit, linked with -rdc, so that a frame's programs
-//   compile in parallel (inlining a lone program in the kernel's unit
-//   ran 4-11% slower and compiled slower still: PERF.md §6, PR 10).
-//   Invalid slots get 0.
+//   of tiles (or of one tile covering the whole image). A thread forms
+//   its pixel from its tile's origin, applies the screen -> model matrix
+//   in the f32 order of render/transform.py `transform_points`, and runs
+//   the program of the segment its slot lies in: a launch of one program
+//   (the full leaf, the dense frame) and a union frame's P programs with
+//   the full-tape fallback alike: each program is a device function of
+//   its own translation unit, linked with -rdc, so that a frame's
+//   programs compile in parallel (inlining a lone program in the
+//   kernel's unit ran 4-11% slower and compiled slower still: PERF.md
+//   §6). Invalid slots get 0.
 // - U2 `fidget_unrolled_interval`: lanes are cull tiles, 32 to a group,
 //   and a group's rows are spread over the U_K warps of one block. The
 //   emitter renames the tape into values (registers and memory slots
 //   disappear), orders them depth-first from the output and cuts that
-//   order into U_K runs of equal estimated cost, one a warp, so that a
-//   warp holds whole subtrees. A row that reads another warp's value
-//   runs in a later stage than it: the producer stores the value to
-//   shared memory (one Ival a tile, U_SH), and stages are separated by
-//   block barriers (U_BAR), a few per tape, not one a row. Every row
-//   keeps its operands and eval_tape_interval_fast's rules (u_min /
-//   u_max / u_div / u_abs / u_square below; the rest is ops.cuh's
-//   interval mode). Each
-//   warp's stream is a device function in its own translation unit.
-//   The warp that computes the output writes the proofs hi < 0 and
-//   lo > 0; the epilogue is fixed when the code is generated (U_EPI):
-//   0 nothing more; 1 the packed choice words [cw][n] (choice j in word
-//   j / 16 at bit 2 (j % 16)); 2 the fused violation flag, (w | u) != u
-//   per word. Each warp ORs its part of a word into the block's words in
-//   shared memory; after the last stage the warps write them out or
-//   test them against u together, one word in k each.
+//   order into U_K runs of equal length, one a warp, so that a warp
+//   holds whole subtrees. A row that reads another warp's value runs in
+//   a later stage than it: the producer stores the value to shared
+//   memory (one Ival a tile, U_SH), and stages are separated by block
+//   barriers (U_BAR), a few per tape, not one a row. Every row keeps
+//   its operands and eval_tape_interval_fast's rules (u_min / u_max /
+//   u_div / u_abs / u_square below; the rest is ops.cuh's interval
+//   mode). Each warp's stream is a device function in its own
+//   translation unit. The warp that computes the output writes the
+//   proofs hi < 0 and lo > 0; the epilogue is fixed when the code is
+//   generated (U_EPI): 0 nothing more; 1 the packed choice words [cw][n]
+//   (choice j in word j / 16 at bit 2 (j % 16)); 2 the fused violation
+//   flag, (w | u) != u per word. Each warp ORs its part of a word into
+//   the block's words in shared memory (in a global scratch where a
+//   tape's words would not fit a block); after the last stage the warps
+//   write them out or test them against u together, one word in k each.
 //
 // What bounds them on the card: instruction issue and the latency of
 // dependent rows. A row is one to a few dozen instructions on
 // registers, with no tape to fetch or decode (the interpreter kernels'
 // cost), and the inputs are a few bytes a lane; U1's time falls with
 // every resident warp, U2 needed more warps than one a tile group to
-// hide its latency (PERF.md §6, PR 10). Built with --fmad=false, as
+// hide its latency (PERF.md §6). Built with --fmad=false, as
 // every kernel of the port, so that no a*b+c rounds differently from
 // the plain PyTorch versions.
 #pragma once
@@ -163,29 +161,11 @@ __device__ __forceinline__ void u_inputs(const float* __restrict__ p, T x,
 
 }  // namespace fidget
 
-// U1. Every unit of a float kernel defines U_V / U_PX (and the kernel's
-// unit U_AX / U_AY / U_AZ) before including this file. A program body
-// reads its inputs in[k][p] and writes o[p]; U_P(s) runs statement s
-// once per pixel p of the thread.
-#define U_P(...) \
-  _Pragma("unroll") for (int p = 0; p < U_PX; ++p) { __VA_ARGS__; }
-
-#if defined(U_PX) && defined(U_V)
-namespace fidget {
-// a program's inputs and output when it is a function of its own unit
-struct UIn {
-  float v[U_V][U_PX];
-};
-struct UOut {
-  float o[U_PX];
-};
-}  // namespace fidget
-#endif
-
-// The kernel's unit defines `u_run(segment, in, o)` (the dispatch to the
-// segment's program; U_NSEG the number of programs), then expands
-// U_FLOAT_KERNEL. Thread g owns pixels
-// [j0, j0 + U_PX) of slot g / tps, tps = ceil(pp / U_PX) threads a slot.
+// U1. Float programs: `float fidget_uprog_<key>(float i0, ...)`, one
+// translation unit each. The kernel's unit defines U_V / U_AX / U_AY /
+// U_AZ, U_NSEG (the number of programs) and `u_run(segment, in)` (the
+// dispatch to the segment's program), then expands U_FLOAT_KERNEL.
+// Thread g evaluates pixel g % pp of slot g / pp.
 #define U_FLOAT_KERNEL                                                        \
   extern "C" __global__ void __launch_bounds__(fidget::UBLOCK)                \
       fidget_unrolled_float(const float* __restrict__ cx0,                    \
@@ -196,23 +176,16 @@ struct UOut {
                             float* __restrict__ out, int n_slots, int tw,     \
                             int pp) {                                         \
     const long long g = (long long)blockIdx.x * fidget::UBLOCK + threadIdx.x; \
-    const long long tps = (pp + U_PX - 1) / U_PX;                             \
-    if (g >= (long long)n_slots * tps) return;                                \
-    const int slot = (int)(g / tps);                                          \
-    const int j0 = (int)(g - (long long)slot * tps) * U_PX;                   \
-    float o[U_PX];                                                            \
-    U_P(o[p] = 0.f);                                                          \
+    if (g >= (long long)n_slots * pp) return;                                 \
+    const int slot = (int)(g / pp);                                           \
+    const int i = (int)(g - (long long)slot * pp);                            \
+    float d = 0.f;                                                            \
     if (valid[slot]) {                                                        \
-      float in[U_V][U_PX];                                                    \
-      const float z = params[fidget::U_PARAM_Z];                              \
-      _Pragma("unroll") for (int p = 0; p < U_PX; ++p) {                      \
-        const int i = min(j0 + p, pp - 1);                                    \
-        float v[U_V];                                                         \
-        fidget::u_inputs<U_V, U_AX, U_AY, U_AZ, float>(                       \
-            params, cx0[slot] + (float)(i % tw), cy0[slot] + (float)(i / tw), \
-            z, v);                                                            \
-        _Pragma("unroll") for (int k = 0; k < U_V; ++k) in[k][p] = v[k];      \
-      }                                                                       \
+      float in[U_V];                                                          \
+      const float px = cx0[slot] + (float)(i % tw);                           \
+      const float py = cy0[slot] + (float)(i / tw);                           \
+      fidget::u_inputs<U_V, U_AX, U_AY, U_AZ, float>(                         \
+          params, px, py, params[fidget::U_PARAM_Z], in);                     \
       /* the segment [seg[s], seg[s + 1]) that holds the slot */              \
       int lo = 0;                                                             \
       if (U_NSEG > 1) {                                                       \
@@ -223,15 +196,15 @@ struct UOut {
           else hi = mid - 1;                                                  \
         }                                                                     \
       }                                                                       \
-      u_run(lo, in, o);                                                       \
+      d = u_run(lo, in);                                                      \
     }                                                                         \
-    U_P(if (j0 + p < pp) out[(size_t)slot * pp + j0 + p] = o[p]);             \
+    out[g] = d;                                                               \
   }                                                                           \
   extern "C" int fidget_unrolled_float_launch(                                \
       const float* cx0, const float* cy0, const bool* valid,                  \
       const float* params, const int32_t* seg, int nseg, float* out,          \
       int n_slots, int tw, int pp, void* stream) {                            \
-    const long long total = (long long)n_slots * ((pp + U_PX - 1) / U_PX);    \
+    const long long total = (long long)n_slots * pp;                          \
     const long long blocks = (total + fidget::UBLOCK - 1) / fidget::UBLOCK;   \
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;             \
     if (blocks > 0)                                                           \
@@ -283,9 +256,13 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
 
 #define U_WARP_END }
 
-// a hand-off slot of the lane; the barrier between stages
+// A hand-off slot of the lane, and the barrier between stages. The warps
+// reach it from different functions, so it is the non-aligned
+// `barrier.sync` (sm_70+), which is defined when the threads of a block
+// arrive through different barrier instructions; __syncthreads (the
+// aligned form) is not. Every warp passes the same number of them.
 #define U_SH(s) sh[32 * (s)]
-#define U_BAR() __syncthreads()
+#define U_BAR() asm volatile("barrier.sync 0;" ::: "memory")
 // the proofs, from the output row's value
 #define U_OUT(v)                                                           \
   do {                                                                     \
@@ -298,8 +275,8 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
 // The choice epilogues: U_CHOICE(shift, code) after every choice row of
 // the warp, U_WORD(j) when the warp's next choice (or none) lies in
 // another word than j: the warp's part of word j is ORed into the
-// block's word in shared memory, which the kernel writes out (capture)
-// or tests against u (violation) once every warp is done.
+// block's word, which the kernel writes out (capture) or tests against
+// u (violation) once every warp is done.
 #if U_EPI != 0
 #define U_CHOICE(s, c) (w_ |= (uint32_t)(c) << (s))
 #define U_WORD(j) (atomicOr(wd + 32 * (j), w_), w_ = 0u)
@@ -310,27 +287,31 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
 
 // The kernel's unit declares the warp streams and defines
 // `u_warps(warp, U_WARP_ARGS)`, which calls warp's stream, then expands
-// U_INTERVAL_KERNEL with U_SLOTS hand-off slots and U_CW choice words.
-// A block is one group: U_K warps over 32 tiles. Its dynamic shared
-// memory (u_shared_bytes) holds the slots, the words (epilogues 1, 2)
-// and the warps' violation flags (2).
+// U_INTERVAL_KERNEL with U_SLOTS hand-off slots, U_CW choice words and
+// U_GW, where the block's words are: 0 in its shared memory, 1 in its
+// [U_CW][32] part of the global `scratch`, for a tape whose words would
+// not fit a block. A block is one group: U_K warps over 32 tiles. Its
+// dynamic shared memory (u_shared_bytes) holds the slots, the words
+// (epilogues 1, 2; U_GW 0) and the warps' violation flags (2).
 #define U_CWS (U_EPI != 0 ? U_CW : 0)
 #define U_INTERVAL_KERNEL                                                     \
   constexpr int u_shared_bytes =                                              \
-      (U_SLOTS * 32) * (int)sizeof(fidget::Ival) + U_CWS * 32 * 4 +           \
-      (U_EPI == 2 ? U_K * 32 : 0);                                            \
+      (U_SLOTS * 32) * (int)sizeof(fidget::Ival) +                            \
+      (U_GW ? 0 : U_CWS * 32 * 4) + (U_EPI == 2 ? U_K * 32 : 0);              \
   extern "C" __global__ void __launch_bounds__(U_K * 32)                      \
       fidget_unrolled_interval(                                               \
           const float* __restrict__ x0, const float* __restrict__ y0,         \
           const float* __restrict__ params, float T0,                         \
           const int32_t* __restrict__ u, bool* __restrict__ rin,              \
           bool* __restrict__ rout, int32_t* __restrict__ words,               \
-          bool* __restrict__ viol, int n) {                                   \
+          bool* __restrict__ viol, uint32_t* __restrict__ scratch, int n) {   \
     using namespace fidget;                                                   \
     extern __shared__ __align__(16) unsigned char u_smem_[];                  \
     Ival* sh_ = reinterpret_cast<Ival*>(u_smem_);                             \
-    uint32_t* wd_ = reinterpret_cast<uint32_t*>(sh_ + U_SLOTS * 32);          \
-    bool* bad_ = reinterpret_cast<bool*>(wd_ + U_CWS * 32);                   \
+    uint32_t* wsh_ = reinterpret_cast<uint32_t*>(sh_ + U_SLOTS * 32);         \
+    bool* bad_ = reinterpret_cast<bool*>(wsh_ + (U_GW ? 0 : U_CWS * 32));     \
+    uint32_t* wd_ =                                                           \
+        U_GW ? scratch + (size_t)blockIdx.x * U_CWS * 32 : wsh_;              \
     const int l = threadIdx.x & 31;                                           \
     const int w = threadIdx.x >> 5;                                           \
     const int t = blockIdx.x * 32 + l;                                        \
@@ -363,13 +344,13 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
   extern "C" int fidget_unrolled_interval_launch(                             \
       const float* x0, const float* y0, const float* params, float T0,        \
       const int32_t* u, bool* rin, bool* rout, int32_t* words, bool* viol,    \
-      int n, void* stream) {                                                  \
+      uint32_t* scratch, int n, void* stream) {                               \
     const int blocks = (n + 31) / 32;                                         \
     FIDGET_SET_SMEM(fidget_unrolled_interval, u_shared_bytes);                \
     if (blocks > 0)                                                           \
       fidget_unrolled_interval<<<blocks, U_K * 32, u_shared_bytes,            \
                                  (cudaStream_t)stream>>>(                     \
-          x0, y0, params, T0, u, rin, rout, words, viol, n);                  \
+          x0, y0, params, T0, u, rin, rout, words, viol, scratch, n);         \
     return (int)cudaGetLastError();                                           \
   }
 #endif  // U_K

@@ -16,9 +16,8 @@ kernel`). Two kernels, both written for Hopper in CUDA C++
   generated: "proofs", "capture" (packed choice words) or "violation"
   (the fused subset test against a plan's union words).
 
-The emitter writes one line per tape row. U1's thread owns
-FLOAT_PIXELS pixels of one slot, a scalar statement a pixel in each
-line; every program, a launch of one program included, is a device
+The emitter writes one statement per tape row. U1's thread evaluates
+one pixel; every program, a launch of one program included, is a device
 function of its own translation unit, linked into its kernel with
 -rdc. U2 renames the tape into values (`IntervalSchedule`) and spreads
 its rows over the INTERVAL_WARPS warps of a group of 32 tiles; values
@@ -26,7 +25,8 @@ that cross warps go through shared memory, with a block barrier between
 stages; each warp's stream is a device function of its own unit. So
 the units of a frame compile in parallel. MIN / MAX (and the interval
 folds of ABS, SQUARE and DIV) are one min.NaN / max.NaN instruction.
-Builds use `cuda.NVCC_FLAGS` (without -shared for the objects) and go
+Builds use `cuda.NVCC_FLAGS` (without -shared for the objects; U2's
+units add INTERVAL_FLAGS) and go
 to `fidget_tpu_torch/_build/unrolled-<hash>/`, keyed by a hash of the
 emitter, the template, `ops.cuh`, the flags, the tape fields and the
 variant, so a second frame or a second process rebuilds nothing. A
@@ -43,6 +43,7 @@ the card. `cuda.LAUNCHES` counts both kernels under their own names.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import math
 import os
@@ -70,12 +71,13 @@ TEMPLATE = cuda.CSRC / "unrolled.cuh"
 #: the files every generated build depends on besides its own source
 SOURCES = (pathlib.Path(__file__).resolve(), TEMPLATE, cuda.CSRC / "ops.cuh")
 EPILOGUES = {"proofs": 0, "capture": 1, "violation": 2}
-#: U1's pixels a thread (each row is emitted once per pixel, in adjacent
-#: statements): 1, since a second pixel costs more in registers and
-#: resident warps than it gains (`PERF.md` §6, PR 10)
-FLOAT_PIXELS = 1
 #: U2's warps a group of 32 tiles (4 beat 2, 8 and 16 on the stand-in)
 INTERVAL_WARPS = 4
+#: U2's units at most 128 registers a thread: 16 warps an SM, four
+#: blocks of 4, so that the stand-in's 512 blocks (16,384 tiles) run in
+#: one wave on the card's 132 SMs; at 131 registers three blocks fit and
+#: the violation epilogue took 1.77x (`PERF.md` §6)
+INTERVAL_FLAGS = ("-maxrregcount=128",)
 #: params layout of both kernels: mat [4, 4], z, then the V input values
 PARAM_VARS = 17
 
@@ -99,54 +101,44 @@ def _lit(x: float) -> str:
     return f"{x.hex()}f"
 
 
-def _decls(tape: Tape, px: int) -> str:
-    """A float per tape register and memory slot and pixel."""
+def _decls(tape: Tape) -> str:
+    """A float local per tape register and memory slot."""
     names = [f"r{i}" for i in range(max(tape.reg_count, 1))]
     names += [f"m{i}" for i in range(tape.mem_count)]
-    return "".join(
-        "  float " + ", ".join(f"{n}_{p} = 0.f" for p in range(px)) + ";\n"
-        for n in names)
+    return "".join(f"  float {n} = 0.f;\n" for n in names)
 
 
-def _float_rows(tape: Tape, px: int):
-    """One line per tape row, float mode (eval_tape_float_fast): a
-    statement for each of the thread's px pixels, as plain scalar code
-    (no loop or array for nvcc to take apart)."""
+def _float_rows(tape: Tape):
+    """One statement per tape row, float mode (eval_tape_float_fast)."""
     for op, out, a, b, imm, aux in tape.rows():
         op = int(op)
+        A = _lit(imm) if a == IMM else f"r{a}"
+        B = _lit(imm) if b == IMM else f"r{b}"
         name = TapeOp(op).name
-
-        def stmt(p):
-            A = _lit(imm) if a == IMM else f"r{a}_{p}"
-            B = _lit(imm) if b == IMM else f"r{b}_{p}"
-            if op == TapeOp.INPUT:
-                return f"r{out}_{p} = in[{aux}][{p}];"
-            if op == TapeOp.OUTPUT:
-                return f"o[{p}] = r{out}_{p};"
-            if op == TapeOp.COPY:
-                return f"r{out}_{p} = {A};"
-            if op == TapeOp.LOAD:
-                return f"r{out}_{p} = m{aux}_{p};"
-            if op == TapeOp.STORE:
-                return f"m{aux}_{p} = r{out}_{p};"
-            if op == TapeOp.MIN:
-                return f"r{out}_{p} = u_fmin({A}, {B});"
-            if op == TapeOp.MAX:
-                return f"r{out}_{p} = u_fmax({A}, {B});"
-            if op == TapeOp.AND:
-                return f"r{out}_{p} = ({A} == 0.f) ? {A} : {B};"
-            if op == TapeOp.OR:
-                return f"r{out}_{p} = ({A} != 0.f) ? {A} : {B};"
-            if op in _BINARY:
-                return f"r{out}_{p} = f_binary(OP_{name}, {A}, {B});"
-            if op in _UNARY:
-                return f"r{out}_{p} = f_unary(OP_{name}, {A});"
-            raise ValueError(f"cannot emit op {op}")
-
-        if op == TapeOp.OUTPUT and aux != 0:
-            yield f"/* OUTPUT[{aux}] */;"
+        if op == TapeOp.INPUT:
+            yield f"r{out} = i{aux};"
+        elif op == TapeOp.OUTPUT:
+            yield f"o = r{out};" if aux == 0 else f"/* OUTPUT[{aux}] */;"
+        elif op == TapeOp.COPY:
+            yield f"r{out} = {A};"
+        elif op == TapeOp.LOAD:
+            yield f"r{out} = m{aux};"
+        elif op == TapeOp.STORE:
+            yield f"m{aux} = r{out};"
+        elif op == TapeOp.MIN:
+            yield f"r{out} = u_fmin({A}, {B});"
+        elif op == TapeOp.MAX:
+            yield f"r{out} = u_fmax({A}, {B});"
+        elif op == TapeOp.AND:
+            yield f"r{out} = ({A} == 0.f) ? {A} : {B};"
+        elif op == TapeOp.OR:
+            yield f"r{out} = ({A} != 0.f) ? {A} : {B};"
+        elif op in _BINARY:
+            yield f"r{out} = f_binary(OP_{name}, {A}, {B});"
+        elif op in _UNARY:
+            yield f"r{out} = f_unary(OP_{name}, {A});"
         else:
-            yield " ".join(stmt(p) for p in range(px))
+            raise ValueError(f"cannot emit op {op}")
 
 
 def _axis_defines(axis_of: dict) -> str:
@@ -178,67 +170,47 @@ def cache_key(*parts) -> str:
     return h.hexdigest()[:20]
 
 
-def _float_defines(V: int, px: int) -> str:
-    return f"#define U_V {V}\n#define U_PX {px}\n"
-
-
-def _float_body(tape: Tape, px: int) -> str:
-    return _decls(tape, px) + "".join(f"  {s}\n"
-                                      for s in _float_rows(tape, px))
-
-
-def emit_float_program(tape: Tape, V: int, name: str, px: int = 1) -> str:
+def emit_float_program(tape: Tape, V: int, name: str) -> str:
     """A float program in a unit of its own:
-    `fidget::UOut name(fidget::UIn)`, the outputs of the thread's px
-    pixels from their V inputs each."""
+    `float name(float i0, ..., float i{V-1})`."""
+    args = ", ".join(f"float i{k}" for k in range(V))
+    body = "".join(f"  {st}\n" for st in _float_rows(tape))
     return (
-        f'{_float_defines(V, px)}#include "unrolled.cuh"\n'
-        "using namespace fidget;\n"
-        f'extern "C" __device__ __noinline__ UOut {name}(UIn in_) {{\n'
-        "  const auto& in = in_.v;\n  UOut out_;\n  auto& o = out_.o;\n"
-        f"  U_P(o[p] = 0.f);\n{_float_body(tape, px)}  return out_;\n}}\n"
+        '#include "unrolled.cuh"\nusing namespace fidget;\n'
+        f'extern "C" __device__ __noinline__ float {name}({args}) {{\n'
+        f"{_decls(tape)}  float o = 0.f;\n{body}  return o;\n}}\n"
     )
 
 
-def emit_float_kernel(names: list, V: int, axis_of: dict, px: int = 1) -> str:
+def emit_float_kernel(names: list, V: int, axis_of: dict) -> str:
     """U1's kernel unit: the dispatch of segment s to program names[s]
     (the last segment and beyond: the last program), each a unit of its
     own."""
-    decls = "".join(f'extern "C" __device__ fidget::UOut {n}(fidget::UIn);\n'
+    args = ", ".join("float" for _ in range(V))
+    call = ", ".join(f"in[{k}]" for k in range(V))
+    decls = "".join(f'extern "C" __device__ float {n}({args});\n'
                     for n in dict.fromkeys(names))
-    cases = "".join(f"    case {s}: r = {n}(a); break;\n"
+    cases = "".join(f"    case {s}: return {n}({call});\n"
                     for s, n in enumerate(names[:-1]))
     return (
-        f"{_float_defines(V, px)}{_axis_defines(axis_of)}"
+        f"#define U_V {V}\n{_axis_defines(axis_of)}"
         f'#include "unrolled.cuh"\n#define U_NSEG {len(names)}\n{decls}'
-        "static __device__ __forceinline__ void u_run(int s, const float "
-        "(&in)[U_V][U_PX], float (&o)[U_PX]) {\n"
-        "  (void)s;\n  fidget::UIn a;\n"
-        "  _Pragma(\"unroll\") for (int k = 0; k < U_V; ++k) "
-        "U_P(a.v[k][p] = in[k][p]);\n"
-        "  fidget::UOut r;\n  switch (s) {\n"
-        f"{cases}    default: r = {names[-1]}(a);\n  }}\n"
-        "  U_P(o[p] = r.o[p]);\n}\nU_FLOAT_KERNEL\n"
+        "static __device__ __forceinline__ float u_run(int s, const float* in) "
+        "{\n  (void)s;\n  switch (s) {\n"
+        f"{cases}    default: return {names[-1]}({call});\n  }}\n}}\n"
+        "U_FLOAT_KERNEL\n"
     )
 
 
 # ----------------------------------------------------------------------
 # U2: the tape's rows over the k warps of a group
 
-#: estimated SASS instructions of one interval row by op (the list
-#: schedule's weights; only their ratios matter)
-ROW_COST = {
-    "ADD": 2, "SUB": 2, "NEG": 2, "MUL": 14, "DIV": 40, "SQUARE": 12,
-    "SQRT": 20, "ABS": 8, "MIN": 10, "MAX": 10, "AND": 14, "OR": 14,
-    "COMPARE": 8, "MOD": 40, "RECIP": 20, "FLOOR": 4, "CEIL": 4,
-    "ROUND": 12, "NOT": 8, "ATAN2": 120,
-}
-_ROW_COST_DEFAULT = 60  # the transcendentals
 #: a group's hand-off slots (32 Ivals each) may take this much shared
 #: memory; a tape that needs more gets fewer warps a group
 SLOT_BUDGET = 40 * 1024
 #: shared memory a block of U2 may take in all (hand-off slots, choice
-#: words, violation flags): the card's 227 KB less room for the runtime
+#: words, violation flags): the card's 227 KB less room for the runtime.
+#: A tape whose words would pass it keeps them in global memory.
 SHARED_LIMIT = 200 * 1024
 
 
@@ -251,7 +223,9 @@ class IntervalSchedule:
     memory slot reads ("imm", 0.0)). The computing rows are ordered
     depth-first from the output (operand a before b; rows that do not
     reach it follow in tape order), and that order is cut into k runs of
-    equal `ROW_COST`, one a warp. A row's stage is the latest of its
+    equal length, one a warp (weighting rows by an estimate of their
+    op's cost moved 5 of the stand-in's 7,200 rows and left U2's time
+    as it was: `PERF.md` §6). A row's stage is the latest of its
     operands' stages, plus one for an operand of another warp; a warp
     runs its rows stage by stage, in that order, with a block barrier
     between stages. A value read by another warp goes to a hand-off slot,
@@ -331,17 +305,12 @@ class IntervalSchedule:
                              if p not in seen)
         return order
 
-    def cost(self, i) -> int:
-        return ROW_COST.get(TapeOp(self.op[i]).name, _ROW_COST_DEFAULT)
-
     def _partition(self):
         k = self.k
-        total = sum(self.cost(i) for i in self.order) or 1
-        self.warp_of, self.stage_of, at = {}, {}, 0
-        for i in self.order:
-            c = self.cost(i)
-            self.warp_of[i] = min(k - 1, int((at + c / 2) * k / total))
-            at += c
+        total = len(self.order) or 1
+        self.warp_of, self.stage_of = {}, {}
+        for at, i in enumerate(self.order):
+            self.warp_of[i] = min(k - 1, int((at + 0.5) * k / total))
         for i in self.order:
             self.stage_of[i] = max(
                 [self.stage_of[p] + (self.warp_of[p] != self.warp_of[i])
@@ -482,8 +451,9 @@ def emit_interval_warp(sched: IntervalSchedule, w: int, V: int,
 
 
 def emit_interval_kernel(sched: IntervalSchedule, V: int, axis_of: dict,
-                         epilogue: str, names: list) -> str:
-    """U2's kernel unit: warp w calls the stream names[w]."""
+                         epilogue: str, names: list, gw: bool) -> str:
+    """U2's kernel unit: warp w calls the stream names[w]; the blocks'
+    choice words in a global scratch (gw) or in their shared memory."""
     decls = "".join(f'extern "C" __device__ void {n}(U_WARP_ARGS);\n'
                     for n in names)
     args = "x0, y0, params, T0, sh, wd, rin, rout, tile, live"
@@ -493,6 +463,7 @@ def emit_interval_kernel(sched: IntervalSchedule, V: int, axis_of: dict,
         f"{_interval_defines(V, axis_of, epilogue, sched.k)}"
         f"#define U_SLOTS {sched.n_slots}\n"
         f"#define U_CW {-(-sched.tape.choice_count // 16)}\n"
+        f"#define U_GW {int(gw)}\n"
         f'#include "unrolled.cuh"\n{decls}'
         "static __device__ __forceinline__ void u_warps(int w, U_WARP_ARGS) {\n"
         f"  switch (w) {{\n{cases}    default: {names[-1]}({args});\n"
@@ -507,23 +478,25 @@ def emit_interval_kernel(sched: IntervalSchedule, V: int, axis_of: dict,
 class _Unit:
     """One generated build product: a library (`lib.so`) linked from the
     kernel's unit and the objects it calls (float programs or warp
-    streams)."""
+    streams); `flags` are added to the kernel unit's nvcc."""
 
-    def __init__(self, key, source, objects):
+    def __init__(self, key, source, objects, flags=()):
         self.key = key
         self.source = source
         self.objects = list(objects)  # _Object
+        self.flags = tuple(flags)
         self.dir = cuda.BUILD_ROOT / f"unrolled-{key}"
         self.lib = self.dir / "lib.so"
 
 
 class _Object:
     """A float program or a warp stream of an interval kernel, compiled
-    into a relocatable object."""
+    into a relocatable object (`flags` added to its nvcc)."""
 
-    def __init__(self, key, source):
+    def __init__(self, key, source, flags=()):
         self.key = key
         self.source = source
+        self.flags = tuple(flags)
         self.dir = cuda.BUILD_ROOT / f"unrolled-{key}"
         self.obj = self.dir / "prog.o"
 
@@ -551,11 +524,13 @@ def build(units) -> dict:
     todo = list({u.key: u for u in units if not u.lib.exists()}.values())
     objs = {o.key: o for u in todo for o in u.objects if not o.obj.exists()}
     steps = [
-        (o.key, [*compile_, str(_write_source(o.dir, "prog.cu", o.source))],
+        (o.key, [*compile_, *o.flags,
+                 str(_write_source(o.dir, "prog.cu", o.source))],
          o.obj, o.dir / "prog.log")
         for o in objs.values()
     ] + [
-        (u.key, [*compile_, str(_write_source(u.dir, "kernel.cu", u.source))],
+        (u.key, [*compile_, *u.flags,
+                 str(_write_source(u.dir, "kernel.cu", u.source))],
          u.dir / "kernel.o", u.dir / "kernel.log")
         for u in todo
     ]
@@ -615,8 +590,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
     # cx0 cy0 valid params seg | nseg | out | n_slots tw pp | stream
     "fidget_unrolled_float_launch": [_P] * 5 + [_I, _P] + [_I] * 3 + [_P],
-    # x0 y0 params | T0 | u rin rout words viol | n | stream
-    "fidget_unrolled_interval_launch": [_P] * 3 + [_F] + [_P] * 5 + [_I, _P],
+    # x0 y0 params | T0 | u rin rout words viol scratch | n | stream
+    "fidget_unrolled_interval_launch": [_P] * 3 + [_F] + [_P] * 6 + [_I, _P],
 }
 
 
@@ -642,14 +617,12 @@ def _load(unit: _Unit) -> ctypes.CDLL:
 class FloatKernel:
     """U1 for a list of tapes sharing their inputs (V, axes): tape s
     serves the slots of segment s, the last one every slot from its
-    segment's first on; `px` pixels a thread (default FLOAT_PIXELS),
-    fixed when the code is emitted."""
+    segment's first on."""
 
-    def __init__(self, tapes: list, axis_of: dict, V: int, *, px=None):
+    def __init__(self, tapes: list, axis_of: dict, V: int):
         self.tapes = list(tapes)
         self.axis_of = dict(axis_of)
         self.V = V
-        self.px = FLOAT_PIXELS if px is None else px
         self._unit = None
         self._segs = {}
 
@@ -666,13 +639,13 @@ class FloatKernel:
         if self._unit is None:
             objects, names = [], []
             for t in self.tapes:
-                src = emit_float_program(t, self.V, "@", self.px)
+                src = emit_float_program(t, self.V, "@")
                 key = cache_key("float-program", _tape_digest(t), src)
                 name = f"fidget_uprog_{key}"
                 objects.append(_Object(
-                    key, emit_float_program(t, self.V, name, self.px)))
+                    key, emit_float_program(t, self.V, name)))
                 names.append(name)
-            source = emit_float_kernel(names, self.V, self.axis_of, self.px)
+            source = emit_float_kernel(names, self.V, self.axis_of)
             key = cache_key("float-kernel", source)
             self._unit = _Unit(key, source, objects)
         return self._unit
@@ -680,18 +653,16 @@ class FloatKernel:
 
 class IntervalKernel:
     """U2 for one tape and one epilogue ("proofs", "capture",
-    "violation"), its rows over `warps` warps a group (default
-    INTERVAL_WARPS; fewer where the hand-offs pass SLOT_BUDGET)."""
+    "violation"), its rows over INTERVAL_WARPS warps a group (fewer where
+    the hand-offs pass SLOT_BUDGET)."""
 
-    def __init__(self, tape: Tape, axis_of: dict, V: int, epilogue: str, *,
-                 warps=None):
+    def __init__(self, tape: Tape, axis_of: dict, V: int, epilogue: str):
         if epilogue not in EPILOGUES:
             raise ValueError(f"unknown epilogue {epilogue!r}")
         self.tape = tape
         self.axis_of = dict(axis_of)
         self.V = V
         self.epilogue = epilogue
-        self.warps = INTERVAL_WARPS if warps is None else warps
         self._sched = None
         self._unit = None
 
@@ -701,36 +672,46 @@ class IntervalKernel:
 
     def schedule(self) -> IntervalSchedule:
         if self._sched is None:
-            self._sched = schedule_interval(self.tape, self.warps)
+            self._sched = schedule_interval(self.tape, INTERVAL_WARPS)
         return self._sched
 
-    def shared_bytes(self) -> int:
-        """A block's shared memory: hand-off slots, choice words (capture,
-        violation) and the warps' violation flags."""
-        words = 0 if self.epilogue == "proofs" else self.cw * 32 * 4
+    def _shared_bytes(self, words_shared: bool) -> int:
+        words = (self.cw * 32 * 4 if words_shared
+                 and self.epilogue != "proofs" else 0)
         flags = self.schedule().k * 32 if self.epilogue == "violation" else 0
         return self.schedule().shared_bytes() + words + flags
 
+    @functools.cached_property
+    def words_global(self) -> bool:
+        """Whether the blocks' choice words live in a global scratch:
+        where a block's shared memory would pass SHARED_LIMIT with them
+        (fixed at the first ask)."""
+        return self._shared_bytes(True) > SHARED_LIMIT
+
+    def shared_bytes(self) -> int:
+        """A block's shared memory: hand-off slots, choice words (capture,
+        violation, unless `words_global`) and the warps' violation
+        flags."""
+        return self._shared_bytes(not self.words_global)
+
     def unit(self) -> _Unit:
         if self._unit is None:
-            if self.shared_bytes() > SHARED_LIMIT:
-                raise ValueError(
-                    f"U2 needs {self.shared_bytes()} bytes of shared memory "
-                    f"a block ({self.cw} choice words), more than "
-                    f"{SHARED_LIMIT}")
             sched = self.schedule()
             args = (self.V, self.axis_of, self.epilogue)
             objects, names = [], []
             for w in range(sched.k):
                 src = emit_interval_warp(sched, w, *args, "@")
-                key = cache_key("interval-warp", _tape_digest(self.tape), src)
+                key = cache_key("interval-warp", _tape_digest(self.tape), src,
+                                INTERVAL_FLAGS)
                 name = f"fidget_uiw_{key}"
                 objects.append(_Object(
-                    key, emit_interval_warp(sched, w, *args, name)))
+                    key, emit_interval_warp(sched, w, *args, name),
+                    INTERVAL_FLAGS))
                 names.append(name)
-            source = emit_interval_kernel(sched, *args, names)
-            key = cache_key("interval-kernel", source)
-            self._unit = _Unit(key, source, objects)
+            source = emit_interval_kernel(sched, *args, names,
+                                          self.words_global)
+            key = cache_key("interval-kernel", source, INTERVAL_FLAGS)
+            self._unit = _Unit(key, source, objects, INTERVAL_FLAGS)
         return self._unit
 
 
@@ -834,12 +815,16 @@ def unrolled_interval(kern: IntervalKernel, x0, y0, params, T0, u=None):
     dev = params.device
     rin = torch.empty(n, dtype=torch.bool, device=dev)
     rout = torch.empty(n, dtype=torch.bool, device=dev)
-    words = viol = None
+    words = viol = scratch = None
     if kern.epilogue == "capture":
         words = torch.empty((kern.cw, n), dtype=torch.int32, device=dev)
     if violation:
         cuda.check_cuda(u)
         viol = torch.empty(n, dtype=torch.bool, device=dev)
+    if kern.words_global and kern.epilogue != "proofs":
+        # each block's [cw][32] words, zeroed by the block
+        scratch = torch.empty(-(-n // 32) * kern.cw * 32, dtype=torch.int32,
+                              device=dev)
     lib = _load(kern.unit())
     stream = torch.cuda.current_stream().cuda_stream
 
@@ -849,7 +834,7 @@ def unrolled_interval(kern: IntervalKernel, x0, y0, params, T0, u=None):
     err = lib.fidget_unrolled_interval_launch(
         x0.data_ptr(), y0.data_ptr(), params.data_ptr(), float(T0),
         ptr(u if violation else None), rin.data_ptr(), rout.data_ptr(),
-        ptr(words), ptr(viol), n, stream,
+        ptr(words), ptr(viol), ptr(scratch), n, stream,
     )
     if err != 0:
         raise RuntimeError(f"CUDA launch of unrolled_interval failed with "

@@ -46,25 +46,23 @@ turns, the side that goes first alternating, on the host clock around
 a synchronized frame. Both sides see the same drift of a shared host,
 which two separate runs do not.
 
-    python3 probe_kernels.py --unrolled [--variant NAME=DIR] [--guard]
+    python3 probe_kernels.py --unrolled [--variant NAME=DIR ...] [--guard]
 
 instead works on the two kernels generated per tape, U1 and U2
 (eval/unrolled_cuda.py): it builds the kernels of `chip_smoke.py`'s
-phase 6c cold, for this tree and for the checkout DIR (the parent,
-say), printing each batch's wall time and its slowest steps; captures
-the U1 and U2 calls of one frame of each compiled mode (union leaf,
-full leaf under the unrolled and the interpreter cull, dense) at the
-first view; times the tree's and DIR's kernels on them by turns; then
-builds the tree's emitter at other settings (U1 at 2 pixels a thread,
-U2 at 2 and 8 warps a group) and times them by turns with the
-tree, and last the dense frame through the stand-in at 100, 200 and
-400 circles (its full 800 is the tree's): time against issue floor by
-program length. Other emitters: DIR may be an edited copy of this
-checkout under `_archive/`.
+phase 6c cold, for this tree and for each checkout DIR (the parent,
+or an edited copy of this checkout under `_archive/` that tries
+another emitter or template), printing each batch's wall time and its
+slowest steps; captures the U1 and U2 calls of one frame of each
+compiled mode (union leaf, full leaf under the unrolled and the
+interpreter cull, dense) at the first view; times the tree's and
+every DIR's kernels on them by turns; and last the dense frame through
+the stand-in at 100, 200 and 400 circles (its full 800 is the tree's):
+time against issue floor by program length.
 Each line gives the SASS instructions a row and lane by class
 (`cuobjdump -sass`) with the issue and MUFU floors they give
 (`chip_smoke.unrolled_floors`). `--guard` first runs `chip_smoke.py`'s
-unrolled guard (phase 6e) on DIR's kernels, then on the tree's.
+unrolled guard (phase 6e) on every DIR's kernels, then on the tree's.
 
     python3 probe_kernels.py --unrolled-builds
 
@@ -75,10 +73,7 @@ a time, each into an empty build directory under `--out`: the wall time
 of its nvcc steps, the ptxas compile time its logs report, and a
 second, cached build; then the union kernel once more as a single
 translation unit without -rdc (the programs and the kernel in one
-file), the alternative to one unit a program; last, U2 (proofs) at
-INTERVAL_WARPS warps a group against one warp: each one's cold build
-and its time on the stand-in's tiles at the pan view, and their proofs
-equal.
+file), the alternative to one unit a program.
 """
 
 from __future__ import annotations
@@ -391,29 +386,6 @@ def unrolled_builds(cs, port, out):
             print(f"U1 union as one translation unit ({len(progs)} programs, "
                   f"no -rdc): nvcc exit {res.returncode}, {wall:.1f} s wall, "
                   f"ptxas {total / 1e3:.1f} s", flush=True)
-        x0, y0 = st.tiles(T0)
-        params = uc.params_tensor(*u2._device_args(
-            r, r._mat4(cs.FRAMES[1]), 0.0, r._var_vec(None)))
-        first = None
-        for warps in (uc.INTERVAL_WARPS, 1):
-            with tempfile.TemporaryDirectory(dir=out) as d:
-                cuda.BUILD_ROOT = pathlib.Path(d)
-                k = uc.IntervalKernel(tape, r.axis_of, r.n_inputs, "proofs",
-                                      warps=warps)
-                t0 = time.perf_counter()
-                uc.build_kernels([k])
-                cold = time.perf_counter() - t0
-                got = uc.unrolled_interval(k, x0, y0, params, T0)
-                first = got if first is None else first
-                same = all(torch.equal(g, w) for g, w in zip(got[:2],
-                                                             first[:2]))
-                ms = cs.time_cuda(
-                    lambda: uc.unrolled_interval(k, x0, y0, params, T0), 20)
-                print(f"U2 proofs at {k.schedule().k} warp(s) a group "
-                      f"({len(k.unit().objects)} stream units): cold build "
-                      f"{cold:.1f} s, {ms:.4f} ms a launch over "
-                      f"{x0.shape[0]} tiles, proofs equal to the default's: "
-                      f"{same}", flush=True)
     finally:
         cuda.BUILD_ROOT = root
 
@@ -518,9 +490,7 @@ def _time_runs(cs, runs, opts, what):
                 f"{fl['mufu_floor_ms']:.4f} ms, {fl['sass']}")
         extra = (f", {k.schedule().k} warps, {k.schedule().n_stages} "
                  f"stages, {k.schedule().n_slots} slots"
-                 if hasattr(k, "schedule") else
-                 f", {getattr(k, 'px', 1)} px a thread"
-                 if hasattr(k, "tapes") else "")
+                 if hasattr(k, "schedule") else "")
         print(f"{what} {name} {mode:>11} | {vlabel:<30} median "
               f"{np.median(ms):.4f} min {ms.min():.4f} ms ({len(ms)} "
               f"rounds){extra}; "
@@ -528,13 +498,13 @@ def _time_runs(cs, runs, opts, what):
               f"{fl_s}", flush=True)
 
 
-def unrolled_probe(cs, port, other, opts):
-    """`--unrolled` (see the module doc)."""
-    from fidget_tpu_torch.eval import cuda
+def unrolled_probe(cs, port, others, opts):
+    """`--unrolled` (see the module doc); `others` maps each variant's
+    name to its checkout's package."""
     from fidget_tpu_torch.eval import unrolled_cuda as uc
     from fidget_tpu_torch.render import unrolled2d as u2
 
-    sides = {"tree": port, **({"parent": other} if other else {})}
+    sides = {"tree": port, **others}
     if opts.guard:
         for side, pkg in reversed(list(sides.items())):
             cs.phase_unrolled_guard(pkg, label=side)
@@ -575,26 +545,17 @@ def unrolled_probe(cs, port, other, opts):
         for n, f in saved.items():
             setattr(u2, n, f)
     torch.cuda.synchronize()
-    # variants: (label, package's unrolled_cuda, kernel from the tree's,
-    # args from the tree's); None where a variant does not apply
-    variants = [("tree", uc, lambda k: k, None)]
-    if other is not None:
-        puc = importlib.import_module(other.__name__ + ".eval.unrolled_cuda")
+    # variants: (label, package's unrolled_cuda, kernel like the tree's)
+    variants = [("tree", uc, lambda k: k)]
+    for name, pkg in others.items():
+        puc = importlib.import_module(pkg.__name__ + ".eval.unrolled_cuda")
 
-        def parent(k):
+        def make(k, puc=puc):
             if hasattr(k, "tapes"):
                 return puc.FloatKernel(k.tapes, k.axis_of, k.V)
             return puc.IntervalKernel(k.tape, k.axis_of, k.V, k.epilogue)
 
-        variants.append(("parent", puc, parent, None))
-
-    variants.append(("U1 2 px a thread", uc, lambda k: (
-        uc.FloatKernel(k.tapes, k.axis_of, k.V, px=2)
-        if hasattr(k, "tapes") else None), None))
-    for warps in (2, 8):
-        variants.append((f"U2 {warps} warps a group", uc, lambda k, w=warps: (
-            None if hasattr(k, "tapes") else uc.IntervalKernel(
-                k.tape, k.axis_of, k.V, k.epilogue, warps=w)), None))
+        variants.append((name, puc, make))
     # the dense frame through stand-ins of growing length (n circles)
     scenes = importlib.import_module("fidget_tpu_torch.scenes")
     dense_args = calls[("dense", "unrolled_float")]
@@ -602,45 +563,26 @@ def unrolled_probe(cs, port, other, opts):
     for n_c in (100, 200, 400):
         ctx = port.Context()
         pt = port.lower(ctx, [scenes.standin_shape(ctx, n=n_c)])
-        prefixes[(len(pt) - 1, 1)] = uc.FloatKernel([pt], r.axis_of,
-                                                    r.n_inputs, px=1)
-    def collect(vs):
-        out = []
-        for vlabel, mod, make, fix in vs:
-            for (mode, name), (args, kwargs) in calls.items():
-                k = make(args[0])
-                if k is None:
-                    continue
-                out.append((vlabel, mod, mode, name, k,
-                            (k,) + tuple((fix or (lambda a: a))(args)[1:]),
-                            kwargs))
-        return out
-
-    n_main = 2 if other is not None else 1
-    main_runs = collect(variants[:n_main])
-    abl_runs = collect(variants[:1] + variants[n_main:])
-    _time_runs(cs, main_runs, opts, "main")
-    # build the ablations, each package's kernels in one batch
-    for mod in {id(m): m for _, m, *_ in abl_runs}.values():
-        ks = [k for _, m, _, _, k, _, _ in abl_runs if m is mod]
-        if mod is uc:
-            ks += list(prefixes.values())
-        t0 = time.perf_counter()
-        steps = mod.build_kernels(ks)
-        print(f"variant builds | {mod.__name__}: {len(ks)} kernels, "
-              f"{len(steps)} steps, {time.perf_counter() - t0:.1f} s",
-              flush=True)
-    _time_runs(cs, abl_runs, opts, "ablations")
+        prefixes[len(pt) - 1] = uc.FloatKernel([pt], r.axis_of, r.n_inputs)
+    runs = [(vlabel, mod, mode, name, k, (k,) + tuple(args[1:]), kwargs)
+            for vlabel, mod, make in variants
+            for (mode, name), (args, kwargs) in calls.items()
+            for k in [make(args[0])]]
+    _time_runs(cs, runs, opts, "main")
+    t0 = time.perf_counter()
+    steps = uc.build_kernels(list(prefixes.values()))
+    print(f"prefix builds: {len(prefixes)} kernels, {len(steps)} steps, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     args, kwargs = dense_args
-    for (n, px), k in prefixes.items():
+    for n, k in prefixes.items():
         a = (k,) + tuple(args[1:])
         uc.unrolled_float(*a, **kwargs)
         ms = [cs.time_cuda(lambda: uc.unrolled_float(*a, **kwargs), opts.reps)
               for _ in range(3)]
         pix = args[1].shape[0] * kwargs["pp"]
         fl = cs.unrolled_floors(k, pix * (n + 1))
-        print(f"unrolled_float dense stand-in | {n + 1:>5} rows, {px} px a "
-              f"thread: median {np.median(ms):.4f} ms, "
+        print(f"unrolled_float dense stand-in | {n + 1:>5} rows: median "
+              f"{np.median(ms):.4f} ms, "
               f"{np.median(ms) * 1e6 / (pix * (n + 1)) * 1e3:.4f} ps a "
               f"row-pixel"
               + ("" if fl is None else
@@ -681,12 +623,13 @@ def main() -> int:
         unrolled_builds(cs, port, opts.out)
         return 0
     if opts.unrolled:
-        other = None
+        others = {}
         for spec in opts.variant:
             vname, _, vdir = spec.partition("=")
-            other = load_package(ROOT / vdir, "fidget_tpu_torch_" + vname)
+            others[vname] = load_package(ROOT / vdir,
+                                         "fidget_tpu_torch_" + vname)
         cuda.build()
-        unrolled_probe(cs, port, other, opts)
+        unrolled_probe(cs, port, others, opts)
         return 0
     if opts.frames_against is not None:
         other = load_package(opts.frames_against, "fidget_tpu_torch_other")

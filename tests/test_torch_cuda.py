@@ -674,13 +674,13 @@ def _nan_div_tape():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["union", "nan_div"])
-def test_unrolled_kernels_match_plain(card, which):
+def test_unrolled_kernels_match_plain(card, which, monkeypatch):
     """U2 with each epilogue (flags and words exact) at 4 and 8 warps a
     group and U1 over a union plan's programs and the fallback in one
-    launch, and over the full tape alone (its program inlined), at 1, 2
-    and 4 pixels a thread (exact: these tapes hold no transcendental),
-    against their plain versions on the card, on the tiles and worklist
-    of a 256^2 union frame; each launch counted under its own name."""
+    launch, and over the full tape alone (exact: these tapes hold no
+    transcendental), against their plain versions on the card, on the
+    tiles and worklist of a 256^2 union frame; each launch counted under
+    its own name."""
     from fidget_tpu_torch.eval import unrolled_cuda as uc
     from fidget_tpu_torch.render import unrolled2d as u2
 
@@ -697,8 +697,9 @@ def test_unrolled_kernels_match_plain(card, which):
     V = r.n_inputs
     cuda.reset_launches()
     for warps in (4, 8):
+        monkeypatch.setattr(uc, "INTERVAL_WARPS", warps)
         for epi in uc.EPILOGUES:
-            k = uc.IntervalKernel(tape, r.axis_of, V, epi, warps=warps)
+            k = uc.IntervalKernel(tape, r.axis_of, V, epi)
             u = tb.u_tile if epi == "violation" else None
             got = uc.unrolled_interval(k, xp, yp, params, 8.0, u)
             want = uc.unrolled_interval_plain(k, xp, yp, params, 8.0, u)
@@ -709,20 +710,17 @@ def test_unrolled_kernels_match_plain(card, which):
     idx = torch.randint(0, x0.shape[0], (n,), generator=torch.Generator()
                         .manual_seed(2)).to(card)
     valid = torch.arange(n, device=card) % 7 != 3
-    launches = 0
-    for px in (1, 2, 4):
-        programs = list(plan.programs) + [tape]
-        for tapes, seg in ((programs, tb.seg), ([tape], (0,))):
-            k = uc.FloatKernel(tapes, r.axis_of, V, px=px)
-            got = uc.unrolled_float(k, x0[idx], y0[idx], valid, params, seg,
-                                    tw=8, pp=64)
-            want = uc.unrolled_float_plain(k, x0[idx], y0[idx], valid,
-                                           params, seg, tw=8, pp=64)
-            torch.testing.assert_close(got, want, rtol=0, atol=0,
-                                       equal_nan=True)
-            assert (got[~valid] == 0).all()
-            launches += 1
-    assert cuda.LAUNCHES["unrolled_float"] == launches
+    programs = list(plan.programs) + [tape]
+    for tapes, seg in ((programs, tb.seg), ([tape], (0,))):
+        k = uc.FloatKernel(tapes, r.axis_of, V)
+        got = uc.unrolled_float(k, x0[idx], y0[idx], valid, params, seg,
+                                tw=8, pp=64)
+        want = uc.unrolled_float_plain(k, x0[idx], y0[idx], valid,
+                                       params, seg, tw=8, pp=64)
+        torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                   equal_nan=True)
+        assert (got[~valid] == 0).all()
+    assert cuda.LAUNCHES["unrolled_float"] == 2
 
 
 @pytest.mark.cuda

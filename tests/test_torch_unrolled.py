@@ -444,26 +444,24 @@ def _small_tape():
 
 
 def test_emitter_one_statement_per_row():
-    """One line per tape row: in U1's program (a scalar statement for
-    each of the thread's pixels), and in U2's warp streams, where
-    every computing row appears exactly once across the k units, which
-    the kernel unit calls by warp."""
+    """One statement per tape row: in U1's program, and in U2's warp
+    streams, where every computing row appears exactly once across the
+    k units, which the kernel unit calls by warp; U2's units, and only
+    they, carry INTERVAL_FLAGS."""
     t = _small_tape()
     axis = {v.kind: i for v, i in t.var_map.items()}
-    for px in (1, 3):
-        src = uc.FloatKernel([t], axis, 2, px=px).unit().objects[0].source
-        body = src.split("U_P(o[p] = 0.f);\n")[1].split("  return out_;")[0]
-        stmts = [ln.strip() for ln in body.strip().splitlines()
-                 if not ln.lstrip().startswith("float ")]
-        assert len(stmts) == len(t)
-        assert all(ln.count(";") == px or ln.startswith("/* OUTPUT")
-                   for ln in stmts)
-        assert all(f"_{px - 1} = " in ln or ln.startswith(("o[", "/*"))
-                   for ln in stmts)
-    k = uc.IntervalKernel(t, axis, 2, "violation", warps=4)
+    src = uc.FloatKernel([t], axis, 2).unit().objects[0].source
+    body = src.split("  float o = 0.f;\n")[1].split("  return o;")[0]
+    stmts = [ln.strip() for ln in body.strip().splitlines()]
+    assert len(stmts) == len(t)
+    assert all(ln.count(";") == 1 for ln in stmts)
+    k = uc.IntervalKernel(t, axis, 2, "violation")
     unit = k.unit()
     sched = k.schedule()
-    assert len(unit.objects) == sched.k == 4
+    assert len(unit.objects) == sched.k == uc.INTERVAL_WARPS
+    assert unit.flags == uc.INTERVAL_FLAGS
+    assert all(o.flags == uc.INTERVAL_FLAGS for o in unit.objects)
+    assert uc.FloatKernel([t], axis, 2).unit().flags == ()
     computing = [i for i, row in enumerate(t.rows()) if row[0] not in (
         port.TapeOp.INPUT, port.TapeOp.OUTPUT, port.TapeOp.COPY,
         port.TapeOp.LOAD, port.TapeOp.STORE)]
@@ -485,17 +483,15 @@ def test_emitter_one_statement_per_row():
     assert text.count("U_CHOICE(") == t.choice_count
 
 
-def test_emitter_sources_and_keys():
+def test_emitter_sources_and_keys(monkeypatch):
     """The same tape gives the same source and key; a changed tape,
-    epilogue, pixel count or warp count changes the key."""
+    epilogue or warp count changes the key."""
     t = _small_tape()
     axis = {v.kind: i for v, i in t.var_map.items()}
 
-    def keys(tape, epilogue="proofs", **kw):
-        fk = uc.FloatKernel([tape], axis, 2,
-                            **{k: v for k, v in kw.items() if k == "px"})
-        ik = uc.IntervalKernel(tape, axis, 2, epilogue,
-                               **{k: v for k, v in kw.items() if k == "warps"})
+    def keys(tape, epilogue="proofs"):
+        fk = uc.FloatKernel([tape], axis, 2)
+        ik = uc.IntervalKernel(tape, axis, 2, epilogue)
         u = uc.FloatKernel([tape, tape], axis, 2).unit()
         return (fk.unit().key, u.objects[0].key, fk.unit().source,
                 ik.unit().key, ik.unit().source)
@@ -508,8 +504,8 @@ def test_emitter_sources_and_keys():
     assert c[0] != a[0] and c[1] != a[1] and c[3] != a[3]
     assert keys(t, "capture")[3] != a[3]
     assert keys(t, "violation")[3] != keys(t, "capture")[3]
-    assert keys(t, px=uc.FLOAT_PIXELS + 1)[0] != a[0]
-    assert keys(t, warps=uc.INTERVAL_WARPS * 2)[3] != a[3]
+    monkeypatch.setattr(uc, "INTERVAL_WARPS", uc.INTERVAL_WARPS * 2)
+    assert keys(t)[3] != a[3] and keys(t)[0] == a[0]
 
 
 def test_template_change_changes_keys(monkeypatch, tmp_path):
@@ -557,22 +553,21 @@ def test_union_programs_share_objects():
 
 def test_float_kernel_forms():
     """U1's emitted form: every program, a lone one too, a
-    `__noinline__` function of its own unit, dispatched by segment
-    (U_NSEG programs); FLOAT_PIXELS pixels a thread unless asked;
-    MIN/MAX as u_fmin / u_fmax (min.NaN / max.NaN)."""
+    `__noinline__` function of its own unit taking one pixel's V
+    inputs, dispatched by segment (U_NSEG programs); MIN/MAX as u_fmin /
+    u_fmax (min.NaN / max.NaN)."""
     t = _small_tape()
     axis = {v.kind: i for v, i in t.var_map.items()}
     one = uc.FloatKernel([t], axis, 2).unit()
     assert len(one.objects) == 1 and "#define U_NSEG 1\n" in one.source
-    assert f"#define U_PX {uc.FLOAT_PIXELS}\n" in one.source
     prog = one.objects[0].source
-    assert "__noinline__ UOut fidget_uprog_" in prog
+    assert "__noinline__ float fidget_uprog_" in prog
+    assert "(float i0, float i1)" in prog
     assert "u_fmin(" in prog and "u_fmax(" in prog
-    four = uc.FloatKernel([t], axis, 2, px=4).unit()
-    assert "#define U_PX 4\n" in four.source
+    assert "nmin(" not in prog and "nmax(" not in prog
     two = uc.FloatKernel([t, t], axis, 2).unit()
     assert "#define U_NSEG 2\n" in two.source
-    assert "case 0: r = fidget_uprog_" in two.source
+    assert "case 0: return fidget_uprog_" in two.source
     assert len({o.key for o in two.objects}) == 1
 
 
@@ -797,17 +792,16 @@ def test_interval_schedule_executor_matches_plain(name, warps):
 
 
 def test_interval_schedule_spreads_the_standin():
-    """On the stand-in at 1,024^2's tape, 8 warps a group hold nearly
-    equal estimated costs, a few stages and few slots (the design's
+    """On the stand-in at 1,024^2's tape, 8 warps a group hold equal
+    numbers of rows (to one), a few stages and few slots (the design's
     premise: whole subtrees a warp, only their results cross)."""
     from fidget_tpu_torch.scenes import standin_shape
 
     ctx = port.Context()
     t = port.lower(ctx, [standin_shape(ctx)])
     sched = uc.schedule_interval(t, 8)
-    costs = [sum(sched.cost(i) for run in sched.runs[w] for i in run)
-             for w in range(8)]
-    assert max(costs) < 1.02 * min(costs)
+    counts = [sum(len(run) for run in sched.runs[w]) for w in range(8)]
+    assert max(counts) - min(counts) <= 1
     assert sched.n_stages <= 8
     assert sched.shared_bytes() <= uc.SLOT_BUDGET
     stage0 = sum(len(sched.runs[w][0]) for w in range(8))
@@ -824,6 +818,39 @@ def test_slot_budget_halves_the_warps(monkeypatch):
     assert uc.schedule_interval(t, 8).k < 8
     monkeypatch.setattr(uc, "SLOT_BUDGET", 0)
     assert uc.schedule_interval(t, 8).k == 1
+
+
+def test_interval_kernel_takes_any_choice_count():
+    """A tape whose choice words would pass SHARED_LIMIT in a block's
+    shared memory keeps them in global memory: 25,700 MIN rows (1,607
+    words, 206 KB a block) emit under each epilogue with U_GW 1 and a
+    block's shared memory the hand-off slots' (and the violation flags'),
+    one U_CHOICE a choice; the small tape's words stay in shared
+    memory."""
+    ctx = port.Context()
+    x = ctx.x()
+    acc = None
+    for i in range(25_700):
+        c = ctx.sub(x, i * 1e-3)
+        acc = c if acc is None else ctx.min(acc, c)
+    t = port.lower(ctx, [acc])
+    assert t.choice_count == 25_699
+    sched = uc.schedule_interval(t, uc.INTERVAL_WARPS)
+    for epi in ("capture", "violation"):
+        k = uc.IntervalKernel(t, {"x": 0}, 1, epi)
+        assert k.words_global and k.cw * 128 > uc.SHARED_LIMIT
+        unit = k.unit()
+        assert "#define U_GW 1\n" in unit.source
+        text = "\n".join(o.source for o in unit.objects)
+        assert text.count("U_CHOICE(") == t.choice_count
+        flags = sched.k * 32 if epi == "violation" else 0
+        assert k.shared_bytes() == sched.shared_bytes() + flags
+    small = _small_tape()
+    k = uc.IntervalKernel(small, {v.kind: i for v, i in small.var_map.items()},
+                          2, "violation")
+    assert not k.words_global and "#define U_GW 0\n" in k.unit().source
+    assert k.shared_bytes() == (k.schedule().shared_bytes() + k.cw * 128
+                                + k.schedule().k * 32)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
