@@ -194,6 +194,7 @@ the device JSON line.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import importlib
 import json
@@ -224,6 +225,19 @@ CHAIN_INSTRUCTIONS = 3
 CHAIN_LATENCY = 4
 #: SM clock in Hz, read from nvidia-smi by `phase_device`
 SM_CLOCK_HZ = None
+#: host clock at the start of `main`; log lines carry the seconds since
+START = None
+#: warm frames a stage profile runs under the profiler: a frame's device
+#: busy time varies little from frame to frame, while the profiler's
+#: processing of a 3D frame's 9,000 device ops took about 5 s a frame
+#: (H100 80GB HBM3 machine)
+PROFILED_FRAMES = 3
+#: shared-memory bytes one SM moves a clock (32 banks of 4 bytes), and
+#: the bytes of one register-file row a lane in shared memory: two
+#: operand loads and a store of 4 bytes; with the SM clock they give the
+#: shared-memory floor of an interpreter whose file lies there
+SMEM_BYTES_PER_SM_CLOCK = 128
+SMEM_ROW_BYTES = 12
 
 SIZE = 1024
 #: world_to_model views of the main path's frames: identity, a small
@@ -306,7 +320,17 @@ class Failed(Exception):
 
 
 def log(*args):
+    if START is not None:
+        args = (f"[{time.perf_counter() - START:6.1f} s]", *args)
     print(*args, flush=True)
+
+
+def concurrently(fns):
+    """The results of the callables `fns`, run in threads of their own:
+    the numpy oracles, which release the interpreter lock in their array
+    work, take one core each instead of running one after another."""
+    with concurrent.futures.ThreadPoolExecutor(len(fns)) as pool:
+        return [f.result() for f in [pool.submit(fn) for fn in fns]]
 
 
 def compare(got, want, rtol, atol):
@@ -1294,8 +1318,9 @@ def _stage_profile(render, frame, names, reps=10):
     host clock; per-stage times from CUDA events recorded as each stage
     is enqueued (`frame(hook)` runs one frame with a stage hook; a stage
     that waits on the host to enqueue its work shows that wait too, and
-    stages that repeat are summed); and the device's busy time per frame
-    from the profiler, summed over every kernel."""
+    stages that repeat are summed), both over `reps` frames; and the
+    device's busy time per frame from the profiler over PROFILED_FRAMES,
+    summed over every kernel."""
     sums = dict.fromkeys(names, 0.0)
     wall = []
     for _ in range(reps):
@@ -1327,18 +1352,19 @@ def _stage_profile(render, frame, names, reps=10):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    n = PROFILED_FRAMES
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(reps):
+        for _ in range(n):
             render()
         torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - t0) * 1e3 / reps
+        prof_wall = (time.perf_counter() - t0) * 1e3 / n
     # device-side entries only: a host op's entry repeats its kernels' time
     events = [
         e for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
     ]
-    busy = sum(e.self_device_time_total for e in events) / 1e3 / reps
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / n
     if busy == 0:
         log("profiler: no device time recorded; busy share not measured")
         return
@@ -1346,11 +1372,11 @@ def _stage_profile(render, frame, names, reps=10):
     log(f"profiler: device busy {busy:.3f} ms per frame of {prof_wall:.3f} "
         f"ms wall under the profiler ({100 * busy / prof_wall:.1f}% busy; "
         f"{100 * busy / float(np.median(wall)):.1f}% of the unprofiled "
-        f"median); {sum(e.count for e in events) / reps:.0f} device ops "
+        f"median); {sum(e.count for e in events) / n:.0f} device ops "
         f"per frame")
     for e in events[:8]:
-        log(f"  {e.self_device_time_total / 1e3 / reps:8.3f} ms/frame "
-            f"{e.count / reps:5.0f}x  {e.key[:70]}")
+        log(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/frame "
+            f"{e.count / n:5.0f}x  {e.key[:70]}")
 
 
 def phase_stages(r, view):
@@ -1710,17 +1736,17 @@ def phase_main3d(port, cuda, render3d, render2d, simplify_device):
     missing = [k for k in KERNELS_3D if launches[k] == 0]
     if missing:
         raise Failed(f"3D main path never launched {missing}")
-    brutes = {}
+    t0 = time.time()
+    brutes = dict(zip([label for label, _ in VIEWS3], concurrently(
+        [lambda v=view: r.render_brute(v).depth.numpy()
+         for _, view in VIEWS3])))
+    log(f"  oracles of {len(VIEWS3)} views in {time.time() - t0:.1f} s")
     for (label, view), img in zip(VIEWS3 + [("heightmap", VIEWS3[0][1])],
                                   images):
-        t0 = time.time()
         key = label if label != "heightmap" else "identity"
-        if key not in brutes:
-            brutes[key] = r.render_brute(view).depth.numpy()
         if label == "heightmap" and img.normal is not None:
             raise Failed("heightmap frame returned normals")
         check_frame3d(r, img, view, brutes[key], label)
-        log(f"  oracle {time.time() - t0:.1f} s")
     if not np.array_equal(images[-1].depth.cpu().numpy(),
                           images[0].depth.cpu().numpy()):
         raise Failed("heightmap and normals frames disagree on depth")
@@ -2613,20 +2639,12 @@ def _violation_words(words, rng):
         words.device)
 
 
-def phase_unrolled_guard(pkg, dev="cuda", label="tree"):
-    """U1 and U2 of `pkg` against their plain versions beyond the
-    stand-in (`_guard_tapes`): U1 over one launch of the op tapes (each
-    a program on its segment of slots, held at `_matrix_tolerance` of
-    its op) and over each combined tape alone (one program a launch;
-    exact but for the "other ops" tape, 2e-4), U2 under all three
-    epilogues on the combined tapes, flags and words exactly (the
-    violation flags against `_violation_words`), and capture and
-    violation on the exact ops again with the words in global memory (as
-    a tape's past `SHARED_LIMIT` are); over 256^2 in 8-px tiles at two
-    matrices, with the vars a and b taking the values of `_guard_pairs`.
-    All kernels in one build batch. Returns the phase's seconds."""
+def _guard_kernels(pkg):
+    """Phase 6e's tapes and kernels of `pkg`, their units fixed (the
+    global-word ones under a SHARED_LIMIT of 0), not built: (module,
+    op tapes, combined tapes, kinds, the op-matrix kernel, singles,
+    intervals)."""
     uc = importlib.import_module(pkg.__name__ + ".eval.unrolled_cuda")
-    t_start = time.perf_counter()
     op_tapes, comb, kinds = _guard_tapes(pkg)
     axis = {"x": 0, "y": 1}
     V = len(kinds)
@@ -2647,11 +2665,48 @@ def phase_unrolled_guard(pkg, dev="cuda", label="tree"):
                 ks[-1].unit()
     finally:
         uc.SHARED_LIMIT = limit
+    return uc, op_tapes, comb, kinds, matrix, singles, intervals
+
+
+def start_guard_build(pkg):
+    """Phase 6e's kernels (`_guard_kernels`, made on the calling thread,
+    which sets the module's SHARED_LIMIT for a moment) with their nvcc
+    steps started in a thread of their own, so that they run on the
+    host's idle cores while the phases before 6e use the card. Returns a
+    future of (kernels, steps, build seconds)."""
+    guard = _guard_kernels(pkg)
+    uc, _, _, _, matrix, singles, intervals = guard
     kernels = ([matrix] + [k for _, k, _ in singles]
                + [k for _, _, ks in intervals for k in ks])
-    t0 = time.perf_counter()
-    steps = uc.build_kernels(kernels)
-    build_s = time.perf_counter() - t0
+
+    def build():
+        t0 = time.perf_counter()
+        steps = uc.build_kernels(kernels)
+        return guard, steps, time.perf_counter() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(build)
+    pool.shutdown(wait=False)
+    return future
+
+
+def phase_unrolled_guard(pkg, dev="cuda", label="tree", built=None):
+    """U1 and U2 of `pkg` against their plain versions beyond the
+    stand-in (`_guard_tapes`): U1 over one launch of the op tapes (each
+    a program on its segment of slots, held at `_matrix_tolerance` of
+    its op) and over each combined tape alone (one program a launch;
+    exact but for the "other ops" tape, 2e-4), U2 under all three
+    epilogues on the combined tapes, flags and words exactly (the
+    violation flags against `_violation_words`), and capture and
+    violation on the exact ops again with the words in global memory (as
+    a tape's past `SHARED_LIMIT` are); over 256^2 in 8-px tiles at two
+    matrices, with the vars a and b taking the values of `_guard_pairs`.
+    All kernels in one build batch, `built` (`start_guard_build`) or
+    started here. Returns the phase's seconds, the build's wait
+    included."""
+    t_start = time.perf_counter()
+    guard, steps, build_s = (built or start_guard_build(pkg)).result()
+    uc, op_tapes, comb, kinds, matrix, singles, intervals = guard
     n_t = GUARD_SIZE // UNROLLED_T0
     gx, gy = np.meshgrid(np.arange(n_t) * UNROLLED_T0,
                          np.arange(n_t) * UNROLLED_T0)
@@ -2720,8 +2775,9 @@ def phase_unrolled_guard(pkg, dev="cuda", label="tree"):
         f"plain "
         f"(U2 flags and words exactly); U1 max abs err "
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-        + f"; {len(steps)} nvcc steps in {build_s:.1f} s, phase "
-        f"{secs:.1f} s")
+        + f"; {len(steps)} nvcc steps in {build_s:.1f} s"
+        + (" (started with the run, beside the phases before this)"
+           if built else "") + f", phase {secs:.1f} s")
     return secs
 
 
@@ -2927,7 +2983,11 @@ def _interleave_cases(dev):
     """(label, args, nf, s0) of the inputs phase 12 holds P2 to its plain
     version on."""
     from fidget_tpu_torch.demos import exp_interleave as p2
-    from fidget_tpu_torch.scenes import interleave_op_arena, prefixed_random_tapes
+    from fidget_tpu_torch.scenes import (
+        interleave_op_arena,
+        mixed_class_tapes,
+        prefixed_random_tapes,
+    )
 
     on = lambda arrays: [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                          for a in arrays]
@@ -2938,6 +2998,13 @@ def _interleave_cases(dev):
     full = np.full(64, p2.NF_REF + p2.L_REF, np.int32)
     short = rng.integers(0, p2.NF_REF + p2.L_REF, 64).astype(np.int32)
     pre = (w1[:64], w2[:64], imm[:64], w1[64:], w2[64:], imm[64:])
+    # classed and switch rows in every chunk, at an odd length
+    L_mix = p2.L_REF + 1
+    m1, m2, mimm, mrng = mixed_class_tapes(2 * 64, L_mix, p2.NF_REF, 3,
+                                           seed=8)
+    mvars = mrng.normal(size=(64, 3, p2.S0_REF, 128)).astype(np.float32)
+    mixed = (m1[:64], m2[:64], mimm[:64], m1[64:], m2[64:], mimm[64:],
+             np.full(64, p2.NF_REF + L_mix, np.int32), mvars)
     *ops, ops_vars, _ = interleave_op_arena(8, past_nf=True)
     ops_lens = np.full(ops[0].shape[0], ops[0].shape[1], np.int32)
     return [
@@ -2949,7 +3016,17 @@ def _interleave_cases(dev):
          p2.NF_REF, p2.S0_REF),
         ("one tape per opcode 0-30, 31, 40, 127, registers past nf",
          on((*ops, ops_lens, ops_vars)), 8, 8),
+        ("classed and switch rows mixed in every chunk, odd length",
+         on(mixed), p2.NF_REF, p2.S0_REF),
     ]
+
+
+def _smem_floor_ms(lane_rows):
+    """The shared-memory floor of an interpreter whose register file lies
+    in shared memory: SMEM_ROW_BYTES a lane and row over the card's SMs
+    at SMEM_BYTES_PER_SM_CLOCK and the SM clock."""
+    return (lane_rows * SMEM_ROW_BYTES
+            / (SMEM_BYTES_PER_SM_CLOCK * SCHEDULERS / 4 * SM_CLOCK_HZ) * 1e3)
 
 
 def phase_interleave(cuda, dev="cuda"):
@@ -2957,13 +3034,15 @@ def phase_interleave(cuda, dev="cuda"):
     two-stream kernel against its plain version bit for bit on the
     reference's tapes at its shapes (T / 2 = 128 instances, Lcap 1024,
     nf 32, S0 32), on INPUT-prefixed random tapes with full and short
-    lens (equal to each other too), and on one tape per opcode with
-    immediates, an aux past V and registers past nf, each at the
-    geometry's lanes a thread and at 4, 2 and 1; then the probe's
+    lens (equal to each other too), on one tape per opcode with
+    immediates, an aux past V and registers past nf, and on tapes that
+    mix classed and switch rows in every chunk (odd length), each at
+    the geometry's lanes a thread and at 4, 2 and 1; then the probe's
     `main()` with the launch counts set to 0 before and read after
-    (variant A launches K3, variant B P2); then A, B and B at A's lanes
-    a thread timed by CUDA events and the profiler's device time, the
-    bound of B and the plain version's time."""
+    (variant A launches K3, variant B P2); then A, B and B at 4, 2 and 1
+    lanes a thread timed by CUDA events and the profiler's device time,
+    the bound of B, its scheduler-slot and shared-memory floors and the
+    plain version's time."""
     from fidget_tpu_torch.demos import exp_interleave as p2
     from fidget_tpu_torch.eval.interp import interp_float
 
@@ -3000,13 +3079,16 @@ def phase_interleave(cuda, dev="cuda"):
                                  n_inputs=p2.V_REF, n_outputs=1, s0=s0)
     run_b = lambda: p2.interp_float2(*args_b, nf=nf, s0=s0)
     r_a = res["geometry_a"].r
-    run_b_at_a = lambda: p2.interp_float2(*args_b, nf=nf, s0=s0,
-                                          lanes_per_thread=r_a)
     ms_a, ms_b = time_cuda(run_a, reps=20), time_cuda(run_b, reps=20)
-    ms_b_at_a = time_cuda(run_b_at_a, reps=20)
     dev_a = device_ms(run_a, "interp_float_kernel")
     dev_b = device_ms(run_b, "interp_float2_kernel")
-    dev_b_at_a = device_ms(run_b_at_a, "interp_float2_kernel")
+    by_lanes = {}
+    for r in (4, 2, 1):
+        run = lambda: p2.interp_float2(*args_b, nf=nf, s0=s0,
+                                       lanes_per_thread=r)
+        ms = time_cuda(run, reps=20)
+        by_lanes[r] = {"ms": ms, "device_ms": device_ms(
+            run, "interp_float2_kernel"), "ns_per_step": ms / (T * L) * 1e6}
     _, plain_ms = _time_plain(
         lambda *a: p2.interp_float2_plain(*a, nf=nf, s0=s0), args_b, {})
     lanes = s0 * 128
@@ -3017,6 +3099,7 @@ def phase_interleave(cuda, dev="cuda"):
     bound_ms, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                          else "operations")
     slot_ms = _slot_bound_ms(ops)
+    smem_ms = _smem_floor_ms(ops)
     steps = T * L
     log(f"interleave probe: A (K3, {T} instances, "
         f"{res['geometry_a'].r} lanes a thread) {ms_a:.4f} ms, device "
@@ -3024,25 +3107,28 @@ def phase_interleave(cuda, dev="cuda"):
         f"instances of 2 streams, {res['geometry_b'].r} lanes a thread) "
         f"{ms_b:.4f} ms, device {dev_b} ms, {ms_b / steps * 1e6:.4f} "
         f"ns/step; B's speedup x{ms_a / ms_b:.3f} (events), "
-        f"x{(dev_a or 0) / (dev_b or 1):.3f} (device); B at A's {r_a} "
-        f"lanes a thread {ms_b_at_a:.4f} ms, device {dev_b_at_a} ms; "
+        f"x{(dev_a or 0) / (dev_b or 1):.3f} (device); B at 4, 2, 1 "
+        f"lanes a thread "
+        + ", ".join(f"{v['ms']:.4f} ms (device {v['device_ms']})"
+                    for v in by_lanes.values()) + "; "
         f"{ops} operations, "
         f"{nbytes} bytes: bound {bound_ms:.5f} ms ({by}), scheduler-slot "
-        f"bound {slot_ms:.5f} ms; plain {plain_ms:.1f} ms")
+        f"bound {slot_ms:.5f} ms, shared-memory floor {smem_ms:.5f} ms "
+        f"({SMEM_ROW_BYTES} bytes a lane and row); plain {plain_ms:.1f} ms")
     src, replaces = KERNEL_INFO["interp_float2"]
     return {
         "name": "interp_float2", "route": "cuda", "source": src,
         "replaces": replaces, "launches": launches["interp_float2"],
         "max_abs_err": 0.0, "ms": ms_b, "device_ms": dev_b,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-        "slot_bound_ms": slot_ms, "library_ms": None,
-        "ns_per_step": ms_b / steps * 1e6,
+        "slot_bound_ms": slot_ms, "smem_floor_ms": smem_ms,
+        # no PyTorch call computes a tape interpreter
+        "library_ms": None, "ns_per_step": ms_b / steps * 1e6,
         "lanes_per_thread": res["geometry_b"].r,
         "variant_a": {"ms": ms_a, "device_ms": dev_a,
                       "ns_per_step": ms_a / steps * 1e6,
                       "lanes_per_thread": r_a},
-        "b_at_a_lanes": {"ms": ms_b_at_a, "device_ms": dev_b_at_a,
-                         "ns_per_step": ms_b_at_a / steps * 1e6},
+        "by_lanes": by_lanes,
         "probe": {k: res[k] for k in ("ms_a", "ms_b", "ns_a", "ns_b",
                                       "speedup")},
     }
@@ -3131,7 +3217,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    t_start = time.perf_counter()
+    global START
+    START = t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT))
     import fidget_tpu_torch as port
     from fidget_tpu_torch.eval import cuda, simplify_device
@@ -3141,6 +3228,7 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = phase_device()
     phase_build(cuda)
+    guard_build = start_guard_build(port)
     phase_op_matrix(port, dev)
 
     ctx = port.Context()
@@ -3166,14 +3254,14 @@ def main() -> int:
     missing = [k for k in KERNELS_2D if launches[k] == 0]
     if missing:
         raise Failed(f"main path never launched {missing}")
-    brutes = []
+    t0 = time.time()
+    brutes = concurrently([lambda v=view: r.render_brute(v)
+                           for view in FRAMES])
+    log(f"render_brute of {len(FRAMES)} views in {time.time() - t0:.1f} s")
     for k, (img, view) in enumerate(zip(images, FRAMES)):
-        t0 = time.time()
-        brutes.append(r.render_brute(view))
         ink, evaluated = check_frame(r, img, view, brutes[k])
         log(f"frame {k}: occupancy equals render_brute ({ink:.4f} inside, "
-            f"{evaluated:.3f} of pixels evaluated; brute "
-            f"{time.time() - t0:.1f} s)")
+            f"{evaluated:.3f} of pixels evaluated)")
 
     rows = phase_kernels(captured, launches, len(FRAMES), r.n0)
     log("standard frame stages:")
@@ -3186,7 +3274,7 @@ def main() -> int:
     param_tape, shift, grow = _param_standin(port)
     ru, rp, build = phase_unrolled_build(port, tape, param_tape)
     phase_unrolled(ru, cuda, images, brutes, build, rows)
-    phase_unrolled_guard(port)
+    phase_unrolled_guard(port, built=guard_build)
 
     r3, captured3, launches3, n3 = phase_main3d(
         port, cuda, render3d, render2d, simplify_device

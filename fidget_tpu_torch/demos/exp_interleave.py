@@ -4,10 +4,11 @@ demos/exp_interleave.py (P2).
 
 Variant A: `interp_float` (K3), one tape an instance, on T instances.
 Variant B: `interp_float2` (csrc/interleave.cu), two tapes and two
-register files an instance, row j of both streams each turn, on T / 2
-instances. Same total work: T x L rows each. If a row's cost is the
-latency of its dependent chain, B approaches 2x; if it is fetch,
-decode and dispatch, B stays near 1x.
+register files an instance, on T / 2 instances: on the card each
+stream of an instance is a block of its own, and rows of the classes in
+`ROW_CLASSES` take one branch and no opcode switch. Same total work: T
+x L rows each. If a row's cost is the latency of its dependent chain, B
+approaches 2x; if it is fetch, decode and dispatch, B stays near 1x.
 
 Run on a CUDA card from the repository root:
 
@@ -29,6 +30,38 @@ from ..eval.interp import N_OPS, _UNARY, _scratch, interp_float
 
 #: the reference's arguments (demos/exp_interleave.py `main`)
 T_REF, L_REF, NF_REF, S0_REF, V_REF = 256, 1024, 32, 32, 1
+
+#: flags of a decoded row's control word (csrc/interleave.cu): the row
+#: goes to the opcode switch, or takes one branch to the compare/select
+#: of MIN (of MAX) or to the arithmetic, the product or the sum, with
+#: b's operand read from a's (COPY, OUTPUT) or its sign flipped (SUB)
+C_SWITCH, C_MUL, C_MINMAX, C_MAX, C_ALIAS = 1, 2, 4, 8, 16
+C_SIGN = -(2**31)
+#: the control word of each opcode 0-30, which the kernel's decode step
+#: reads; COPY and OUTPUT (which writes no plane here) are MIN of a with
+#: itself
+ROW_CLASSES = tuple(
+    {
+        TapeOp.ADD: 0,
+        TapeOp.SUB: C_SIGN,
+        TapeOp.MUL: C_MUL,
+        TapeOp.MIN: C_MINMAX,
+        TapeOp.MAX: C_MINMAX | C_MAX,
+        TapeOp.COPY: C_MINMAX | C_ALIAS,
+        TapeOp.OUTPUT: C_MINMAX | C_ALIAS,
+    }.get(TapeOp(op), C_SWITCH)
+    for op in range(N_OPS)
+)
+_CLASS_TABLES: dict = {}
+
+
+def class_table(device) -> torch.Tensor:
+    """`ROW_CLASSES` as an int32 tensor on `device`, made once."""
+    key = str(device)
+    if key not in _CLASS_TABLES:
+        _CLASS_TABLES[key] = torch.tensor(ROW_CLASSES, dtype=torch.int32,
+                                          device=device)
+    return _CLASS_TABLES[key]
 
 
 def random_tape(L, nf, rng):
@@ -67,8 +100,8 @@ def _check(w1a, w2a, imma, w1b, w2b, immb, lens, vars_, s0):
 
 def interp_float2(w1a, w2a, imma, w1b, w2b, immb, lens, vars_, *, nf, s0,
                   lanes_per_thread=0):
-    """Two-stream interpreter: instance i runs tapes a[i] and b[i], row j
-    of both each turn, over the lanes of vars_[i].
+    """Two-stream interpreter: instance i runs tapes a[i] and b[i], each
+    with its own register file, over the lanes of vars_[i].
 
     Every instance walks all Lcap rows of both tapes: `lens` is taken
     and not read, as the reference's kernel is handed lengths of Lcap
@@ -103,9 +136,9 @@ def interp_float2(w1a, w2a, imma, w1b, w2b, immb, lens, vars_, *, nf, s0,
     scratch = None
     if not g.regs_shared:
         scratch = _scratch((T, 2 * nf, lanes), vars_.device)
-    cuda.launch("interp_float2", w1a, w2a, imma, w1b, w2b, immb, vars_, out,
-                scratch, T, L, nf, vars_.shape[1], lanes, g.r, g.chunk,
-                g.smem)
+    cuda.launch("interp_float2", w1a, w2a, imma, w1b, w2b, immb,
+                class_table(vars_.device), vars_, out, scratch, T, L, nf,
+                vars_.shape[1], lanes, g.r, g.chunk, g.smem)
     return out
 
 

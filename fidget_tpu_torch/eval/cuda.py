@@ -41,6 +41,12 @@ N_SM = 132
 #: `TapeRing`, csrc/liveness.cu `LiveRing`); a multiple of 16, the code
 #: words of K2 and K6
 TAPE_CHUNK = 256
+#: tape rows per ring buffer of the two-stream probe P2: at the
+#: reference's shapes (nf 32, 4 lanes a thread) its 128-row ring and
+#: file let three blocks share an SM where 256 rows let two
+#: (probe_kernels.py --interleave on an H100 80GB HBM3 at 700 W: 0.6100
+#: against 0.7194 ms)
+INTERLEAVE_CHUNK = 128
 #: lanes a thread K4 and K5 may take, most first (a dual row of K4
 #: moves four planes through shared memory, four times K3's bytes)
 GRAD_LANES = (2, 1)
@@ -75,8 +81,8 @@ class Geometry:
       K2: 1).
     chunk: tape rows per ring buffer.
     smem: bytes of dynamic shared memory of a block.
-    regs_shared: the register file (K4: the four files; P2: the two;
-      K2: the liveness bits) lies in registers or shared memory; else the
+    regs_shared: the register file (K4: the four files; K2: the
+      liveness bits) lies in registers or shared memory; else the
       wrapper allocates a global scratch.
     choices_shared: K1's choice words accumulate in shared memory (else
       the wrapper hands the kernel zeroed device memory to OR into); K2
@@ -103,12 +109,13 @@ def launch_geometry(kernel: str, *, nf: int, lanes: int, T: int,
     """The launch geometry of `interp_float` (K3), `interp_float_coded`
     (K6), `interp_grad` (K4), `interp_voxel_depth` (K5, over sub^3 lanes
     of `sub`^2 columns), `interp_interval` (K1), `liveness_codes` (K2)
-    or the two-stream probe `interp_float2` (P2: two rings and two
-    register files, laid out as K3 lays out one) for T instances of
-    `lanes` lanes, an `nf`-register file and `cw` choice words a lane. Everything stays in shared memory as long as
-    one block's 227 KB hold it.
+    or the two-stream probe `interp_float2` (P2: a block a stream, laid
+    out as K3 lays out an instance with an INTERLEAVE_CHUNK-row ring,
+    twice the blocks) for T instances of `lanes` lanes, an
+    `nf`-register file and `cw` choice words a lane. Everything stays in
+    shared memory as long as one block's 227 KB hold it.
 
-    K3, K4, K5 and K6 take the most lanes a thread (K4: of GRAD_LANES;
+    K3, K4, K5, K6 and P2 take the most lanes a thread (K4: of GRAD_LANES;
     K5: of VOXEL_LANES with a column layout, `_voxel_cols`; else 4, 2,
     1) that divide the lanes into whole blocks and whose register file
     (`[nf][BLOCK * r]` floats, K4 four of them; K5 with BLOCK * r ints
@@ -157,11 +164,13 @@ def launch_geometry(kernel: str, *, nf: int, lanes: int, T: int,
     if kernel in ("interp_float", "interp_float_coded"):
         rs = [r for r in (4, 2, 1) if lanes % (BLOCK * r) == 0]
     elif kernel == "interp_float2":
-        planes, ring = 2, 2 * ring
+        chunk = INTERLEAVE_CHUNK
+        ring = tape_ring_bytes(chunk)
         rs = [x for x in (4, 2, 1)
               if lanes % (BLOCK * x) == 0 and x == (r or x)]
         if not rs:
             raise ValueError(f"{r} lanes a thread do not divide {lanes}")
+        blocks = lambda r: 2 * T * (lanes // (BLOCK * r))
     elif kernel == "interp_grad":
         planes = 4
         rs = [r for r in GRAD_LANES if lanes % (BLOCK * r) == 0]
@@ -248,9 +257,9 @@ _ARGTYPES = {
     # w1 w2 imm lengths codes vars out scratch | T L LW nf V O lanes r
     # chunk smem
     "fidget_interp_float_coded": [_P] * 8 + [_I] * 10 + [_P],
-    # w1a w2a imma w1b w2b immb vars out scratch | T L nf V lanes r chunk
-    # smem
-    "fidget_interp_float2": [_P] * 9 + [_I] * 8 + [_P],
+    # w1a w2a imma w1b w2b immb classes vars out scratch | T L nf V lanes r
+    # chunk smem
+    "fidget_interp_float2": [_P] * 10 + [_I] * 8 + [_P],
     # x y | T G
     "fidget_grid_step": [_P] * 2 + [_I] * 2 + [_P],
 }

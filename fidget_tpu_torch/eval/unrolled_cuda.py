@@ -18,12 +18,13 @@ kernel`). Two kernels, both written for Hopper in CUDA C++
 
 The emitter writes one statement per tape row. U1's thread evaluates
 one pixel; every program, a launch of one program included, is a device
-function of its own translation unit, linked into its kernel with
--rdc. U2 renames the tape into values (`IntervalSchedule`) and spreads
-its rows over the INTERVAL_WARPS warps of a group of 32 tiles; values
-that cross warps go through shared memory, with a block barrier between
-stages; each warp's stream is a device function of its own unit. So
-the units of a frame compile in parallel. MIN / MAX (and the interval
+function of its own translation unit (programs of a few rows share
+one), linked into its kernel with -rdc. U2 renames the tape into values
+(`IntervalSchedule`) and spreads its rows over the INTERVAL_WARPS warps
+of a group of 32 tiles; values that cross warps go through shared
+memory, with a block barrier between stages; each warp's stream is a
+device function of its own unit. So the units of a frame compile in
+parallel. MIN / MAX (and the interval
 folds of ABS, SQUARE and DIV) are one min.NaN / max.NaN instruction.
 Builds use `cuda.NVCC_FLAGS` (without -shared for the objects; U2's
 units add INTERVAL_FLAGS) and go
@@ -71,6 +72,12 @@ TEMPLATE = cuda.CSRC / "unrolled.cuh"
 #: the files every generated build depends on besides its own source
 SOURCES = (pathlib.Path(__file__).resolve(), TEMPLATE, cuda.CSRC / "ops.cuh")
 EPILOGUES = {"proofs": 0, "capture": 1, "violation": 2}
+#: U1 programs of at most this many rows (one-op probes, tiny shapes)
+#: share one translation unit: nvcc's fixed cost a unit is most of
+#: their build, so apart they cost steps and save no time (chip_smoke.py
+#: phase 6e's 78 one-op programs on the 8 cores of an H100 machine: 147
+#: nvcc steps in 45.8 s apart, 70 in 27.1 s shared)
+SMALL_PROGRAM_ROWS = 16
 #: U2's warps a group of 32 tiles (4 beat 2, 8 and 16 on the stand-in)
 INTERVAL_WARPS = 4
 #: U2's units at most 128 registers a thread: 16 warps an SM, four
@@ -170,22 +177,29 @@ def cache_key(*parts) -> str:
     return h.hexdigest()[:20]
 
 
-def emit_float_program(tape: Tape, V: int, name: str) -> str:
-    """A float program in a unit of its own:
-    `float name(float i0, ..., float i{V-1})`."""
+_PROGRAM_HEAD = '#include "unrolled.cuh"\nusing namespace fidget;\n'
+
+
+def _float_function(tape: Tape, V: int, name: str) -> str:
+    """`float name(float i0, ..., float i{V-1})`: one tape's program."""
     args = ", ".join(f"float i{k}" for k in range(V))
     body = "".join(f"  {st}\n" for st in _float_rows(tape))
     return (
-        '#include "unrolled.cuh"\nusing namespace fidget;\n'
         f'extern "C" __device__ __noinline__ float {name}({args}) {{\n'
         f"{_decls(tape)}  float o = 0.f;\n{body}  return o;\n}}\n"
     )
 
 
+def emit_float_program(tape: Tape, V: int, name: str) -> str:
+    """A float program in a unit of its own:
+    `float name(float i0, ..., float i{V-1})`."""
+    return _PROGRAM_HEAD + _float_function(tape, V, name)
+
+
 def emit_float_kernel(names: list, V: int, axis_of: dict) -> str:
     """U1's kernel unit: the dispatch of segment s to program names[s]
-    (the last segment and beyond: the last program), each a unit of its
-    own."""
+    (the last segment and beyond: the last program), each in a unit
+    that `FloatKernel.unit` builds."""
     args = ", ".join("float" for _ in range(V))
     call = ", ".join(f"in[{k}]" for k in range(V))
     decls = "".join(f'extern "C" __device__ float {n}({args});\n'
@@ -617,7 +631,9 @@ def _load(unit: _Unit) -> ctypes.CDLL:
 class FloatKernel:
     """U1 for a list of tapes sharing their inputs (V, axes): tape s
     serves the slots of segment s, the last one every slot from its
-    segment's first on."""
+    segment's first on. Each program is a unit of its own, so that a
+    frame's programs compile in parallel; programs of at most
+    SMALL_PROGRAM_ROWS rows, where there are several, share one."""
 
     def __init__(self, tapes: list, axis_of: dict, V: int):
         self.tapes = list(tapes)
@@ -637,14 +653,22 @@ class FloatKernel:
 
     def unit(self) -> _Unit:
         if self._unit is None:
-            objects, names = [], []
+            objects, names, small = [], [], {}
             for t in self.tapes:
                 src = emit_float_program(t, self.V, "@")
                 key = cache_key("float-program", _tape_digest(t), src)
                 name = f"fidget_uprog_{key}"
-                objects.append(_Object(
-                    key, emit_float_program(t, self.V, name)))
+                if len(t) <= SMALL_PROGRAM_ROWS:
+                    small[key] = _float_function(t, self.V, name)
+                else:
+                    objects.append(_Object(
+                        key, emit_float_program(t, self.V, name)))
                 names.append(name)
+            if small:  # a lone program keeps its own key
+                key = (next(iter(small)) if len(small) == 1
+                       else cache_key("float-programs", *small))
+                objects.append(_Object(
+                    key, _PROGRAM_HEAD + "".join(small.values())))
             source = emit_float_kernel(names, self.V, self.axis_of)
             key = cache_key("float-kernel", source)
             self._unit = _Unit(key, source, objects)

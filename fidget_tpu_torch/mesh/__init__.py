@@ -365,7 +365,7 @@ def build_mesh(tape: Tape | Shape, settings: Settings | None = None, *,
     if settings.eval == "unrolled":
         raise NotImplementedError(
             "Settings(eval='unrolled') is not ported yet (ROADMAP queue 1 "
-            "item 4, per-shape compiled paths)"
+            "item 3, meshing on per-shape compiled kernels)"
         )
     if settings.eval != "interp":
         raise ValueError(

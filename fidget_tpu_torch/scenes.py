@@ -10,9 +10,10 @@ compare the tapes they lower to.
 `seeded_action_codes` makes per-tile action codes for the coded leaf
 kernel without an interval pass; `adversarial_arena` and
 `interleave_op_arena` hand-pack tapes that stress the interpreters'
-staging and the two-stream probe's semantics, and
+staging and the two-stream probe's semantics,
 `prefixed_random_tapes` gives that probe random tapes that read no
-register before writing it.
+register before writing it, and `mixed_class_tapes` random tapes that
+mix its classed rows with rows of its opcode switch.
 """
 
 from __future__ import annotations
@@ -413,3 +414,44 @@ def prefixed_random_tapes(T, L, nf, V, seed):
         w2[i] = np.concatenate([pre2, b])
     imm = rng.normal(size=w1.shape).astype(np.float32)
     return w1, w2, imm, rng
+
+
+#: the opcodes of `mixed_class_tapes`: the two-stream kernel's classed
+#: rows (demos/exp_interleave.py `ROW_CLASSES`) and rows of its switch
+#: whose results f32 rounds correctly on every device
+MIXED_CLASSED = ("ADD", "SUB", "MUL", "MIN", "MAX", "COPY", "OUTPUT")
+MIXED_SWITCH = ("INPUT", "NEG", "ABS", "SQUARE", "SQRT", "DIV", "FLOOR",
+                "CEIL", "ROUND", "NOT", "AND", "OR", "COMPARE", "MOD")
+
+
+def mixed_class_tapes(T, L, nf, V, seed):
+    """T tapes of the two-stream probe that mix classed and switch rows
+    in every chunk: nf INPUT rows as in `prefixed_random_tapes`, then L
+    rows, three in four drawn from MIXED_CLASSED and one in four from
+    MIXED_SWITCH, with random registers (some past nf), immediate
+    operands one time in eight (one immediate in twenty a signed zero,
+    NaN or an infinity, the rest normal) and INPUT's aux up to V + 1.
+    Returns numpy (w1, w2, imm, rng) as `prefixed_random_tapes` does."""
+    from .compiler.tape import TapeOp
+
+    rng = np.random.default_rng(seed)
+    classed = [int(TapeOp[n]) for n in MIXED_CLASSED]
+    switch = [int(TapeOp[n]) for n in MIXED_SWITCH]
+    op = np.where(rng.random((T, L)) < 0.75, rng.choice(classed, (T, L)),
+                  rng.choice(switch, (T, L)))
+    reg = lambda: rng.integers(0, nf + 2, (T, L))
+    imm_or = lambda r: np.where(rng.random((T, L)) < 0.125, 0xFFF, r)
+    out, a, b = reg(), imm_or(reg()), imm_or(reg())
+    aux = rng.integers(0, V + 2, (T, L))
+    pre1 = np.array([int(TapeOp.INPUT) | (k << 7) for k in range(nf)],
+                    np.int64)
+    pre2 = np.array([(k % V) << 12 for k in range(nf)], np.int64)
+    w1 = np.concatenate([np.broadcast_to(pre1, (T, nf)),
+                         op | (out << 7) | (a << 19)], axis=1)
+    w2 = np.concatenate([np.broadcast_to(pre2, (T, nf)), b | (aux << 12)],
+                        axis=1)
+    special = np.array([0.0, -0.0, np.nan, np.inf, -np.inf], np.float32)
+    imm = np.where(rng.random((T, nf + L)) < 0.05,
+                   rng.choice(special, (T, nf + L)),
+                   rng.normal(size=(T, nf + L))).astype(np.float32)
+    return w1.astype(np.int32), w2.astype(np.int32), imm, rng

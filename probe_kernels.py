@@ -22,7 +22,7 @@ interface), or the root of another checkout of the repository (its
 `fidget_tpu_torch` is imported beside this tree's and called through
 its own wrappers: the parent commit, say). For each build it also
 writes the disassembly (`cuobjdump -sass`) and nvcc's `-Xptxas -v` log
-of the six kernels to `<out>/<name>/` (default `probe_out/`), where
+of the six kernels and P2 to `<out>/<name>/` (default `probe_out/`), where
 the instructions of one tape row can be counted per opcode. Last, it
 times K4 and K5 of this tree at each number of lanes a thread they can
 take (`cuda.GRAD_LANES`, `cuda.VOXEL_LANES`).
@@ -64,6 +64,19 @@ Each line gives the SASS instructions a row and lane by class
 (`chip_smoke.unrolled_floors`). `--guard` first runs `chip_smoke.py`'s
 unrolled guard (phase 6e) on every DIR's kernels, then on the tree's.
 
+    python3 probe_kernels.py --interleave [--variant NAME=DIR ...]
+
+instead works on the interleave probe alone (P2, csrc/interleave.cu):
+variant A (K3 on the reference's 256 instances) and variant B (the
+two-stream kernel on 128) at the geometry's lanes a thread and at 4, 2
+and 1, for this tree and every DIR (a csrc copy or a checkout, as
+above), timed by CUDA events in `--rounds-unrolled` rounds by turns,
+the order reversed every other round; medians and minima per build,
+B's agreement with the tree's, and per build the static SASS of each
+instance of the two-stream kernel by class (`cuobjdump -sass`, the
+listing written to `<out>/<name>/interleave.sass`, where a row's path
+can be read), with its registers.
+
     python3 probe_kernels.py --unrolled-builds
 
 instead builds the kernels generated for the 2D stand-in
@@ -92,7 +105,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
 STEMS = ("interp_float", "interp_interval", "liveness", "interp_float_coded",
-         "interp_grad", "interp_voxel_depth")
+         "interp_grad", "interp_voxel_depth", "interleave")
 #: kernel name -> (module under fidget_tpu_torch, wrapper)
 WRAPPERS = {
     "interp_float": ("eval.interp", "interp_float"),
@@ -590,6 +603,112 @@ def unrolled_probe(cs, port, others, opts):
                  f"{fl['sass_per_row']:.2f} SASS/row-pixel"), flush=True)
 
 
+def sass_by_function(cs, text):
+    """{function: {class: instructions}} of a `cuobjdump -sass` listing,
+    by `chip_smoke.SASS_CLASSES` (NOPs not counted), with their total."""
+    import re
+
+    out = {}
+    counts = None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            counts = out[m.group(1)] = dict.fromkeys(
+                [*cs.SASS_CLASSES, "rest", "total"], 0)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]+\s+)?"
+                      r"([A-Z0-9_]+)", line)
+        if m and counts is not None and m.group(1) != "NOP":
+            counts[next((k for k, ops in cs.SASS_CLASSES.items()
+                         if m.group(1) in ops), "rest")] += 1
+            counts["total"] += 1
+    return out
+
+
+def interleave_probe(cs, port, cuda, opts):
+    """`--interleave` (see the module doc)."""
+    from fidget_tpu_torch.demos import exp_interleave as p2
+
+    dev = torch.device("cuda")
+    ref = p2.reference_inputs(dev)
+    args_b = p2.split_streams(*ref)
+    calls = [("A", "interp_float", ("eval.interp", "interp_float"), ref,
+              dict(nf=p2.NF_REF, n_inputs=p2.V_REF, n_outputs=1,
+                   s0=p2.S0_REF))]
+    for r in (0, 4, 2, 1):
+        calls.append((f"B lanes {r or 'geometry'}", "interp_float2",
+                      ("demos.exp_interleave", "interp_float2"), args_b,
+                      dict(nf=p2.NF_REF, s0=p2.S0_REF, lanes_per_thread=r)))
+    builds = [("tree", port, cuda.CSRC)]
+    for spec in opts.variant:
+        vname, _, vdir = spec.partition("=")
+        vdir = ROOT / vdir
+        if (vdir / "fidget_tpu_torch").is_dir():
+            builds.append((vname, load_package(vdir,
+                                               "fidget_tpu_torch_" + vname),
+                           None))
+        else:
+            builds.append((vname, port, vdir))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+
+    def activate(pkg, csrc):
+        bcuda = importlib.import_module(pkg.__name__ + ".eval.cuda")
+        if csrc is not None:
+            use_sources(bcuda, csrc)
+        return bcuda
+
+    fns = {}
+    want = {}
+    for bname, pkg, csrc in builds:
+        bcuda = activate(pkg, csrc)
+        out = bcuda.build()
+        lib = out / "libinterleave.so"
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True).stdout
+        res = subprocess.run([tool, "-res-usage", str(lib)],
+                             capture_output=True, text=True).stdout
+        d = opts.out / bname.replace(" ", "_")
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "interleave.sass").write_text(sass)
+        print(f"{bname:>10} | registers: " + "; ".join(
+            line.strip() for line in res.splitlines() if "REG:" in line),
+            flush=True)
+        for fname, counts in sass_by_function(cs, sass).items():
+            print(f"{bname:>10} | SASS {fname}: {counts}", flush=True)
+        for label, name, (mod, wrapper), args, kwargs in calls:
+            fn = getattr(importlib.import_module(f"{pkg.__name__}.{mod}"),
+                         wrapper)
+            fns[(bname, label)] = fn
+            got = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            key = name
+            if key not in want:
+                want[key] = got
+            same = bool(((got.view(torch.int32) == want[key].view(
+                torch.int32)) | (torch.isnan(got) & torch.isnan(
+                    want[key]))).all())
+            print(f"{bname:>10} | {label:<22} "
+                  f"{'equal to tree' if same else 'DIFFERS from tree'}",
+                  flush=True)
+    times = {k: [] for k in fns}
+    order = list(range(len(builds)))
+    for rnd in range(opts.rounds_unrolled):
+        for i in (order if rnd % 2 == 0 else order[::-1]):
+            bname, pkg, csrc = builds[i]
+            activate(pkg, csrc)
+            for label, name, _, args, kwargs in calls:
+                fn = fns[(bname, label)]
+                times[(bname, label)].append(cs.time_cuda(
+                    lambda: fn(*args, **kwargs), opts.reps))
+    steps = ref[0].shape[0] * ref[0].shape[1]
+    for (bname, label), ms in times.items():
+        ms = np.array(ms)
+        print(f"{bname:>10} | {label:<22} median {np.median(ms):.4f} min "
+              f"{ms.min():.4f} ms ({len(ms)} rounds of {opts.reps}), "
+              f"{np.median(ms) / steps * 1e6:.4f} ns a row", flush=True)
+    activate(port, cuda.CSRC)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variant", action="append", default=[])
@@ -600,6 +719,7 @@ def main() -> int:
     ap.add_argument("--unrolled-builds", action="store_true")
     ap.add_argument("--unrolled", action="store_true")
     ap.add_argument("--guard", action="store_true")
+    ap.add_argument("--interleave", action="store_true")
     ap.add_argument("--rounds-unrolled", type=int, default=5)
     opts = ap.parse_args()
     if not torch.cuda.is_available():
@@ -621,6 +741,9 @@ def main() -> int:
     print("SM clock now / max:", smi.stdout.strip(), flush=True)
     if opts.unrolled_builds:
         unrolled_builds(cs, port, opts.out)
+        return 0
+    if opts.interleave:
+        interleave_probe(cs, port, cuda, opts)
         return 0
     if opts.unrolled:
         others = {}

@@ -814,7 +814,11 @@ def _bit_equal(got, want):
 def _interleave_case(which, dev):
     """(args, nf, s0) of the inputs chip_smoke.py's phase 12 checks."""
     from fidget_tpu_torch.demos import exp_interleave as p2
-    from fidget_tpu_torch.scenes import interleave_op_arena, prefixed_random_tapes
+    from fidget_tpu_torch.scenes import (
+        interleave_op_arena,
+        mixed_class_tapes,
+        prefixed_random_tapes,
+    )
 
     if which == "reference":
         return p2.split_streams(*p2.reference_inputs(dev)), p2.NF_REF, p2.S0_REF
@@ -823,9 +827,14 @@ def _interleave_case(which, dev):
         T, L = tapes[0].shape
         lens = np.full(T, L, np.int32)
         return [torch.from_numpy(a).to(dev) for a in (*tapes, lens, vars_)], 8, 8
-    # INPUT-prefixed random tapes; "scratch" with files no block holds
-    T, L, nf, s0 = (64, 700, 32, 8) if which == "prefixed" else (8, 100, 600, 1)
-    w1, w2, imm, rng = prefixed_random_tapes(2 * T, L, nf, 3, seed=7)
+    # random tapes behind INPUT rows: "prefixed" and "odd" (an odd length
+    # past two chunks) of `random_tape`s, "mixed" of classed and switch
+    # rows in every chunk, "scratch" with files no block holds
+    T, L, nf, s0 = {"prefixed": (64, 700, 32, 8), "odd": (16, 555, 32, 4),
+                    "mixed": (64, 700, 32, 8),
+                    "scratch": (8, 100, 600, 1)}[which]
+    make = mixed_class_tapes if which == "mixed" else prefixed_random_tapes
+    w1, w2, imm, rng = make(2 * T, L, nf, 3, seed=7)
     vars_ = rng.normal(size=(T, 3, s0, 128)).astype(np.float32)
     lens = rng.integers(0, nf + L, T).astype(np.int32)
     arrays = (w1[:T], w2[:T], imm[:T], w1[T:], w2[T:], imm[T:], lens, vars_)
@@ -833,17 +842,22 @@ def _interleave_case(which, dev):
             for a in arrays], nf, s0
 
 
+INTERLEAVE_CASES = ["reference", "prefixed", "odd", "mixed", "ops", "scratch"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["reference", "prefixed", "ops", "scratch"])
+@pytest.mark.parametrize("which", INTERLEAVE_CASES)
 def test_interleave_kernel_matches_plain(card, which):
     """P2 against its plain version, bit for bit: the reference's own
     tapes at its shapes, INPUT-prefixed random tapes (with `lens` short
-    of Lcap, which the kernel must ignore), one tape per opcode 0-30 and
-    31, 40, 127 with immediates, an aux past V and registers past nf, and
-    register files in the global scratch (nf 600)."""
+    of Lcap, which the kernel must ignore; one case of odd length), tapes
+    that mix classed and switch rows in one chunk, one tape per opcode
+    0-30 and 31, 40, 127 with immediates, an aux past V and registers
+    past nf, and register files in the global scratch (nf 600)."""
     from fidget_tpu_torch.demos import exp_interleave as p2
 
     args, nf, s0 = _interleave_case(which, card)
+    assert args[0].shape[1] % 2 == (which == "odd")
     g = cuda.launch_geometry("interp_float2", nf=nf, lanes=s0 * 128,
                              T=args[0].shape[0])
     assert g.regs_shared == (which != "scratch")
@@ -859,13 +873,18 @@ def test_interleave_kernel_matches_plain(card, which):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("which", INTERLEAVE_CASES)
 @pytest.mark.parametrize("r", [4, 2, 1])
-def test_interleave_each_layout_matches_plain(card, r):
-    """P2 at each lanes a thread (4: one block an SM at nf 32) on the
-    INPUT-prefixed random tapes, bit for bit."""
+def test_interleave_each_layout_matches_plain(card, r, which):
+    """P2 at each lanes a thread (4: one block an SM at nf 32) on every
+    case of `test_interleave_kernel_matches_plain` whose lanes it
+    divides, bit for bit."""
     from fidget_tpu_torch.demos import exp_interleave as p2
 
-    args, nf, s0 = _interleave_case("prefixed", card)
+    args, nf, s0 = _interleave_case(which, card)
+    if (s0 * 128) % (cuda.BLOCK * r):
+        pytest.skip(f"{s0 * 128} lanes are no whole blocks of {r} lanes "
+                    f"a thread")
     got = p2.interp_float2(*args, nf=nf, s0=s0, lanes_per_thread=r)
     assert _bit_equal(got, p2.interp_float2_plain(*args, nf=nf, s0=s0))
 

@@ -38,6 +38,7 @@ from fidget_tpu_torch.eval import cuda
 from fidget_tpu_torch.scenes import (
     SPICY,
     interleave_op_arena,
+    mixed_class_tapes,
     prefixed_random_tapes,
 )
 
@@ -183,6 +184,168 @@ def test_interleave_op_tapes_match_reference(ref_p2, interpret):
     assert len(atan) == 4
 
 
+#: the opcodes the kernel computes with no switch, named independently of
+#: `p2.ROW_CLASSES`
+CLASSED = {"ADD", "SUB", "MUL", "MIN", "MAX", "COPY", "OUTPUT"}
+#: operand values of the signed-zero and NaN cases: both zeros, NaNs of
+#: both signs, infinities and ones (no denormals: XLA on the CPU flushes
+#: them to zero, where the port and the card keep them)
+SIGNED = np.array([0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 1.0, -1.0],
+                  np.float32)
+DENORMALS = np.array([1e-40, -1e-40, 1.4e-45], np.float32)
+
+
+def _classed_mirror(c, a, b):
+    """A classed row of csrc/interleave.cu (`run_row2`) over numpy f32
+    arrays: the compare/select of MIN (MAX: b < a), or the product, or
+    the sum with b's sign flipped by C_SIGN, as the control word's flags
+    say."""
+    flip = np.uint32(c & 0xFFFFFFFF) & np.uint32(0x80000000)
+    with np.errstate(all="ignore"):
+        total = a + (b.view(np.uint32) ^ flip).view(np.float32)
+        prod = a * b
+        left = (b < a) if c & p2.C_MAX else (a < b)
+    pick = np.where(left | np.isnan(a), a, b)
+    if c & p2.C_MINMAX:
+        return pick
+    return prod if c & p2.C_MUL else total
+
+
+def _decoded_class(w1):
+    """The decode step's control words of packed rows: the opcode (past
+    30: ATAN) looked up in `ROW_CLASSES`."""
+    op = np.asarray(w1).astype(np.int64) & 127
+    op = np.where(op >= len(p2.ROW_CLASSES), int(TapeOp.ATAN), op)
+    return op, np.asarray(p2.ROW_CLASSES, np.int64)[op]
+
+
+def _op_value(op, a, b):
+    """The reference's host arithmetic of one classed opcode."""
+    fm = RefFloatMode(np)
+    with np.errstate(all="ignore"):
+        if op in (TapeOp.COPY, TapeOp.OUTPUT):
+            return a
+        if op in (TapeOp.MIN, TapeOp.MAX):
+            return fm.choice_binary(op, a, b)[0].astype(np.float32)
+        return fm.binary(op, a, b).astype(np.float32)
+
+
+def _tapes_of(source):
+    if source == "random_tape":
+        w1, _, _, _, _ = p2.reference_inputs("cpu", T=8, L=1024, nf=32, s0=1)
+        return w1.numpy()
+    w1a, _, _, w1b, _, _, _, _ = interleave_op_arena(8, past_nf=True)
+    return np.concatenate([w1a, w1b])
+
+
+@pytest.mark.parametrize("source", ["random_tape", "op_arena"])
+def test_row_classes_match_each_opcode(source):
+    """The class table the decode step reads (`ROW_CLASSES`) against the
+    opcode of every row of the reference's `random_tape`s and of the op
+    arena: a row is classed exactly when its opcode is one of CLASSED,
+    every other row goes to the switch with no other flag, and the
+    classed body (`_classed_mirror`, b read from a's operand where the
+    word says C_ALIAS) gives the opcode's value bit for bit on every
+    pair of SPICY, SIGNED and DENORMALS values. Every row of a
+    `random_tape` is classed."""
+    op, c = _decoded_class(_tapes_of(source))
+    vals = np.concatenate([SPICY, SIGNED, DENORMALS])
+    a, b = np.repeat(vals, len(vals)), np.tile(vals, len(vals))
+    for o in np.unique(op):
+        name = TapeOp(int(o)).name
+        cls = int(c[op == o][0])
+        assert (c[op == o] == cls).all()
+        if name not in CLASSED:
+            assert cls == p2.C_SWITCH, name
+            continue
+        assert not cls & p2.C_SWITCH, name
+        bb = a if cls & p2.C_ALIAS else b
+        got = _classed_mirror(cls, a, bb)
+        want = _op_value(TapeOp(int(o)), a, b)
+        assert _bit_equal(got, want).all(), (name, a[~_bit_equal(got, want)])
+    if source == "random_tape":
+        assert not (c & p2.C_SWITCH).any()
+    else:
+        assert {TapeOp(int(o)).name for o in np.unique(op)} >= CLASSED
+
+
+def _signed_arena(op):
+    """Two-stream tapes of one classed op over SIGNED pairs: register k
+    loads input k, then the op runs into register 5 on (reg 1, reg 2),
+    (reg 2, reg 1), (reg 1, reg 1) and against immediates -0.0, +0.0 and
+    NaN on either side, one variant a stream, and COPY moves register 5
+    to register 0. Returns (args as numpy, nf, s0, variants)."""
+    nf, V, s0 = 6, 3, 1
+    n = len(SIGNED)
+    variants = [(1, 2, 0.0), (2, 1, 0.0), (1, 1, 0.0), (1, None, -0.0),
+                (None, 2, -0.0), (1, None, 0.0), (None, 1, 0.0),
+                (1, None, np.nan)]
+    word = lambda o, out, a, b, aux=0: (int(o) | (out << 7) | (a << 19),
+                                        b | (aux << 12))
+    rows = []
+    for a, b, _ in variants:
+        pre = [word(TapeOp.INPUT, k, 0, 0, k) for k in range(nf)]
+        rows.append(pre + [word(op, 5, IMM12 if a is None else a,
+                                IMM12 if b is None else b),
+                           word(TapeOp.COPY, 0, 5, 0)])
+    w1 = np.array([[r[0] for r in t] for t in rows], np.int32)
+    w2 = np.array([[r[1] for r in t] for t in rows], np.int32)
+    imm = np.zeros(w1.shape, np.float32)
+    imm[:, nf] = [iv for _, _, iv in variants]
+    T = len(variants) // 2
+    vars_ = np.zeros((T, V, s0 * 128), np.float32)
+    vars_[:, 0] = np.linspace(-1.0, 1.0, s0 * 128, dtype=np.float32)
+    vars_[:, 1, :n * n] = np.repeat(SIGNED, n)
+    vars_[:, 2, :n * n] = np.tile(SIGNED, n)
+    lens = np.full(T, w1.shape[1], np.int32)
+    args = (w1[0::2], w2[0::2], imm[0::2], w1[1::2], w2[1::2], imm[1::2],
+            lens, vars_.reshape(T, V, s0, 128))
+    return args, nf, s0, variants
+
+
+@pytest.mark.parametrize("op", ["ADD", "SUB", "MIN", "MAX"])
+def test_interleave_signed_zeros_and_nan_match_reference(ref_p2, interpret,
+                                                         op):
+    """The classed ops with both zeros, NaNs of both signs, infinities
+    and ones as register operands, and -0.0, +0.0 and NaN as
+    immediates on either side: the port bit for bit to the reference's
+    `interp_float2` in interpret mode (any NaN for any NaN), and to the
+    classed body's mirror on the same operands."""
+    args, nf, s0, variants = _signed_arena(TapeOp[op])
+    got = _port_float2(*args, nf, s0)
+    want = _ref_float2(ref_p2, *args, nf, s0)
+    n = len(SIGNED)
+    assert _bit_equal(got, want).all()
+    cls = p2.ROW_CLASSES[int(TapeOp[op])]
+    regs = np.stack([np.repeat(SIGNED, n), np.tile(SIGNED, n)])
+    for i, (a, b, iv) in enumerate(variants):
+        va = np.full(n * n, iv, np.float32) if a is None else regs[a - 1]
+        vb = np.full(n * n, iv, np.float32) if b is None else regs[b - 1]
+        mirror = _classed_mirror(cls, va, vb)
+        out = got[i // 2, i % 2].reshape(-1)[:n * n]
+        assert _bit_equal(out, mirror).all(), (op, a, b, iv)
+
+
+def test_mixed_class_tapes_mix_classes_in_every_chunk():
+    """`mixed_class_tapes` puts classed and switch rows in every whole
+    chunk of the kernel's ring, reads immediates and registers past nf, and
+    leaves most lanes finite after a walk of the plain version."""
+    T, L, nf, V = 4, 3 * cuda.INTERLEAVE_CHUNK + 1, 8, 3
+    w1, w2, imm, rng = mixed_class_tapes(2 * T, L, nf, V, 3)
+    _, c = _decoded_class(w1)
+    switch = (c & p2.C_SWITCH) != 0
+    chunk = cuda.INTERLEAVE_CHUNK
+    for j0 in range(0, w1.shape[1] - chunk + 1, chunk):
+        part = switch[:, j0:j0 + chunk]
+        assert part.any(axis=1).all() and (~part).any(axis=1).all()
+    assert ((w1 >> 19) & 0xFFF == IMM12).any()
+    assert ((w1 >> 7) & 0xFFF >= nf).any()
+    vars_ = rng.normal(size=(T, V, 1, 128)).astype(np.float32)
+    out = _port_float2(w1[:T], w2[:T], imm[:T], w1[T:], w2[T:], imm[T:],
+                       np.full(T, nf + L, np.int32), vars_, nf, 1)
+    assert np.isfinite(out).mean() > 0.2
+
+
 def test_interleave_ignores_lens(ref_p2, interpret):
     """Every instance walks all Lcap rows whatever `lens` says, in the
     reference and in the port."""
@@ -241,26 +404,29 @@ def test_interleave_rejects_bad_arguments():
 
 
 def test_interleave_launch_geometry():
-    """Two rings and two files: at the reference's shapes (T / 2 = 128
-    instances, nf 32, S0 32) two lanes a thread keep two blocks an SM,
-    as variant A's four lanes do for one file; a file no block holds
-    goes to the global scratch."""
+    """A block a stream, laid out as K3 lays out an instance but with an
+    INTERLEAVE_CHUNK-row ring: at the reference's shapes (T / 2 = 128
+    instances, nf 32, S0 32) four lanes a thread, variant A's lanes and
+    blocks on twice the instances, three blocks an SM where A holds two;
+    a file no block holds goes to the global scratch."""
     g = cuda.launch_geometry("interp_float2", nf=32, lanes=32 * 128, T=128)
-    ring = cuda.tape_ring_bytes(cuda.TAPE_CHUNK)
-    assert (g.r, g.regs_shared, g.blocks) == (2, True, 2048)
-    assert g.smem == 2 * ring + 2 * 32 * cuda.BLOCK * 2 * 4
-    assert 2 * (g.smem + cuda.SMEM_BLOCK_RESERVED) <= cuda.SMEM_SM
+    ring = cuda.tape_ring_bytes(cuda.INTERLEAVE_CHUNK)
+    assert (g.r, g.chunk, g.regs_shared, g.blocks) == (
+        4, cuda.INTERLEAVE_CHUNK, True, 2048)
+    assert g.smem == ring + 32 * cuda.BLOCK * 4 * 4
+    assert 3 * (g.smem + cuda.SMEM_BLOCK_RESERVED) <= cuda.SMEM_SM
     a = cuda.launch_geometry("interp_float", nf=32, lanes=32 * 128, T=256)
-    assert (a.r, a.blocks) == (4, g.blocks)
+    assert (a.r, a.blocks) == (g.r, g.blocks)
+    assert 3 * (a.smem + cuda.SMEM_BLOCK_RESERVED) > cuda.SMEM_SM
     g = cuda.launch_geometry("interp_float2", nf=512, lanes=1024, T=4)
-    assert (g.r, g.regs_shared, g.smem) == (4, False, 2 * ring)
+    assert (g.r, g.regs_shared, g.smem) == (4, False, ring)
     g = cuda.launch_geometry("interp_float2", nf=32, lanes=128, T=4)
-    assert (g.r, g.blocks) == (1, 4)
-    # A's four lanes a thread on request: one block an SM
+    assert (g.r, g.blocks) == (1, 8)
+    # two lanes a thread on request: twice the blocks, half the file
     g = cuda.launch_geometry("interp_float2", nf=32, lanes=32 * 128, T=128,
-                             r=4)
-    assert (g.r, g.regs_shared, g.blocks) == (4, True, 1024)
-    assert 2 * (g.smem + cuda.SMEM_BLOCK_RESERVED) > cuda.SMEM_SM
+                             r=2)
+    assert (g.r, g.regs_shared, g.blocks) == (2, True, 4096)
+    assert g.smem == ring + 32 * cuda.BLOCK * 2 * 4
     with pytest.raises(ValueError):
         cuda.launch_geometry("interp_float2", nf=32, lanes=256, T=4, r=4)
 
@@ -370,7 +536,8 @@ def test_probe_raises_without_card(monkeypatch, probe):
 def test_interleave_main_on_cpu(capsys):
     res = p2.main(device="cpu", T=4, L=16, nf=4, s0=1, V=1, reps=1)
     assert {"ms_a", "ms_b", "ns_a", "ns_b", "speedup"} <= set(res)
-    assert res["geometry_b"].blocks == 2
+    # two instances, a block a stream
+    assert res["geometry_b"].blocks == 4
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("A (1 stream/inst)")
     assert out[1].startswith("B (2 streams/inst)")

@@ -571,6 +571,34 @@ def test_float_kernel_forms():
     assert len({o.key for o in two.objects}) == 1
 
 
+def test_float_kernel_small_programs_share_a_unit():
+    """Programs of at most SMALL_PROGRAM_ROWS rows share one object (one
+    nvcc step), each still a `__noinline__` function named by its own
+    key and called by segment as before; a longer program keeps an
+    object of its own, and a lone small program its own key. The object
+    is keyed by its distinct programs."""
+    ctx = port.Context()
+    t1 = port.lower(ctx, [ctx.min(ctx.x(), ctx.y())])
+    ctx = port.Context()
+    t2 = port.lower(ctx, [ctx.max(ctx.x(), ctx.y())])
+    t = _small_tape()
+    assert max(len(t1), len(t2)) <= uc.SMALL_PROGRAM_ROWS < len(t)
+    axis = {v.kind: i for v, i in t.var_map.items()}
+    lone = [uc.FloatKernel([x], axis, 2).unit().objects for x in (t1, t2, t)]
+    unit = uc.FloatKernel([t1, t, t2, t1], axis, 2).unit()
+    assert len(unit.objects) == 2
+    assert unit.objects[0].key == lone[2][0].key
+    shared = unit.objects[1].source
+    assert shared.count('#include "unrolled.cuh"') == 1
+    for objs in lone[:2]:
+        fn = objs[0].source.split("using namespace fidget;\n")[1]
+        assert shared.count(fn) == 1
+        assert f"fidget_uprog_{objs[0].key}(" in unit.source
+    assert shared.count("__noinline__ float fidget_uprog_") == 2
+    same = uc.FloatKernel([t1, t2], axis, 2).unit()
+    assert same.objects[0].key == unit.objects[1].key
+
+
 # ----------------------------------------------------------------------
 # U2's warp schedule
 
