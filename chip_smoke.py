@@ -2,15 +2,17 @@
 """Bring-up check of fidget_tpu_torch on one CUDA card.
 
 Builds the eight CUDA kernels of the port from the sources in
-fidget_tpu_torch/csrc and the two it generates per tape (from
+fidget_tpu_torch/csrc and the four it generates per tape (from
 csrc/unrolled.cuh), holds each against its plain PyTorch version on
 the card, and drives the port's main paths: the 2D frame
 (`PixelRenderer.render()` at 1024^2 on a 7,203-op procedural shape)
 under each of its tape bindings (bucketed, coded leaf, per-shape
 arena, two tile levels) and the 3D heightmap + normals renderer
 (`VoxelRenderer.render()` at 512^3 on the 28-op gyroid sphere, and at
-128^3 on a 3,303-op union of 300 spheres), holding every frame against
-the numpy oracles; the per-shape compiled 2D path
+128^3 on a 3,303-op union of 300 spheres) under its bucketed, per-shape
+and compiled frames (the last on two more kernels generated per tape,
+U1-3D `unrolled_voxel_depth` and U2-3D `unrolled_interval3`), holding
+every frame against the numpy oracles; the per-shape compiled 2D path
 (`render_unrolled` with the union and the full leaf, `render_dense`)
 on the two kernels generated for the stand-in (U1 `unrolled_float`,
 U2 `unrolled_interval`); then the shape-parameter gradient of the 2D
@@ -118,8 +120,16 @@ Phases (any failure exits non-zero and prints no result):
    transcendental tape (2e-4), U2's flags, words and violation flags
    exactly, capture and violation also with the words in global memory
    (a tape past `SHARED_LIMIT`'s route); at two matrices (one overflowing to infinities) with the
-   vars taking every SPICY value and three denormals;
-7. 3D main path: the gyroid sphere at 512^3 (tile 64, subtile 16)
+   vars taking every SPICY value and three denormals; then the 3D
+   variants on the combined tapes, built in the same batch: U1-3D over
+   every 8^3 subtile of a 64^3 volume and U2-3D over their boxes at
+   edges 8 and 32, at a perspective matrix and one overflowing to
+   infinities, the vars as before, U2-3D's proofs and U1-3D's depths bit
+   for bit (on the transcendental tape a depth column may differ only
+   where the plain distance of the voxel in question is within 2e-4 of
+   0);
+7. 3D main path, bucketed (`specialize=False`): the gyroid sphere at
+   512^3 (tile 64, subtile 16)
    under three views in normals mode and one heightmap frame, then the
    sphere union at 128^3 (tile 32, subtile 16), launch counts set to 0
    before and read after each; depth equal to `render_brute` (the
@@ -139,6 +149,27 @@ Phases (any failure exits non-zero and prints no result):
    shapes; times and bounds over the real lanes and live instances
    only;
 9. per-stage times of a warm 512^3 normals frame;
+9a. the per-shape 3D frame (`VoxelRenderer()`, the default): the same
+   gyroid views and heightmap frame, launch counts set to 0 before and
+   read after (K1, K2, K5, K4), each frame held to phase 7's oracles;
+   the strata schedule adopted after the first frame and the slots it
+   saves; K1 (root, subtiles), K2 (root codes, per instance), K5 and K4
+   on the frames' inputs, all under the shape's op_order, against their
+   plain versions;
+9b. the compiled 3D frames: the gyroid with `leaf="unrolled"` under
+   `proofs="interp"` (K1, K2, U1-3D, K4) and `"unrolled"` (U2-3D,
+   U1-3D, K4) over the same frames, and the sphere union at 128^3 with
+   both unrolled (depth exactly `render_brute`'s), launch counts from 0
+   for each mode; the generated kernels' cold build (started with the
+   run, beside the earlier phases) and cached build seconds; U1-3D and
+   U2-3D on the frames' inputs bit for bit against their plain
+   versions, with CUDA-event and profiler device times, the bound and
+   SASS floors; the bucketed, per-shape and compiled 512^3 frames in
+   turns (wall time, device busy share, device ops a frame), the two
+   union frames likewise; then a `warmup="interp"` first frame of a
+   shape whose kernels are not built, which must come from the bucketed
+   twin (K1, K2, K5, K4) and equal its oracle, and after the background
+   build the compiled frame (U2-3D, U1-3D, K4);
 10. gradient: the parametrized 7,207-op stand-in (`param_standin_shape`,
    two shape Vars, V = 4) at 1024^2, bucketed, pixel_perfect; loss
    sum(img^2) / N^2 reversed through `_frame` with backward() (K3
@@ -1230,8 +1261,9 @@ def _routes3d(r, captured, rows):
                     f"(device {dms if dms is None else round(dms, 4)} ms), "
                     f"{g.r} lanes a thread")
         w1o = _renumbered(args[0], order)
-        got = fn(w1o, *args[1:], op_order=order, **kwargs)
-        want = plain(w1o, *args[1:], op_order=order, **kwargs)
+        kwo = {**kwargs, "op_order": order}
+        got = fn(w1o, *args[1:], **kwo)
+        want = plain(w1o, *args[1:], **kwo)
         if name == "interp_grad":
             err = max(check(f"{name} op_order values", got[:, :, 0],
                             want[:, :, 0], 2e-5, 2e-5),
@@ -1707,8 +1739,8 @@ def phase_main3d(port, cuda, render3d, render2d, simplify_device):
     if (len(tape), tape.reg_count, tape.choice_count) != (28, 6, 1):
         raise Failed(f"gyroid sphere lowered to {len(tape)} ops")
     r = port.VoxelRenderer(shape, port.VoxelSize(SIZE3, SIZE3, SIZE3),
-                           tile_size=64, sub_size=16)
-    log(f"3D main path: gyroid sphere, {len(tape)}-op tape; buckets Lcap "
+                           tile_size=64, sub_size=16, specialize=False)
+    log(f"3D main path (bucketed): gyroid sphere, {len(tape)}-op tape; buckets Lcap "
         f"{r.Lcap_b}, nf {r.nf_b}, cw {r.cw_b}; {SIZE3}^3 in tiles of "
         f"{r.ts} and subtiles of {r.sub}, worklist {r.cap} slots")
     captured = {}
@@ -1750,7 +1782,7 @@ def phase_main3d(port, cuda, render3d, render2d, simplify_device):
     if not np.array_equal(images[-1].depth.cpu().numpy(),
                           images[0].depth.cpu().numpy()):
         raise Failed("heightmap and normals frames disagree on depth")
-    return r, captured, launches, n_frames
+    return r, captured, launches, n_frames, brutes
 
 
 def phase_union3d(port, cuda, reps=10):
@@ -1762,7 +1794,7 @@ def phase_union3d(port, cuda, reps=10):
         raise Failed(f"sphere union lowered to {len(tape)} ops, "
                      f"{tape.reg_count} registers, {tape.choice_count} choices")
     r = port.VoxelRenderer(tape, port.VoxelSize(128, 128, 128), tile_size=32,
-                           sub_size=16)
+                           sub_size=16, specialize=False)
     r.render()
     torch.cuda.synchronize()
     cuda.reset_launches()
@@ -1786,9 +1818,417 @@ def phase_union3d(port, cuda, reps=10):
         f"{min(wall):.3f} ms over {reps} warm frames")
     t0 = time.time()
     # sub, square, add, sqrt and min round correctly in f32 on both sides
-    check_frame3d(r, img, None, r.render_brute().depth.numpy(), "union",
-                  exact=True)
+    brute = r.render_brute().depth.numpy()
+    check_frame3d(r, img, None, brute, "union", exact=True)
     log(f"  oracle {time.time() - t0:.1f} s")
+    return r, brute
+
+
+# ----------------------------------------------------------------------
+# 3D per-shape and compiled frames
+
+UNROLLED3_KERNELS = ("unrolled_voxel_depth", "unrolled_interval3")
+#: the Pallas probe whose whole-tape code the generated kernels port
+UNROLLED3_REPLACES = "demos/exp_unrolled_kernel.py:116"
+#: the compiled 3D modes and the kernels each must launch
+COMPILED3_MODES = {
+    "unrolled leaf": (dict(leaf="unrolled"),
+                      ("interp_interval", "liveness_codes",
+                       "unrolled_voxel_depth", "interp_grad")),
+    "unrolled leaf+proofs": (dict(leaf="unrolled", proofs="unrolled"),
+                             ("unrolled_interval3", "unrolled_voxel_depth",
+                              "interp_grad")),
+}
+
+
+def start_compiled3d_build(port, union_tape):
+    """The compiled 3D frames' renderers (the gyroid sphere at 512^3 in
+    both compiled modes, the sphere union at 128^3 with both unrolled)
+    and a future of their generated kernels' build, started in a thread
+    of its own beside the phases before 7b: (renderers, future of
+    (steps, seconds))."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+    from fidget_tpu_torch.scenes import gyroid_sphere
+
+    size = port.VoxelSize(SIZE3, SIZE3, SIZE3)
+    renderers = {
+        label: port.VoxelRenderer(gyroid_sphere(port), size, tile_size=64,
+                                  sub_size=16, **kw)
+        for label, (kw, _) in COMPILED3_MODES.items()
+    }
+    renderers["union"] = port.VoxelRenderer(
+        union_tape, port.VoxelSize(128, 128, 128), tile_size=32, sub_size=16,
+        leaf="unrolled", proofs="unrolled")
+    kernels = {k.unit().key: k for r in renderers.values()
+               for k in r._generated_kernels()}
+
+    def build():
+        t0 = time.perf_counter()
+        steps = uc.build_kernels(list(kernels.values()))
+        return steps, time.perf_counter() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(build)
+    pool.shutdown(wait=False)
+    return renderers, future
+
+
+def _frames_by_turns(frames, rounds=10, busy_reps=1):
+    """Warm frames of several renderers in turns (`rounds` times over, so
+    that drift of the host's clock falls on all alike): host-clock wall
+    time of a synchronized frame, median and min; then each frame's
+    device busy time, share of the median and device ops from the
+    profiler over `busy_reps` frames."""
+    wall = {k: [] for k in frames}
+    for fn in frames.values():
+        fn()
+    for _ in range(rounds):
+        for label, fn in frames.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall[label].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for label, fn in frames.items():
+        med, mn = float(np.median(wall[label])), min(wall[label])
+        log(f"  {label}: median {med:.3f} ms, min {mn:.3f} ms (host clock, "
+            f"synchronized, {rounds} frames in turns)")
+        busy = _device_busy(fn, busy_reps)
+        _log_busy(label, busy, med)
+        out[label] = {
+            "median_ms": med, "min_ms": mn,
+            "device_busy_ms": None if busy is None else busy[0],
+            "busy_share": None if busy is None else busy[0] / med,
+            "device_ops": None if busy is None else busy[2],
+        }
+    return out
+
+
+def _log_schedule(r, label):
+    nsub_s = r.nl * r.ny2 * r.nx2
+    uniform = r.ntz * min(r.cap, nsub_s)
+    if r._sched is None:
+        log(f"  {label}: no strata schedule (uniform cap {r.cap}, "
+            f"{uniform} slots a frame)")
+        return None
+    log(f"  {label}: strata schedule {list(r._sched)} (nearest first): "
+        f"{sum(r._sched)} slots a frame against the uniform cap's "
+        f"{uniform} ({uniform - sum(r._sched)} fewer)")
+    return {"schedule": list(r._sched), "slots": sum(r._sched),
+            "uniform_slots": uniform}
+
+
+def phase_per_shape3d(port, cuda, render3d, simplify_device, brutes, rows):
+    """The per-shape interpreter frame (`VoxelRenderer()`, specialize on)
+    of the gyroid sphere at 512^3 (tile 64, subtile 16) over the three
+    views and a heightmap frame, launch counts set to 0 before and read
+    after (K1, K2, K5, K4); each frame held to `render_brute` (the
+    bucketed phase's oracles) and `brute_normals` as in phase 7; the
+    strata schedule adopted after the first frame; then K1 (root and
+    subtiles), K2 (root codes and per instance), K5 and K4 against their
+    plain versions on the inputs the frames gave them, under the
+    shape's op_order. Returns the renderer."""
+    from fidget_tpu_torch.scenes import gyroid_sphere
+
+    r = port.VoxelRenderer(gyroid_sphere(port),
+                           port.VoxelSize(SIZE3, SIZE3, SIZE3), tile_size=64,
+                           sub_size=16)
+    if not r.specialize:
+        raise Failed("VoxelRenderer does not default to the per-shape frame")
+    captured = {}
+    targets = [
+        (render3d, "interp_interval",
+         lambda a, k: "interp_interval@" + ("root" if a[0].shape[0] == 1
+                                            else "subtile")),
+        (render3d, "interp_voxel_depth", lambda a, k: "interp_voxel_depth"),
+        (render3d, "interp_grad", lambda a, k: "interp_grad"),
+        (simplify_device, "liveness_codes",
+         lambda a, k: "liveness_codes@" + ("root" if k.get("shared_tape")
+                                           else "instances")),
+    ]
+    with capture_kernel_inputs(targets, captured):
+        r.render(VIEWS3[0][1])  # settles the cap, builds the schedule
+    torch.cuda.synchronize()
+    log(f"3D per-shape frame: gyroid sphere, the tape's own arena ({len(r.tape)}"
+        f" rows, nf {r.nf}, {r.c_words} choice word) under its op_order "
+        f"{list(r.op_order[:8])}...; worklist {r.cap} slots")
+    sched = _log_schedule(r, "after the first frame")
+    if sched is None:
+        raise Failed("the per-shape frame adopted no strata schedule")
+    cuda.reset_launches()
+    images = [r.render(view) for _, view in VIEWS3]
+    images.append(r.render(VIEWS3[0][1], mode="heightmap"))
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    log(f"3D per-shape launches over {len(images)} frames: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if {k for k, v in launches.items() if v} != set(KERNELS_3D):
+        raise Failed(f"3D per-shape frames launched {launches}")
+    for (label, view), img in zip(VIEWS3 + [("heightmap", VIEWS3[0][1])],
+                                  images):
+        key = label if label != "heightmap" else "identity"
+        check_frame3d(r, img, view, brutes[key], f"per-shape {label}")
+    real = {"root": r.geo.nt, "subtile": r.geo.m, "instances": r.geo.m}
+    for key in sorted(captured):
+        name, _, where = key.partition("@")
+        args, kwargs = captured[key]
+        if kwargs.get("op_order") != r.op_order:
+            raise Failed(f"{key} ran without the shape's op_order")
+        m = measure_kernel(name, args, kwargs, real.get(where))
+        rows[name].setdefault("per_shape_3d", {})[where or "frame"] = {
+            k: m[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "slot_bound_ms", "max_abs_err")
+        }
+    for name in KERNELS_3D:
+        rows[name]["launches_per_shape_3d"] = launches[name]
+    return r, sched
+
+
+def _unrolled3_bound(name, args, kwargs, out):
+    """(bound_ms, bound_by, operations, bytes) of one U1-3D / U2-3D call.
+    U1-3D: one operation per tape row per voxel this call's data makes a
+    thread evaluate (a column walks from the top down to its first voxel
+    inside, or all of it), moving the slots' corners and flags once, the
+    params and the depths; U2-3D: two (lo, hi) per row per box, moving the
+    corners, the params and the two flags."""
+    kern = args[0]
+    if name == "unrolled_voxel_depth":
+        _, bx, by, bz, valid, params = args
+        sub = kwargs["sub"]
+        top = (bz.to(torch.int64) + sub)[:, None, None]
+        walked = torch.where(out > 0, top - out + 1, sub)
+        walked = int((walked * valid[:, None, None]).sum())
+        ops = walked * len(kern.tapes[0])
+        nbytes = bx.shape[0] * 13 + params.nbytes + out.nbytes
+        evals = ops
+    else:
+        x0, params = args[1], args[4]
+        n = x0.shape[0]
+        ops = 2 * n * len(kern.tape)
+        nbytes = n * 12 + params.nbytes + 2 * n
+        evals = ops // 2
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, ops, nbytes, evals
+
+
+def _measure_unrolled3(label, name, args, kwargs):
+    """One captured U1-3D / U2-3D call against its plain version on the
+    card (depths, proofs bit for bit), CUDA-event ms, profiler device ms,
+    plain ms, the bound and the SASS floors."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+
+    fn = getattr(uc, name)
+    plain = getattr(uc, name + "_plain")
+    got = fn(*args, **kwargs)
+    want, plain_ms = _time_plain(plain, args, kwargs)
+    same = (torch.equal(got, want) if name == "unrolled_voxel_depth"
+            else all(torch.equal(g, w) for g, w in zip(got, want)))
+    if not same:
+        raise Failed(f"{name} ({label}) differs from its plain version")
+    ms = time_cuda(lambda: fn(*args, **kwargs), reps=20)
+    kernel_name = ("fidget_unrolled_voxel_depth" if name == "unrolled_voxel_depth"
+                   else "fidget_unrolled_interval")
+    dms = device_ms(lambda: fn(*args, **kwargs), kernel_name)
+    bound_ms, by, ops, nbytes, evals = _unrolled3_bound(
+        name, args, kwargs, got if name == "unrolled_voxel_depth" else None)
+    floors = unrolled_floors(args[0], evals)
+    fl = ("SASS not measured" if floors is None else
+          f"{floors['sass_per_row']:.2f} SASS instructions a row and lane, "
+          f"issue floor {floors['issue_floor_ms']:.5f} ms, MUFU floor "
+          f"{floors['mufu_floor_ms']:.5f} ms")
+    log(f"kernel {name} ({label}): {args[1].shape[0]} slots-or-boxes, {ops} "
+        f"operations, {nbytes} bytes; equal to plain, {ms:.4f} ms (CUDA "
+        f"events), device {dms} ms (profiler), plain {plain_ms:.1f} ms, "
+        f"bound {bound_ms:.5f} ms ({by}); {fl}")
+    return dict(max_abs_err=0.0, ms=ms, device_ms=dms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, operations=ops, bytes=nbytes,
+                **(floors or {}))
+
+
+def phase_compiled3d(port, cuda, render3d, r_bucketed, r_per_shape, brutes,
+                     union_bucketed, union_brute, compiled, rows):
+    """The compiled 3D frames: the gyroid sphere at 512^3 with
+    `leaf="unrolled"` under `proofs="interp"` and `"unrolled"` over the
+    three views and a heightmap frame, and the 3,303-op sphere union at
+    128^3 with both unrolled, each mode's launches counted from 0 (and
+    exactly its kernels); depth held to `render_brute` (the union's
+    exactly) and normals to `brute_normals`; cold and cached build
+    seconds of the generated kernels (built beside the earlier phases,
+    `start_compiled3d_build`); U1-3D and U2-3D against their plain
+    versions on the inputs the frames gave them; the frames of every 3D
+    mode by turns against the bucketed one (wall, busy share, device
+    ops); then a `warmup="interp"` first frame served by the bucketed
+    twin while a fresh shape's kernels build, and the compiled frame
+    once they are built. Adds the U1-3D and U2-3D rows to `rows`."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+    from fidget_tpu_torch.render import unrolled2d as u2
+    from fidget_tpu_torch.scenes import gyroid_sphere
+
+    renderers, future = compiled
+    t0 = time.perf_counter()
+    steps, build_s = future.result()
+    wait_s = time.perf_counter() - t0
+    kernels = [k for r in renderers.values() for k in r._generated_kernels()]
+    t0 = time.perf_counter()
+    again = uc.build_kernels(kernels)
+    cached = time.perf_counter() - t0
+    if again or not uc.built(kernels):
+        raise Failed(f"compiled 3D kernels not cached after a build: {again}")
+    log(f"compiled 3D build: {len(steps)} nvcc steps in {build_s:.1f} s cold "
+        f"(started with the run; {wait_s:.1f} s waited here), cached "
+        f"{cached:.3f} s")
+    spills = {}
+    for label, r in renderers.items():
+        for k in r._generated_kernels():
+            lines, spill = _ptxas_lines(k.unit())
+            kind = type(k).__name__
+            spills[f"{label} {kind}"] = spill
+            log(f"  {label} {kind}: {len(k.unit().objects) + 1} unit(s), "
+                f"spill bytes {spill}; " + " | ".join(lines[:3]))
+
+    captured = {}
+    saved = {n: getattr(render3d, n) for n in UNROLLED3_KERNELS}
+    current = [None]
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            if current[0] is not None:
+                where = ("leaf" if name == "unrolled_voxel_depth"
+                         else f"edge {int(args[5])}")
+                key = (current[0], name, where)
+                size = (int(args[4].sum()) if name == "unrolled_voxel_depth"
+                        else args[1].shape[0])
+                old = captured.get(key)
+                if old is None or size > old[2]:
+                    captured[key] = (args, kwargs, size)
+            return saved[name](*args, **kwargs)
+        return call
+
+    totals = dict.fromkeys(UNROLLED3_KERNELS, 0)
+    n_frames = 0
+    schedules = {}
+    for n in UNROLLED3_KERNELS:
+        setattr(render3d, n, recorder(n))
+    try:
+        for label, (_, expect) in COMPILED3_MODES.items():
+            r = renderers[label]
+            current[0] = label
+            r.render(VIEWS3[0][1])  # settles the cap, builds the schedule
+            current[0] = None
+            schedules[label] = _log_schedule(r, f"{label} after the first "
+                                                f"frame")
+            torch.cuda.synchronize()
+            cuda.reset_launches()
+            images = [r.render(view) for _, view in VIEWS3]
+            images.append(r.render(VIEWS3[0][1], mode="heightmap"))
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+            log(f"compiled 3D {label}: launches over {len(images)} frames: "
+                f"{launches}")
+            if set(launches) != set(expect):
+                raise Failed(f"compiled 3D {label} frames launched {launches}")
+            for k in UNROLLED3_KERNELS:
+                totals[k] += launches.get(k, 0)
+            n_frames += len(images)
+            for (view_label, view), img in zip(
+                    VIEWS3 + [("heightmap", VIEWS3[0][1])], images):
+                key = view_label if view_label != "heightmap" else "identity"
+                check_frame3d(r, img, view, brutes[key],
+                              f"compiled {label} {view_label}")
+        ru = renderers["union"]
+        current[0] = "union"
+        ru.render()
+        current[0] = None
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        img = ru.render()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        if set(launches) != set(COMPILED3_MODES["unrolled leaf+proofs"][1]):
+            raise Failed(f"compiled 3D union frame launched {launches}")
+        for k in UNROLLED3_KERNELS:
+            totals[k] += launches.get(k, 0)
+        n_frames += 1
+        log(f"compiled 3D union ({len(ru.tape)}-op tape, 128^3): launches "
+            f"{launches}")
+        check_frame3d(ru, img, None, union_brute, "compiled union", exact=True)
+    finally:
+        current[0] = None
+        for n, f in saved.items():
+            setattr(render3d, n, f)
+
+    measured = {}
+    for (label, name, where), (args, kwargs, _) in sorted(
+            captured.items(), key=lambda p: p[0]):
+        measured[(label, name, where)] = _measure_unrolled3(
+            f"{label}, {where}", name, args, kwargs)
+
+    view = VIEWS3[1][1]
+    log(f"3D frames in turns at the {VIEWS3[1][0]} view, 512^3 gyroid:")
+    timing = _frames_by_turns({
+        "bucketed": lambda: r_bucketed.render(view),
+        "per-shape": lambda: r_per_shape.render(view),
+        **{label: (lambda r=renderers[label]: r.render(view))
+           for label in COMPILED3_MODES},
+    })
+    log("3D frames in turns, 128^3 sphere union:")
+    timing_union = _frames_by_turns({
+        "bucketed union": lambda: union_bucketed.render(),
+        "compiled union": lambda: renderers["union"].render(),
+    })
+
+    # warmup="interp": a shape whose kernels no phase has built
+    rw = port.VoxelRenderer(gyroid_sphere(port, scale=4.5),
+                            port.VoxelSize(128, 128, 128), tile_size=32,
+                            sub_size=16, leaf="unrolled", proofs="unrolled")
+    kw = rw._generated_kernels()
+    if uc.built(kw):
+        raise Failed("the warm-up shape's kernels were built already")
+    brute_w = rw.render_brute().depth.numpy()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    img = rw.render(warmup="interp")
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    first = {k for k, v in cuda.LAUNCHES.items() if v}
+    if first != set(KERNELS_3D) or getattr(rw, "_twin", None) is None:
+        raise Failed(f"the warm-up's first frame did not come from the "
+                     f"bucketed twin: {first}")
+    check_frame3d(rw, img, None, brute_w, "warm-up frame (bucketed twin)")
+    while not u2.ready(rw, kw, "interp"):
+        if time.perf_counter() - t0 > 600:
+            raise Failed("the warm-up's background build did not finish")
+        time.sleep(0.1)
+    build_w = time.perf_counter() - t0
+    cuda.reset_launches()
+    img = rw.render(warmup="interp")
+    torch.cuda.synchronize()
+    then = {k for k, v in cuda.LAUNCHES.items() if v}
+    if then != set(COMPILED3_MODES["unrolled leaf+proofs"][1]):
+        raise Failed(f"after its build the warm-up frame launched {then}")
+    check_frame3d(rw, img, None, brute_w, "warm-up frame (compiled)")
+    log(f"warm-up: first frame from the bucketed twin in {first_ms:.1f} ms "
+        f"while the kernels built ({build_w:.1f} s), then the compiled frame")
+
+    for name in UNROLLED3_KERNELS:
+        head_key = (("unrolled leaf+proofs", name, "leaf")
+                    if name == "unrolled_voxel_depth" else
+                    ("unrolled leaf+proofs", name, "edge 16"))
+        rows[name] = {
+            "name": name, "route": "cuda", "source": UNROLLED_SOURCE,
+            "replaces": UNROLLED3_REPLACES, "launches": totals[name],
+            "launches_per_frame": totals[name] / n_frames,
+            **measured[head_key], "library_ms": None,
+            "at": {", ".join(k[::2]): m for k, m in measured.items()
+                   if k[1] == name and k != head_key},
+            "build": {"cold_s": build_s, "cached_s": cached,
+                      "spill_bytes": spills},
+            "frames": timing, "frames_union": timing_union,
+            "schedules": schedules,
+        }
 
 
 # ----------------------------------------------------------------------
@@ -2643,7 +3083,9 @@ def _guard_kernels(pkg):
     """Phase 6e's tapes and kernels of `pkg`, their units fixed (the
     global-word ones under a SHARED_LIMIT of 0), not built: (module,
     op tapes, combined tapes, kinds, the op-matrix kernel, singles,
-    intervals)."""
+    intervals, and the 3D variants on the combined tapes: U1-3D with
+    each tape's tolerance, U2-3D; none where `pkg` has no 3D
+    variants)."""
     uc = importlib.import_module(pkg.__name__ + ".eval.unrolled_cuda")
     op_tapes, comb, kinds = _guard_tapes(pkg)
     axis = {"x": 0, "y": 1}
@@ -2665,7 +3107,14 @@ def _guard_kernels(pkg):
                 ks[-1].unit()
     finally:
         uc.SHARED_LIMIT = limit
-    return uc, op_tapes, comb, kinds, matrix, singles, intervals
+    voxels3, intervals3 = [], []
+    if hasattr(uc, "VoxelKernel"):
+        voxels3 = [(name, uc.VoxelKernel(t, axis, V), tol)
+                   for name, t, tol in comb]
+        intervals3 = [(name, uc.Interval3Kernel(t, axis, V))
+                      for name, t, _ in comb]
+    return (uc, op_tapes, comb, kinds, matrix, singles, intervals, voxels3,
+            intervals3)
 
 
 def start_guard_build(pkg):
@@ -2675,9 +3124,10 @@ def start_guard_build(pkg):
     host's idle cores while the phases before 6e use the card. Returns a
     future of (kernels, steps, build seconds)."""
     guard = _guard_kernels(pkg)
-    uc, _, _, _, matrix, singles, intervals = guard
+    uc, _, _, _, matrix, singles, intervals, voxels3, intervals3 = guard
     kernels = ([matrix] + [k for _, k, _ in singles]
-               + [k for _, _, ks in intervals for k in ks])
+               + [k for _, _, ks in intervals for k in ks]
+               + [k for _, k, _ in voxels3] + [k for _, k in intervals3])
 
     def build():
         t0 = time.perf_counter()
@@ -2706,7 +3156,8 @@ def phase_unrolled_guard(pkg, dev="cuda", label="tree", built=None):
     included."""
     t_start = time.perf_counter()
     guard, steps, build_s = (built or start_guard_build(pkg)).result()
-    uc, op_tapes, comb, kinds, matrix, singles, intervals = guard
+    (uc, op_tapes, comb, kinds, matrix, singles, intervals, voxels3,
+     intervals3) = guard
     n_t = GUARD_SIZE // UNROLLED_T0
     gx, gy = np.meshgrid(np.arange(n_t) * UNROLLED_T0,
                          np.arange(n_t) * UNROLLED_T0)
@@ -2765,6 +3216,7 @@ def phase_unrolled_guard(pkg, dev="cuda", label="tree", built=None):
                 launches += len(ks)
             launches += 1 + len(singles)
     torch.cuda.synchronize()
+    launches3 = _guard3d(uc, voxels3, intervals3, label, dev)
     secs = time.perf_counter() - t_start
     log(f"unrolled guard ({label}): {P} op tapes in one U1 launch, "
         f"{len(singles)} combined tapes ({', '.join(n for n, _, _ in comb)}; "
@@ -2777,8 +3229,111 @@ def phase_unrolled_guard(pkg, dev="cuda", label="tree", built=None):
         + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f"; {len(steps)} nvcc steps in {build_s:.1f} s"
         + (" (started with the run, beside the phases before this)"
-           if built else "") + f", phase {secs:.1f} s")
+           if built else "") + f", phase {secs:.1f} s"
+        + (f"; the 3D variants: {launches3} launches, see above"
+           if launches3 else ""))
     return secs
+
+
+#: the 3D guard's volume edge and subtile edge
+GUARD3 = 64
+GUARD3_SUB = 8
+
+
+def _guard_matrices3():
+    """Screen -> model matrices of the 3D guard's 64^3 volume: the unit
+    cube seen through a perspective w row (w = 1 + 0.3 z), and the same
+    with x and y scaled by 1e30 (so squares and products overflow)."""
+    n = GUARD3
+    unit = np.array([[2.0 / n, 0, 0, -1.0], [0, -2.0 / n, 0, 1.0],
+                     [0, 0, 2.0 / n, -1.0], [0, 0, 0, 1]], np.float32)
+    persp = np.eye(4, dtype=np.float32)
+    persp[3, 2] = 0.3
+    p = (persp @ unit).astype(np.float32)
+    wide = p.copy()
+    wide[:2] *= np.float32(1e30)
+    return p, wide
+
+
+def _voxel_distance(uc, kern, params, px, py, pz):
+    """The plain float distance of `kern`'s tape at screen points."""
+    from fidget_tpu_torch.eval.unrolled_fast import eval_tape_float_fast
+    from fidget_tpu_torch.render.transform import transform_points
+
+    pts = transform_points(params[:16].reshape(4, 4), px, py, pz)
+    inputs = [params[uc.PARAM_VARS + i].expand(px.shape)
+              for i in range(kern.V)]
+    for kind, plane in zip("xyz", pts):
+        idx = kern.axis_of.get(kind)
+        if idx is not None:
+            inputs[idx] = plane
+    return eval_tape_float_fast(kern.tapes[0], inputs)[0]
+
+
+def _guard3d(uc, voxels3, intervals3, label, dev):
+    """Phase 6e for the 3D variants: U1-3D over every 8^3 subtile of a
+    64^3 volume (every ninth slot invalid) and U2-3D over the same
+    subtiles' boxes at edges 8 and 32, on the combined tapes, at the two
+    `_guard_matrices3` with the vars of `_guard_pairs`, against the plain
+    versions: U2-3D's proofs and U1-3D's depths bit for bit; on the
+    tape of transcendentals (tolerance 2e-4, as U1 there) a depth
+    column may differ only where the plain distance of the voxel the
+    two disagree on lies within that tolerance of 0. Returns the
+    launches."""
+    if not voxels3:
+        return 0
+    sub = GUARD3_SUB
+    g = np.arange(GUARD3 // sub) * sub
+    gz, gy, gx = np.meshgrid(g, g, g, indexing="ij")
+    bx, by, bz = (torch.tensor(a.reshape(-1), dtype=torch.float32,
+                               device=dev) for a in (gx, gy, gz))
+    n = bx.shape[0]
+    valid = torch.arange(n, device=dev) % 9 != 4
+    launches, witnessed, hit = 0, 0, 0
+    for mat, pairs in zip(_guard_matrices3(), _guard_pairs()):
+        for a_val, b_val in pairs:
+            params = uc.params_tensor(
+                torch.tensor(mat, device=dev), torch.zeros((), device=dev),
+                torch.tensor([0.0, 0.0, a_val, b_val], dtype=torch.float32,
+                             device=dev))
+            for name, k, tol in voxels3:
+                got = uc.unrolled_voxel_depth(k, bx, by, bz, valid, params,
+                                              sub=sub)
+                want = uc.unrolled_voxel_depth_plain(k, bx, by, bz, valid,
+                                                     params, sub=sub)
+                hit += int((want > 0).sum())
+                bad = (got != want).nonzero()
+                if len(bad):
+                    slot, vy, vx = bad.T
+                    z = torch.maximum(got, want)[slot, vy, vx] - 1
+                    d = _voxel_distance(uc, k, params, bx[slot] + vx.float(),
+                                        by[slot] + vy.float(), z.float())
+                    if tol == 0 or not bool((d.abs() <= tol).all()):
+                        raise Failed(
+                            f"unrolled guard ({label}) U1-3D {name} at "
+                            f"a={a_val}, b={b_val}: {len(bad)} depth columns "
+                            f"differ from plain (plain distances there "
+                            f"{d[:4].tolist()})")
+                    witnessed += len(bad)
+            for name, k in intervals3:
+                for edge in (sub, 4 * sub):
+                    got = uc.unrolled_interval3(k, bx, by, bz, params, edge)
+                    want = uc.unrolled_interval3_plain(k, bx, by, bz, params,
+                                                       edge)
+                    if not all(torch.equal(g_, w_) for g_, w_ in zip(got, want)):
+                        raise Failed(
+                            f"unrolled guard ({label}) U2-3D {name} edge "
+                            f"{edge} at a={a_val}, b={b_val}: proofs differ "
+                            f"from plain")
+            launches += len(voxels3) + 2 * len(intervals3)
+    torch.cuda.synchronize()
+    log(f"unrolled guard ({label}) 3D: U1-3D and U2-3D (edges {sub}, "
+        f"{4 * sub}) on the {len(voxels3)} combined tapes over the "
+        f"{n} subtiles of {GUARD3}^3, perspective and overflowing "
+        f"matrices, {launches} launches: U2-3D proofs and U1-3D depths "
+        f"equal to plain ({hit} hit columns; {witnessed} columns of the "
+        f"transcendental tape within its tolerance of the surface)")
+    return launches
 
 
 def _wait_refresh(r, timeout=600):
@@ -3229,6 +3784,11 @@ def main() -> int:
     smi = phase_device()
     phase_build(cuda)
     guard_build = start_guard_build(port)
+    from fidget_tpu_torch.scenes import sphere_union_shape
+
+    ctx3 = port.Context()
+    compiled3 = start_compiled3d_build(
+        port, port.lower(ctx3, [sphere_union_shape(ctx3)]))
     phase_op_matrix(port, dev)
 
     ctx = port.Context()
@@ -3276,12 +3836,16 @@ def main() -> int:
     phase_unrolled(ru, cuda, images, brutes, build, rows)
     phase_unrolled_guard(port, built=guard_build)
 
-    r3, captured3, launches3, n3 = phase_main3d(
+    r3, captured3, launches3, n3, brutes3 = phase_main3d(
         port, cuda, render3d, render2d, simplify_device
     )
-    phase_union3d(port, cuda)
+    ru3, union_brute = phase_union3d(port, cuda)
     phase_kernels3d(r3, captured3, launches3, n3, rows)
     phase_stages3d(r3, VIEWS3[1][1])
+    rps3, _ = phase_per_shape3d(port, cuda, render3d, simplify_device,
+                                brutes3, rows)
+    phase_compiled3d(port, cuda, render3d, r3, rps3, brutes3, ru3,
+                     union_brute, compiled3, rows)
 
     phase_grad(port, cuda, rows)
     phase_grad_unrolled(rp, {shift: GRAD_PARAMS[0], grow: GRAD_PARAMS[1]})

@@ -39,6 +39,19 @@
 //   tape's words would not fit a block); after the last stage the warps
 //   write them out or test them against u together, one word in k each.
 //
+// - U1-3D `fidget_unrolled_voxel_depth`: the 3D renderer's unrolled leaf,
+//   U1's programs behind a kernel unit of its own (U_VOXEL_KERNEL). A
+//   thread owns one (vy, vx) column of a worklist slot's sub^3 subtile,
+//   forms its voxels from the slot's base corner, and walks vz from the
+//   top down, stopping at the first voxel inside (d < 0): its depth is
+//   bz + vz + 1, the max over the column of inside ? bz + vz + 1 : 0,
+//   with no reduction; 0 where nothing is inside or the slot is invalid.
+// - U2-3D `fidget_unrolled_interval` under U_Z3: U2 over 3D boxes
+//   [x0, x0 + T0] x [y0, y0 + T0] x [z0, z0 + T0] (the renderer's root
+//   tiles and subtiles), proofs only. U_Z3 adds the z0 corners to the
+//   warp streams' and the kernel's arguments; without it (2D) every
+//   expansion is as it was.
+//
 // What bounds them on the card: instruction issue and the latency of
 // dependent rows. A row is one to a few dozen instructions on
 // registers, with no tape to fetch or decode (the interpreter kernels'
@@ -214,10 +227,74 @@ __device__ __forceinline__ void u_inputs(const float* __restrict__ p, T x,
     return (int)cudaGetLastError();                                           \
   }
 
+// U1-3D. The kernel's unit defines U_V / U_AX / U_AY / U_AZ and
+// `u_run(0, in)` (the one program) as U1's does, then expands
+// U_VOXEL_KERNEL. Thread g owns column g % sub^2 (vy = c / sub, vx =
+// c % sub) of slot g / sub^2, whose voxels lie at (bx + vx, by + vy,
+// bz + vz); out is int32 [n_slots][sub][sub].
+#define U_VOXEL_KERNEL                                                        \
+  extern "C" __global__ void __launch_bounds__(fidget::UBLOCK)                \
+      fidget_unrolled_voxel_depth(                                            \
+          const float* __restrict__ bx, const float* __restrict__ by,         \
+          const float* __restrict__ bz, const bool* __restrict__ valid,       \
+          const float* __restrict__ params, int32_t* __restrict__ out,        \
+          int n_slots, int sub) {                                             \
+    const int cols = sub * sub;                                               \
+    const long long g = (long long)blockIdx.x * fidget::UBLOCK + threadIdx.x; \
+    if (g >= (long long)n_slots * cols) return;                               \
+    const int slot = (int)(g / cols);                                         \
+    const int c = (int)(g - (long long)slot * cols);                          \
+    int d = 0;                                                                \
+    if (valid[slot]) {                                                        \
+      float in[U_V];                                                          \
+      const float px = bx[slot] + (float)(c % sub);                           \
+      const float py = by[slot] + (float)(c / sub);                           \
+      const float z0 = bz[slot];                                              \
+      for (int vz = sub - 1; vz >= 0; --vz) {                                 \
+        fidget::u_inputs<U_V, U_AX, U_AY, U_AZ, float>(params, px, py,        \
+                                                       z0 + (float)vz, in);   \
+        if (u_run(0, in) < 0.f) {                                             \
+          d = (int)z0 + vz + 1;                                               \
+          break;                                                              \
+        }                                                                     \
+      }                                                                       \
+    }                                                                         \
+    out[g] = d;                                                               \
+  }                                                                           \
+  extern "C" int fidget_unrolled_voxel_depth_launch(                          \
+      const float* bx, const float* by, const float* bz, const bool* valid,   \
+      const float* params, int32_t* out, int n_slots, int sub,                \
+      void* stream) {                                                         \
+    const long long total = (long long)n_slots * sub * sub;                   \
+    const long long blocks = (total + fidget::UBLOCK - 1) / fidget::UBLOCK;   \
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;             \
+    if (blocks > 0)                                                           \
+      fidget_unrolled_voxel_depth<<<(unsigned)blocks, fidget::UBLOCK, 0,      \
+                                    (cudaStream_t)stream>>>(                  \
+          bx, by, bz, valid, params, out, n_slots, sub);                      \
+    return (int)cudaGetLastError();                                           \
+  }
+
 // U2. Every unit of an interval kernel defines U_EPI, U_V, U_AX / U_AY /
-// U_AZ and U_K (warps a group) before including this file.
+// U_AZ and U_K (warps a group) before including this file; a unit of
+// U2-3D also U_Z3 1.
 #if defined(U_K)
+#ifndef U_Z3
+#define U_Z3 0
+#endif
 namespace fidget {
+#if U_Z3
+// The box of one 3D tile through transform_intervals.
+__device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
+                                              const float* __restrict__ y0,
+                                              const float* __restrict__ z0,
+                                              const float* __restrict__ p,
+                                              float T0, int tile, Ival* in) {
+  u_inputs<U_V, U_AX, U_AY, U_AZ, Ival>(
+      p, Ival{x0[tile], x0[tile] + T0}, Ival{y0[tile], y0[tile] + T0},
+      Ival{z0[tile], z0[tile] + T0}, in);
+}
+#else
 // The box of one tile through transform_intervals.
 __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
                                               const float* __restrict__ y0,
@@ -228,7 +305,20 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
       p, Ival{x0[tile], x0[tile] + T0}, Ival{y0[tile], y0[tile] + T0},
       Ival{z, z}, in);
 }
+#endif
 }  // namespace fidget
+
+// the z0 corners in the argument lists of U2-3D (nothing in 2D), and
+// the entry point of each
+#if U_Z3
+#define U_Z0_PARAM const float *__restrict__ z0,
+#define U_Z0_ARG z0,
+#define U_ILAUNCH fidget_unrolled_interval3_launch
+#else
+#define U_Z0_PARAM
+#define U_Z0_ARG
+#define U_ILAUNCH fidget_unrolled_interval_launch
+#endif
 
 // A warp's stream: `void name(U_WARP_ARGS)`. `sh` points at the lane's
 // column of the block's hand-off slots (slot s at sh[32 s]), `wd` at its
@@ -236,7 +326,7 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
 // lane's tile (the last one for lanes past n, which compute and write
 // nothing).
 #define U_WARP_ARGS                                                        \
-  const float *__restrict__ x0, const float *__restrict__ y0,              \
+  const float *__restrict__ x0, const float *__restrict__ y0, U_Z0_PARAM   \
       const float *__restrict__ params, float T0, fidget::Ival *sh,        \
       uint32_t *wd, bool *__restrict__ rin, bool *__restrict__ rout,       \
       int tile, bool live
@@ -245,7 +335,7 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
   extern "C" __device__ __noinline__ void name(U_WARP_ARGS) {              \
     using namespace fidget;                                                \
     Ival in[U_V];                                                          \
-    u_tile_inputs(x0, y0, params, T0, tile, in);                           \
+    u_tile_inputs(x0, y0, U_Z0_ARG params, T0, tile, in);                  \
     [[maybe_unused]] uint32_t w_ = 0u;                                     \
     [[maybe_unused]] int c_ = 0;                                           \
     (void)sh;                                                              \
@@ -301,7 +391,7 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
   extern "C" __global__ void __launch_bounds__(U_K * 32)                      \
       fidget_unrolled_interval(                                               \
           const float* __restrict__ x0, const float* __restrict__ y0,         \
-          const float* __restrict__ params, float T0,                         \
+          U_Z0_PARAM const float* __restrict__ params, float T0,              \
           const int32_t* __restrict__ u, bool* __restrict__ rin,              \
           bool* __restrict__ rout, int32_t* __restrict__ words,               \
           bool* __restrict__ viol, uint32_t* __restrict__ scratch, int n) {   \
@@ -321,7 +411,8 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
       for (int i = threadIdx.x; i < U_CWS * 32; i += U_K * 32) wd_[i] = 0u;   \
       __syncthreads();                                                        \
     }                                                                         \
-    u_warps(w, x0, y0, params, T0, sh_ + l, wd_ + l, rin, rout, tile, live);  \
+    u_warps(w, x0, y0, U_Z0_ARG params, T0, sh_ + l, wd_ + l, rin, rout,      \
+            tile, live);                                                      \
     if (U_CWS > 0) __syncthreads();                                           \
     if (U_EPI == 1 && live)                                                   \
       for (int j = w; j < U_CWS; j += U_K)                                    \
@@ -341,8 +432,9 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
       }                                                                       \
     }                                                                         \
   }                                                                           \
-  extern "C" int fidget_unrolled_interval_launch(                             \
-      const float* x0, const float* y0, const float* params, float T0,        \
+  extern "C" int U_ILAUNCH(                                                   \
+      const float* x0, const float* y0, U_Z0_PARAM const float* params,       \
+      float T0,                                                               \
       const int32_t* u, bool* rin, bool* rout, int32_t* words, bool* viol,    \
       uint32_t* scratch, int n, void* stream) {                               \
     const int blocks = (n + 31) / 32;                                         \
@@ -350,7 +442,8 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
     if (blocks > 0)                                                           \
       fidget_unrolled_interval<<<blocks, U_K * 32, u_shared_bytes,            \
                                  (cudaStream_t)stream>>>(                     \
-          x0, y0, params, T0, u, rin, rout, words, viol, scratch, n);         \
+          x0, y0, U_Z0_ARG params, T0, u, rin, rout, words, viol, scratch,    \
+          n);                                                                 \
     return (int)cudaGetLastError();                                           \
   }
 #endif  // U_K

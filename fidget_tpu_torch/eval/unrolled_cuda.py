@@ -16,6 +16,18 @@ kernel`). Two kernels, both written for Hopper in CUDA C++
   generated: "proofs", "capture" (packed choice words) or "violation"
   (the fused subset test against a plan's union words).
 
+The 3D renderer's compiled frames (`VoxelRenderer(leaf="unrolled",
+proofs="unrolled")`) run two 3D variants of them, the counterparts of
+the unrolled `stratum_leaf` and of `_unrolled_interval3` in
+`fidget_tpu.render.render3d`:
+
+- U1-3D `unrolled_voxel_depth` (`VoxelKernel`): U1's program of the
+  whole tape behind a kernel unit of its own, over the voxels of a
+  worklist of subtiles, with a depth epilogue: a thread walks one
+  column from the top and stops at the first voxel inside;
+- U2-3D `unrolled_interval3` (`Interval3Kernel`): U2 over 3D boxes (a
+  z interval per tile instead of the 2D plane's fixed z), proofs only.
+
 The emitter writes one statement per tape row. U1's thread evaluates
 one pixel; every program, a launch of one program included, is a device
 function of its own translation unit (programs of a few rows share
@@ -34,11 +46,12 @@ variant, so a second frame or a second process rebuilds nothing. A
 failed build or launch raises; nothing falls back to the plain versions
 on a CUDA tensor.
 
-`unrolled_float` / `unrolled_interval` dispatch on the device of their
-tensors: on the CPU they run `unrolled_float_plain` /
-`unrolled_interval_plain` (eval/unrolled_fast.py's evaluators), which
-take tensors on any device, so the kernels can be held against them on
-the card. `cuda.LAUNCHES` counts both kernels under their own names.
+`unrolled_float` / `unrolled_interval` / `unrolled_voxel_depth` /
+`unrolled_interval3` dispatch on the device of their tensors: on the CPU
+they run their `_plain` versions (eval/unrolled_fast.py's evaluators),
+which take tensors on any device, so the kernels can be held against
+them on the card. `cuda.LAUNCHES` counts each kernel under its own
+name.
 """
 
 from __future__ import annotations
@@ -196,10 +209,12 @@ def emit_float_program(tape: Tape, V: int, name: str) -> str:
     return _PROGRAM_HEAD + _float_function(tape, V, name)
 
 
-def emit_float_kernel(names: list, V: int, axis_of: dict) -> str:
+def emit_float_kernel(names: list, V: int, axis_of: dict,
+                      kernel: str = "U_FLOAT_KERNEL") -> str:
     """U1's kernel unit: the dispatch of segment s to program names[s]
     (the last segment and beyond: the last program), each in a unit
-    that `FloatKernel.unit` builds."""
+    that `FloatKernel.unit` builds; `kernel` the template's kernel
+    macro (U1-3D: U_VOXEL_KERNEL)."""
     args = ", ".join("float" for _ in range(V))
     call = ", ".join(f"in[{k}]" for k in range(V))
     decls = "".join(f'extern "C" __device__ float {n}({args});\n'
@@ -212,7 +227,7 @@ def emit_float_kernel(names: list, V: int, axis_of: dict) -> str:
         "static __device__ __forceinline__ float u_run(int s, const float* in) "
         "{\n  (void)s;\n  switch (s) {\n"
         f"{cases}    default: return {names[-1]}({call});\n  }}\n}}\n"
-        "U_FLOAT_KERNEL\n"
+        f"{kernel}\n"
     )
 
 
@@ -449,32 +464,39 @@ def interval_warp_rows(sched: IntervalSchedule, w: int) -> list:
     return lines
 
 
-def _interval_defines(V: int, axis_of: dict, epilogue: str, k: int) -> str:
+def _interval_defines(V: int, axis_of: dict, epilogue: str, k: int,
+                      z3: bool = False) -> str:
     return (f"#define U_EPI {EPILOGUES[epilogue]}\n#define U_V {V}\n"
-            f"{_axis_defines(axis_of)}#define U_K {k}\n")
+            f"{_axis_defines(axis_of)}#define U_K {k}\n"
+            + ("#define U_Z3 1\n" if z3 else ""))
 
 
 def emit_interval_warp(sched: IntervalSchedule, w: int, V: int,
-                       axis_of: dict, epilogue: str, name: str) -> str:
-    """Warp w's stream of U2 as a device function of its own unit."""
+                       axis_of: dict, epilogue: str, name: str,
+                       z3: bool = False) -> str:
+    """Warp w's stream of U2 as a device function of its own unit
+    (`z3`: of U2-3D, over 3D boxes)."""
     body = "".join(f"  {r}\n" for r in interval_warp_rows(sched, w))
     return (
-        f"{_interval_defines(V, axis_of, epilogue, sched.k)}"
+        f"{_interval_defines(V, axis_of, epilogue, sched.k, z3)}"
         f'#include "unrolled.cuh"\nU_WARP_BEGIN({name})\n{body}U_WARP_END\n'
     )
 
 
 def emit_interval_kernel(sched: IntervalSchedule, V: int, axis_of: dict,
-                         epilogue: str, names: list, gw: bool) -> str:
+                         epilogue: str, names: list, gw: bool,
+                         z3: bool = False) -> str:
     """U2's kernel unit: warp w calls the stream names[w]; the blocks'
-    choice words in a global scratch (gw) or in their shared memory."""
+    choice words in a global scratch (gw) or in their shared memory
+    (`z3`: U2-3D, whose streams take the boxes' z0 too)."""
     decls = "".join(f'extern "C" __device__ void {n}(U_WARP_ARGS);\n'
                     for n in names)
-    args = "x0, y0, params, T0, sh, wd, rin, rout, tile, live"
+    args = ("x0, y0, z0, params, T0, sh, wd, rin, rout, tile, live" if z3
+            else "x0, y0, params, T0, sh, wd, rin, rout, tile, live")
     cases = "".join(f"    case {w}: {n}({args}); break;\n"
                     for w, n in enumerate(names[:-1]))
     return (
-        f"{_interval_defines(V, axis_of, epilogue, sched.k)}"
+        f"{_interval_defines(V, axis_of, epilogue, sched.k, z3)}"
         f"#define U_SLOTS {sched.n_slots}\n"
         f"#define U_CW {-(-sched.tape.choice_count // 16)}\n"
         f"#define U_GW {int(gw)}\n"
@@ -606,6 +628,10 @@ _ARGTYPES = {
     "fidget_unrolled_float_launch": [_P] * 5 + [_I, _P] + [_I] * 3 + [_P],
     # x0 y0 params | T0 | u rin rout words viol scratch | n | stream
     "fidget_unrolled_interval_launch": [_P] * 3 + [_F] + [_P] * 6 + [_I, _P],
+    # bx by bz valid params out | n_slots sub | stream
+    "fidget_unrolled_voxel_depth_launch": [_P] * 6 + [_I] * 2 + [_P],
+    # x0 y0 z0 params | T0 | u rin rout words viol scratch | n | stream
+    "fidget_unrolled_interval3_launch": [_P] * 4 + [_F] + [_P] * 6 + [_I, _P],
 }
 
 
@@ -651,26 +677,49 @@ class FloatKernel:
             self._segs[key] = t
         return t
 
+    def _programs(self):
+        """(objects, names): the program units and each tape's program
+        name."""
+        objects, names, small = [], [], {}
+        for t in self.tapes:
+            src = emit_float_program(t, self.V, "@")
+            key = cache_key("float-program", _tape_digest(t), src)
+            name = f"fidget_uprog_{key}"
+            if len(t) <= SMALL_PROGRAM_ROWS:
+                small[key] = _float_function(t, self.V, name)
+            else:
+                objects.append(_Object(
+                    key, emit_float_program(t, self.V, name)))
+            names.append(name)
+        if small:  # a lone program keeps its own key
+            key = (next(iter(small)) if len(small) == 1
+                   else cache_key("float-programs", *small))
+            objects.append(_Object(
+                key, _PROGRAM_HEAD + "".join(small.values())))
+        return objects, names
+
     def unit(self) -> _Unit:
         if self._unit is None:
-            objects, names, small = [], [], {}
-            for t in self.tapes:
-                src = emit_float_program(t, self.V, "@")
-                key = cache_key("float-program", _tape_digest(t), src)
-                name = f"fidget_uprog_{key}"
-                if len(t) <= SMALL_PROGRAM_ROWS:
-                    small[key] = _float_function(t, self.V, name)
-                else:
-                    objects.append(_Object(
-                        key, emit_float_program(t, self.V, name)))
-                names.append(name)
-            if small:  # a lone program keeps its own key
-                key = (next(iter(small)) if len(small) == 1
-                       else cache_key("float-programs", *small))
-                objects.append(_Object(
-                    key, _PROGRAM_HEAD + "".join(small.values())))
+            objects, names = self._programs()
             source = emit_float_kernel(names, self.V, self.axis_of)
             key = cache_key("float-kernel", source)
+            self._unit = _Unit(key, source, objects)
+        return self._unit
+
+
+class VoxelKernel(FloatKernel):
+    """U1-3D for one tape: U1's program unit (shared with U1's of the
+    same tape) behind the voxel-depth kernel unit."""
+
+    def __init__(self, tape: Tape, axis_of: dict, V: int):
+        super().__init__([tape], axis_of, V)
+
+    def unit(self) -> _Unit:
+        if self._unit is None:
+            objects, names = self._programs()
+            source = emit_float_kernel(names, self.V, self.axis_of,
+                                       "U_VOXEL_KERNEL")
+            key = cache_key("voxel-kernel", source)
             self._unit = _Unit(key, source, objects)
         return self._unit
 
@@ -679,6 +728,9 @@ class IntervalKernel:
     """U2 for one tape and one epilogue ("proofs", "capture",
     "violation"), its rows over INTERVAL_WARPS warps a group (fewer where
     the hand-offs pass SLOT_BUDGET)."""
+
+    #: whether the tiles are 3D boxes (U2-3D)
+    Z3 = False
 
     def __init__(self, tape: Tape, axis_of: dict, V: int, epilogue: str):
         if epilogue not in EPILOGUES:
@@ -724,19 +776,28 @@ class IntervalKernel:
             args = (self.V, self.axis_of, self.epilogue)
             objects, names = [], []
             for w in range(sched.k):
-                src = emit_interval_warp(sched, w, *args, "@")
+                src = emit_interval_warp(sched, w, *args, "@", self.Z3)
                 key = cache_key("interval-warp", _tape_digest(self.tape), src,
                                 INTERVAL_FLAGS)
                 name = f"fidget_uiw_{key}"
                 objects.append(_Object(
-                    key, emit_interval_warp(sched, w, *args, name),
+                    key, emit_interval_warp(sched, w, *args, name, self.Z3),
                     INTERVAL_FLAGS))
                 names.append(name)
             source = emit_interval_kernel(sched, *args, names,
-                                          self.words_global)
+                                          self.words_global, self.Z3)
             key = cache_key("interval-kernel", source, INTERVAL_FLAGS)
             self._unit = _Unit(key, source, objects, INTERVAL_FLAGS)
         return self._unit
+
+
+class Interval3Kernel(IntervalKernel):
+    """U2-3D for one tape: U2's schedule and proofs over 3D boxes."""
+
+    Z3 = True
+
+    def __init__(self, tape: Tape, axis_of: dict, V: int):
+        super().__init__(tape, axis_of, V, "proofs")
 
 
 def built(kernels) -> bool:
@@ -899,3 +960,121 @@ def unrolled_interval_plain(kern: IntervalKernel, x0, y0, params, T0,
         los, his = eval_tape_interval_fast(kern.tape, inputs)
         extra = None
     return his[0] < 0.0, los[0] > 0.0, extra
+
+
+def unrolled_voxel_depth(kern: VoxelKernel, bx, by, bz, valid, params, *,
+                         sub: int):
+    """U1-3D: int32 [n, sub, sub] depth candidates of a worklist of sub^3
+    subtiles. Slot k's voxel (vz, vy, vx) lies at (bx[k] + vx, by[k] +
+    vy, bz[k] + vz) in screen space; a column's value is the max over vz
+    of `bz + vz + 1` where the tape's value there is < 0, else 0, and 0
+    on invalid slots. `params` is `params_tensor(mat, z, var_vec)` (z is
+    not read)."""
+    n = bx.shape[0]
+    if by.shape != (n,) or bz.shape != (n,) or valid.shape != (n,) \
+            or valid.dtype != torch.bool:
+        raise ValueError("bx, by, bz f32 [n] and valid bool [n] expected")
+    if params.shape != (PARAM_VARS + kern.V,):
+        raise ValueError(f"params must be [{PARAM_VARS + kern.V}]")
+    if params.device.type == "cpu":
+        return unrolled_voxel_depth_plain(kern, bx, by, bz, valid, params,
+                                          sub=sub)
+    cuda.check_cuda(bx, by, bz, valid, params)
+    out = torch.empty((n, sub, sub), dtype=torch.int32, device=params.device)
+    lib = _load(kern.unit())
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.fidget_unrolled_voxel_depth_launch(
+        bx.data_ptr(), by.data_ptr(), bz.data_ptr(), valid.data_ptr(),
+        params.data_ptr(), out.data_ptr(), n, sub, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of unrolled_voxel_depth failed "
+                           f"with error {err}")
+    cuda.LAUNCHES["unrolled_voxel_depth"] += 1
+    return out
+
+
+def unrolled_voxel_depth_plain(kern: VoxelKernel, bx, by, bz, valid, params,
+                               *, sub: int):
+    """Plain PyTorch version of `unrolled_voxel_depth` (same contract):
+    the whole tape over every voxel ((vz, vy, vx) row-major, as the
+    reference's unrolled leaf forms them), then the max over vz."""
+    n = bx.shape[0]
+    k = torch.arange(sub**3, device=params.device)
+    vx = (k % sub).to(torch.float32)
+    vy = (torch.div(k, sub, rounding_mode="floor") % sub).to(torch.float32)
+    vz = torch.div(k, sub * sub, rounding_mode="floor").to(torch.float32)
+    mx, my, mz = transform_points(
+        params[:16].reshape(4, 4), bx[:, None] + vx[None, :],
+        by[:, None] + vy[None, :], bz[:, None] + vz[None, :],
+    )
+    inputs = [params[PARAM_VARS + i].expand(n, sub**3) for i in range(kern.V)]
+    for kind, plane in (("x", mx), ("y", my), ("z", mz)):
+        idx = kern.axis_of.get(kind)
+        if idx is not None:
+            inputs[idx] = torch.broadcast_to(plane, (n, sub**3))
+    d = eval_tape_float_fast(kern.tapes[0], inputs)[0]
+    inside = ((d < 0.0) & valid[:, None]).reshape(n, sub, sub, sub)
+    vz_col = torch.arange(sub, dtype=torch.int32, device=params.device)
+    top = (bz.to(torch.int32)[:, None, None, None]
+           + vz_col[None, :, None, None] + 1)
+    return torch.where(inside, top, torch.zeros_like(top)).amax(1)
+
+
+def interval3_bounds(kern: Interval3Kernel, x0, y0, z0, params, edge):
+    """(lo, hi) f32 [n] of the tape over the boxes [x0, x0 + edge] x
+    [y0, y0 + edge] x [z0, z0 + edge] through `transform_intervals`, by
+    `eval_tape_interval_fast`: what `unrolled_interval3_plain` tests."""
+    n = x0.shape[0]
+    im = IntervalMode(torch)
+    mxi, myi, mzi = transform_intervals(
+        im, params[:16].reshape(4, 4), (x0, x0 + edge), (y0, y0 + edge),
+        (z0, z0 + edge),
+    )
+    inputs = []
+    for i in range(kern.V):
+        c = params[PARAM_VARS + i].expand(n)
+        inputs.append((c, c))
+    for kind, ivl in (("x", mxi), ("y", myi), ("z", mzi)):
+        idx = kern.axis_of.get(kind)
+        if idx is not None:
+            inputs[idx] = (torch.broadcast_to(ivl[0], (n,)),
+                           torch.broadcast_to(ivl[1], (n,)))
+    los, his = eval_tape_interval_fast(kern.tape, inputs)
+    return los[0], his[0]
+
+
+def unrolled_interval3(kern: Interval3Kernel, x0, y0, z0, params, edge):
+    """U2-3D over the boxes [x0, x0 + edge] x [y0, y0 + edge] x [z0, z0 +
+    edge] (f32 [n] corners): (full, empty) bool [n], the proofs hi < 0
+    and lo > 0."""
+    n = x0.shape[0]
+    if y0.shape != (n,) or z0.shape != (n,):
+        raise ValueError("x0, y0, z0 must be f32 [n]")
+    if params.shape != (PARAM_VARS + kern.V,):
+        raise ValueError(f"params must be [{PARAM_VARS + kern.V}]")
+    if params.device.type == "cpu":
+        return unrolled_interval3_plain(kern, x0, y0, z0, params, edge)
+    cuda.check_cuda(x0, y0, z0, params)
+    dev = params.device
+    full = torch.empty(n, dtype=torch.bool, device=dev)
+    empty = torch.empty(n, dtype=torch.bool, device=dev)
+    lib = _load(kern.unit())
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.fidget_unrolled_interval3_launch(
+        x0.data_ptr(), y0.data_ptr(), z0.data_ptr(), params.data_ptr(),
+        float(edge), None, full.data_ptr(), empty.data_ptr(), None, None,
+        None, n, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of unrolled_interval3 failed with "
+                           f"error {err}")
+    cuda.LAUNCHES["unrolled_interval3"] += 1
+    return full, empty
+
+
+def unrolled_interval3_plain(kern: Interval3Kernel, x0, y0, z0, params,
+                             edge):
+    """Plain PyTorch version of `unrolled_interval3` (same contract)."""
+    lo, hi = interval3_bounds(kern, x0, y0, z0, params, edge)
+    return hi < 0.0, lo > 0.0

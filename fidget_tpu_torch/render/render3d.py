@@ -1,8 +1,6 @@
-"""Level-synchronous 3D voxel renderer (heightmap + normals), bucketed.
+"""Level-synchronous 3D voxel renderer (heightmap + normals).
 
-The counterpart of `fidget_tpu.render.render3d` on its bucketed path
-(`VoxelRenderer(..., specialize=False)`): canonical opcode order, the
-arena as data under the 2D renderer's `_TracedBind`. A frame is:
+The counterpart of `fidget_tpu.render.render3d`. A frame is:
 
 1. **Root interval pass** — one `interp_interval` launch (K1) whose
    lanes are the `ts`^3 root tiles; tiles prove full, empty or stay
@@ -27,13 +25,39 @@ arena as data under the 2D renderer's `_TracedBind`. A frame is:
    voxel, seeded with the world-frame Jacobian (`transform_duals`).
    Saturated pixels (depth == D) get [0, 0, 1].
 
+Two tape bindings run this pipeline, as in 2D (render2d.py):
+
+- `_ConstBind3` — `VoxelRenderer(specialize=True)`, the default: the
+  arena packed at the tape's own length under the shape's
+  `frequency_op_order`, every K1 / K2 / `reconstruct` / K3 / K5 / K4
+  call under that order, K1 and K2 at the tape's own register file
+  and choice words. `render()` sizes the worklist per stratum after
+  its first settled frame (`strata_schedule`, from host interval
+  counts), clamped to the settled uniform cap and kept only if it
+  saves slots.
+- `_TracedBind` — `specialize=False`: the canonical bucket, the arena
+  as data (Lcap, nf and choice words rounded up to the bucket).
+
+On the per-shape binding, `leaf="unrolled"` replaces steps 2d-2e by U1-3D
+(`unrolled_voxel_depth`): the whole tape, generated for this shape as
+straight-line CUDA, over the worklist's voxels, with no per-subtile
+tapes; `proofs="unrolled"` (which needs the unrolled leaf) replaces the
+interval passes of steps 1 and 2a by U2-3D (`unrolled_interval3`) and
+skips every simplification. Normals stay K4 over the whole tape under
+the shape's order in every mode (the reference takes three `jax.jvp`
+passes over its straight-line XLA there: forward duals either way).
+`render(warmup="interp")` serves frames from a bucketed twin while the
+generated kernels build in the background (the build keys hash the
+tape's contents, so no tape is pinned against a recycled `id()`).
+
 The one host read per frame is the active-subtile count after the last
-stratum: when it exceeds the worklist, `render()` retries once with a
-sufficient power-of-two capacity. On CUDA every kernel is hand-written
-(fidget_tpu_torch/csrc); on the CPU the plain PyTorch versions run.
-The reference's per-shape pipeline (`_ConstBind3`, `specialize=True`,
-per-stratum capacity schedules), the unrolled leaf and proofs, the
-asynchronous warm-up and sharding are not ported.
+stratum (with a schedule: the largest overflow); when it exceeds the
+worklist, `render()` retries once with a sufficient power-of-two
+capacity (or drops the schedule). On CUDA every kernel is hand-written
+(fidget_tpu_torch/csrc, and the generated ones from csrc/unrolled.cuh);
+on the CPU the plain PyTorch versions run. The reference's `strata=`
+drivers and `voxel_tiles_per_step=` (XLA dispatch and Pallas grid-step
+choices) and sharding are not ported.
 """
 
 from __future__ import annotations
@@ -44,7 +68,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..compiler.pack import pack_tapes
+from ..compiler.pack import frequency_op_order, pack_tapes
 from ..compiler.tape import Tape
 from ..eval.arith import FloatMode, GradMode, IntervalMode
 from ..eval.cuda import resolve_device
@@ -53,14 +77,28 @@ from ..eval.interp import (
     interp_grad,
     interp_interval,
     interp_voxel_depth,
+    tape_n_ops,
 )
-from ..eval.simplify_device import per_instance_codes, reconstruct, unpack_codes
+from ..eval.simplify_device import (
+    DeviceSimplifier,
+    per_instance_codes,
+    reconstruct,
+    unpack_codes,
+)
 from ..eval.unrolled import eval_tape
+from ..eval.unrolled_cuda import (
+    Interval3Kernel,
+    VoxelKernel,
+    params_tensor,
+    unrolled_interval3,
+    unrolled_voxel_depth,
+)
 from ..shape import Shape, ShapeVars
 from .config import check_cancel
 from .region import VoxelSize
-from .render2d import _ceil_to, _pad_plane, _TracedBind
+from .render2d import _ceil_to, _ConstBind, _pad_plane, _TracedBind
 from .transform import transform_duals, transform_intervals, transform_points
+from .unrolled2d import ready
 
 
 #: voxels per z-slab of `render_brute` (about 4M: at 512^2 a slab is
@@ -80,6 +118,31 @@ class Image3D:
 
     depth: torch.Tensor
     normal: torch.Tensor | None
+
+
+class _ConstBind3(_ConstBind):
+    """Tape binding of the per-shape 3D pipeline: the arena packed at the
+    tape's own length under the shape's `frequency_op_order`; root codes
+    (K2 through `DeviceSimplifier.codes_per_tile`) and root
+    simplification (`reconstruct`) as the 2D `_ConstBind` makes them,
+    under that order; K1 and K2 at the tape's own register file and
+    choice words. Under the unrolled modes it carries the kernels
+    generated for the tape (U1-3D for the leaf, U2-3D for the
+    proofs)."""
+
+    def __init__(self, r):
+        self.rend = r
+        self.arena = r._arena_s
+        self.axis_idx = [int(i) for i in r.axis_idx]
+        self.nf, self.V = r.nf, r.n_inputs
+        self.nf_regs = r._nf_regs
+        self.c_words = r.c_words
+        self.op_order = r.op_order
+        self.leaf, self.proofs = r.leaf, r.proofs
+        self.voxel_kernel = r._voxel_kernel if r.leaf == "unrolled" else None
+        self.interval_kernel = (
+            r._interval3_kernel if r.proofs == "unrolled" else None
+        )
 
 
 def _compact_stratum(act_flat, *, nl, ny2, nx2, cap_s):
@@ -209,45 +272,70 @@ class _Pipeline3:
     def frame(
         self, b, st, mat, matM, var_vec, *, mode: str, cap: int,
         stop_after: str | None = None, cancel=None, stage_hook=None,
+        strata_caps: tuple | None = None,
     ):
         """One frame: returns (depth, normal, n_active) on the device,
-        n_active being the largest active-subtile count of any stratum.
-        `mat` is screen -> model, `matM` world -> model (both [4, 4]).
+        n_active being the largest active-subtile count of any stratum,
+        or with `strata_caps` (a cap per stratum, nearest first) the
+        largest overflow (count - cap, 0 = every stratum fit). `mat` is
+        screen -> model, `matM` world -> model (both [4, 4]).
         `stop_after` ("root" | "simplify") returns that stage's
-        intermediates, as the reference's `frame_tiles` does;
+        intermediates, as the reference's `frame_tiles` does (under
+        unrolled proofs "root" gives the proofs (full, empty, None));
         `stage_hook(name)` is called as each stage is enqueued."""
         hook = stage_hook if stage_hook is not None else (lambda name: None)
         ts, nl, nt = self.ts, self.nl, self.nt
         im = IntervalMode(torch)
         x0, y0, z0 = st["tile_x0"], st["tile_y0"], st["tile_z0"]
+        unrolled_proofs = getattr(b, "proofs", "interp") == "unrolled"
+        params = None
+        if unrolled_proofs or getattr(b, "leaf", "interp") == "unrolled":
+            params = params_tensor(mat, mat.new_zeros(()), var_vec)
 
         # ---- stage 1: root interval pass (lanes = root tiles) ---------
-        var_lo, var_hi = self.interval_vars(
-            b, im, mat, var_vec, (x0, x0 + ts), (y0, y0 + ts), (z0, z0 + ts),
-            self.s0r, (1,),
-        )
-        w1r, w2r, immr, lensr = b.arena
-        olo, ohi, choices0 = interp_interval(
-            w1r, w2r, immr, lensr, var_lo, var_hi, nf=b.nf, n_inputs=b.V,
-            n_outputs=1, s0=self.s0r, c_words=b.c_words,
-        )
-        rlo = olo[0, 0].reshape(-1)[:nt]
-        rhi = ohi[0, 0].reshape(-1)[:nt]
-        root_full = rhi < 0.0
-        root_active = ~(root_full | (rlo > 0.0))
+        if unrolled_proofs:
+            root_full, root_empty = unrolled_interval3(
+                b.interval_kernel, x0, y0, z0, params, ts
+            )
+            root_out = (root_full, root_empty, None)
+        else:
+            var_lo, var_hi = self.interval_vars(
+                b, im, mat, var_vec, (x0, x0 + ts), (y0, y0 + ts),
+                (z0, z0 + ts), self.s0r, (1,),
+            )
+            w1r, w2r, immr, lensr = b.arena
+            olo, ohi, choices0 = interp_interval(
+                w1r, w2r, immr, lensr, var_lo, var_hi, nf=b.nf,
+                n_inputs=b.V, n_outputs=1, s0=self.s0r, c_words=b.c_words,
+                op_order=b.op_order,
+            )
+            rlo = olo[0, 0].reshape(-1)[:nt]
+            rhi = ohi[0, 0].reshape(-1)[:nt]
+            root_full, root_empty = rhi < 0.0, rlo > 0.0
+            root_out = (rlo, rhi, choices0)
+        root_active = ~(root_full | root_empty)
         hook("root")
         if stop_after == "root":
-            return rlo, rhi, choices0
+            return root_out
 
         # ---- stage 2: per-root-tile simplification --------------------
-        w1s, w2s, imms, lens = b.simplify_root(b.root_codes(choices0, nt))
-        hook("simplify")
-        if stop_after == "simplify":
-            return w1s, w2s, lens
+        # (none under unrolled proofs: no choices are captured, and the
+        # leaf evaluates the whole tape)
+        if not unrolled_proofs:
+            w1s, w2s, imms, lens = b.simplify_root(b.root_codes(choices0, nt))
+            hook("simplify")
+            if stop_after == "simplify":
+                return w1s, w2s, lens
 
         # ---- stage 3: Z-strata, front to back --------------------------
         ntxy = self.nty * self.ntx
-        cap_s = min(cap, nl * self.ny2 * self.nx2)
+        nsub_s = nl * self.ny2 * self.nx2
+        if strata_caps is None:
+            caps = [min(cap, nsub_s)] * self.ntz
+        else:
+            if len(strata_caps) != self.ntz:
+                raise ValueError(f"strata_caps needs {self.ntz} entries")
+            caps = [min(int(c), nsub_s) for c in strata_caps]
 
         def slab_of(a):
             """[nt, ...] (tz, ty, tx)-major -> [ntz, ntxy, ...] with
@@ -257,16 +345,19 @@ class _Pipeline3:
         xs = dict(
             x0=slab_of(x0), y0=slab_of(y0), z0=slab_of(z0),
             act=slab_of(root_active), full=slab_of(root_full),
-            w1s=slab_of(w1s), w2s=slab_of(w2s), imms=slab_of(imms),
-            lens=slab_of(torch.where(root_active, lens, 0)),
         )
+        if not unrolled_proofs:
+            xs.update(
+                w1s=slab_of(w1s), w2s=slab_of(w2s), imms=slab_of(imms),
+                lens=slab_of(torch.where(root_active, lens, 0)),
+            )
         floor = torch.zeros((self.H, self.W), dtype=torch.int32, device=x0.device)
         counts = []
-        for k in range(self.ntz):
+        for k, cap_s in enumerate(caps):
             check_cancel(cancel)
             s = {key: v[k] for key, v in xs.items()}
             floor, aux = self.stratum_proofs(b, st, floor, s, mat=mat,
-                                             var_vec=var_vec)
+                                             var_vec=var_vec, params=params)
             hook("proofs")
             idx = _compact_stratum(
                 aux["act_flat"], nl=nl, ny2=self.ny2, nx2=self.nx2,
@@ -275,11 +366,12 @@ class _Pipeline3:
             hook("compact")
             dcand = self.stratum_leaf(
                 b, st, s, aux, idx, mat=mat, var_vec=var_vec, cap_s=cap_s,
-                hook=hook,
+                params=params, hook=hook,
             )
             floor = self.stratum_fold(floor, dcand, idx, cap_s=cap_s)
             hook("fold")
-            counts.append(aux["n_active"])
+            counts.append(aux["n_active"] if strata_caps is None
+                          else (aux["n_active"] - cap_s).clamp(min=0))
         n_active = torch.stack(counts).max()
         if mode == "heightmap":
             return floor, None, n_active
@@ -288,11 +380,12 @@ class _Pipeline3:
         hook("normals")
         return floor, normal, n_active
 
-    def stratum_proofs(self, b, st, floor, s, *, mat, var_vec):
-        """Stratum stage A: root-full fold, subtile interval pass,
+    def stratum_proofs(self, b, st, floor, s, *, mat, var_vec, params=None):
+        """Stratum stage A: root-full fold, subtile interval pass (K1 with
+        the slab's simplified tapes, or U2-3D under unrolled proofs),
         proof-driven fulls and occlusion against the floor. Returns
         (floor', aux) with the active flags, their count, the packed
-        choices and the slab's z base."""
+        choices (None under unrolled proofs) and the slab's z base."""
         ts, sub, nl, m = self.ts, self.sub, self.nl, self.m
         nty, ntx, ny2, nx2 = self.nty, self.ntx, self.ny2, self.nx2
         i32 = torch.int32
@@ -309,19 +402,28 @@ class _Pipeline3:
         sx0 = x0s[:, None] + st["sub_dx"][None, :]   # [ntxy, m]
         sy0 = y0s[:, None] + st["sub_dy"][None, :]
         sz0 = z0s[:, None] + st["sub_dz"][None, :]
-        var_lo1, var_hi1 = self.interval_vars(
-            b, im, mat, var_vec, (sx0, sx0 + sub), (sy0, sy0 + sub),
-            (sz0, sz0 + sub), self.s0s, (nty * ntx,),
-        )
-        olo1, ohi1, choices1 = interp_interval(
-            s["w1s"], s["w2s"], s["imms"], s["lens"], var_lo1, var_hi1,
-            nf=b.nf, n_inputs=b.V, n_outputs=1, s0=self.s0s,
-            c_words=b.c_words,
-        )
-        slo = olo1[:, 0].reshape(nty * ntx, -1)[:, :m]
-        shi = ohi1[:, 0].reshape(nty * ntx, -1)[:, :m]
-        sub_full = acts & (shi < 0.0)
-        sub_active = acts & ~(shi < 0.0) & ~(slo > 0.0)
+        if getattr(b, "proofs", "interp") == "unrolled":
+            full, empty = unrolled_interval3(
+                b.interval_kernel, sx0.reshape(-1), sy0.reshape(-1),
+                sz0.reshape(-1), params, sub,
+            )
+            full = full.reshape(nty * ntx, m)
+            empty = empty.reshape(nty * ntx, m)
+            choices1 = None
+        else:
+            var_lo1, var_hi1 = self.interval_vars(
+                b, im, mat, var_vec, (sx0, sx0 + sub), (sy0, sy0 + sub),
+                (sz0, sz0 + sub), self.s0s, (nty * ntx,),
+            )
+            olo1, ohi1, choices1 = interp_interval(
+                s["w1s"], s["w2s"], s["imms"], s["lens"], var_lo1, var_hi1,
+                nf=b.nf, n_inputs=b.V, n_outputs=1, s0=self.s0s,
+                c_words=b.c_words, op_order=b.op_order,
+            )
+            full = ohi1[:, 0].reshape(nty * ntx, -1)[:, :m] < 0.0
+            empty = olo1[:, 0].reshape(nty * ntx, -1)[:, :m] > 0.0
+        sub_full = acts & full
+        sub_active = acts & ~full & ~empty
 
         def to_dense(flags):
             """[ntxy, m] -> [nl(z), ny2, nx2] slab-local grid."""
@@ -348,30 +450,43 @@ class _Pipeline3:
         )
         return floor, aux
 
-    def stratum_leaf(self, b, st, s, aux, idx, *, mat, var_vec, cap_s, hook):
+    def stratum_leaf(self, b, st, s, aux, idx, *, mat, var_vec, cap_s, hook,
+                     params=None):
         """Stratum stage B: gather the worklist's parent tapes,
         re-specialize them per subtile from the packed choices, and run
-        the voxel pass. Returns depth candidates [cap_s, sub, sub]."""
+        the voxel pass; under the unrolled leaf, U1-3D over the
+        worklist's voxels with the whole tape instead. Returns depth
+        candidates [cap_s, sub, sub]."""
         sub, nl = self.sub, self.nl
-        i32 = torch.int32
+        i32, f32 = torch.int32, torch.float32
         lz, gy, gx, valid = idx["lz"], idx["gy"], idx["gx"], idx["valid"]
 
+        if getattr(b, "leaf", "interp") == "unrolled":
+            dcand = unrolled_voxel_depth(
+                b.voxel_kernel, (gx * sub).to(f32), (gy * sub).to(f32),
+                (lz * sub).to(f32) + aux["z_lo"], valid, params, sub=sub,
+            )
+            hook("voxel")
+            return dcand
+
         # voxel coordinates of the worklist, (vz, vy, vx) row-major
-        bx = (gx * sub).to(torch.float32)[:, None]
-        by = (gy * sub).to(torch.float32)[:, None]
-        bz = (lz * sub).to(torch.float32)[:, None] + aux["z_lo"]
+        bx = (gx * sub).to(f32)[:, None]
+        by = (gy * sub).to(f32)[:, None]
+        bz = (lz * sub).to(f32)[:, None] + aux["z_lo"]
         px = bx + st["vox_dx"][None, :]
         py = by + st["vox_dy"][None, :]
         pz = bz + st["vox_dz"][None, :]
 
         t_idx = (gy // nl) * self.ntx + (gx // nl)
         perlane = per_instance_codes(
-            s["w1s"], s["w2s"], s["lens"], aux["choices1"], nf=b.nf
+            s["w1s"], s["w2s"], s["lens"], aux["choices1"], nf=b.nf,
+            op_order=b.op_order,
         )  # [ntxy, s0s * 128, lw]
         k_local = ((lz % nl) * nl + (gy % nl)) * nl + (gx % nl)
         codes = unpack_codes(perlane[t_idx, k_local], s["w1s"].shape[1])
         w1_leaf, w2_leaf, imm_leaf, len_leaf, _ = reconstruct(
-            s["w1s"][t_idx], s["w2s"][t_idx], s["imms"][t_idx], codes
+            s["w1s"][t_idx], s["w2s"][t_idx], s["imms"][t_idx], codes,
+            op_order=b.op_order,
         )
         len_leaf = torch.where(valid, len_leaf, 0)
         hook("respecialize")
@@ -382,7 +497,7 @@ class _Pipeline3:
             pp = (sub * sub) // 128
             local = interp_voxel_depth(
                 w1_leaf, w2_leaf, imm_leaf, len_leaf, vars_v, nf=b.nf_regs,
-                n_inputs=b.V, s0=self.s0v, sub=sub,
+                n_inputs=b.V, s0=self.s0v, sub=sub, op_order=b.op_order,
             )[:, :pp].reshape(cap_s, sub, sub)
             dcand = torch.where(
                 (local > 0) & valid[:, None, None], bz_i[..., None] + local, 0
@@ -390,7 +505,7 @@ class _Pipeline3:
         else:
             dv = interp_float(
                 w1_leaf, w2_leaf, imm_leaf, len_leaf, vars_v, nf=b.nf,
-                n_inputs=b.V, n_outputs=1, s0=self.s0v,
+                n_inputs=b.V, n_outputs=1, s0=self.s0v, op_order=b.op_order,
             )[:, 0].reshape(cap_s, -1)[:, : sub**3]
             inside = ((dv < 0.0) & valid[:, None]).reshape(cap_s, sub, sub, sub)
             vz_col = torch.arange(sub, dtype=i32, device=dv.device)[None, :, None, None]
@@ -422,9 +537,11 @@ class _Pipeline3:
 
     def normals_body(self, b, st, depth, matM, var_vec):
         """Per-pixel forward-gradient normals at the surface voxels
-        (voxel.rs:447-482): K4 over `Tn` instances of the whole tape. The
-        lanes are split as the reference splits them for the bucket's
-        nf; K4 itself gets the tape's registers."""
+        (voxel.rs:447-482): K4 over `Tn` instances of the whole tape,
+        under the binding's opcode order in every leaf mode. The lanes
+        are split as the reference splits them for the binding's nf (the
+        bucket's, or the tape's own); K4 itself gets the tape's
+        registers."""
         H, W, D = self.H, self.W, self.D
         dev = depth.device
         f32 = torch.float32
@@ -458,6 +575,7 @@ class _Pipeline3:
             w1r.expand(Tn, -1).contiguous(), w2r.expand(Tn, -1).contiguous(),
             immr.expand(Tn, -1).contiguous(), lensr.expand(Tn).contiguous(),
             vars_n, nf=b.nf_regs, n_inputs=V, n_outputs=1, s0=s0n,
+            op_order=b.op_order,
         )[:, 0]  # [Tn, 4, s0n, 128]
         grads = g.reshape(Tn, 4, s0n * 128).transpose(1, 2).reshape(-1, 4)
         grads = grads[:npix, 1:4]
@@ -483,8 +601,28 @@ class VoxelRenderer:
       cap: worklist slots per stratum (None = one per subtile column,
         at least 256, rounded up to a power of two); an overflow
         retries once at a sufficient capacity.
+      specialize: True (the default) runs the per-shape pipeline
+        (`_ConstBind3`: the arena at the tape's own length under the
+        shape's `frequency_op_order`, per-stratum capacity schedules
+        after the first settled frame). False runs the bucketed one
+        (`_TracedBind`: the canonical bucket, the arena as data).
+      leaf: "interp" (default) re-specializes each subtile's tape and
+        runs the interpreter over its voxels (K5, or K3 when sub^2 %
+        128 != 0). "unrolled" runs U1-3D, the whole tape generated for
+        this shape as straight-line CUDA, over the worklist's voxels,
+        with no per-subtile tapes. Requires specialize=True.
+      proofs: "interp" (default) runs the root and subtile interval
+        passes through K1 with choice capture and simplification.
+        "unrolled" runs U2-3D (the tape's generated interval code) over
+        the boxes and skips simplification entirely. Requires
+        leaf="unrolled".
       device: render device; None means CUDA, and raises when there is
         no card. Pass "cpu" to run the plain PyTorch versions.
+
+    The reference's `strata=` (XLA dispatch drivers: the strata here are
+    always a Python loop that polls the CancelToken between strata) and
+    `voxel_tiles_per_step=` (a Pallas grid-step knob; K5's CUDA launch
+    has its own blocks) are not taken.
     """
 
     def __init__(
@@ -495,9 +633,32 @@ class VoxelRenderer:
         tile_size: int = 64,
         sub_size: int = 16,
         cap: int | None = None,
+        specialize: bool = True,
+        leaf: str = "interp",
+        proofs: str = "interp",
         device=None,
     ):
+        if leaf not in ("interp", "unrolled"):
+            raise ValueError(f"leaf must be 'interp' or 'unrolled', not {leaf!r}")
+        if proofs not in ("interp", "unrolled"):
+            raise ValueError(
+                f"proofs must be 'interp' or 'unrolled', not {proofs!r}"
+            )
+        if leaf == "unrolled" and not specialize:
+            raise ValueError(
+                "leaf='unrolled' generates kernels for this tape and "
+                "requires specialize=True (the bucketed pipeline treats "
+                "tapes as data)"
+            )
+        if proofs == "unrolled" and leaf != "unrolled":
+            raise ValueError(
+                "proofs='unrolled' captures no choice traces, so the "
+                "interpreter leaf (which re-specializes tapes from them) "
+                "cannot follow it; use leaf='unrolled' too"
+            )
         self.device = resolve_device(device)
+        self.specialize = bool(specialize)
+        self.leaf, self.proofs = leaf, proofs
         self.shape_transform = None
         if isinstance(tape, Shape):
             self.shape_transform = tape.transform
@@ -510,16 +671,22 @@ class VoxelRenderer:
         self.geo = _geo3(size.width, size.height, size.depth, tile_size, sub_size)
         g = self.geo
         self.W, self.H, self.D = g.W, g.H, g.D
+        self.ntz, self.nl, self.nx2, self.ny2 = g.ntz, g.nl, g.nx2, g.ny2
         self.nsub = g.nsub
         self.s2w = g.s2w
         if cap is None:
             cap = max(256, g.nx2 * g.ny2)
         self.cap = min(1 << (int(cap) - 1).bit_length(), self.nsub)
+        #: per-stratum capacity schedule, nearest first (built after the
+        #: first settled per-shape frame when it saves slots; None =
+        #: the uniform cap)
+        self._sched = None
+        self._sched_checked = False
 
         self.nf = tape.reg_count + tape.mem_count
         # K4 and K5 get the registers the tape names (child tapes keep
         # the parent's register indices), as 2D's value kernels do; K1
-        # and K2 keep the bucket's nf_b
+        # and K2 the binding's nf (the bucket's nf_b, or the tape's own)
         self._nf_regs = self.nf
         # padded to >= 1 so constant-only shapes still build var planes
         self.n_inputs = max(1, len(tape.var_map))
@@ -540,10 +707,80 @@ class VoxelRenderer:
             torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
             for a in (p.w1, p.w2, p.imm, p.lengths)
         )
+        # the per-shape arena, simplifier and generated kernels are
+        # built lazily: the bucketed path never needs them
+        self._op_order = None
+        self._packed = None
+        self._arena_s_dev = None
+        self._simplifier = None
+
+    # ------------------------------------------------------------------
+    # the per-shape binding's artifacts
+
+    @property
+    def op_order(self):
+        """Per-shape opcode renumbering: position -> canonical op, this
+        shape's most frequent ops first."""
+        if self._op_order is None:
+            self._op_order = frequency_op_order(self.tape)
+        return self._op_order
+
+    @property
+    def nops_s(self):
+        """Vocabulary size under the per-shape opcode renumbering (the
+        CUDA kernels keep their full switch and take no such size)."""
+        return tape_n_ops(self.tape, self.op_order)
+
+    @property
+    def packed(self):
+        """The tape packed at its own length under `op_order`."""
+        if self._packed is None:
+            self._packed = pack_tapes([self.tape], op_order=self.op_order)
+        return self._packed
+
+    @property
+    def _arena_s(self):
+        """Device copy of `packed` (w1, w2, imm, lengths)."""
+        if self._arena_s_dev is None:
+            p = self.packed
+            self._arena_s_dev = tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                for a in (p.w1, p.w2, p.imm, p.lengths)
+            )
+        return self._arena_s_dev
+
+    @property
+    def simplifier(self):
+        if self._simplifier is None:
+            self._simplifier = DeviceSimplifier(
+                self.tape, self.op_order, device=self.device
+            )
+        return self._simplifier
+
+    @functools.cached_property
+    def _voxel_kernel(self) -> VoxelKernel:
+        """U1-3D for this tape (the unrolled leaf)."""
+        return VoxelKernel(self.tape, self.axis_of, self.n_inputs)
+
+    @functools.cached_property
+    def _interval3_kernel(self) -> Interval3Kernel:
+        """U2-3D for this tape (the unrolled proofs)."""
+        return Interval3Kernel(self.tape, self.axis_of, self.n_inputs)
+
+    def _generated_kernels(self) -> list:
+        """The kernels generated for this tape that the frames run."""
+        kernels = []
+        if self.leaf == "unrolled":
+            kernels.append(self._voxel_kernel)
+        if self.proofs == "unrolled":
+            kernels.append(self._interval3_kernel)
+        return kernels
 
     # ------------------------------------------------------------------
 
-    def _bind(self) -> _TracedBind:
+    def _bind(self):
+        if self.specialize:
+            return _ConstBind3(self)
         return _TracedBind(
             *self._arena, self.axis_idx, self.Lcap_b, self.nf_b,
             self.n_inputs, self.cw_b, nf_regs=self._nf_regs,
@@ -581,9 +818,11 @@ class VoxelRenderer:
         return vec
 
     def _frame(self, matM, vec, *, mode="normals", cap=None, stop_after=None,
-               cancel=None, stage_hook=None):
+               cancel=None, stage_hook=None, strata_caps=None):
         """One frame from host inputs: `matM` the [4, 4] world -> model
-        f32 matrix (`_mat4`), `vec` the [V] variable values."""
+        f32 matrix (`_mat4`), `vec` the [V] variable values. With
+        `strata_caps` (a cap per stratum, nearest first) the third
+        result is the largest overflow, else the largest count."""
         dev = self.device
         return self.geo.frame(
             self._bind(), self.geo.statics(dev),
@@ -591,7 +830,108 @@ class VoxelRenderer:
             torch.from_numpy(matM).to(dev), torch.from_numpy(vec).to(dev),
             mode=mode, cap=self.cap if cap is None else cap,
             stop_after=stop_after, cancel=cancel, stage_hook=stage_hook,
+            strata_caps=strata_caps,
         )
+
+    # ------------------------------------------------------------------
+    # per-stratum capacity schedules
+
+    def _host_strata_counts(self, matM_np, vec_np) -> np.ndarray:
+        """Per-stratum interval-active subtile counts, nearest first (the
+        strata's order), from a host numpy interval evaluation of every
+        subtile box: a sound upper bound on the device's worklists, which
+        the root-tile proofs and the occlusion floor only shrink."""
+        im = IntervalMode(np)
+        sub = self.sub
+        nx2, ny2, nz2 = self.nx2, self.ny2, self.geo.nz2
+        zz, yy, xx = np.meshgrid(
+            np.arange(nz2), np.arange(ny2), np.arange(nx2), indexing="ij",
+        )
+        xlo = (xx.reshape(-1) * sub).astype(np.float32)
+        ylo = (yy.reshape(-1) * sub).astype(np.float32)
+        zlo = (zz.reshape(-1) * sub).astype(np.float32)
+        mat = self._screen_mat(np.asarray(matM_np, np.float32))
+        mxi, myi, mzi = transform_intervals(
+            im, mat, (xlo, xlo + sub), (ylo, ylo + sub), (zlo, zlo + sub)
+        )
+        inputs = []
+        for i in range(self.n_inputs):
+            c = np.broadcast_to(np.float32(vec_np[i]), xlo.shape).astype(
+                np.float32
+            )
+            inputs.append((c, c))
+        for kind, ivl in (("x", mxi), ("y", myi), ("z", mzi)):
+            idx = self.axis_of.get(kind)
+            if idx is not None:
+                inputs[idx] = (
+                    np.broadcast_to(ivl[0], xlo.shape).astype(np.float32),
+                    np.broadcast_to(ivl[1], xlo.shape).astype(np.float32),
+                )
+        with np.errstate(all="ignore"):
+            (out,), _ = eval_tape(self.tape, im, inputs)
+        lo, hi = out
+        act = (~((hi < 0.0) | (lo > 0.0))).reshape(nz2, ny2, nx2)
+        nl = self.nl
+        counts = np.array([
+            int(act[s * nl:(s + 1) * nl].sum()) for s in range(self.ntz)
+        ])
+        return counts[::-1]  # nearest (largest z) first
+
+    def strata_schedule(
+        self, matM_np, vec_np, *, headroom: float = 1.15,
+        quantum: int = 64, max_segments: int = 4,
+    ) -> tuple:
+        """A per-stratum capacity schedule from the host counts: each
+        count with `headroom` and 32 slots more, rounded up to `quantum`
+        (at least 64, at most a stratum's subtiles); then runs of equal
+        caps merge greedily (raising the smaller cap) until at most
+        `max_segments` remain. The strata here are a Python loop, so a
+        run costs nothing; the merge is kept so that the schedules equal
+        the reference's."""
+        nsub_s = self.nl * self.ny2 * self.nx2
+        counts = self._host_strata_counts(matM_np, vec_np)
+        caps = []
+        for c in counts:
+            want = int(c * headroom) + 32
+            caps.append(min(max(64, -(-want // quantum) * quantum), nsub_s))
+        runs = [[c, 1] for c in caps]
+        i = 0
+        while i + 1 < len(runs):  # coalesce equal neighbours
+            if runs[i][0] == runs[i + 1][0]:
+                runs[i][1] += runs[i + 1][1]
+                del runs[i + 1]
+            else:
+                i += 1
+        while len(runs) > max_segments:
+            best, cost = None, None
+            for i in range(len(runs) - 1):
+                (c0, n0), (c1, n1) = runs[i], runs[i + 1]
+                hi = max(c0, c1)
+                delta = (hi - c0) * n0 + (hi - c1) * n1
+                if cost is None or delta < cost:
+                    best, cost = i, delta
+            (c0, n0), (c1, n1) = runs[best], runs[best + 1]
+            runs[best] = [max(c0, c1), n0 + n1]
+            del runs[best + 1]
+        out = []
+        for c, n in runs:
+            out.extend([c] * n)
+        return tuple(out)
+
+    # ------------------------------------------------------------------
+
+    def _warm_twin(self) -> "VoxelRenderer":
+        """The bucketed twin (same tile, sub size and cap, the shape's
+        transform included) that serves `render(warmup="interp")` while
+        this tape's kernels build."""
+        t = getattr(self, "_twin", None)
+        if t is None:
+            t = self._twin = VoxelRenderer(
+                self.tape, self.size, tile_size=self.ts, sub_size=self.sub,
+                cap=self.cap, specialize=False, device=self.device,
+            )
+            t.shape_transform = self.shape_transform
+        return t
 
     def render(
         self,
@@ -601,15 +941,51 @@ class VoxelRenderer:
         mode: str = "normals",
         max_retries: int = 3,
         cancel=None,
+        warmup: str = "block",
     ) -> Image3D:
         """Renders a frame; the image stays on the device. On worklist
         overflow, retries at a sufficient power-of-two capacity (the
         count is exact, so one retry suffices). A fired CancelToken
-        raises RenderCancelled before the frame and between strata."""
+        raises RenderCancelled before the frame and between strata.
+
+        The per-shape pipeline builds a per-stratum capacity schedule
+        after its first settled frame (clamped to the settled cap, kept
+        only if it saves slots) and runs later frames under it; a frame
+        that overflows it drops it, runs at the uniform cap, and builds
+        a new one.
+
+        warmup: "block" builds the kernels generated for this tape
+        (`leaf` / `proofs` "unrolled") on first use. "interp" never
+        blocks on that build: while it runs in a background thread,
+        frames come from the bucketed twin (`_warm_twin`), and a failed
+        build raises on the next call. With the interpreter leaf nothing
+        is built per shape, so "interp" serves the per-shape frame at
+        once. Schedules are built and used under "block" only, as in
+        the reference."""
         if mode not in ("normals", "heightmap"):
             raise ValueError(f"unknown mode {mode!r}")
+        if warmup not in ("block", "interp"):
+            raise ValueError(f"warmup must be 'block' or 'interp', not {warmup!r}")
         matM = self._mat4(world_to_model)
         vec = self._var_vec(vars)
+        kernels = self._generated_kernels()
+        if kernels and not ready(self, kernels, warmup):
+            return self._warm_twin().render(
+                world_to_model, vars=vars, mode=mode,
+                max_retries=max_retries, cancel=cancel,
+            )
+        scheduled = self.specialize and warmup == "block"
+        if scheduled and self._sched is not None:
+            check_cancel(cancel)
+            depth, normal, n_over = self._frame(
+                matM, vec, mode=mode, cancel=cancel, strata_caps=self._sched
+            )
+            if int(n_over) == 0:  # the frame's one read from the device
+                return Image3D(depth, normal)
+            # stale: the uniform frame below re-sizes, and a schedule is
+            # built anew
+            self._sched = None
+            self._sched_checked = False
         for _ in range(max_retries + 1):
             check_cancel(cancel)
             depth, normal, n_active = self._frame(
@@ -619,6 +995,18 @@ class VoxelRenderer:
             if n_active <= self.cap or self.cap >= self.nsub:
                 break
             self.cap = min(1 << (n_active - 1).bit_length(), self.nsub)
+        if scheduled and self._sched is None and not self._sched_checked:
+            self._sched_checked = True
+            # each cap clamps to the settled uniform one: the host counts
+            # ignore the occlusion floor, and the settle proved that
+            # every stratum fits `self.cap`; both are sound bounds
+            sched = tuple(
+                min(c, self.cap) for c in self.strata_schedule(matM, vec)
+            )
+            if sum(sched) < self.ntz * min(
+                self.cap, self.nl * self.ny2 * self.nx2
+            ):
+                self._sched = sched
         return Image3D(depth, normal)
 
     # ------------------------------------------------------------------
@@ -713,10 +1101,15 @@ def render(
     mode: str = "normals",
     tile_size: int = 64,
     sub_size: int = 16,
+    specialize: bool = True,
+    leaf: str = "interp",
+    proofs: str = "interp",
     device=None,
 ) -> Image3D:
-    """One-shot 3D render (mirrors fidget_raster::voxel::render)."""
+    """One-shot 3D render (mirrors fidget_raster::voxel::render); the
+    options are `VoxelRenderer`'s."""
     r = VoxelRenderer(
-        tape, size, tile_size=tile_size, sub_size=sub_size, device=device
+        tape, size, tile_size=tile_size, sub_size=sub_size,
+        specialize=specialize, leaf=leaf, proofs=proofs, device=device,
     )
     return r.render(world_to_model, vars=vars, mode=mode)

@@ -94,6 +94,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import importlib.util
+import inspect
 import pathlib
 import shutil
 import subprocess
@@ -162,7 +163,7 @@ def capture_inputs(port, cs, render2d, render3d, simplify_device):
                 "interp_float_coded", args, dict(kwargs, nf=r.nf_b))
     vox = port.VoxelRenderer(
         gyroid_sphere(port), port.VoxelSize(cs.SIZE3, cs.SIZE3, cs.SIZE3),
-        tile_size=64, sub_size=16,
+        tile_size=64, sub_size=16, specialize=False,
     )
     store = {}
     targets = [
@@ -286,10 +287,14 @@ def frames_in_turns(cs, sides, rounds):
         spec = pkg.PixelRenderer(tape, size, specialize=True)
         two = pkg.PixelRenderer(tape, size, tile_sizes=(128, 32))
         mat, vec = std._mat4(view), std._var_vec(None)
+        # the bucketed 3D frame on every side: a checkout from before
+        # `specialize` existed renders only that one
+        bucketed = ({"specialize": False} if "specialize" in
+                    inspect.signature(pkg.VoxelRenderer).parameters else {})
         vox = pkg.VoxelRenderer(
             scenes.gyroid_sphere(pkg),
             pkg.VoxelSize(cs.SIZE3, cs.SIZE3, cs.SIZE3), tile_size=64,
-            sub_size=16,
+            sub_size=16, **bucketed,
         )
         view3 = cs.VIEWS3[1][1]
         frames[side] = {

@@ -312,7 +312,7 @@ def test_voxel_render_on_card_matches_brute(card):
     ctx = port.Context()
     tape = port.lower(ctx, [sphere_union_shape(ctx, n=60)])
     r = port.VoxelRenderer(tape, port.VoxelSize(128, 128, 128), tile_size=32,
-                           sub_size=16)
+                           sub_size=16, specialize=False)
     assert r.device.type == "cuda"
     cuda.reset_launches()
     img = r.render()
@@ -721,6 +721,96 @@ def test_unrolled_kernels_match_plain(card, which, monkeypatch):
                                    equal_nan=True)
         assert (got[~valid] == 0).all()
     assert cuda.LAUNCHES["unrolled_float"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["gyroid", "union"])
+def test_3d_unrolled_kernels_match_plain(card, which):
+    """U2-3D (`unrolled_interval3`) on 3D boxes at two edges, under an
+    affine and a perspective matrix, and U1-3D (`unrolled_voxel_depth`)
+    over a worklist of 16^3 subtiles with invalid slots, against their
+    plain versions on the card: proofs and depths bit for bit, each
+    launch counted under its own name."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+
+    if which == "gyroid":
+        tape = gyroid_sphere(port).tape()
+    else:
+        ctx = port.Context()
+        tape = port.lower(ctx, [sphere_union_shape(ctx, n=60)])
+    axis_of = {v.kind: i for v, i in tape.var_map.items()}
+    V = max(1, len(tape.var_map))
+    s2w = port.VoxelSize(128, 128, 128).screen_to_world().astype(np.float32)
+    turn = np.array([[0.96, -0.28, 0.0, 0.05], [0.2688, 0.9216, -0.28, -0.03],
+                     [0.0784, 0.2688, 0.96, 0.02], [0.0, 0.0, 0.0, 1.0]])
+    persp = np.eye(4)
+    persp[3, 2] = 0.3
+    rng = np.random.default_rng(14)
+    k3 = uc.Interval3Kernel(tape, axis_of, V)
+    kv = uc.VoxelKernel(tape, axis_of, V)
+    cuda.reset_launches()
+    for m in (turn, persp @ turn):
+        mat = torch.from_numpy((m @ s2w).astype(np.float32)).to(card)
+        params = uc.params_tensor(mat, torch.zeros((), device=card),
+                                  torch.zeros(V, device=card))
+        for edge in (16, 32):
+            x0, y0, z0 = (torch.from_numpy((rng.integers(0, 128 // edge, 3000)
+                                            * edge).astype(np.float32)).to(card)
+                          for _ in range(3))
+            got = uc.unrolled_interval3(k3, x0, y0, z0, params, edge)
+            want = uc.unrolled_interval3_plain(k3, x0, y0, z0, params, edge)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+        n, sub = 700, 16
+        bx, by, bz = (torch.from_numpy((rng.integers(0, 8, n) * sub)
+                                       .astype(np.float32)).to(card)
+                      for _ in range(3))
+        valid = torch.arange(n, device=card) % 7 != 3
+        got = uc.unrolled_voxel_depth(kv, bx, by, bz, valid, params, sub=sub)
+        want = uc.unrolled_voxel_depth_plain(kv, bx, by, bz, valid, params,
+                                             sub=sub)
+        assert torch.equal(got, want)
+        assert (got[~valid] == 0).all() and len(got.unique()) > 4
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["unrolled_interval3"] == 4
+    assert cuda.LAUNCHES["unrolled_voxel_depth"] == 2
+
+
+@pytest.mark.cuda
+def test_per_shape_and_compiled_voxel_render_on_card_match_brute(card):
+    """The per-shape frame (the default) and the compiled frames
+    (`leaf="unrolled"` under both proofs) of a sphere union at 128^3 on
+    the card: depth equal to `render_brute` exactly, normals allclose to
+    `brute_normals`, each mode through its own kernels; the per-shape
+    frame adopts a strata schedule after its first frame."""
+    ctx = port.Context()
+    tape = port.lower(ctx, [sphere_union_shape(ctx, n=60)])
+    size = port.VoxelSize(128, 128, 128)
+    brute = None
+    modes = [
+        ({}, {"interp_interval", "liveness_codes", "interp_grad",
+              "interp_voxel_depth"}),
+        ({"leaf": "unrolled"}, {"interp_interval", "liveness_codes",
+                                "interp_grad", "unrolled_voxel_depth"}),
+        ({"leaf": "unrolled", "proofs": "unrolled"},
+         {"unrolled_interval3", "interp_grad", "unrolled_voxel_depth"}),
+    ]
+    for kw, kernels in modes:
+        r = port.VoxelRenderer(tape, size, tile_size=32, sub_size=16, **kw)
+        assert r.device.type == "cuda" and r.specialize
+        r.render()
+        assert r._sched is not None
+        if brute is None:
+            brute = r.render_brute().depth.numpy()
+        cuda.reset_launches()
+        img = r.render()
+        torch.cuda.synchronize()
+        assert {k for k, v in cuda.LAUNCHES.items() if v} == kernels, kw
+        depth = img.depth.cpu().numpy()
+        np.testing.assert_array_equal(depth, brute)
+        hit = depth > 0
+        np.testing.assert_allclose(img.normal.cpu().numpy()[hit],
+                                   r.brute_normals(depth)[hit], rtol=1e-4,
+                                   atol=1e-4)
 
 
 @pytest.mark.cuda

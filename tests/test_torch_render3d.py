@@ -1,7 +1,9 @@
 """The port's 3D voxel renderer against fidget_tpu's, on the CPU.
 
-`VoxelRenderer(device="cpu")` runs the plain PyTorch versions of the
-kernels. The reference runs its bucketed frame
+`VoxelRenderer(specialize=False, device="cpu")` runs the bucketed
+frame on the plain PyTorch versions of the kernels (the per-shape
+frame, the default, is held to the reference in
+test_torch_render3d_per_shape.py). The reference runs its bucketed frame
 (`VoxelRenderer(..., specialize=False)`, `_TracedBind` under
 `_Pipeline3.frame_tiles`) with its Pallas kernels in interpret mode.
 At 32^3 with (tile 16, subtile 8) the voxel pass is K3 and with
@@ -86,7 +88,7 @@ def test_frame_matches_reference_stage_by_stage(ts, sub, view):
     )
     pr = port.VoxelRenderer(
         port_tape_from_ref(REF_GYROID), port.VoxelSize(*size), tile_size=ts,
-        sub_size=sub, device="cpu",
+        sub_size=sub, specialize=False, device="cpu",
     )
     for attr in ("Lcap_b", "nf_b", "cw_b", "n_inputs", "cap"):
         assert getattr(pr, attr) == getattr(rr, attr), attr
@@ -125,7 +127,7 @@ def test_voxel_and_grad_get_the_tapes_registers(monkeypatch, view):
     equal a frame that hands K4 and K5 the bucket's nf."""
     pr = port.VoxelRenderer(
         port_tape_from_ref(REF_GYROID), port.VoxelSize(32, 32, 32),
-        tile_size=32, sub_size=16, device="cpu",
+        tile_size=32, sub_size=16, specialize=False, device="cpu",
     )
     assert (pr.nf, pr.nf_b) == (REF_GYROID.reg_count, 64)
     seen = []
@@ -160,7 +162,7 @@ def test_overflow_retry():
     shape = gyroid_sphere(port)
     r = port.VoxelRenderer(
         shape, port.VoxelSize(32, 32, 32), tile_size=16, sub_size=8, cap=8,
-        device="cpu",
+        specialize=False, device="cpu",
     )
     img = r.render(mode="heightmap", max_retries=8)
     assert img.normal is None
@@ -180,7 +182,7 @@ def test_shape_var_and_transform():
     )
     n = 64
     r = port.VoxelRenderer(shape, port.VoxelSize(n, n, n), tile_size=32,
-                           sub_size=8, device="cpu")
+                           sub_size=8, specialize=False, device="cpu")
     img = r.render(vars={rv: 0.8}, mode="heightmap")
     brute = r.render_brute(vars={rv: 0.8})
     np.testing.assert_array_equal(img.depth.numpy(), brute.depth.numpy())
@@ -198,7 +200,8 @@ def test_perspective_camera_matches_brute():
     mat = np.eye(4)
     mat[3, 2] = 0.3
     r = port.VoxelRenderer(sphere_tape(0.6), port.VoxelSize(64, 64, 64),
-                           tile_size=32, sub_size=8, device="cpu")
+                           tile_size=32, sub_size=8, specialize=False,
+                           device="cpu")
     img = r.render(mat)
     depth = img.depth.numpy()
     np.testing.assert_array_equal(depth, r.render_brute(mat).depth.numpy())
