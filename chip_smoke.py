@@ -2,7 +2,7 @@
 """Bring-up check of fidget_tpu_torch on one CUDA card.
 
 Builds the eight CUDA kernels of the port from the sources in
-fidget_tpu_torch/csrc and the four it generates per tape (from
+fidget_tpu_torch/csrc and the six it generates per tape (from
 csrc/unrolled.cuh), holds each against its plain PyTorch version on
 the card, and drives the port's main paths: the 2D frame
 (`PixelRenderer.render()` at 1024^2 on a 7,203-op procedural shape)
@@ -17,7 +17,10 @@ every frame against the numpy oracles; the per-shape compiled 2D path
 on the two kernels generated for the stand-in (U1 `unrolled_float`,
 U2 `unrolled_interval`); then the shape-parameter gradient of the 2D
 frames and the mesher (`build_mesh` at depth 8 on the sphere union and the
-gyroid sphere), on `BulkEvaluator`; last the ports of the Pallas probes
+gyroid sphere), on `BulkEvaluator`, and again on the compiled mesher
+(`eval="unrolled"`: two more kernels generated per tape, U1-P
+`unrolled_points` and U2-B `unrolled_interval_boxes`, and K4); last the
+ports of the Pallas probes
 P2 and P3, each through its own probe (`fidget_tpu_torch.demos`). Run
 from the root of the repository:
 
@@ -127,7 +130,13 @@ Phases (any failure exits non-zero and prints no result):
    infinities, the vars as before, U2-3D's proofs and U1-3D's depths bit
    for bit (on the transcendental tape a depth column may differ only
    where the plain distance of the voxel in question is within 2e-4 of
-   0);
+   0); and the mesher's kernels on the combined tapes, built in the
+   same batch: U1-P under both epilogues over the guard's 256^2 points
+   in model space (a [4, 16384] list with 12,000 live columns) and U2-B
+   over its 8-px tiles' boxes (a [2, 512] list with 400), at its two
+   matrices and vars, distances, signs and proofs bit for bit (dead
+   lanes included; on the transcendental tape a sign may differ only
+   where the plain distance is within 2e-4 of 0);
 7. 3D main path, bucketed (`specialize=False`): the gyroid sphere at
    512^3 (tile 64, subtile 16)
    under three views in normals mode and one heightmap frame, then the
@@ -198,6 +207,24 @@ Phases (any failure exits non-zero and prints no result):
    inputs the depth-8 builds gave them, bit-equal to their plain
    versions on the first instances (NaN where plain is NaN), with time,
    bound and the cost of copying the tape over the instances;
+11b. mesh, unrolled: `build_mesh(Settings(eval="unrolled"))` at depth
+   8, collapse on, on the same two scenes under the same view: the cold
+   build of U1-P and U2-B (started with the run, after the compiled 3D
+   build, so that the union's U1 program is not built twice) and a
+   cached one; launch counts set to 0 before the two builds and read
+   after (U1-P, U2-B and K4, and no K1 or K3); each mesh held as in
+   phase 11; the depth-5 sphere and a depth-5 gyroid sphere under an
+   oblique rotation (0.7 rad about (1, 2, 3)) built on the card equal to
+   the CPU's builds (triangles equal, vertices within 1e-5; a vertex
+   past that only on a float64 witness: the CPU build with its
+   transcendentals correctly rounded moves it, and the card lies within
+   1e-5 + 4x that move); U1-P (both epilogues, every site: leaf corners,
+   edge samples, intersections, collapse lattices) and U2-B (levels) on
+   the inputs the depth-8 builds gave them, bit for bit against their
+   plain versions, with CUDA-event and profiler times and the bound over
+   the live lanes, and K4 at the fine stage's gradient shape; warm
+   builds of both eval modes by turns (host clock, synchronized, stages
+   by `_StageClock`) and the device's busy share of a compiled build;
 12. the interleave probe (P2, `demos/exp_interleave.py`): the
    two-stream kernel `interp_float2` against its plain version bit for
    bit on the reference's tapes at its shapes (128 instances of two
@@ -2476,15 +2503,52 @@ def _cell_boxes(collapse, boxes):
         cov = np.repeat(np.arange(len(cells)), nvert)
         BoxedStore.fine = (cells[cov].astype(np.float64) * h - 1.0,
                            np.full(len(cov), h))
+        if kw.get("store") is not None:  # a device store: ids 4*cell+slot
+            kw["store"].set_fine(cells, h)
         return real_walk(**kw)
+
+    from fidget_tpu_torch.mesh import fused
+
+    real_device = fused.DeviceVertexStore
+
+    class BoxedDeviceStore(real_device):
+        def set_fine(self, cells, h):
+            ids = np.arange(4 * len(cells))
+            self.lo = np.zeros((self.cap, 3))
+            self.size = np.zeros(self.cap)
+            self.lo[ids] = cells[ids // 4].astype(np.float64) * h - 1.0
+            self.size[ids] = h
+
+        def merge_round(self, member_vids, seg_member, pbase, ps):
+            self.cand = (pbase, ps)
+            return super().merge_round(member_vids, seg_member, pbase, ps)
+
+        def commit(self, accept):
+            pbase, ps = self.cand
+            ids = super().commit(accept)
+            if len(self.lo) < self.cap:
+                grow = self.cap - len(self.lo)
+                self.lo = np.concatenate([self.lo, np.zeros((grow, 3))])
+                self.size = np.concatenate([self.size, np.zeros(grow)])
+            self.lo[ids] = pbase[accept].astype(np.float64) * self.h - 1.0
+            self.size[ids] = ps * self.h
+            return ids
+
+        def final_positions(self, ids):
+            out = super().final_positions(ids)
+            boxes.append((out.astype(np.float64), self.lo[ids],
+                          self.size[ids]))
+            return out
 
     collapse.HostVertexStore = BoxedStore
     collapse.collapse_and_walk = walk
+    fused.DeviceVertexStore = BoxedDeviceStore
     try:
         yield
     finally:
         collapse.HostVertexStore = real_store
         collapse.collapse_and_walk = real_walk
+        fused.DeviceVertexStore = real_device
 
 
 def check_mesh(label, mesh, ev, boxes, view):
@@ -2682,6 +2746,370 @@ def phase_mesh(port, cuda, rows, depth=MESH_DEPTH, dev="cuda"):
             launches=launches[name],
             **_measure_sliced(f"{name} at the {tag} mesh's bulk shape",
                               name, args, kwargs, tape_copy=True))
+
+
+#: kernels of the compiled mesher's path: U1-P, U2-B and K4, and no
+#: interpreter kernel but K4
+KERNELS_MESH_UNROLLED = ("unrolled_points", "unrolled_interval_boxes",
+                         "interp_grad")
+MESHER_KERNELS = ("unrolled_points", "unrolled_interval_boxes")
+#: the oblique view of the card-against-CPU gyroid build: 0.7 rad about
+#: (1, 2, 3), whose coefficients mix signs
+OBLIQUE_AXIS, OBLIQUE_ANGLE = (1.0, 2.0, 3.0), 0.7
+
+
+def _oblique():
+    a = np.asarray(OBLIQUE_AXIS) / np.linalg.norm(OBLIQUE_AXIS)
+    k = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+    m = np.eye(4)
+    m[:3, :3] = (np.eye(3) + math.sin(OBLIQUE_ANGLE) * k
+                 + (1 - math.cos(OBLIQUE_ANGLE)) * k @ k)
+    return m
+
+
+@contextlib.contextmanager
+def _f64_transcendentals():
+    """torch's sqrt and transcendentals, as the tapes' plain evaluation
+    calls them (eval/arith.py), on f32 CPU tensors evaluated in float64
+    and rounded to f32 (correctly rounded, where torch's own vectorized
+    CPU versions may err in the last place) while it is open: the
+    witness build of `phase_mesh_unrolled`."""
+    names = ("sqrt", "sin", "cos", "tan", "arcsin", "arccos", "arctan",
+             "arctan2", "exp", "log")
+    saved = {n: getattr(torch, n) for n in names}
+
+    def wrap(fn):
+        def call(*args, **kw):
+            if all(isinstance(a, torch.Tensor) and a.dtype == torch.float32
+                   and a.device.type == "cpu" for a in args) and not kw:
+                return fn(*(a.double() for a in args)).float()
+            return fn(*args, **kw)
+        return call
+
+    for n, fn in saved.items():
+        setattr(torch, n, wrap(fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(torch, n, fn)
+
+
+def start_mesh_unrolled_build(port, after):
+    """The compiled mesher's generated kernels for the two mesh scenes
+    (U1-P under both epilogues, U2-B), their nvcc steps started in a
+    thread of their own once `after` (the compiled 3D build, which
+    builds the union's program) has ended, so that no unit is built
+    twice. Returns a future of (steps, seconds)."""
+    from fidget_tpu_torch import mesh as mesh_mod
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+    from fidget_tpu_torch.mesh import fused
+
+    kernels = []
+    for _, _, scene in _mesh_scenes(port):
+        tape = scene.tape() if isinstance(scene, port.Shape) else scene
+        ev = mesh_mod._get_evaluator(tape, torch.device("cuda"), True)
+        kernels += fused.fused_kernels(ev)
+    for k in kernels:  # the units fixed on the calling thread
+        k.unit()
+
+    def build():
+        after.result()
+        t0 = time.perf_counter()
+        steps = uc.build_kernels(kernels)
+        return steps, time.perf_counter() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(build)
+    pool.shutdown(wait=False)
+    return future
+
+
+def _mesher_bound(name, args, out):
+    """(bound_ms, bound_by, operations, bytes) of one U1-P / U2-B call,
+    over the live lanes of this call (a [rows, cols] list with `count`
+    live columns): U1-P one operation per tape row per point, moving
+    the three coordinates in and the distance or sign out; U2-B two (lo,
+    hi) per row per box, moving the six corners in and the two proofs
+    out; the params once."""
+    kern = args[0]
+    first = args[1] if name == "unrolled_points" else args[1][0]
+    count = args[5 if name == "unrolled_points" else 4] if len(args) > (
+        5 if name == "unrolled_points" else 4) else None
+    cols = first.shape[-1]
+    rows = first.numel() // cols
+    live = rows * (cols if count is None else min(cols, int(count)))
+    if name == "unrolled_points":
+        ops = live * len(kern.tapes[0])
+        nbytes = live * (12 + out.element_size()) + args[4].nbytes
+    else:
+        ops = 2 * live * len(kern.tape)
+        nbytes = live * (24 + 2) + args[3].nbytes
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, ops, nbytes
+
+
+def _measure_mesher(label, name, args):
+    """One captured U1-P / U2-B call against its plain version on the
+    card (distances with max abs err 0, NaN where plain is NaN; signs
+    and proofs exactly), CUDA-event ms, profiler device ms, plain ms
+    and the bound."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+
+    fn = getattr(uc, name)
+    plain = getattr(uc, name + "_plain")
+    got = fn(*args)
+    want, plain_ms = _time_plain(plain, args, {})
+    if name == "unrolled_points" and args[0].epilogue == "distance":
+        err = check(f"{name} ({label})", got, want, 0.0, 0.0)
+    else:
+        same = (torch.equal(got, want) if name == "unrolled_points"
+                else all(torch.equal(g, w) for g, w in zip(got, want)))
+        if not same:
+            raise Failed(f"{name} ({label}) differs from its plain version")
+        err = 0.0
+    ms = time_cuda(lambda: fn(*args), reps=20)
+    dms = device_ms(lambda: fn(*args), "fidget_" + name)
+    bound_ms, by, ops, nbytes = _mesher_bound(
+        name, args, got if name == "unrolled_points" else None)
+    shape = tuple((args[1] if name == "unrolled_points" else args[1][0]).shape)
+    log(f"kernel {name} ({label}): {shape} lanes, {ops} operations over the "
+        f"live lanes, {nbytes} bytes; equal to plain (max abs err {err}), "
+        f"{ms:.4f} ms (CUDA events), device {dms} ms (profiler), plain "
+        f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, operations=ops, bytes=nbytes,
+                shape=list(shape))
+
+
+def _mesher_site(name, args):
+    """Where in the fine stage a U1-P / U2-B call comes from, by its
+    kernel and list shape."""
+    if name == "unrolled_interval_boxes":
+        return "levels"
+    epi = args[0].epilogue
+    rows = args[1].shape[0] if args[1].dim() == 2 else None
+    if epi == "distance":
+        return "intersections"
+    if args[1].dim() == 3:
+        return "edge samples"
+    return {8: "leaf corners", 27: "lattice"}.get(rows, f"rows {rows}")
+
+
+@contextlib.contextmanager
+def _capture_mesher(tag, captured):
+    """Records, per (scene tag, kernel, site), the call of U1-P / U2-B
+    in mesh/fused.py with the most live lanes (its count read on the
+    host: a warm-up build only)."""
+    from fidget_tpu_torch.mesh import fused
+
+    saved = {n: getattr(fused, n) for n in MESHER_KERNELS}
+
+    def recorder(name):
+        def call(*args):
+            first = args[1] if name == "unrolled_points" else args[1][0]
+            i = 5 if name == "unrolled_points" else 4
+            count = args[i] if len(args) > i else None
+            live = first.numel() // first.shape[-1] * (
+                first.shape[-1] if count is None
+                else min(first.shape[-1], int(count)))
+            key = (tag, name, _mesher_site(name, args))
+            if key not in captured or live > captured[key][1]:
+                captured[key] = (args, live)
+            return saved[name](*args)
+        return call
+
+    for n in MESHER_KERNELS:
+        setattr(fused, n, recorder(n))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(fused, n, f)
+
+
+def phase_mesh_unrolled(port, cuda, rows, built, depth=MESH_DEPTH,
+                        dev="cuda"):
+    """`build_mesh(Settings(eval="unrolled"))` at depth 8 (collapse on)
+    on phase 11's two scenes under MESH_VIEW: the cold build of the
+    generated kernels (`start_mesh_unrolled_build`, beside the earlier
+    phases) and a cached one; launch counts set to 0 before the two
+    builds and read after (U1-P, U2-B and K4 each launched; K1 and K3
+    never); each mesh held by `check_mesh`; a depth-5 sphere built on
+    the card equal to the CPU's build, and a depth-5 gyroid sphere under
+    an oblique rotation likewise (triangles equal, vertices within
+    1e-5); U1-P (both epilogues, every site) and U2-B on the inputs the
+    depth-8 builds gave them, bit for bit against their plain versions,
+    with time and bound (the `kernels` rows), and K4 at the fine stage's
+    gradient shape; then warm builds by turns against eval="interp"
+    (host clock, synchronized; stages by `_StageClock`) and the device's
+    busy share of one compiled build."""
+    from fidget_tpu_torch import mesh as mesh_mod
+    from fidget_tpu_torch.eval import bulk
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+    from fidget_tpu_torch.mesh import collapse, fused
+
+    t_phase = time.perf_counter()
+    dev = torch.device(dev)
+    steps, cold_s = built.result()
+    wait_s = time.perf_counter() - t_phase
+    scenes = _mesh_scenes(port)
+    kernels = []
+    for _, _, scene in scenes:
+        tape = scene.tape() if isinstance(scene, port.Shape) else scene
+        kernels += fused.fused_kernels(mesh_mod._get_evaluator(tape, dev,
+                                                               True))
+    t0 = time.perf_counter()
+    again = uc.build_kernels(kernels)
+    cached_s = time.perf_counter() - t0
+    if again or not uc.built(kernels):
+        raise Failed(f"mesher kernels not cached after a build: {again}")
+    spills = {}
+    for k in kernels:
+        lines, spill = _ptxas_lines(k.unit())
+        spills[f"{type(k).__name__} {getattr(k, 'epilogue', '')}"] = spill
+    log(f"mesh (unrolled) build: {len(steps)} nvcc steps in {cold_s:.1f} s "
+        f"cold (started beside the earlier phases; {wait_s:.1f} s waited "
+        f"here), cached {cached_s:.3f} s; spill bytes {spills}")
+
+    settings = port.MeshSettings(depth=depth, world_to_model=MESH_VIEW,
+                                 device=dev, eval="unrolled")
+    interp = port.MeshSettings(depth=depth, world_to_model=MESH_VIEW,
+                               device=dev)
+    captured, grads = {}, {}
+    for tag, label, scene in scenes:  # warm-up; its inputs feed the rows
+        targets = [(bulk, "interp_grad",
+                    lambda a, k, tag=tag: f"interp_grad@{tag}")]
+        with _capture_mesher(tag, captured), capture_kernel_inputs(targets,
+                                                                   grads):
+            port.build_mesh(scene, settings)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    meshes, boxes = [], []
+    for _, label, scene in scenes:
+        with _cell_boxes(collapse, boxes):
+            meshes.append(port.build_mesh(scene, settings))
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    log(f"mesh (unrolled) launches over {len(scenes)} depth-{depth} builds: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    missing = [k for k in KERNELS_MESH_UNROLLED if launches[k] == 0]
+    interp_k = [k for k in ("interp_interval", "interp_float")
+                if launches[k]]
+    if missing or interp_k:
+        raise Failed(f"the compiled mesher never launched {missing} or "
+                     f"launched the interpreter's {interp_k}")
+    for (_, label, scene), m, bx in zip(scenes, meshes, boxes):
+        tape = scene.tape() if isinstance(scene, port.Shape) else scene
+        ev = mesh_mod._get_evaluator(tape, dev)
+        check_mesh(f"{label} (unrolled)", m, ev, bx, MESH_VIEW)
+
+    from fidget_tpu_torch.scenes import gyroid_sphere
+
+    ctx = port.Context()
+    x, y, z = ctx.x(), ctx.y(), ctx.z()
+    sphere = port.lower(ctx, [ctx.sub(ctx.sqrt(ctx.add(
+        ctx.square(x), ctx.add(ctx.square(y), ctx.square(z)))), 0.6)])
+    for label, scene, view in (("sphere", sphere, None),
+                               ("oblique gyroid sphere", gyroid_sphere(port),
+                                _oblique())):
+        st = port.MeshSettings(depth=MESH_DEPTH_CPU, world_to_model=view,
+                               device=dev, eval="unrolled")
+        got = port.build_mesh(scene, st)
+        st.device = "cpu"
+        want = port.build_mesh(scene, st)
+        same_t = (got.triangles.shape == want.triangles.shape
+                  and np.array_equal(got.triangles, want.triangles))
+        diff = (np.abs(got.vertices - want.vertices).max(axis=1)
+                if same_t else None)
+        witnessed = 0
+        if same_t and (diff > 1e-5).any():
+            # the float64 witness: the CPU build again with its
+            # transcendentals evaluated in float64 and rounded to f32
+            # (correctly rounded); a vertex that this alone moves is
+            # decided by last-place rounding, and the card's (up to 2
+            # ulps) may move it up to 4x as far
+            with _f64_transcendentals():
+                alt = port.build_mesh(scene, st)
+            moved = np.abs(alt.vertices - want.vertices).max(axis=1)
+            bad = diff > 1e-5
+            ok = bad & (moved > 1e-6) & (diff <= 1e-5 + 4 * moved)
+            witnessed = int(ok.sum())
+            for i in np.nonzero(bad)[0][:4]:
+                log(f"  vertex {i}: card {got.vertices[i].tolist()}, CPU "
+                    f"{want.vertices[i].tolist()}, CPU with correctly "
+                    f"rounded transcendentals {alt.vertices[i].tolist()}")
+            if (bad & ~ok).any():
+                diff = None
+        if not (len(got.triangles) and same_t and diff is not None):
+            dv = (np.abs(got.vertices - want.vertices).max()
+                  if got.vertices.shape == want.vertices.shape else None)
+            raise Failed(f"the depth-{MESH_DEPTH_CPU} unrolled {label} mesh "
+                         f"on the card differs from the CPU's: triangles "
+                         f"{got.triangles.shape} / {want.triangles.shape}, "
+                         f"equal {same_t}, max vertex difference {dv}")
+        log(f"depth-{MESH_DEPTH_CPU} unrolled {label}: card mesh equals the "
+            f"CPU's ({len(got.triangles)} triangles, max vertex difference "
+            f"{diff.max():.3g}; {witnessed} vertices past 1e-5 on the float64 "
+            f"witness)")
+
+    measured = {}
+    for key in sorted(captured):
+        tag, name, site = key
+        measured[key] = _measure_mesher(f"{tag}, {site}", name,
+                                        captured[key][0])
+    for name, head in (("unrolled_points", ("union", "unrolled_points",
+                                            "edge samples")),
+                       ("unrolled_interval_boxes",
+                        ("union", "unrolled_interval_boxes", "levels"))):
+        rows[name] = {
+            "name": name, "route": "cuda", "source": UNROLLED_SOURCE,
+            "replaces": UNROLLED_REPLACES, "launches": launches[name],
+            "launches_per_build": launches[name] / len(scenes),
+            **measured[head], "library_ms": None,
+            "at": {", ".join((k[0], k[2])): v for k, v in measured.items()
+                   if k[1] == name and k != head},
+            "build": {"steps": len(steps), "cold_s": cold_s,
+                      "cached_s": cached_s, "spill_bytes": spills},
+        }
+    for key in sorted(grads):
+        name, tag = key.split("@")
+        args, kwargs = grads[key]
+        rows[name][f"at_mesh_unrolled_{tag}"] = dict(
+            launches=launches[name],
+            **_measure_sliced(f"{name} at the {tag} compiled mesh's "
+                              f"gradient shape", name, args, kwargs))
+
+    for tag, label, scene in scenes:
+        totals = {"interp": [], "unrolled": []}
+        stages = {"interp": [], "unrolled": []}
+        for rnd in range(MESH_REPS):
+            order = (("interp", interp), ("unrolled", settings))
+            for mode, st in order if rnd % 2 == 0 else order[::-1]:
+                clock = mesh_mod._StageClock(True, dev, echo=False)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                port.build_mesh(scene, st, clock=clock)
+                torch.cuda.synchronize()
+                totals[mode].append((time.perf_counter() - t0) * 1e3)
+                stages[mode].append(_stage_table(clock.stages))
+        med = {k: float(np.median(v)) for k, v in totals.items()}
+        for mode in ("unrolled", "interp"):
+            k = int(np.argsort(totals[mode])[len(totals[mode]) // 2])
+            log(f"mesh build by turns, {label}, depth {depth}, {mode}: "
+                f"median {med[mode]:.1f} ms, min {min(totals[mode]):.1f} "
+                f"ms over {MESH_REPS} builds (host clock); stages of the "
+                f"median build (ms): " + ", ".join(
+                    f"{s} {ms:.1f}" for s, ms in stages[mode][k].items()))
+        busy = _log_busy(f"{label} compiled build", _device_busy(
+            lambda: port.build_mesh(scene, settings), 1), med["unrolled"])
+        for name in MESHER_KERNELS:
+            rows[name].setdefault("builds", {})[tag] = {
+                "unrolled_ms": totals["unrolled"], "interp_ms":
+                totals["interp"], "unrolled_busy_ms": busy}
+    log(f"phase 11b: {time.perf_counter() - t_phase:.1f} s")
 
 
 #: the per-shape compiled path (render/unrolled2d.py) at its defaults:
@@ -3113,8 +3541,13 @@ def _guard_kernels(pkg):
                    for name, t, tol in comb]
         intervals3 = [(name, uc.Interval3Kernel(t, axis, V))
                       for name, t, _ in comb]
+    points, boxes = [], []
+    if hasattr(uc, "PointsKernel"):
+        points = [(name, uc.PointsKernel(t, axis, V, epi), tol)
+                  for name, t, tol in comb for epi in uc.POINT_EPILOGUES]
+        boxes = [(name, uc.BoxesKernel(t, axis, V)) for name, t, _ in comb]
     return (uc, op_tapes, comb, kinds, matrix, singles, intervals, voxels3,
-            intervals3)
+            intervals3, points, boxes)
 
 
 def start_guard_build(pkg):
@@ -3124,10 +3557,12 @@ def start_guard_build(pkg):
     host's idle cores while the phases before 6e use the card. Returns a
     future of (kernels, steps, build seconds)."""
     guard = _guard_kernels(pkg)
-    uc, _, _, _, matrix, singles, intervals, voxels3, intervals3 = guard
+    (uc, _, _, _, matrix, singles, intervals, voxels3, intervals3, points,
+     boxes) = guard
     kernels = ([matrix] + [k for _, k, _ in singles]
                + [k for _, _, ks in intervals for k in ks]
-               + [k for _, k, _ in voxels3] + [k for _, k in intervals3])
+               + [k for _, k, _ in voxels3] + [k for _, k in intervals3]
+               + [k for _, k, _ in points] + [k for _, k in boxes])
 
     def build():
         t0 = time.perf_counter()
@@ -3157,7 +3592,7 @@ def phase_unrolled_guard(pkg, dev="cuda", label="tree", built=None):
     t_start = time.perf_counter()
     guard, steps, build_s = (built or start_guard_build(pkg)).result()
     (uc, op_tapes, comb, kinds, matrix, singles, intervals, voxels3,
-     intervals3) = guard
+     intervals3, points, boxes) = guard
     n_t = GUARD_SIZE // UNROLLED_T0
     gx, gy = np.meshgrid(np.arange(n_t) * UNROLLED_T0,
                          np.arange(n_t) * UNROLLED_T0)
@@ -3217,6 +3652,7 @@ def phase_unrolled_guard(pkg, dev="cuda", label="tree", built=None):
             launches += 1 + len(singles)
     torch.cuda.synchronize()
     launches3 = _guard3d(uc, voxels3, intervals3, label, dev)
+    launches3 += _guard_mesher(uc, points, boxes, label, dev)
     secs = time.perf_counter() - t_start
     log(f"unrolled guard ({label}): {P} op tapes in one U1 launch, "
         f"{len(singles)} combined tapes ({', '.join(n for n, _, _ in comb)}; "
@@ -3230,9 +3666,84 @@ def phase_unrolled_guard(pkg, dev="cuda", label="tree", built=None):
         + f"; {len(steps)} nvcc steps in {build_s:.1f} s"
         + (" (started with the run, beside the phases before this)"
            if built else "") + f", phase {secs:.1f} s"
-        + (f"; the 3D variants: {launches3} launches, see above"
+        + (f"; the 3D and mesher variants: {launches3} launches, see above"
            if launches3 else ""))
     return secs
+
+
+def _guard_mesher(uc, points, boxes, label, dev):
+    """Phase 6e for the mesher's kernels: U1-P under both epilogues and
+    U2-B on the combined tapes, over the model-space points of the 2D
+    guard's 256^2 pixels (a [4, 16384] list, 12,000 live columns) and
+    the boxes of its 8-px tiles (a [2, 512] list, 400 live columns)
+    under its two matrices, with the vars of `_guard_pairs`, against the
+    plain versions: distances exactly (the transcendental tape at its
+    2e-4, as U1), signs exactly but where the plain distance of the
+    point lies within that tolerance of 0 on that tape, proofs exactly
+    (dead lanes included: 0, False, no proof). Returns the launches."""
+    if not points:
+        return 0
+    n, T0 = GUARD_SIZE, float(UNROLLED_T0)
+    g = torch.arange(n * n, device=dev)
+    px, py = (g % n).float(), (g // n).float()
+    t = torch.arange(0, n, UNROLLED_T0, dtype=torch.float32, device=dev)
+    ty, tx = (a.reshape(-1) for a in torch.meshgrid(t, t, indexing="ij"))
+    count = torch.tensor([12000], dtype=torch.int32, device=dev)
+    bcount = torch.tensor([400], dtype=torch.int32, device=dev)
+    dist = {name: k for name, k, _ in points if k.epilogue == "distance"}
+    launches, witnessed = 0, 0
+    for mat, pairs in zip(_guard_matrices(), _guard_pairs()):
+        m = torch.tensor(mat, device=dev)
+
+        def row(r, a, b):
+            return m[r, 0] * a + m[r, 1] * b + m[r, 3]
+
+        x, y = (row(r, px, py).reshape(4, -1) for r in (0, 1))
+        z = torch.zeros_like(x)
+        lo, hi = [], []
+        for r in (0, 1):
+            c0, c1 = row(r, tx, ty), row(r, tx + T0, ty + T0)
+            lo.append(torch.minimum(c0, c1).reshape(2, -1))
+            hi.append(torch.maximum(c0, c1).reshape(2, -1))
+        lo.append(torch.zeros_like(lo[0]))
+        hi.append(torch.zeros_like(lo[0]))
+        for a_val, b_val in pairs:
+            params = torch.tensor([0.0, 0.0, a_val, b_val],
+                                  dtype=torch.float32, device=dev)
+            at = f"at a={a_val}, b={b_val}"
+            for name, k, tol in points:
+                got = uc.unrolled_points(k, x, y, z, params, count)
+                want = uc.unrolled_points_plain(k, x, y, z, params, count)
+                if k.epilogue == "distance":
+                    check(f"unrolled guard ({label}) U1-P {name} {at}", got,
+                          want, tol, tol)
+                    continue
+                bad = got != want
+                if bad.any():
+                    d = uc.unrolled_points_plain(dist[name], x, y, z, params,
+                                                 count)[bad]
+                    if tol == 0 or not bool((d.abs() <= tol).all()):
+                        raise Failed(
+                            f"unrolled guard ({label}) U1-P {name} signs {at}: "
+                            f"{int(bad.sum())} differ from plain (plain "
+                            f"distances there {d[:4].tolist()})")
+                    witnessed += int(bad.sum())
+            for name, k in boxes:
+                got = uc.unrolled_interval_boxes(k, lo, hi, params, bcount)
+                want = uc.unrolled_interval_boxes_plain(k, lo, hi, params,
+                                                        bcount)
+                if not all(torch.equal(g_, w_) for g_, w_ in zip(got, want)):
+                    raise Failed(f"unrolled guard ({label}) U2-B {name} {at}: "
+                                 f"proofs differ from plain")
+            launches += len(points) + len(boxes)
+    torch.cuda.synchronize()
+    log(f"unrolled guard ({label}) mesher: U1-P (distance, sign) and U2-B "
+        f"on the {len(boxes)} combined tapes over {n}^2 points and "
+        f"{len(tx)} boxes with live counts, two matrices, {launches} "
+        f"launches: distances, signs and proofs equal to plain "
+        f"({witnessed} signs of the transcendental tape within its "
+        f"tolerance of the surface)")
+    return launches
 
 
 #: the 3D guard's volume edge and subtile edge
@@ -3789,6 +4300,7 @@ def main() -> int:
     ctx3 = port.Context()
     compiled3 = start_compiled3d_build(
         port, port.lower(ctx3, [sphere_union_shape(ctx3)]))
+    mesh_built = start_mesh_unrolled_build(port, compiled3[1])
     phase_op_matrix(port, dev)
 
     ctx = port.Context()
@@ -3850,6 +4362,7 @@ def main() -> int:
     phase_grad(port, cuda, rows)
     phase_grad_unrolled(rp, {shift: GRAD_PARAMS[0], grow: GRAD_PARAMS[1]})
     phase_mesh(port, cuda, rows)
+    phase_mesh_unrolled(port, cuda, rows, mesh_built)
 
     rows["interp_float2"] = phase_interleave(cuda)
     rows["grid_step"] = phase_grid_overhead(cuda)

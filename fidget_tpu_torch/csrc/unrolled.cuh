@@ -51,6 +51,24 @@
 //   tiles and subtiles), proofs only. U_Z3 adds the z0 corners to the
 //   warp streams' and the kernel's arguments; without it (2D) every
 //   expansion is as it was.
+// - U1-P `fidget_unrolled_points`: the mesher's points kernel (the
+//   counterpart of eval_tape_float_fast in fidget_tpu/mesh/fused.py's
+//   leaf, edge and merge cores), U1's programs behind a kernel unit of
+//   its own (U_POINTS_KERNEL). A thread evaluates one model-space point
+//   of a flat list (the caller forms the points), with the epilogue
+//   fixed when the code is generated: the distance, or the sign d < 0.
+// - U2-B `fidget_unrolled_interval_boxes` under U_BOX: U2's schedule
+//   over explicit model-space boxes (the counterpart of
+//   eval_tape_interval_fast in fused.py's level core), proofs only. The
+//   boxes come as six planes [6][n] (x lo, x hi, y lo, y hi, z lo, z
+//   hi), which replace the tile corners and the matrix in the warp
+//   streams' arguments.
+//
+// Both mesher kernels read a live count from device memory, so that a
+// chain of levels never waits on the host: lane g of a [rows][cols]
+// list is live when g % cols < *count (every lane with no count). A
+// dead lane writes 0 (U1-P) or no proof (U2-B) and does no work; a
+// block of U2-B with no live box leaves at once.
 //
 // What bounds them on the card: instruction issue and the latency of
 // dependent rows. A row is one to a few dozen instructions on
@@ -227,6 +245,62 @@ __device__ __forceinline__ void u_inputs(const float* __restrict__ p, T x,
     return (int)cudaGetLastError();                                           \
   }
 
+namespace fidget {
+// The V inputs of one model-space point: the var values, then the axes
+// written into the inputs AX / AY / AZ name (-1: unused).
+template <int V, int AX, int AY, int AZ>
+__device__ __forceinline__ void u_point_inputs(
+    const float* __restrict__ p, const float* __restrict__ x,
+    const float* __restrict__ y, const float* __restrict__ z, int g,
+    float* in) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) in[i] = p[i];
+  if constexpr (AX >= 0) in[AX] = x[g];
+  if constexpr (AY >= 0) in[AY] = y[g];
+  if constexpr (AZ >= 0) in[AZ] = z[g];
+}
+}  // namespace fidget
+
+// U1-P. The kernel's unit defines U_V / U_AX / U_AY / U_AZ and
+// `u_run(0, in)` (the one program) as U1's does, then expands
+// U_POINTS_KERNEL(SIGN). Thread g evaluates point g of n (x, y, z f32
+// [n] in model space, params the V input values); out is f32 [n], or
+// bool [n] (d < 0) with SIGN 1. Dead lanes (module comment) get 0.
+#define U_POINTS_KERNEL(SIGN)                                                 \
+  extern "C" __global__ void __launch_bounds__(fidget::UBLOCK)                \
+      fidget_unrolled_points(                                                 \
+          const float* __restrict__ x, const float* __restrict__ y,           \
+          const float* __restrict__ z, const float* __restrict__ params,      \
+          const int32_t* __restrict__ count, int cols, void* __restrict__ out,\
+          int n) {                                                            \
+    const long long g = (long long)blockIdx.x * fidget::UBLOCK + threadIdx.x; \
+    if (g >= n) return;                                                       \
+    const int lim = count ? __ldg(count) : cols;                              \
+    float d = 0.f;                                                            \
+    if ((int)(g % cols) < lim) {                                              \
+      float in[U_V];                                                          \
+      fidget::u_point_inputs<U_V, U_AX, U_AY, U_AZ>(params, x, y, z, (int)g,  \
+                                                    in);                      \
+      d = u_run(0, in);                                                       \
+    }                                                                         \
+    if (SIGN)                                                                 \
+      static_cast<bool*>(out)[g] = d < 0.f;                                   \
+    else                                                                      \
+      static_cast<float*>(out)[g] = d;                                        \
+  }                                                                           \
+  extern "C" int fidget_unrolled_points_launch(                               \
+      const float* x, const float* y, const float* z, const float* params,    \
+      const int32_t* count, int cols, void* out, int n, void* stream) {       \
+    const long long blocks = ((long long)n + fidget::UBLOCK - 1) /            \
+                             fidget::UBLOCK;                                  \
+    if (cols <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;\
+    if (blocks > 0)                                                           \
+      fidget_unrolled_points<<<(unsigned)blocks, fidget::UBLOCK, 0,           \
+                               (cudaStream_t)stream>>>(x, y, z, params,       \
+                                                       count, cols, out, n);  \
+    return (int)cudaGetLastError();                                           \
+  }
+
 // U1-3D. The kernel's unit defines U_V / U_AX / U_AY / U_AZ and
 // `u_run(0, in)` (the one program) as U1's does, then expands
 // U_VOXEL_KERNEL. Thread g owns column g % sub^2 (vy = c / sub, vx =
@@ -277,13 +351,29 @@ __device__ __forceinline__ void u_inputs(const float* __restrict__ p, T x,
 
 // U2. Every unit of an interval kernel defines U_EPI, U_V, U_AX / U_AY /
 // U_AZ and U_K (warps a group) before including this file; a unit of
-// U2-3D also U_Z3 1.
+// U2-3D also U_Z3 1, one of U2-B U_BOX 1.
 #if defined(U_K)
 #ifndef U_Z3
 #define U_Z3 0
 #endif
+#ifndef U_BOX
+#define U_BOX 0
+#endif
 namespace fidget {
-#if U_Z3
+#if U_BOX
+// The box of one lane from the planes [6][n]: the var values, then the
+// axes' (lo, hi) written into the inputs AX / AY / AZ name.
+template <int V, int AX, int AY, int AZ>
+__device__ __forceinline__ void u_box_inputs(const float* __restrict__ box,
+                                             const float* __restrict__ p,
+                                             int n, int tile, Ival* in) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) in[i] = Ival{p[i], p[i]};
+  if constexpr (AX >= 0) in[AX] = Ival{box[tile], box[n + tile]};
+  if constexpr (AY >= 0) in[AY] = Ival{box[2 * n + tile], box[3 * n + tile]};
+  if constexpr (AZ >= 0) in[AZ] = Ival{box[4 * n + tile], box[5 * n + tile]};
+}
+#elif U_Z3
 // The box of one 3D tile through transform_intervals.
 __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
                                               const float* __restrict__ y0,
@@ -325,17 +415,29 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
 // column of the block's choice words (word j at wd[32 j]); `tile` is the
 // lane's tile (the last one for lanes past n, which compute and write
 // nothing).
+// (U2-B: the box planes, params and n in place of the corners, params
+// and T0.)
+#if U_BOX
+#define U_WARP_ARGS                                                        \
+  const float *__restrict__ box, const float *__restrict__ params, int nb, \
+      fidget::Ival *sh, uint32_t *wd, bool *__restrict__ rin,              \
+      bool *__restrict__ rout, int tile, bool live
+#define U_TILE_INPUTS                                                      \
+  u_box_inputs<U_V, U_AX, U_AY, U_AZ>(box, params, nb, tile, in)
+#else
 #define U_WARP_ARGS                                                        \
   const float *__restrict__ x0, const float *__restrict__ y0, U_Z0_PARAM   \
       const float *__restrict__ params, float T0, fidget::Ival *sh,        \
       uint32_t *wd, bool *__restrict__ rin, bool *__restrict__ rout,       \
       int tile, bool live
+#define U_TILE_INPUTS u_tile_inputs(x0, y0, U_Z0_ARG params, T0, tile, in)
+#endif
 
 #define U_WARP_BEGIN(name)                                                 \
   extern "C" __device__ __noinline__ void name(U_WARP_ARGS) {              \
     using namespace fidget;                                                \
     Ival in[U_V];                                                          \
-    u_tile_inputs(x0, y0, U_Z0_ARG params, T0, tile, in);                  \
+    U_TILE_INPUTS;                                                         \
     [[maybe_unused]] uint32_t w_ = 0u;                                     \
     [[maybe_unused]] int c_ = 0;                                           \
     (void)sh;                                                              \
@@ -444,6 +546,48 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
                                  (cudaStream_t)stream>>>(                     \
           x0, y0, U_Z0_ARG params, T0, u, rin, rout, words, viol, scratch,    \
           n);                                                                 \
+    return (int)cudaGetLastError();                                           \
+  }
+
+// U2-B's kernel unit declares the warp streams, defines `u_warps` as
+// U2's does (over U_BOX's arguments) and expands U_BOX_KERNEL with
+// U_SLOTS hand-off slots: proofs only, no choice words. Lane t of
+// block b is box b * 32 + t % 32 of the [rows][cols] list, live when
+// t % cols < *count; a dead box gets no proof (false, false).
+#define U_BOX_KERNEL                                                          \
+  constexpr int u_shared_bytes = (U_SLOTS * 32) * (int)sizeof(fidget::Ival); \
+  extern "C" __global__ void __launch_bounds__(U_K * 32)                      \
+      fidget_unrolled_interval_boxes(                                         \
+          const float* __restrict__ box, const float* __restrict__ params,    \
+          const int32_t* __restrict__ count, int cols,                        \
+          bool* __restrict__ rin, bool* __restrict__ rout, int n) {           \
+    using namespace fidget;                                                   \
+    extern __shared__ __align__(16) unsigned char u_smem_[];                  \
+    Ival* sh_ = reinterpret_cast<Ival*>(u_smem_);                             \
+    const int l = threadIdx.x & 31;                                           \
+    const int w = threadIdx.x >> 5;                                           \
+    const int t = blockIdx.x * 32 + l;                                        \
+    const int lim = count ? __ldg(count) : cols;                              \
+    const bool live = t < n && t % cols < lim;                                \
+    if (w == 0 && t < n && !live) {                                           \
+      rin[t] = false;                                                         \
+      rout[t] = false;                                                        \
+    }                                                                         \
+    /* uniform over the block: every thread leaves, or none */                \
+    if (!__syncthreads_or(live)) return;                                      \
+    u_warps(w, box, params, n, sh_ + l, nullptr, rin, rout,                   \
+            t < n ? t : n - 1, live);                                         \
+  }                                                                           \
+  extern "C" int fidget_unrolled_interval_boxes_launch(                       \
+      const float* box, const float* params, const int32_t* count, int cols,  \
+      bool* rin, bool* rout, int n, void* stream) {                           \
+    const int blocks = (n + 31) / 32;                                         \
+    if (cols <= 0) return (int)cudaErrorInvalidValue;                         \
+    FIDGET_SET_SMEM(fidget_unrolled_interval_boxes, u_shared_bytes);          \
+    if (blocks > 0)                                                           \
+      fidget_unrolled_interval_boxes<<<blocks, U_K * 32, u_shared_bytes,      \
+                                       (cudaStream_t)stream>>>(               \
+          box, params, count, cols, rin, rout, n);                            \
     return (int)cudaGetLastError();                                           \
   }
 #endif  // U_K

@@ -178,16 +178,24 @@ class BulkEvaluator:
             return out, choices, (LANE_ROWS, n)
         return out
 
-    def eval_grad(self, x, y, z, var_vec=None):
+    def eval_grad(self, x, y, z, var_vec=None, *, seeds=None):
         """Forward duals seeded on the spatial axes: [O, 4, N] f32
-        (value, d/dx, d/dy, d/dz)."""
+        (value, d/dx, d/dy, d/dz). `seeds` (3 x 3, default the identity)
+        gives the three tangents of each axis, row k those of x, y, z:
+        with row k of an affine world -> model matrix's linear part,
+        the duals are d/d(world x, y, z) at the model points."""
         x, y, z = self._flat(x), self._flat(y), self._flat(z)
         n = x.numel()
+        seeds = (torch.eye(3) if seeds is None
+                 else torch.as_tensor(seeds, dtype=torch.float32))
+        if seeds.shape != (3, 3):
+            raise ValueError("seeds must be 3 x 3")
+        seeds = seeds.to(dtype=torch.float32, device=self.device)
         axes = {}
         for k, (kind, a) in enumerate((("x", x), ("y", y), ("z", z))):
             d = a.new_zeros((4, n))
             d[0] = a
-            d[1 + k] = 1.0
+            d[1:] = seeds[k, :, None]
             axes[kind] = d
         vars_, T, used = self._planes(axes, var_vec, n, duals=True)
         g = interp_grad(

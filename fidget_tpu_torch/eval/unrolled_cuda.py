@@ -28,6 +28,21 @@ the unrolled `stratum_leaf` and of `_unrolled_interval3` in
 - U2-3D `unrolled_interval3` (`Interval3Kernel`): U2 over 3D boxes (a
   z interval per tile instead of the 2D plane's fixed z), proofs only.
 
+The mesher's compiled path (`build_mesh(Settings(eval="unrolled"))`,
+mesh/fused.py) runs two more, the counterparts of `eval_tape_float_fast`
+and `eval_tape_interval_fast` in `fidget_tpu.mesh.fused`'s cores:
+
+- U1-P `unrolled_points` (`PointsKernel`): U1's program of the whole
+  tape behind a kernel unit over a flat list of model-space points,
+  with the distance or the sign `d < 0` as its epilogue;
+- U2-B `unrolled_interval_boxes` (`BoxesKernel`): U2's schedule over
+  explicit model-space boxes, proofs only.
+
+Both take the live count of a [rows, cols] list from device memory
+(lane g is live when g % cols < count), so that a chain of octree
+levels never waits on the host; a dead lane does no work and gets 0 or
+no proof, as the plain versions mask it.
+
 The emitter writes one statement per tape row. U1's thread evaluates
 one pixel; every program, a launch of one program included, is a device
 function of its own translation unit (programs of a few rows share
@@ -47,7 +62,8 @@ failed build or launch raises; nothing falls back to the plain versions
 on a CUDA tensor.
 
 `unrolled_float` / `unrolled_interval` / `unrolled_voxel_depth` /
-`unrolled_interval3` dispatch on the device of their tensors: on the CPU
+`unrolled_interval3` / `unrolled_points` / `unrolled_interval_boxes`
+dispatch on the device of their tensors: on the CPU
 they run their `_plain` versions (eval/unrolled_fast.py's evaluators),
 which take tensors on any device, so the kernels can be held against
 them on the card. `cuda.LAUNCHES` counts each kernel under its own
@@ -85,6 +101,8 @@ TEMPLATE = cuda.CSRC / "unrolled.cuh"
 #: the files every generated build depends on besides its own source
 SOURCES = (pathlib.Path(__file__).resolve(), TEMPLATE, cuda.CSRC / "ops.cuh")
 EPILOGUES = {"proofs": 0, "capture": 1, "violation": 2}
+#: U1-P's epilogues: the f32 distance, or the sign d < 0
+POINT_EPILOGUES = ("distance", "sign")
 #: U1 programs of at most this many rows (one-op probes, tiny shapes)
 #: share one translation unit: nvcc's fixed cost a unit is most of
 #: their build, so apart they cost steps and save no time (chip_smoke.py
@@ -465,45 +483,52 @@ def interval_warp_rows(sched: IntervalSchedule, w: int) -> list:
 
 
 def _interval_defines(V: int, axis_of: dict, epilogue: str, k: int,
-                      z3: bool = False) -> str:
+                      z3: bool = False, box: bool = False) -> str:
     return (f"#define U_EPI {EPILOGUES[epilogue]}\n#define U_V {V}\n"
             f"{_axis_defines(axis_of)}#define U_K {k}\n"
-            + ("#define U_Z3 1\n" if z3 else ""))
+            + ("#define U_Z3 1\n" if z3 else "")
+            + ("#define U_BOX 1\n" if box else ""))
 
 
 def emit_interval_warp(sched: IntervalSchedule, w: int, V: int,
                        axis_of: dict, epilogue: str, name: str,
-                       z3: bool = False) -> str:
+                       z3: bool = False, box: bool = False) -> str:
     """Warp w's stream of U2 as a device function of its own unit
-    (`z3`: of U2-3D, over 3D boxes)."""
+    (`z3`: of U2-3D, over 3D boxes; `box`: of U2-B, over explicit
+    boxes)."""
     body = "".join(f"  {r}\n" for r in interval_warp_rows(sched, w))
     return (
-        f"{_interval_defines(V, axis_of, epilogue, sched.k, z3)}"
+        f"{_interval_defines(V, axis_of, epilogue, sched.k, z3, box)}"
         f'#include "unrolled.cuh"\nU_WARP_BEGIN({name})\n{body}U_WARP_END\n'
     )
 
 
 def emit_interval_kernel(sched: IntervalSchedule, V: int, axis_of: dict,
                          epilogue: str, names: list, gw: bool,
-                         z3: bool = False) -> str:
+                         z3: bool = False, box: bool = False) -> str:
     """U2's kernel unit: warp w calls the stream names[w]; the blocks'
     choice words in a global scratch (gw) or in their shared memory
-    (`z3`: U2-3D, whose streams take the boxes' z0 too)."""
+    (`z3`: U2-3D, whose streams take the boxes' z0 too; `box`: U2-B,
+    whose streams take the box planes, under U_BOX_KERNEL)."""
     decls = "".join(f'extern "C" __device__ void {n}(U_WARP_ARGS);\n'
                     for n in names)
-    args = ("x0, y0, z0, params, T0, sh, wd, rin, rout, tile, live" if z3
-            else "x0, y0, params, T0, sh, wd, rin, rout, tile, live")
+    if box:
+        args = "box, params, nb, sh, wd, rin, rout, tile, live"
+    elif z3:
+        args = "x0, y0, z0, params, T0, sh, wd, rin, rout, tile, live"
+    else:
+        args = "x0, y0, params, T0, sh, wd, rin, rout, tile, live"
     cases = "".join(f"    case {w}: {n}({args}); break;\n"
                     for w, n in enumerate(names[:-1]))
     return (
-        f"{_interval_defines(V, axis_of, epilogue, sched.k, z3)}"
+        f"{_interval_defines(V, axis_of, epilogue, sched.k, z3, box)}"
         f"#define U_SLOTS {sched.n_slots}\n"
         f"#define U_CW {-(-sched.tape.choice_count // 16)}\n"
         f"#define U_GW {int(gw)}\n"
         f'#include "unrolled.cuh"\n{decls}'
         "static __device__ __forceinline__ void u_warps(int w, U_WARP_ARGS) {\n"
         f"  switch (w) {{\n{cases}    default: {names[-1]}({args});\n"
-        "  }\n}\nU_INTERVAL_KERNEL\n"
+        f"  }}\n}}\n{'U_BOX_KERNEL' if box else 'U_INTERVAL_KERNEL'}\n"
     )
 
 
@@ -632,6 +657,11 @@ _ARGTYPES = {
     "fidget_unrolled_voxel_depth_launch": [_P] * 6 + [_I] * 2 + [_P],
     # x0 y0 z0 params | T0 | u rin rout words viol scratch | n | stream
     "fidget_unrolled_interval3_launch": [_P] * 4 + [_F] + [_P] * 6 + [_I, _P],
+    # x y z params count | cols | out | n | stream
+    "fidget_unrolled_points_launch": [_P] * 5 + [_I, _P, _I, _P],
+    # box params count | cols | rin rout | n | stream
+    "fidget_unrolled_interval_boxes_launch": [_P] * 3 + [_I] + [_P] * 2
+    + [_I, _P],
 }
 
 
@@ -724,6 +754,29 @@ class VoxelKernel(FloatKernel):
         return self._unit
 
 
+class PointsKernel(FloatKernel):
+    """U1-P for one tape: U1's program unit (shared with U1's and
+    U1-3D's of the same tape) behind the points kernel unit, with the
+    epilogue ("distance" or "sign") fixed when the code is generated."""
+
+    def __init__(self, tape: Tape, axis_of: dict, V: int,
+                 epilogue: str = "distance"):
+        if epilogue not in POINT_EPILOGUES:
+            raise ValueError(f"unknown points epilogue {epilogue!r}")
+        super().__init__([tape], axis_of, V)
+        self.epilogue = epilogue
+
+    def unit(self) -> _Unit:
+        if self._unit is None:
+            objects, names = self._programs()
+            sign = int(self.epilogue == "sign")
+            source = emit_float_kernel(names, self.V, self.axis_of,
+                                       f"U_POINTS_KERNEL({sign})")
+            key = cache_key("points-kernel", source)
+            self._unit = _Unit(key, source, objects)
+        return self._unit
+
+
 class IntervalKernel:
     """U2 for one tape and one epilogue ("proofs", "capture",
     "violation"), its rows over INTERVAL_WARPS warps a group (fewer where
@@ -731,6 +784,8 @@ class IntervalKernel:
 
     #: whether the tiles are 3D boxes (U2-3D)
     Z3 = False
+    #: whether the lanes are explicit model-space boxes (U2-B)
+    BOX = False
 
     def __init__(self, tape: Tape, axis_of: dict, V: int, epilogue: str):
         if epilogue not in EPILOGUES:
@@ -775,17 +830,18 @@ class IntervalKernel:
             sched = self.schedule()
             args = (self.V, self.axis_of, self.epilogue)
             objects, names = [], []
+            variant = (self.Z3, self.BOX)
             for w in range(sched.k):
-                src = emit_interval_warp(sched, w, *args, "@", self.Z3)
+                src = emit_interval_warp(sched, w, *args, "@", *variant)
                 key = cache_key("interval-warp", _tape_digest(self.tape), src,
                                 INTERVAL_FLAGS)
                 name = f"fidget_uiw_{key}"
                 objects.append(_Object(
-                    key, emit_interval_warp(sched, w, *args, name, self.Z3),
+                    key, emit_interval_warp(sched, w, *args, name, *variant),
                     INTERVAL_FLAGS))
                 names.append(name)
             source = emit_interval_kernel(sched, *args, names,
-                                          self.words_global, self.Z3)
+                                          self.words_global, *variant)
             key = cache_key("interval-kernel", source, INTERVAL_FLAGS)
             self._unit = _Unit(key, source, objects, INTERVAL_FLAGS)
         return self._unit
@@ -795,6 +851,18 @@ class Interval3Kernel(IntervalKernel):
     """U2-3D for one tape: U2's schedule and proofs over 3D boxes."""
 
     Z3 = True
+
+    def __init__(self, tape: Tape, axis_of: dict, V: int):
+        super().__init__(tape, axis_of, V, "proofs")
+
+
+class BoxesKernel(IntervalKernel):
+    """U2-B for one tape: U2's schedule and proofs over explicit
+    model-space boxes."""
+
+    BOX = True
+    #: proofs only: no choice words anywhere
+    words_global = False
 
     def __init__(self, tape: Tape, axis_of: dict, V: int):
         super().__init__(tape, axis_of, V, "proofs")
@@ -1078,3 +1146,126 @@ def unrolled_interval3_plain(kern: Interval3Kernel, x0, y0, z0, params,
     """Plain PyTorch version of `unrolled_interval3` (same contract)."""
     lo, hi = interval3_bounds(kern, x0, y0, z0, params, edge)
     return hi < 0.0, lo > 0.0
+
+
+def _live_lanes(shape, count, device):
+    """bool [*shape]: lane (..., c) is live when c < count (every lane
+    with no count)."""
+    if count is None:
+        return torch.ones(shape, dtype=torch.bool, device=device)
+    cols = torch.arange(shape[-1], device=device)
+    return (cols < count.reshape(()).to(device)).expand(shape)
+
+
+def _count_arg(count, n_cols):
+    if count is not None and (count.dtype != torch.int32
+                              or count.numel() != 1):
+        raise ValueError("count must be an int32 tensor of one element")
+    if n_cols <= 0:
+        raise ValueError("the lists need at least one column")
+
+
+def unrolled_points(kern: PointsKernel, x, y, z, params, count=None):
+    """U1-P: the tape at model-space points x, y, z (f32, one shape, its
+    last axis the columns): f32 distances, or bool `d < 0` under the
+    "sign" epilogue, of the same shape. `params` holds the V input
+    values; `count` (int32 [1], on the points' device) the live
+    columns, whose lanes alone are evaluated: the others get 0 / False.
+    """
+    if y.shape != x.shape or z.shape != x.shape:
+        raise ValueError("x, y, z must be f32 tensors of one shape")
+    if params.shape != (kern.V,):
+        raise ValueError(f"params must be [{kern.V}]")
+    shape = x.shape
+    _count_arg(count, shape[-1] if shape else 1)
+    if params.device.type == "cpu":
+        return unrolled_points_plain(kern, x, y, z, params, count)
+    x, y, z = (a.contiguous() for a in (x, y, z))
+    cuda.check_cuda(x, y, z, params, *([] if count is None else [count]))
+    n = x.numel()
+    sign = kern.epilogue == "sign"
+    out = torch.empty(shape, dtype=torch.bool if sign else torch.float32,
+                      device=params.device)
+    lib = _load(kern.unit())
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.fidget_unrolled_points_launch(
+        x.data_ptr(), y.data_ptr(), z.data_ptr(), params.data_ptr(),
+        None if count is None else count.data_ptr(), shape[-1],
+        out.data_ptr(), n, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of unrolled_points failed with "
+                           f"error {err}")
+    cuda.LAUNCHES["unrolled_points"] += 1
+    return out
+
+
+def unrolled_points_plain(kern: PointsKernel, x, y, z, params, count=None):
+    """Plain PyTorch version of `unrolled_points` (same contract): the
+    whole tape over every lane, then the dead lanes masked."""
+    inputs = [params[i].expand(x.shape) for i in range(kern.V)]
+    for kind, a in (("x", x), ("y", y), ("z", z)):
+        idx = kern.axis_of.get(kind)
+        if idx is not None:
+            inputs[idx] = a
+    d = torch.broadcast_to(eval_tape_float_fast(kern.tapes[0], inputs)[0],
+                           x.shape)
+    live = _live_lanes(x.shape, count, x.device)
+    if kern.epilogue == "sign":
+        return (d < 0.0) & live
+    return torch.where(live, d, torch.zeros_like(d))
+
+
+def unrolled_interval_boxes(kern: BoxesKernel, lo, hi, params, count=None):
+    """U2-B over the model-space boxes [lo[0], hi[0]] x [lo[1], hi[1]] x
+    [lo[2], hi[2]] (f32 tensors of one shape, its last axis the
+    columns): (full, empty) bool of that shape, the proofs hi < 0 and
+    lo > 0 of the tape's output. `params` holds the V input values;
+    `count` (int32 [1]) the live columns: a dead box gets neither
+    proof."""
+    shape = lo[0].shape
+    if any(a.shape != shape for a in (*lo, *hi)):
+        raise ValueError("the box corners must be f32 tensors of one shape")
+    if params.shape != (kern.V,):
+        raise ValueError(f"params must be [{kern.V}]")
+    _count_arg(count, shape[-1] if shape else 1)
+    if params.device.type == "cpu":
+        return unrolled_interval_boxes_plain(kern, lo, hi, params, count)
+    box = torch.stack([lo[0], hi[0], lo[1], hi[1], lo[2], hi[2]])
+    cuda.check_cuda(box, params, *([] if count is None else [count]))
+    dev = params.device
+    n = lo[0].numel()
+    full = torch.empty(shape, dtype=torch.bool, device=dev)
+    empty = torch.empty(shape, dtype=torch.bool, device=dev)
+    lib = _load(kern.unit())
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.fidget_unrolled_interval_boxes_launch(
+        box.data_ptr(), params.data_ptr(),
+        None if count is None else count.data_ptr(), shape[-1] if shape else 1,
+        full.data_ptr(), empty.data_ptr(), n, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of unrolled_interval_boxes failed "
+                           f"with error {err}")
+    cuda.LAUNCHES["unrolled_interval_boxes"] += 1
+    return full, empty
+
+
+def unrolled_interval_boxes_plain(kern: BoxesKernel, lo, hi, params,
+                                  count=None):
+    """Plain PyTorch version of `unrolled_interval_boxes` (same
+    contract): the whole tape over every box, then the dead boxes
+    masked."""
+    shape = lo[0].shape
+    inputs = []
+    for i in range(kern.V):
+        c = params[i].expand(shape)
+        inputs.append((c, c))
+    for k, kind in enumerate("xyz"):
+        idx = kern.axis_of.get(kind)
+        if idx is not None:
+            inputs[idx] = (lo[k], hi[k])
+    los, his = eval_tape_interval_fast(kern.tape, inputs)
+    live = _live_lanes(shape, count, lo[0].device)
+    return ((torch.broadcast_to(his[0], shape) < 0.0) & live,
+            (torch.broadcast_to(los[0], shape) > 0.0) & live)

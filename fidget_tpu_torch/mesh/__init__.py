@@ -1,8 +1,9 @@
-"""Manifold Dual Contouring meshing on the tape interpreter.
+"""Manifold Dual Contouring meshing.
 
-The counterpart of `fidget_tpu.mesh` with `Settings(eval="interp")`:
-the reference's octree mesher (fidget-mesh/src/{octree,cell,dc,qef}.rs)
-as dense batched levels, on `BulkEvaluator` (eval/bulk.py):
+The counterpart of `fidget_tpu.mesh`. With `Settings(eval="interp")`
+(the default), the reference's octree mesher
+(fidget-mesh/src/{octree,cell,dc,qef}.rs) as dense batched levels, on
+`BulkEvaluator` (eval/bulk.py):
 
 1. **Level-synchronous build** — all active cells of one depth are
    interval-evaluated in one K1 launch (`_classify_cells`); empty and
@@ -26,8 +27,15 @@ as dense batched levels, on `BulkEvaluator` (eval/bulk.py):
 Cell lists, keys and topology stay host-side numpy, as in the
 reference; the box and lattice decode of each evaluation runs on the
 device in torch ops, and only lattice coordinates go up and signs or
-t* come back. `Settings(eval="unrolled")` (the reference's per-shape
-compiled cores, mesh/fused.py) is not ported.
+t* come back.
+
+With `Settings(eval="unrolled")`, stages 1-4 run as the device-resident
+fine stage of `fused.py` on two kernels generated for the tape (U2-B
+classifies the octree's boxes, U1-P the corner, edge and lattice
+points) and K4 (the gradients): only a count per level (none on a chain
+whose capacity is cached), the surface cells and each collapse round's
+results come to the host, and the collapse keeps the vertices' QEF
+data on the device (`fused.DeviceVertexStore`).
 
 Known topology caveat (shared with the reference): an *ambiguous face*
 — alternating corner signs, so all 4 of its lattice edges cross — whose
@@ -114,8 +122,10 @@ class Settings:
     collapse: bool = True
     device: object = None
     #: "interp" runs cell classify / corner signs / edge search through
-    #: the tape interpreter kernels. The reference's "unrolled" mode
-    #: (per-shape compiled cores) is not ported yet.
+    #: the tape interpreter kernels (zero per-shape builds). "unrolled"
+    #: runs the device-resident fine stage (mesh/fused.py) on kernels
+    #: generated for the tape (U1-P, U2-B; one nvcc build per shape,
+    #: cached on disk); gradients at the intersections stay on K4.
     eval: str = "interp"
     #: optional CancelToken, polled between octree levels, eval
     #: stages, and collapse size-rounds (the reference polls per cell,
@@ -334,8 +344,10 @@ _EV_CACHE: dict = {}
 _EV_CACHE_CAP = 16
 
 
-def _get_evaluator(tape, device):
-    key = (id(tape), str(device))
+def _get_evaluator(tape, device, unrolled=False):
+    """The cached evaluator of (tape, device, eval mode); an unrolled
+    one also keeps the fine stage's kernels and capacities."""
+    key = (id(tape), str(device), bool(unrolled))
     ev = _EV_CACHE.get(key)
     if ev is None:
         while len(_EV_CACHE) >= _EV_CACHE_CAP:
@@ -362,12 +374,7 @@ def build_mesh(tape: Tape | Shape, settings: Settings | None = None, *,
     True
     """
     settings = settings or Settings()
-    if settings.eval == "unrolled":
-        raise NotImplementedError(
-            "Settings(eval='unrolled') is not ported yet (ROADMAP queue 1 "
-            "item 3, meshing on per-shape compiled kernels)"
-        )
-    if settings.eval != "interp":
+    if settings.eval not in ("interp", "unrolled"):
         raise ValueError(
             f"Settings.eval must be 'interp' or 'unrolled', got "
             f"{settings.eval!r}"
@@ -382,12 +389,15 @@ def build_mesh(tape: Tape | Shape, settings: Settings | None = None, *,
         )
     device = cuda.resolve_device(settings.device)
     tape, m, var_vec = _mat_and_vars(tape, settings)
-    ev = _get_evaluator(tape, device)
+    ev = _get_evaluator(tape, device, settings.eval == "unrolled")
     if clock is None:
         clock = _StageClock(device=device)
     depth = settings.depth
     G = 1 << depth  # leaf grid resolution per axis
     h_leaf = 2.0 / G
+
+    if settings.eval == "unrolled":
+        return _build_mesh_fused(ev, m, var_vec, settings, clock)
 
     # ---- stage 1: level-synchronous interval build ----------------------
     # Start directly from the dense 16^3 grid at depth 4: levels 0-3
@@ -529,6 +539,60 @@ def build_mesh(tape: Tape | Shape, settings: Settings | None = None, *,
     return _assemble_mesh(
         ev, m, var_vec, settings, clock, G, h, cells, mask, nvert, voff,
         AtA, Atb, btb, msum, mcnt, vpos, crossing,
+    )
+
+
+def _build_mesh_fused(ev, m, var_vec, settings, clock):
+    """build_mesh body for Settings(eval="unrolled"): the device-resident
+    fine stage (mesh/fused.py) replaces the staged classify / corner /
+    edge-search / gradient launches, and the collapse runs against the
+    DeviceVertexStore, so per-vertex QEF data never leaves the device:
+    only cell keys, masks and each round's candidate results do."""
+    from .collapse import collapse_and_walk
+    from .fused import DeviceVertexStore, fine_stage
+
+    depth = settings.depth
+    G = 1 << depth
+    h = 2.0 / G
+    r = fine_stage(
+        ev, m, var_vec, depth, rounds=_EDGE_ROUNDS,
+        samples=_EDGE_SAMPLES, cancel=settings.cancel, clock=clock,
+    )
+    if r is None:
+        return Mesh()
+    cells, mask, res, ns, cs_cap = r
+    nvert = VERT_COUNT[mask]
+    crossing = CELL_TO_EDGE_TO_VERT[mask] >= 0
+
+    if settings.collapse:
+        # flat vertex ids 4*cell + slot match the device store layout
+        voff4 = np.arange(len(cells) + 1, dtype=np.int64) * 4
+        store = DeviceVertexStore(ev, m, var_vec, h, res, cs_cap, depth)
+        v_bits_all = (np.arange(12) % 4)[None, :]
+        own_all = crossing & (v_bits_all == 0)
+        oci_all, oei_all = np.nonzero(own_all)
+        check_cancel(settings.cancel)
+        verts, tris = collapse_and_walk(
+            ev=ev, m=m, var_vec=var_vec, G=G, h=h,
+            cells=cells, mask=mask, nvert=nvert, voff=voff4,
+            oci=oci_all, oei=oei_all, store=store,
+            cancel=settings.cancel, clock=clock,
+        )
+        clock.tick("dual walk")
+        return Mesh(vertices=verts, triangles=tris.astype(np.int32))
+
+    # uniform walk: only the vertex positions come down
+    voff = np.concatenate([[0], np.cumsum(nvert)]).astype(np.int64)
+    ci2, lv2 = np.nonzero(np.arange(4)[None, :] < nvert[:, None])
+    vpos_d = (
+        res["vpos"][: ns * 4].cpu().numpy()
+        .reshape(ns, 4, 3)
+        .astype(np.float64)[ci2, lv2]
+    )
+    clock.tick(f"vertex download ({len(vpos_d)} verts)")
+    return _assemble_mesh(
+        ev, m, var_vec, settings, clock, G, h, cells, mask, nvert, voff,
+        None, None, None, None, None, vpos_d, crossing,
     )
 
 

@@ -23,9 +23,12 @@ vertex; duplicate quads from coarse faces collapse by id (topology
 safety guarantees one crossing per coarse edge), and quads degenerate
 into the interior of a merged cell drop out as repeated ids.
 
-The counterpart of `fidget_tpu.mesh.collapse` on the interpreter path:
-host-side numpy, with the 27-point sign probes of each round through
-`offset_signs` (K3 on the card).
+The counterpart of `fidget_tpu.mesh.collapse`: host-side numpy. On the
+interpreter path the per-vertex data lives in a `HostVertexStore` and
+the 27-point sign probes of each round go through `offset_signs` (K3
+on the card); on the compiled path (`Settings(eval="unrolled")`) a
+`mesh.fused.DeviceVertexStore` keeps it on the device and runs each
+round's probe and merged solve there.
 """
 
 from __future__ import annotations
@@ -215,12 +218,13 @@ def collapse_and_walk(
     voff,
     oci,
     oei,
-    AtA,
-    Atb,
-    btb,
-    msum,
-    mcnt,
-    vpos,
+    AtA=None,
+    Atb=None,
+    btb=None,
+    msum=None,
+    mcnt=None,
+    vpos=None,
+    store=None,
     cancel=None,
     clock=None,
 ):
@@ -228,8 +232,10 @@ def collapse_and_walk(
 
     Inputs are the fine-stage products of build_mesh (see mesh/__init__).
     oci/oei enumerate every fine crossing edge once from its canonical
-    owner cell; the per-vertex QEF data (AtA..vpos) goes into a
-    HostVertexStore. Returns (vertices [V,3] f32, triangles [T,3] i64).
+    owner cell. Vertex data comes either as numpy arrays (AtA..vpos, the
+    interpreter path, wrapped in a HostVertexStore) or as a ready-made
+    `store` (mesh/fused.py's DeviceVertexStore, the data on the device).
+    Returns (vertices [V,3] f32, triangles [T,3] i64).
     """
     N = len(cells)
     # live cell state: coords in fine-lattice units, size (fine units),
@@ -241,9 +247,10 @@ def collapse_and_walk(
     single = nvert == 1
     c_vid = np.where(single, voff[np.arange(N)], -1)
 
-    store = HostVertexStore(
-        ev, m, var_vec, G, h, AtA, Atb, btb, msum, mcnt, vpos
-    )
+    if store is None:
+        store = HostVertexStore(
+            ev, m, var_vec, G, h, AtA, Atb, btb, msum, mcnt, vpos
+        )
 
     from ..render.config import check_cancel
 

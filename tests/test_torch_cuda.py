@@ -653,6 +653,49 @@ def test_build_mesh_on_card_matches_cpu(card):
     np.testing.assert_allclose(got.vertices, want.vertices, rtol=0, atol=1e-5)
 
 
+@pytest.mark.cuda
+def test_unrolled_mesh_on_card_matches_cpu(card):
+    """The compiled mesher (eval="unrolled") on the card: a depth-5 mesh
+    of a 40-sphere union equal to the CPU's build (triangles equal,
+    vertices within 1e-5), through U1-P, U2-B and K4 and no K1 or K3;
+    then U1-P (both epilogues) and U2-B against their plain versions on
+    points and boxes with a live count."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+
+    ctx = port.Context()
+    tape = port.lower(ctx, [sphere_union_shape(ctx, n=40)])
+    cuda.reset_launches()
+    got = port.build_mesh(tape, port.MeshSettings(depth=5, eval="unrolled"))
+    launched = dict(cuda.LAUNCHES)
+    want = port.build_mesh(tape, port.MeshSettings(depth=5, device="cpu",
+                                                   eval="unrolled"))
+    for k in ("unrolled_points", "unrolled_interval_boxes", "interp_grad"):
+        assert launched[k] > 0, k
+    assert launched["interp_interval"] == launched["interp_float"] == 0
+    assert len(got.triangles) > 1000
+    np.testing.assert_array_equal(got.triangles, want.triangles)
+    np.testing.assert_allclose(got.vertices, want.vertices, rtol=0, atol=1e-5)
+
+    axis_of = {v.kind: i for v, i in tape.var_map.items()}
+    V = max(1, len(tape.var_map))
+    g = torch.Generator().manual_seed(5)
+    pts = (torch.rand((3, 7, 1000), generator=g) * 2.4 - 1.2).to(card)
+    count = torch.tensor([700], dtype=torch.int32, device=card)
+    params = torch.zeros(V, device=card)
+    for epi in uc.POINT_EPILOGUES:
+        k = uc.PointsKernel(tape, axis_of, V, epi)
+        a = uc.unrolled_points(k, *pts, params, count)
+        b = uc.unrolled_points_plain(k, *pts, params, count)
+        assert torch.equal(a, b), epi
+    lo = pts - 0.05
+    hi = pts + 0.05
+    k = uc.BoxesKernel(tape, axis_of, V)
+    a = uc.unrolled_interval_boxes(k, tuple(lo), tuple(hi), params, count)
+    b = uc.unrolled_interval_boxes_plain(k, tuple(lo), tuple(hi), params,
+                                         count)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 # ----------------------------------------------------------------------
 # the kernels generated per tape (eval/unrolled_cuda.py)
 

@@ -293,8 +293,9 @@ def test_mesh_settings_validation_and_pathlike_writers(tmp_path):
         build_mesh(tape, Settings(depth=11, device="cpu"))
     with pytest.raises(ValueError, match="eval"):
         build_mesh(tape, Settings(depth=3, device="cpu", eval="unroled"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        build_mesh(tape, Settings(depth=3, device="cpu", eval="unrolled"))
+    unrolled = build_mesh(tape, Settings(depth=3, device="cpu",
+                                         eval="unrolled"))
+    assert isinstance(unrolled, Mesh) and len(unrolled.triangles) > 0
     if not __import__("torch").cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_mesh(tape, Settings(depth=3))
