@@ -21,7 +21,11 @@ gyroid sphere), on `BulkEvaluator`, and again on the compiled mesher
 (`eval="unrolled"`: two more kernels generated per tape, U1-P
 `unrolled_points` and U2-B `unrolled_interval_boxes`, and K4); last the
 ports of the Pallas probes
-P2 and P3, each through its own probe (`fidget_tpu_torch.demos`). Run
+P2 and P3, each through its own probe (`fidget_tpu_torch.demos`); and
+last the application layer: the command line (`python -m
+fidget_tpu_torch render2d | render3d | mesh`) on a `.vm` model through
+the native tape compiler and a `.rhai` script through the script engine,
+with the post-effects (denoise, SSAO, blur, shading) on the card. Run
 from the root of the repository:
 
     python3 chip_smoke.py
@@ -244,7 +248,26 @@ Phases (any failure exits non-zero and prints no result):
    launched eagerly, the graph's sum equal to the eager one, each
    mode's fit of ms per call against CTAs; then the kernel alone at
    every (T, G) by CUDA events and profiler device time beside its
-   byte bound.
+   byte bound;
+14. the application layer: the stand-in written as `.vm`
+   (`Context.export`) and the gyroid sphere as a `.rhai` script in a
+   temporary directory, then `fidget_tpu_torch.cli.main` for `render2d`
+   at 1024^2 (mono, `-N 3`), `render3d` at 512^3 (shaded with SSAO, `-N
+   3`) and `mesh` at depth 8 (`-N 2`), each on its default `--eval`,
+   launch counts set to 0 before and read after each (K1, K2, K3; K1,
+   K2, K5, K4; K1, K3, K4); the 2D PNG decoded equal to the mono image
+   of a direct `PixelRenderer.render` of the same loaded tape, and its
+   occupancy to phase 4's `render_brute`; the 3D frame's depth equal to
+   a direct `VoxelRenderer.render`'s, its PNG equal to the card's
+   effects of that frame, and the effects on the card held to the same
+   functions on the CPU on the CLI's own depth and normals (denoise and
+   blur within 1e-6, SSAO equal on 99.9% of filled pixels and the rest
+   by exactly 1/64, shading within 1 level on 99% and 4 everywhere); the
+   STL's triangle count equal to a direct `build_mesh`'s and the
+   command's mesh held by `check_mesh`; each command's wall time and
+   best repeat, the effects' CUDA-event times and the device ops and
+   busy share of one profiled denoise + shading with SSAO. The g++
+   build of the tape compiler starts in a thread with the run.
 
 The last two lines of standard output are the `kernels` JSON line and
 the device JSON line.
@@ -4279,6 +4302,297 @@ def phase_grid_overhead(cuda, dev="cuda"):
     }
 
 
+# ---------------------------------------------------------------------
+# 14. the application layer: the CLI on the card
+
+#: the volume edge of phase 14's render3d command
+CLI_SIZE3 = 512
+
+
+def cli_commands():
+    """Phase 14's commands: (label, argv after the model path, model
+    file, output suffix, the kernels its default --eval must launch)."""
+    return [
+        ("render2d", ["-s", str(SIZE), "--mode", "mono", "-N", "3"],
+         "standin.vm", ".png", ("interp_interval", "liveness_codes",
+                                "interp_float")),
+        ("render3d", ["-s", str(CLI_SIZE3), "--mode", "shaded", "--ssao",
+                      "-N", "3"],
+         "gyroid.rhai", ".png", ("interp_interval", "liveness_codes",
+                                 "interp_voxel_depth", "interp_grad")),
+        ("mesh", ["--depth", str(MESH_DEPTH), "-N", "2"],
+         "gyroid.rhai", ".stl", ("interp_interval", "interp_float",
+                                 "interp_grad")),
+    ]
+
+
+#: CUDA-event repetitions of each effect in phase 14
+EFFECT_REPS = 20
+#: the effects' tolerances against the CPU (tests/test_torch_effects.py)
+EFFECT_ATOL = 1e-6
+SSAO_EQUAL_SHARE = 0.999
+SHADE_WITHIN_ONE_SHARE = 0.99
+SHADE_MAX_LEVELS = 4
+
+
+def start_tape_compiler_build(port):
+    """The g++ build of the native `.vm` tape compiler (phase 14 loads
+    the stand-in through it), started in a thread of its own at the start
+    of the run. Returns a future of the build seconds."""
+    from fidget_tpu_torch import native
+
+    def build():
+        t0 = time.perf_counter()
+        native.available()
+        return time.perf_counter() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(build)
+    pool.shutdown(wait=False)
+    return future
+
+
+def _stl_triangles(path) -> np.ndarray:
+    import struct
+
+    data = path.read_bytes()
+    (n,) = struct.unpack("<I", data[80:84])
+    rec = np.frombuffer(data[84:], dtype=[("d", "<f4", 12), ("attr", "<u2")])
+    if len(rec) != n:
+        raise Failed(f"STL holds {len(rec)} records, its header says {n}")
+    return rec["d"][:, 3:].reshape(n, 3, 3)
+
+
+@contextlib.contextmanager
+def _recording(owner, name, store):
+    """Appends every result of `owner.name` to `store` while the
+    context lasts (the call itself runs unchanged)."""
+    real = getattr(owner, name)
+
+    def rec(*args, **kwargs):
+        out = real(*args, **kwargs)
+        store.append(out)
+        return out
+
+    setattr(owner, name, rec)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def _run_cli(cuda, argv, kernels):
+    """One command through `cli.main` with the launch counts set to 0
+    just before and read just after; its standard output is logged.
+    Returns (the command's wall seconds, the best ms it reported)."""
+    import io
+
+    from fidget_tpu_torch import cli
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    for line in out.getvalue().splitlines():
+        log(f"  | {line}")
+    if rc != 0:
+        raise Failed(f"`{' '.join(argv[:1])}` exited {rc}")
+    missing = [k for k in kernels if not launches.get(k)]
+    log(f"  launches: {launches}")
+    if missing:
+        raise Failed(f"`{argv[0]}` never launched {missing}")
+    best = [float(w[:-2]) for w in out.getvalue().split() if w.endswith("ms")]
+    return wall, best[-1]
+
+
+def _effects_against_cpu(fx, depth, normal, vdepth, png):
+    """The effects of the card on the CLI's depth and normals, held to
+    the same functions on the CPU at the CPU tests' tolerances, and the
+    CLI's written image to the card's shading of them."""
+    dn = fx.denoise_normals(depth, normal)
+    s_raw = fx.compute_ssao(depth, dn, vdepth=vdepth)
+    s_blur = fx.blur_ssao(s_raw)
+    shaded = fx.apply_shading(depth, dn, vdepth=vdepth, ssao=True)
+    if not np.array_equal(torch.flip(shaded, dims=[0]).cpu().numpy(), png):
+        raise Failed("the CLI's image is not the card's shading of its frame")
+    d_c, n_c = depth.cpu(), normal.cpu()
+    dn_c = fx.denoise_normals(d_c, n_c)
+    err_dn = float((dn.cpu() - dn_c).abs().max())
+    if err_dn > EFFECT_ATOL:
+        raise Failed(f"denoise_normals: card and CPU differ by {err_dn}")
+    s_c = fx.compute_ssao(d_c, dn_c, vdepth=vdepth)
+    filled = d_c > 0
+    if not torch.equal(torch.isnan(s_raw.cpu()), ~filled):
+        raise Failed("compute_ssao: NaN where the pixel is not empty")
+    diff = (s_raw.cpu() - s_c)[filled].abs()
+    equal = float((diff == 0).double().mean())
+    if equal < SSAO_EQUAL_SHARE or not torch.all(
+            (diff == 0) | (diff == 1.0 / 64)):
+        raise Failed(f"compute_ssao: {equal:.5f} of filled pixels equal "
+                     f"the CPU's, largest difference {float(diff.max())}")
+    err_blur = float(np.nanmax(np.abs(
+        fx.blur_ssao(s_raw.cpu()).numpy() - s_blur.cpu().numpy())))
+    if err_blur > EFFECT_ATOL:
+        raise Failed(f"blur_ssao: card and CPU differ by {err_blur}")
+    lv = np.abs(shaded.cpu().numpy().astype(int) - fx.apply_shading(
+        d_c, dn_c, vdepth=vdepth, ssao=True).numpy().astype(int))
+    within = float((lv <= 1).mean())
+    if within < SHADE_WITHIN_ONE_SHARE or lv.max() > SHADE_MAX_LEVELS:
+        raise Failed(f"apply_shading: {within:.4f} of pixels within a "
+                     f"level of the CPU's, largest {lv.max()}")
+    log(f"  effects on the card vs the CPU on the CLI's frame: denoise max "
+        f"err {err_dn:.3g}, SSAO equal at {equal:.6f} of "
+        f"{int(filled.sum())} filled pixels ({int((diff > 0).sum())} differ "
+        f"by 1/64), blur max err {err_blur:.3g}, shading within 1 level at "
+        f"{within:.5f} of pixels, largest {lv.max()}")
+    return dn
+
+
+def _time_effects(fx, depth, normal, dn, vdepth):
+    """CUDA-event ms of each effect at the frame's size, and the device
+    ops and busy share of one profiled shading with SSAO."""
+    s = fx.compute_ssao(depth, dn, vdepth=vdepth)
+    sb = fx.blur_ssao(s)
+    ms = {
+        "denoise": time_cuda(lambda: fx.denoise_normals(depth, normal),
+                             EFFECT_REPS),
+        "ssao": time_cuda(lambda: fx.compute_ssao(depth, dn, vdepth=vdepth),
+                          EFFECT_REPS),
+        "blur": time_cuda(lambda: fx.blur_ssao(s), EFFECT_REPS),
+        "shade": time_cuda(lambda: fx._shade(depth, dn, sb, vdepth=vdepth),
+                           EFFECT_REPS),
+    }
+
+    def all_effects():
+        d = fx.denoise_normals(depth, normal)
+        return fx.apply_shading(depth, d, vdepth=vdepth, ssao=True)
+
+    total = time_cuda(all_effects, EFFECT_REPS)
+    H, W = depth.shape
+    log(f"  effects at {W}x{H} (CUDA events, {EFFECT_REPS} calls): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in ms.items())
+        + f"; denoise + shading with SSAO {total:.3f} ms")
+    wall_ms, _ = _median_ms(all_effects, 5)
+    busy = _device_busy(all_effects, 1)
+    _log_busy("denoise + shading with SSAO", busy, wall_ms)
+    return ms, total, busy
+
+
+def phase_cli(port, cuda, brute2d, tape_build):
+    """14. The port's application layer through its command line on the
+    card (`fidget_tpu_torch.cli.main`, the function behind `python -m
+    fidget_tpu_torch`): the 7,203-op stand-in written as `.vm` by
+    `Context.export` and loaded through the native tape compiler (its g++
+    build started with the run), the gyroid sphere written as a `.rhai`
+    script; `render2d` at 1024^2 (mono), `render3d` at 512^3 (shaded with
+    SSAO) and `mesh` at depth 8, each on its default `--eval`, launch
+    counts set to 0 before and read after. The 2D PNG equals the mono
+    image of a direct `PixelRenderer.render` of the same loaded tape, and
+    its occupancy `render_brute`'s (phase 4's, of the same view and
+    shape); the 3D frame's depth (recorded from the command's
+    `VoxelRenderer.render`) equals a direct render's, its written image
+    the card's effects of that frame, and the effects on the card the
+    same functions on the CPU; the STL's triangle count equals a direct
+    `build_mesh`'s, and the command's mesh is held by `check_mesh`. Logs
+    each command's wall time and best repeat, and the effects' CUDA-event
+    times, device ops and busy share."""
+    import tempfile
+
+    from fidget_tpu_torch import cli, mesh as mesh_mod
+    from fidget_tpu_torch.gui import View2, View3
+    from fidget_tpu_torch.io.image import png_pixels
+    from fidget_tpu_torch.mesh import collapse
+    from fidget_tpu_torch.native import compile_vm
+    from fidget_tpu_torch.render import effects as fx, render3d
+    from fidget_tpu_torch.scenes import GYROID_SPHERE_RHAI, standin_shape
+
+    t_phase = time.perf_counter()
+    log(f"tape compiler: g++ build {tape_build.result():.1f} s (in a thread "
+        f"from the start of the run)")
+    dev = torch.device("cuda")
+    times = {}
+    with tempfile.TemporaryDirectory(prefix="fidget_cli_") as tmp:
+        tmp = pathlib.Path(tmp)
+        ctx = port.Context()
+        (tmp / "standin.vm").write_text(ctx.export(standin_shape(ctx)))
+        (tmp / "gyroid.rhai").write_text(GYROID_SPHERE_RHAI)
+        frames, meshes, boxes = [], [], []
+        outs = {}
+        for label, argv, model, suffix, kernels in cli_commands():
+            out = tmp / f"{label}{suffix}"
+            outs[label] = out
+            log(f"cli: {label} {model} {' '.join(argv)}")
+            with contextlib.ExitStack() as stack:
+                if label == "render3d":
+                    stack.enter_context(_recording(
+                        render3d.VoxelRenderer, "render", frames))
+                if label == "mesh":
+                    stack.enter_context(_recording(mesh_mod, "build_mesh",
+                                                   meshes))
+                    stack.enter_context(_cell_boxes(collapse, boxes))
+                wall, best = _run_cli(
+                    cuda, [label, str(tmp / model), *argv, "-o", str(out)],
+                    kernels)
+            times[label] = (wall, best)
+            log(f"  {label}: command {wall:.2f} s wall (load, build, "
+                f"repeats, output); best repeat {best:.2f} ms")
+
+        # 2D: the PNG against a direct render of the same loaded tape
+        tape2d = compile_vm((tmp / "standin.vm").read_text())
+        r = port.PixelRenderer(tape2d, port.ImageSize(SIZE, SIZE))
+        inside = r.render(View2().world_to_model()).inside()
+        inside = inside.cpu().numpy()
+        png = png_pixels(outs["render2d"].read_bytes())
+        mono = np.where(inside[..., None], 255, 0).astype(np.uint8)
+        if not np.array_equal(png, np.broadcast_to(mono, png.shape)):
+            raise Failed("render2d's PNG differs from a direct render")
+        if not np.array_equal(inside, brute2d < 0):
+            raise Failed(f"render2d's occupancy differs from render_brute at "
+                         f"{int((inside != (brute2d < 0)).sum())} px")
+        log(f"  render2d: PNG equals a direct PixelRenderer.render bit for "
+            f"bit, occupancy equals render_brute ({inside.mean():.4f} inside)")
+
+        # 3D: depth against a direct render; effects against the CPU
+        img = frames[-1]
+        tape3d = cli._tape(cli._load(str(tmp / "gyroid.rhai")))
+        n3 = CLI_SIZE3
+        direct = port.VoxelRenderer(tape3d, port.VoxelSize(n3, n3, n3))
+        want = direct.render(View3().world_to_model()).depth
+        if not torch.equal(img.depth, want):
+            raise Failed(f"render3d's depth differs from a direct render at "
+                         f"{int((img.depth != want).sum())} px")
+        log(f"  render3d: depth equals a direct VoxelRenderer.render "
+            f"({float((img.depth > 0).float().mean()):.4f} filled)")
+        png3 = png_pixels(outs["render3d"].read_bytes())
+        dn = _effects_against_cpu(fx, img.depth, img.normal, n3, png3)
+        effect_ms, effects_total, busy = _time_effects(
+            fx, img.depth, img.normal, dn, n3)
+
+        # mesh: the STL against a direct build, the command's mesh checked
+        tris = _stl_triangles(outs["mesh"])
+        want_mesh = port.build_mesh(tape3d, port.MeshSettings(
+            depth=MESH_DEPTH, device=dev))
+        if not (len(tris) == len(meshes[-1].triangles)
+                == len(want_mesh.triangles)):
+            raise Failed(f"mesh: STL {len(tris)} triangles, the command's "
+                         f"mesh {len(meshes[-1].triangles)}, a direct build "
+                         f"{len(want_mesh.triangles)}")
+        ev = mesh_mod._get_evaluator(tape3d, dev)
+        check_mesh("cli mesh", meshes[-1], ev, boxes[-1], np.eye(4))
+        log(f"  mesh: STL holds the {len(tris)} triangles of a direct "
+            f"build_mesh")
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s; command walls "
+        + ", ".join(f"{k} {w:.2f} s (best {b:.2f} ms)"
+                    for k, (w, b) in times.items()))
+    return times, effect_ms, effects_total, busy
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4294,6 +4608,7 @@ def main() -> int:
     dev = torch.device("cuda")
     smi = phase_device()
     phase_build(cuda)
+    tape_build = start_tape_compiler_build(port)
     guard_build = start_guard_build(port)
     from fidget_tpu_torch.scenes import sphere_union_shape
 
@@ -4366,6 +4681,7 @@ def main() -> int:
 
     rows["interp_float2"] = phase_interleave(cuda)
     rows["grid_step"] = phase_grid_overhead(cuda)
+    phase_cli(port, cuda, brutes[0], tape_build)
 
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s, "
         f"builds included")

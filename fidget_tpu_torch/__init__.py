@@ -8,8 +8,13 @@ version of each kernel for the CPU. The 2D renderer (`PixelRenderer`)
 and the 3D heightmap + normals renderer (`VoxelRenderer`) are built on
 them, and so are bulk evaluation (`BulkEvaluator`), Manifold Dual
 Contouring meshing (`build_mesh`) and shape-parameter gradients of the
-2D frame (`interp_float` is a `torch.autograd.Function`). Entry points
-run on the card unless the caller passes `device="cpu"`.
+2D frame (`interp_float` is a `torch.autograd.Function`). Around them
+sit the application layer: the `.rhai` script engine (`eval_script`)
+over the shape library (`shapes`), the native `.vm` tape compiler
+(`native.compile_vm`), post-effects on the card (`render.effects`), the
+command line (`python -m fidget_tpu_torch`), the live-reload viewer and
+the HTTP editor service. Entry points run on the card unless the caller
+passes `device="cpu"` (`--cpu` on the command line).
 
 This package imports neither JAX nor `fidget_tpu`.
 """
@@ -24,18 +29,22 @@ from .core.var import Var, VarMap
 from .eval.bulk import BulkEvaluator
 from .mesh import Mesh, build_mesh
 from .mesh import Settings as MeshSettings
+from .render.config import CancelToken
 from .render.region import ImageSize, VoxelSize
 from .render.render2d import Image2D, PixelRenderer
 from .render.render2d import render as render2d
 from .render.render3d import Image3D, VoxelRenderer
 from .render.render3d import render as render3d
-from .shape import Shape, ShapeVars
+from .script import eval_script
+from .shape import BoundShape, Shape, ShapeVars
 
 __version__ = "0.1.0"
 
 __all__ = [
     "BinaryOp",
+    "BoundShape",
     "BulkEvaluator",
+    "CancelToken",
     "Context",
     "Image2D",
     "Image3D",
@@ -54,6 +63,7 @@ __all__ = [
     "VoxelRenderer",
     "VoxelSize",
     "build_mesh",
+    "eval_script",
     "lower",
     "render2d",
     "render3d",

@@ -78,6 +78,19 @@ def gyroid_sphere(pkg, scale=4.0):
     return pkg.Shape.from_tree(sphere.max(abs(g) - 0.2))
 
 
+#: `gyroid_sphere(pkg)` at its default scale as a `.rhai` script: the
+#: script engine traces it to the same 28-op tape
+GYROID_SPHERE_RHAI = """\
+let scale = 4.0;
+let xs = x * scale;
+let ys = y * scale;
+let zs = z * scale;
+let g = xs.sin() * ys.cos() + ys.sin() * zs.cos() + zs.sin() * xs.cos();
+let sphere = (xs.square() + ys.square() + zs.square()).sqrt() - scale * 0.8;
+draw(sphere.max(g.abs() - 0.2));
+"""
+
+
 def sphere_union_shape(ctx, n=300, seed=1):
     """Seeded union of n spheres (centres in [-0.9, 0.9]^3, then radii
     0.02-0.12 from the same generator), reduced by a balanced tree of

@@ -15,6 +15,7 @@ import pytest
 import fidget_tpu as ref
 import fidget_tpu.compiler.pack as ref_pack
 import fidget_tpu_torch as port
+import fidget_tpu_torch.compiler.bytecode
 import fidget_tpu_torch.compiler.lower
 import fidget_tpu_torch.compiler.pack as port_pack
 import fidget_tpu_torch.compiler.tape
@@ -22,8 +23,11 @@ import fidget_tpu_torch.core.context
 import fidget_tpu_torch.core.tree
 import fidget_tpu_torch.core.var
 import fidget_tpu_torch.eval.unrolled
+import fidget_tpu_torch.gui
 import fidget_tpu_torch.render.region
+import fidget_tpu_torch.script
 import fidget_tpu_torch.shape
+import fidget_tpu_torch.shapes
 
 
 def _circle(ctx):
@@ -173,6 +177,10 @@ DOC_MODULES = [
     fidget_tpu_torch.mesh,
     fidget_tpu_torch.render.region,
     fidget_tpu_torch.shape,
+    fidget_tpu_torch.compiler.bytecode,
+    fidget_tpu_torch.gui,
+    fidget_tpu_torch.script,
+    fidget_tpu_torch.shapes,
 ]
 
 
@@ -192,7 +200,15 @@ def test_port_imports_no_jax():
         "fidget_tpu_torch.scenes, fidget_tpu_torch.eval.cuda, "
         "fidget_tpu_torch.compiler.simplify, "
         "fidget_tpu_torch.eval.simplify_device, fidget_tpu_torch.eval.bulk, "
-        "fidget_tpu_torch.mesh.collapse, fidget_tpu_torch.native\n"
+        "fidget_tpu_torch.mesh.collapse, fidget_tpu_torch.native, "
+        "fidget_tpu_torch.io.image, fidget_tpu_torch.io.models, "
+        "fidget_tpu_torch.gui, fidget_tpu_torch.shapes, "
+        "fidget_tpu_torch.script, fidget_tpu_torch.render.effects, "
+        "fidget_tpu_torch.render.compose, fidget_tpu_torch.cli, "
+        "fidget_tpu_torch.viewer, fidget_tpu_torch.utils, "
+        "fidget_tpu_torch.compiler.bytecode, fidget_tpu_torch.serve\n"
+        "from fidget_tpu_torch import BoundShape, CancelToken, eval_script\n"
+        "fidget_tpu_torch.native.compile_vm('x var-x\\n')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fidget_tpu' or m.startswith('fidget_tpu.')]\n"
         "assert not bad, bad\n"
