@@ -25,7 +25,10 @@ P2 and P3, each through its own probe (`fidget_tpu_torch.demos`); and
 last the application layer: the command line (`python -m
 fidget_tpu_torch render2d | render3d | mesh`) on a `.vm` model through
 the native tape compiler and a `.rhai` script through the script engine,
-with the post-effects (denoise, SSAO, blur, shading) on the card. Run
+with the post-effects (denoise, SSAO, blur, shading) on the card; and
+at the very end the least-squares solver and the sharded entry points
+(`fidget_tpu_torch.parallel.sharding`) in a world of 1 under NCCL and
+a world of 2 gloo ranks on the card. Run
 from the root of the repository:
 
     python3 chip_smoke.py
@@ -269,6 +272,25 @@ Phases (any failure exits non-zero and prints no result):
    busy share of one profiled denoise + shading with SSAO. The g++
    build of the tape compiler starts in a thread with the run.
 
+15. the solver and the sharded entry points: `solve` on the card (the
+   constraint demo's linkage and a chain of 128 points, 254 equations
+   over 254 free variables) against the CPU solve (1e-4), its residuals
+   within 1e-5 widened by two f32 spacings of the largest coordinate,
+   K3 and K4 launches an LM iteration and ms a solve; then every entry
+   point of `fidget_tpu_torch.parallel.sharding` at full width
+   (`render_tiles_sharded` and `render_unrolled_sharded` on the stand-in
+   at 1024^2 over the three views, `render_voxels_sharded` on the gyroid
+   sphere at 512^3 with the interpreter leaf and with leaf and proofs
+   unrolled, `render_sharded` and `fit_step` with both pipelines on the
+   parametrized stand-in at 1024^2) in a world of 1 under NCCL, each
+   result equal bit for bit to the single-device frame of its binding
+   (normals within 1e-4) and the 2D occupancy to phase 4's
+   `render_brute`, each call's ms beside the single-device frame's; and
+   in a world of 2 gloo ranks sharing the card (spawned processes,
+   killed at a timeout), each rank's results equal to the world of 1's
+   and the post-cull deal even; every path's kernels launched in each
+   world.
+
 The last two lines of standard output are the `kernels` JSON line and
 the device JSON line.
 """
@@ -281,6 +303,7 @@ import importlib
 import json
 import math
 import pathlib
+import socket
 import subprocess
 import sys
 import time
@@ -4593,6 +4616,422 @@ def phase_cli(port, cuda, brute2d, tape_build):
 
 
 
+# ======================================================================
+# phase 15: the solver and the sharded entry points
+
+#: ranks of the multi-rank world on the one card: gloo ranks that share
+#: cuda:0 (NCCL refuses two ranks on one GPU)
+SHARD_WORLD = 2
+#: seconds that world may take, its ranks' start-up included, before
+#: they are killed and the phase fails
+SHARD_TIMEOUT = 420
+#: points of the solver's chain: 2 (n - 1) equations over as many free
+#: variables
+CHAIN_POINTS = 128
+#: the view of the sharded 3D frames (`VIEWS3`)
+SHARD_VIEW3 = VIEWS3[1]
+#: the kernels each path of phase 15 must launch
+SHARD_PATHS = {
+    "solve": ("interp_float", "interp_grad"),
+    "render_tiles_sharded": ("interp_interval", "liveness_codes",
+                             "interp_float"),
+    "render_unrolled_sharded": ("unrolled_interval", "unrolled_float"),
+    "render_voxels_sharded interp": ("interp_interval", "liveness_codes",
+                                     "interp_voxel_depth", "interp_grad"),
+    "render_voxels_sharded unrolled": ("unrolled_interval3",
+                                       "unrolled_voxel_depth", "interp_grad"),
+    "render_sharded": ("unrolled_float",),
+    "fit_step unrolled": ("unrolled_float", "interp_grad"),
+    "fit_step interp": ("interp_float", "interp_grad"),
+}
+#: fit_step's learning rate; it starts from (shift, grow) = 0 toward a
+#: target rendered at GRAD_PARAMS
+SHARD_LR = 0.5
+
+
+def _residual_bound(x):
+    """The solver's residual bound at a solution `x`: 1e-5, widened by
+    two f32 spacings of its largest coordinate. A residual such as
+    |p_{k+1} - p_k|^2 - 1 cannot fall below the rounding of coordinates
+    that large: on the CPU both packages end the 128-point chain at
+    1.32e-5 (x up to 120, spacing 7.6e-6)."""
+    return 1e-5 + 2 * float(np.spacing(np.float32(np.abs(x).max())))
+
+
+def _check_launches(label, launches):
+    for path, want in SHARD_PATHS.items():
+        if path not in launches:
+            continue
+        missing = [k for k in want if not launches[path].get(k)]
+        if missing:
+            raise Failed(f"{label}: {path} never launched {missing}")
+
+
+def phase_solve(port, cuda):
+    """15a. `solve` on the card: the constraint demo's linkage and a
+    chain of CHAIN_POINTS points (`scenes.linkage_system`,
+    `chain_system`), each through a `Solver` on the card and on the CPU
+    (the plain versions): solutions equal within 1e-4, the card's
+    residuals within `_residual_bound`; K3 and K4 launches an LM
+    iteration and ms a solve (host clock, each solve from the start);
+    `fidget_tpu_torch.solve` (the card by default) equal to the
+    Solver."""
+    from fidget_tpu_torch import solver as S
+    from fidget_tpu_torch.scenes import chain_system, linkage_system
+
+    for label, (eqs, start) in (
+        ("linkage", linkage_system(port)),
+        (f"chain of {CHAIN_POINTS}", chain_system(port, CHAIN_POINTS)),
+    ):
+        free = [v for v, (_, f) in start.items() if f]
+        fixed = [v for v, (_, f) in start.items() if not f]
+        params = {v: S.Parameter.Free(x) if f else S.Parameter.Fixed(x)
+                  for v, (x, f) in start.items()}
+        s = S.Solver(eqs, free, fixed)
+        cuda.reset_launches()
+        sol = s.solve(params)
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in cuda.LAUNCHES.items() if n}
+        _check_launches(f"solve {label}", {"solve": counts})
+        iters = counts.get("interp_grad", 0) // -(-s.V // 3)
+        x = np.array([sol[v] for v in free], np.float32)
+        t0 = time.perf_counter()
+        cpu = S.Solver(eqs, free, fixed, device="cpu").solve(params)
+        cpu_s = time.perf_counter() - t0
+        x_cpu = np.array([cpu[v] for v in free], np.float32)
+        err = float(np.abs(x - x_cpu).max())
+        if err > 1e-4:
+            raise Failed(f"solve {label}: card and CPU solutions differ by "
+                         f"{err}")
+        res = float(np.abs(s.residuals(x)).max())
+        bound = _residual_bound(x)
+        if res > bound:
+            raise Failed(f"solve {label}: residual {res} past {bound}")
+        public = port.solve(eqs, params)
+        if any(public[v] != sol[v] for v in free):
+            raise Failed(f"solve {label}: fidget_tpu_torch.solve differs "
+                         f"from the Solver")
+        passes = [0.0]
+
+        def timed(fn):
+            def run(cur):
+                t0 = time.perf_counter()
+                out = fn(cur)
+                passes[0] += time.perf_counter() - t0
+                return out
+            return run
+
+        s.residuals, s.jacobian = timed(s.residuals), timed(s.jacobian)
+        med, mn = _median_ms(lambda: s.solve(params), 5)
+        passes_ms = passes[0] * 1e3 / 5
+        log(f"solve {label}: {len(eqs)} equations over {len(free)} free "
+            f"variables; {iters} LM iterations, K3 {counts.get('interp_float', 0)}"
+            f" launches ({counts.get('interp_float', 0) / max(iters, 1):.1f} an"
+            f" iteration), K4 {counts.get('interp_grad', 0)} ({-(-s.V // 3)} a "
+            f"Jacobian); max residual {res:.3g} (bound {bound:.3g}); equal to "
+            f"the CPU solve within {err:.3g} ({cpu_s:.1f} s there); "
+            f"{med:.3f} ms a solve median, {mn:.3f} min (host clock, 5 solves),"
+            f" {passes_ms:.3f} ms of it in the K3 / K4 passes (launch, kernel, "
+            f"read back), the rest the host's float64 LM loop")
+
+
+def _shard_scenes(port):
+    """Phase 15's scenes: the 2D stand-in, the parametrized stand-in with
+    its two Vars, the gyroid sphere."""
+    from fidget_tpu_torch.scenes import gyroid_sphere, standin_shape
+
+    ctx = port.Context()
+    return (port.lower(ctx, [standin_shape(ctx)]), _param_standin(port),
+            gyroid_sphere(port))
+
+
+def _sharded_calls(port, cuda, mesh, scenes, label=None):
+    """Every sharded entry point on `mesh` at full width: the stand-in at
+    SIZE^2 through `render_tiles_sharded` and `render_unrolled_sharded`
+    over FRAMES, the gyroid sphere at SIZE3^3 through
+    `render_voxels_sharded` at SHARD_VIEW3 (interpreter leaf; leaf and
+    proofs unrolled), the parametrized stand-in through `render_sharded`
+    at GRAD_PARAMS and `fit_step` from 0 toward that image with both
+    pipelines. Each call runs four times: the first gives its result and
+    launches (counted from 0), then three more are timed (median, host
+    clock, synchronized); with a `label`, each call's ms is logged as it ends.
+    Returns (results on the host, launches by path, ms by call)."""
+    from fidget_tpu_torch.parallel import sharding as sh
+
+    tape, (ptape, shift, grow), gyroid = scenes
+    size = port.ImageSize(SIZE, SIZE)
+    size3 = port.VoxelSize(SIZE3, SIZE3, SIZE3)
+    out, launches, ms = {}, {}, {}
+
+    def run(path, key, fn):
+        cuda.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        counts = launches.setdefault(path, {})
+        for k, n in cuda.LAUNCHES.items():
+            if n:
+                counts[k] = counts.get(k, 0) + n
+        ms[key] = _median_ms(fn, 3)[0]
+        if label:
+            log(f"  {label}: {key} {ms[key]:.1f} ms")
+        return res
+
+    for k, view in enumerate(FRAMES):
+        img = run("render_tiles_sharded", f"tiles {k}",
+                  lambda v=view: sh.render_tiles_sharded(
+                      tape, size, mesh, world_to_model=v))
+        out[f"tiles{k}_distance"] = img.distance.cpu()
+        out[f"tiles{k}_fill"] = img.fill.cpu()
+        img, counts = run("render_unrolled_sharded", f"unrolled {k}",
+                          lambda v=view: sh.render_unrolled_sharded(
+                              tape, size, mesh, world_to_model=v,
+                              _debug_counts=True))
+        out[f"unrolled{k}_distance"] = img.distance.cpu()
+        out[f"unrolled{k}_fill"] = img.fill.cpu()
+        out[f"unrolled{k}_counts"] = counts.cpu()
+    for mode, kw in (("interp", {}),
+                     ("unrolled", dict(leaf="unrolled", proofs="unrolled"))):
+        img = run(f"render_voxels_sharded {mode}", f"voxels {mode}",
+                  lambda kw=kw: sh.render_voxels_sharded(
+                      gyroid, size3, mesh, world_to_model=SHARD_VIEW3[1],
+                      **kw))
+        out[f"voxels_{mode}_depth"] = img.depth.cpu()
+        out[f"voxels_{mode}_normal"] = img.normal.cpu()
+    target = run("render_sharded", "render_sharded",
+                 lambda: sh.render_sharded(
+                     ptape, size, mesh,
+                     params={shift: GRAD_PARAMS[0], grow: GRAD_PARAMS[1]}))
+    out["dense"] = target.cpu()
+    for pipeline in ("unrolled", "interp"):
+        new, loss = run(f"fit_step {pipeline}", f"fit_step {pipeline}",
+                        lambda p=pipeline: sh.fit_step(
+                            ptape, size, mesh, {shift: 0.0, grow: 0.0},
+                            target, lr=SHARD_LR, pipeline=p))
+        out[f"fit_{pipeline}"] = torch.tensor([new[shift], new[grow], loss],
+                                              dtype=torch.float64)
+    return out, launches, ms
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _shard_rank(rank, world, port_no, path, start):
+    """One rank of the gloo world on cuda:0 (run in a spawned process):
+    every sharded call of `_sharded_calls`, saved to `path`."""
+    global START
+    START = start
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    import fidget_tpu_torch as port
+    from fidget_tpu_torch.eval import cuda
+    from fidget_tpu_torch.parallel import sharding as sh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port_no}",
+                            rank=rank, world_size=world)
+    mesh = sh.make_mesh(device="cuda:0")
+    if (mesh.rank, mesh.size, mesh.backend) != (rank, world, "gloo"):
+        raise Failed(f"rank {rank}: mesh {mesh}")
+    out, launches, ms = _sharded_calls(port, cuda, mesh, _shard_scenes(port),
+                                       f"gloo rank {rank}")
+    torch.save({"out": out, "launches": launches, "ms": ms}, path)
+    dist.destroy_process_group()
+    log(f"  gloo rank {rank} of {world}: done")
+
+
+def _run_world(world):
+    """Spawns `world` gloo ranks on the card (`_shard_rank`, a free local
+    port for the rendezvous) and returns what each saved; fails, killing
+    every rank, when one fails or SHARD_TIMEOUT runs out."""
+    import multiprocessing
+    import multiprocessing.connection
+    import tempfile
+
+    mpc = multiprocessing.get_context("spawn")
+    port_no = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        procs = [mpc.Process(target=_shard_rank,
+                             args=(k, world, port_no, str(tmp / f"rank{k}.pt"),
+                                   START))
+                 for k in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SHARD_TIMEOUT
+        try:
+            while any(p.is_alive() for p in procs):
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise Failed(f"the world of {world} ranks did not end "
+                                 f"within {SHARD_TIMEOUT} s")
+                multiprocessing.connection.wait(
+                    [p.sentinel for p in procs if p.is_alive()], left)
+                bad = [k for k, p in enumerate(procs)
+                       if p.exitcode not in (None, 0)]
+                if bad:
+                    raise Failed(f"rank(s) {bad} of {world} failed "
+                                 f"(exit codes "
+                                 f"{[procs[k].exitcode for k in bad]})")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        return [torch.load(tmp / f"rank{k}.pt") for k in range(world)]
+
+
+def _same_results(label, got, want):
+    """Bit-equal results, normals within 1e-4 and the fit within rtol
+    1e-5 (loss) / 1e-4 (parameters); the deal's counts are checked by
+    the caller."""
+    for key, w in want.items():
+        g = got[key]
+        if key.endswith("_counts"):
+            continue
+        if key.endswith("_normal"):
+            check(f"{label} {key}", g, w, 1e-4, 1e-4)
+        elif key.startswith("fit_"):
+            check(f"{label} {key} loss", g[2:], w[2:], 1e-5, 0.0)
+            check(f"{label} {key} parameters", g[:2], w[:2], 1e-4, 1e-7)
+        elif not torch.equal(g, w):
+            raise Failed(f"{label}: {key} differs at "
+                         f"{int((g != w).sum())} elements")
+
+
+def _check_deal(label, counts, total, world):
+    if int(counts.sum()) != total or int(counts.max()) > -(-total // world):
+        raise Failed(f"{label}: the deal {counts.tolist()} of {total} "
+                     f"active tiles is not even over {world} ranks")
+
+
+def phase_sharded(port, cuda, brutes):
+    """15. The solver (15a), then every sharded entry point of
+    `fidget_tpu_torch.parallel.sharding` at full width in a world of 1
+    under NCCL (15b) and in a world of SHARD_WORLD gloo ranks sharing
+    the card (15c, spawned processes with a timeout and a kill), the only
+    place where the card runs the cross-rank code (the deal, the gathers,
+    the gradient sum). World 1: each 2D frame's occupancy equal to phase
+    4's `render_brute` (`brutes`), and every result equal bit for bit to
+    the single-device frame of its binding (`PixelRenderer(specialize=
+    True)`, `render_unrolled`, `render_dense`, the per-shape and the
+    compiled `VoxelRenderer`; normals within 1e-4), the deal's counts
+    even, fit_step's two pipelines agreeing (rtol 1e-5 loss, 1e-4
+    parameters); each call's ms beside the single-device frame's. World
+    SHARD_WORLD: every rank's results equal to world 1's (normals within
+    1e-4, the fit within rtol 1e-5 / 1e-4), its deals even. Every path
+    launches its kernels (SHARD_PATHS) in each world."""
+    import torch.distributed as dist
+
+    from fidget_tpu_torch.parallel import sharding as sh
+
+    t_phase = time.perf_counter()
+    phase_solve(port, cuda)
+
+    # ---- 15b: a world of 1 under NCCL ------------------------------
+    scenes = _shard_scenes(port)
+    tape, (ptape, shift, grow), gyroid = scenes
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = sh.make_mesh()
+        if (mesh.size, mesh.backend) != (1, "nccl"):
+            raise Failed(f"world of 1: mesh {mesh}")
+        out1, launches1, ms1 = _sharded_calls(port, cuda, mesh, scenes)
+    finally:
+        dist.destroy_process_group()
+    _check_launches("world of 1 (NCCL)", launches1)
+    log(f"sharded, world of 1 (NCCL): launches by path {launches1}")
+
+    # the single-device frames of the same bindings
+    size = port.ImageSize(SIZE, SIZE)
+    size3 = port.VoxelSize(SIZE3, SIZE3, SIZE3)
+    per_shape = port.PixelRenderer(tape, size, specialize=True)
+    unrolled = port.PixelRenderer(tape, size)
+    dense = port.PixelRenderer(ptape, size)
+    voxels = {
+        "interp": port.VoxelRenderer(gyroid, size3, tile_size=64,
+                                     sub_size=16),
+        "unrolled": port.VoxelRenderer(gyroid, size3, tile_size=64,
+                                       sub_size=16, leaf="unrolled",
+                                       proofs="unrolled"),
+    }
+    want, single_ms = {}, {}
+
+    def single_frame(key, fn):
+        res = fn()  # the first frame settles capacities
+        res = fn()
+        single_ms[key] = _median_ms(fn, 3)[0]
+        return res
+
+    for k, view in enumerate(FRAMES):
+        for key, fn in (("tiles", per_shape.render),
+                        ("unrolled", unrolled.render_unrolled)):
+            img = single_frame(f"{key} {k}", lambda fn=fn, v=view: fn(v))
+            want[f"{key}{k}_distance"] = img.distance.cpu()
+            want[f"{key}{k}_fill"] = img.fill.cpu()
+            check_frame(per_shape, port.Image2D(out1[f"{key}{k}_distance"],
+                                                out1[f"{key}{k}_fill"]),
+                        view, brutes[k])
+        # the active tiles: those of the default 8-px tiles left unfilled
+        fill = want[f"unrolled{k}_fill"][::8, ::8]
+        total = int((fill == 0).sum())
+        _check_deal(f"world of 1, view {k}", out1[f"unrolled{k}_counts"],
+                    total, 1)
+    for mode, r3 in voxels.items():
+        img = single_frame(f"voxels {mode}",
+                           lambda r3=r3: r3.render(SHARD_VIEW3[1]))
+        want[f"voxels_{mode}_depth"] = img.depth.cpu()
+        want[f"voxels_{mode}_normal"] = img.normal.cpu()
+    vars_ = {shift: GRAD_PARAMS[0], grow: GRAD_PARAMS[1]}
+    want["dense"] = single_frame(
+        "render_sharded", lambda: dense.render_dense(vars=vars_)
+    ).distance.cpu()
+    _same_results("world of 1 against the single-device frames", out1,
+                  want)
+    check("fit_step interp against unrolled, loss", out1["fit_interp"][2:],
+          out1["fit_unrolled"][2:], 1e-5, 0.0)
+    check("fit_step interp against unrolled, parameters",
+          out1["fit_interp"][:2], out1["fit_unrolled"][:2], 1e-4, 1e-7)
+    log(f"  fit_step from (0, 0) toward {GRAD_PARAMS}: unrolled "
+        f"{out1['fit_unrolled'].tolist()}, interp "
+        f"{out1['fit_interp'].tolist()} (shift, grow, loss)")
+    for key, t in ms1.items():
+        log(f"  {key}: sharded {t:.3f} ms, single-device "
+            f"{single_ms.get(key, float('nan')):.3f} ms (host clock, "
+            f"synchronized; one card cannot show a gain from sharding)")
+    log("  world of 1: every result equals the single-device frame "
+        "(normals within 1e-4), occupancy equals render_brute")
+
+    # ---- 15c: a world of SHARD_WORLD gloo ranks on the card ---------
+    t0 = time.perf_counter()
+    ranks = _run_world(SHARD_WORLD)
+    log(f"sharded, world of {SHARD_WORLD} (gloo, all on cuda:0): "
+        f"{time.perf_counter() - t0:.1f} s, start-up included")
+    for k, got in enumerate(ranks):
+        label = f"gloo rank {k} of {SHARD_WORLD}"
+        _check_launches(label, got["launches"])
+        _same_results(f"{label} against the world of 1", got["out"], out1)
+        for v in range(len(FRAMES)):
+            total = int(out1[f"unrolled{v}_counts"].sum())
+            _check_deal(f"{label}, view {v}",
+                        got["out"][f"unrolled{v}_counts"], total,
+                        SHARD_WORLD)
+        log(f"  {label}: launches by path {got['launches']}")
+        counts = {f"view {v}": got["out"][f"unrolled{v}_counts"].tolist()
+                  for v in range(len(FRAMES))}
+        if k == 0:
+            log(f"  the deal's active tiles a rank: {counts}")
+    log(f"  world of {SHARD_WORLD}: every rank's results equal the world of"
+        f" 1 (normals within 1e-4, fit within rtol 1e-5 / 1e-4)")
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4682,6 +5121,7 @@ def main() -> int:
     rows["interp_float2"] = phase_interleave(cuda)
     rows["grid_step"] = phase_grid_overhead(cuda)
     phase_cli(port, cuda, brutes[0], tape_build)
+    phase_sharded(port, cuda, brutes)
 
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s, "
         f"builds included")

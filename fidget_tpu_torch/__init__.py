@@ -13,8 +13,11 @@ sit the application layer: the `.rhai` script engine (`eval_script`)
 over the shape library (`shapes`), the native `.vm` tape compiler
 (`native.compile_vm`), post-effects on the card (`render.effects`), the
 command line (`python -m fidget_tpu_torch`), the live-reload viewer and
-the HTTP editor service. Entry points run on the card unless the caller
-passes `device="cpu"` (`--cpu` on the command line).
+the HTTP editor service. The least-squares solver (`solve`) runs its
+residuals and Jacobians on the interpreter kernels, and
+`parallel.sharding` renders and fits over the ranks of a
+`torch.distributed` process group. Entry points run on the card unless
+the caller passes `device="cpu"` (`--cpu` on the command line).
 
 This package imports neither JAX nor `fidget_tpu`.
 """
@@ -37,6 +40,7 @@ from .render.render3d import Image3D, VoxelRenderer
 from .render.render3d import render as render3d
 from .script import eval_script
 from .shape import BoundShape, Shape, ShapeVars
+from .solver import solve
 
 __version__ = "0.1.0"
 
@@ -68,6 +72,7 @@ __all__ = [
     "render2d",
     "render3d",
     "simplify",
+    "solve",
     "tree_max",
     "tree_min",
     "__version__",

@@ -250,3 +250,15 @@ class Tape:
         """Indices of choice ops, in evaluation (= choice) order."""
         is_choice = np.isin(self.op, [int(o) for o in CHOICE_TAPE_OPS])
         return np.nonzero(is_choice)[0].astype(np.int32)
+
+
+def tape_key(t: Tape) -> tuple:
+    """Structural identity of a tape, by its contents: equal for two
+    tapes that evaluate alike, so caches keyed on it never pin a tape
+    against a recycled `id()` (the solver's and the sharded entry
+    points' caches)."""
+    return (
+        t.op.tobytes(), t.out.tobytes(), t.a.tobytes(), t.b.tobytes(),
+        t.imm.tobytes(), t.aux.tobytes(), t.reg_count, t.mem_count,
+        t.choice_count, t.output_count, tuple(t.var_map.items()),
+    )

@@ -653,6 +653,19 @@ class PixelRenderer:
             stage_hook=stage_hook,
         )
 
+    def _frame_tiles(self, mat, z, var_vec, x0, y0, *, pixel_perfect,
+                     stop_after=None):
+        """`_frame_core` under `_ConstBind` over any set of root tiles,
+        given by their corners `x0` / `y0` (f32 tensors on the render
+        device, row-major with `n0x` columns): the slab entry point that
+        `parallel.sharding` runs over each rank's tile rows. `mat`, `z`
+        and `var_vec` are tensors on the render device. Returns the
+        uncropped (img, fill) of the tiles' rows."""
+        return _frame_core(
+            _ConstBind(self), self.T0, self.T1, self.n0x, x0, y0, mat, z,
+            var_vec, pixel_perfect=pixel_perfect, stop_after=stop_after,
+        )
+
     def _mat4(self, world_to_model: np.ndarray | None) -> np.ndarray:
         """Combined (px, py, z, 1) -> model 4x4: screen->world 3x3, the
         optional world->model view, then the shape's own transform."""

@@ -57,7 +57,8 @@ capacity (or drops the schedule). On CUDA every kernel is hand-written
 (fidget_tpu_torch/csrc, and the generated ones from csrc/unrolled.cuh);
 on the CPU the plain PyTorch versions run. The reference's `strata=`
 drivers and `voxel_tiles_per_step=` (XLA dispatch and Pallas grid-step
-choices) and sharding are not ported.
+choices) are not ported. `_frame_tiles` runs the frame over a y-slab
+of root tiles, the slab entry point of `parallel.sharding`.
 """
 
 from __future__ import annotations
@@ -186,7 +187,6 @@ class _Pipeline3:
         self.m = self.nl**3                        # subtiles per root tile
         self.nx2, self.ny2, self.nz2 = W // sub, H // sub, D // sub
         self.nsub = self.nx2 * self.ny2 * self.nz2
-        self.s0r = max(8, _ceil_to(-(-self.nt // 128), 8))    # root pass
         self.s0s = max(1, -(-self.m // 128))                   # subtile pass
         self.s0v = max(1, -(-sub**3 // 128))                   # voxel pass
 
@@ -272,7 +272,7 @@ class _Pipeline3:
     def frame(
         self, b, st, mat, matM, var_vec, *, mode: str, cap: int,
         stop_after: str | None = None, cancel=None, stage_hook=None,
-        strata_caps: tuple | None = None,
+        strata_caps: tuple | None = None, tiles=None,
     ):
         """One frame: returns (depth, normal, n_active) on the device,
         n_active being the largest active-subtile count of any stratum,
@@ -282,11 +282,28 @@ class _Pipeline3:
         `stop_after` ("root" | "simplify") returns that stage's
         intermediates, as the reference's `frame_tiles` does (under
         unrolled proofs "root" gives the proofs (full, empty, None));
-        `stage_hook(name)` is called as each stage is enqueued."""
+        `stage_hook(name)` is called as each stage is enqueued.
+
+        `tiles` (x0, y0, z0) are the global corners of a y-slab of root
+        tiles in (tz, ty, tx) row-major order, covering all of Z and X
+        and `nt / (ntz * ntx)` tile rows (None: the whole image). The
+        result's rows are the slab's; its first global row, `y_base`,
+        enters the voxel coordinates of the leaf and the normals, as in
+        the reference's `frame_tiles`. It is read on the host, once a
+        slab frame; a whole frame adds nothing."""
         hook = stage_hook if stage_hook is not None else (lambda name: None)
-        ts, nl, nt = self.ts, self.nl, self.nt
+        ts, nl = self.ts, self.nl
         im = IntervalMode(torch)
-        x0, y0, z0 = st["tile_x0"], st["tile_y0"], st["tile_z0"]
+        if tiles is None:
+            tiles = st["tile_x0"], st["tile_y0"], st["tile_z0"]
+        x0, y0, z0 = tiles
+        nt = x0.shape[0]
+        nty = nt // (self.ntz * self.ntx)
+        if nty * self.ntz * self.ntx != nt:
+            raise ValueError("tiles must cover whole rows of every stratum")
+        H, ny2 = nty * ts, nty * nl       # the slab's rows, subtile rows
+        y_base = 0.0 if tiles is None else float(y0.min())  # first row
+        s0r = max(8, _ceil_to(-(-nt // 128), 8))
         unrolled_proofs = getattr(b, "proofs", "interp") == "unrolled"
         params = None
         if unrolled_proofs or getattr(b, "leaf", "interp") == "unrolled":
@@ -301,12 +318,12 @@ class _Pipeline3:
         else:
             var_lo, var_hi = self.interval_vars(
                 b, im, mat, var_vec, (x0, x0 + ts), (y0, y0 + ts),
-                (z0, z0 + ts), self.s0r, (1,),
+                (z0, z0 + ts), s0r, (1,),
             )
             w1r, w2r, immr, lensr = b.arena
             olo, ohi, choices0 = interp_interval(
                 w1r, w2r, immr, lensr, var_lo, var_hi, nf=b.nf,
-                n_inputs=b.V, n_outputs=1, s0=self.s0r, c_words=b.c_words,
+                n_inputs=b.V, n_outputs=1, s0=s0r, c_words=b.c_words,
                 op_order=b.op_order,
             )
             rlo = olo[0, 0].reshape(-1)[:nt]
@@ -328,8 +345,8 @@ class _Pipeline3:
                 return w1s, w2s, lens
 
         # ---- stage 3: Z-strata, front to back --------------------------
-        ntxy = self.nty * self.ntx
-        nsub_s = nl * self.ny2 * self.nx2
+        ntxy = nty * self.ntx
+        nsub_s = nl * ny2 * self.nx2
         if strata_caps is None:
             caps = [min(cap, nsub_s)] * self.ntz
         else:
@@ -351,24 +368,25 @@ class _Pipeline3:
                 w1s=slab_of(w1s), w2s=slab_of(w2s), imms=slab_of(imms),
                 lens=slab_of(torch.where(root_active, lens, 0)),
             )
-        floor = torch.zeros((self.H, self.W), dtype=torch.int32, device=x0.device)
+        floor = torch.zeros((H, self.W), dtype=torch.int32, device=x0.device)
         counts = []
         for k, cap_s in enumerate(caps):
             check_cancel(cancel)
             s = {key: v[k] for key, v in xs.items()}
             floor, aux = self.stratum_proofs(b, st, floor, s, mat=mat,
-                                             var_vec=var_vec, params=params)
+                                             var_vec=var_vec, nty=nty,
+                                             params=params)
             hook("proofs")
             idx = _compact_stratum(
-                aux["act_flat"], nl=nl, ny2=self.ny2, nx2=self.nx2,
+                aux["act_flat"], nl=nl, ny2=ny2, nx2=self.nx2,
                 cap_s=cap_s,
             )
             hook("compact")
             dcand = self.stratum_leaf(
                 b, st, s, aux, idx, mat=mat, var_vec=var_vec, cap_s=cap_s,
-                params=params, hook=hook,
+                y_base=y_base, params=params, hook=hook,
             )
-            floor = self.stratum_fold(floor, dcand, idx, cap_s=cap_s)
+            floor = self.stratum_fold(floor, dcand, idx, nty=nty, cap_s=cap_s)
             hook("fold")
             counts.append(aux["n_active"] if strata_caps is None
                           else (aux["n_active"] - cap_s).clamp(min=0))
@@ -376,18 +394,21 @@ class _Pipeline3:
         if mode == "heightmap":
             return floor, None, n_active
         check_cancel(cancel)
-        normal = self.normals_body(b, st, floor, matM, var_vec)
+        normal = self.normals_body(b, st, floor, matM, var_vec, y_base=y_base)
         hook("normals")
         return floor, normal, n_active
 
-    def stratum_proofs(self, b, st, floor, s, *, mat, var_vec, params=None):
+    def stratum_proofs(self, b, st, floor, s, *, mat, var_vec, nty,
+                       params=None):
         """Stratum stage A: root-full fold, subtile interval pass (K1 with
         the slab's simplified tapes, or U2-3D under unrolled proofs),
-        proof-driven fulls and occlusion against the floor. Returns
-        (floor', aux) with the active flags, their count, the packed
-        choices (None under unrolled proofs) and the slab's z base."""
+        proof-driven fulls and occlusion against the floor, over a
+        stratum of `nty` tile rows. Returns (floor', aux) with the active
+        flags, their count, the packed choices (None under unrolled
+        proofs) and the stratum's z base."""
         ts, sub, nl, m = self.ts, self.sub, self.nl, self.m
-        nty, ntx, ny2, nx2 = self.nty, self.ntx, self.ny2, self.nx2
+        ntx, nx2 = self.ntx, self.nx2
+        ny2 = nty * nl
         i32 = torch.int32
         im = IntervalMode(torch)
         x0s, y0s, z0s = s["x0"], s["y0"], s["z0"]
@@ -451,19 +472,23 @@ class _Pipeline3:
         return floor, aux
 
     def stratum_leaf(self, b, st, s, aux, idx, *, mat, var_vec, cap_s, hook,
-                     params=None):
+                     y_base, params=None):
         """Stratum stage B: gather the worklist's parent tapes,
         re-specialize them per subtile from the packed choices, and run
         the voxel pass; under the unrolled leaf, U1-3D over the
-        worklist's voxels with the whole tape instead. Returns depth
-        candidates [cap_s, sub, sub]."""
+        worklist's voxels with the whole tape instead. The worklist's
+        rows are the slab's; `y_base` (a float) is the slab's first
+        global row. Returns depth candidates [cap_s, sub, sub]."""
         sub, nl = self.sub, self.nl
         i32, f32 = torch.int32, torch.float32
         lz, gy, gx, valid = idx["lz"], idx["gy"], idx["gx"], idx["valid"]
+        gy_sub = (gy * sub).to(f32)
+        if y_base:
+            gy_sub = gy_sub + y_base
 
         if getattr(b, "leaf", "interp") == "unrolled":
             dcand = unrolled_voxel_depth(
-                b.voxel_kernel, (gx * sub).to(f32), (gy * sub).to(f32),
+                b.voxel_kernel, (gx * sub).to(f32), gy_sub,
                 (lz * sub).to(f32) + aux["z_lo"], valid, params, sub=sub,
             )
             hook("voxel")
@@ -471,7 +496,7 @@ class _Pipeline3:
 
         # voxel coordinates of the worklist, (vz, vy, vx) row-major
         bx = (gx * sub).to(f32)[:, None]
-        by = (gy * sub).to(f32)[:, None]
+        by = gy_sub[:, None]
         bz = (lz * sub).to(f32)[:, None] + aux["z_lo"]
         px = bx + st["vox_dx"][None, :]
         py = by + st["vox_dy"][None, :]
@@ -515,11 +540,12 @@ class _Pipeline3:
         hook("voxel")
         return dcand
 
-    def stratum_fold(self, floor, dcand, idx, *, cap_s):
+    def stratum_fold(self, floor, dcand, idx, *, nty, cap_s):
         """Stratum stage C: scatter the worklist's depth candidates back
-        through the compaction inverse and fold the slab's hits into the
-        floor."""
-        sub, nl, ny2, nx2 = self.sub, self.nl, self.ny2, self.nx2
+        through the compaction inverse and fold the stratum's hits into
+        the floor (`nty` tile rows)."""
+        sub, nl, nx2 = self.sub, self.nl, self.nx2
+        ny2 = nty * nl
         order, valid = idx["order"], idx["valid"]
         slots = torch.arange(cap_s, device=order.device)
         slot_of = torch.full(
@@ -530,19 +556,20 @@ class _Pipeline3:
             dcand_pad[slot_of]
             .reshape(nl, ny2, nx2, sub, sub)
             .permute(0, 1, 3, 2, 4)
-            .reshape(nl, self.H, self.W)
+            .reshape(nl, nty * self.ts, self.W)
             .amax(0)
         )
         return torch.maximum(floor, slab_vox)
 
-    def normals_body(self, b, st, depth, matM, var_vec):
+    def normals_body(self, b, st, depth, matM, var_vec, *, y_base):
         """Per-pixel forward-gradient normals at the surface voxels
         (voxel.rs:447-482): K4 over `Tn` instances of the whole tape,
         under the binding's opcode order in every leaf mode. The lanes
         are split as the reference splits them for the binding's nf (the
         bucket's, or the tape's own); K4 itself gets the tape's
-        registers."""
-        H, W, D = self.H, self.W, self.D
+        registers. `depth` holds a slab's rows, the first of them the
+        global row `y_base` (a float)."""
+        (H, W), D = depth.shape, self.D
         dev = depth.device
         f32 = torch.float32
         s0n = self.s0n_of(b.nf)
@@ -557,7 +584,8 @@ class _Pipeline3:
             )
 
         px = padl(torch.arange(W, dtype=f32, device=dev).repeat(H))
-        py = padl(torch.arange(H, dtype=f32, device=dev).repeat_interleave(W))
+        rows = torch.arange(H, dtype=f32, device=dev).repeat_interleave(W)
+        py = padl(rows + y_base if y_base else rows)
         pz = padl((dflat - 1).to(f32))
         s2w = st["s2w"]
         wx = s2w[0, 0] * px + s2w[0, 3]
@@ -818,11 +846,12 @@ class VoxelRenderer:
         return vec
 
     def _frame(self, matM, vec, *, mode="normals", cap=None, stop_after=None,
-               cancel=None, stage_hook=None, strata_caps=None):
+               cancel=None, stage_hook=None, strata_caps=None, tiles=None):
         """One frame from host inputs: `matM` the [4, 4] world -> model
         f32 matrix (`_mat4`), `vec` the [V] variable values. With
         `strata_caps` (a cap per stratum, nearest first) the third
-        result is the largest overflow, else the largest count."""
+        result is the largest overflow, else the largest count. `tiles`
+        restricts the frame to a y-slab of root tiles (`_frame_tiles`)."""
         dev = self.device
         return self.geo.frame(
             self._bind(), self.geo.statics(dev),
@@ -830,8 +859,22 @@ class VoxelRenderer:
             torch.from_numpy(matM).to(dev), torch.from_numpy(vec).to(dev),
             mode=mode, cap=self.cap if cap is None else cap,
             stop_after=stop_after, cancel=cancel, stage_hook=stage_hook,
-            strata_caps=strata_caps,
+            strata_caps=strata_caps, tiles=tiles,
         )
+
+    def _frame_tiles(self, matM, vec, x0, y0, z0, *, mode, cap,
+                     strata_caps=None, stop_after=None):
+        """The frame over a y-slab of root tiles under this renderer's
+        binding: `x0` / `y0` / `z0` are the global tile corners (f32
+        tensors on the render device) in (tz, ty, tx) row-major order,
+        covering all of Z and X and some whole tile rows; `matM` and
+        `vec` are host inputs as `_frame` takes them. The slab entry point
+        that `parallel.sharding` runs over each rank's tile rows. Returns
+        the slab's (depth, normal, n_active); its rows are the slab's,
+        and equal the same rows of the whole frame."""
+        return self._frame(matM, vec, mode=mode, cap=cap,
+                           strata_caps=strata_caps, stop_after=stop_after,
+                           tiles=(x0, y0, z0))
 
     # ------------------------------------------------------------------
     # per-stratum capacity schedules

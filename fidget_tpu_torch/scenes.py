@@ -3,8 +3,9 @@
 `standin_shape` stands in for prospero in 2D (`param_standin_shape`
 with two shape parameters, for gradients), `gyroid_sphere` is the 3D
 gyroid sphere of the reference's own tests, and `sphere_union_shape` is
-a tape-heavy 3D union; the last two are also the mesher's scenes. Every
-scene function uses only the graph API that this package and the
+a tape-heavy 3D union; the last two are also the mesher's scenes.
+`linkage_system` and `chain_system` are equation sets for the solver.
+Every scene function uses only the graph API that this package and the
 reference package share, so a test can build the same scene in both and
 compare the tapes they lower to.
 `seeded_action_codes` makes per-tile action codes for the coded leaf
@@ -110,6 +111,48 @@ def sphere_union_shape(ctx, n=300, seed=1):
         )
         parts.append(ctx.sub(ctx.sqrt(d2), float(r[i])))
     return _min_tree(ctx, parts)
+
+
+def linkage_system(pkg):
+    """The constraint demo's linkage (demos/constraints.py:24-37, after
+    the reference's demos/constraints/src/main.rs:166-211) in `pkg`'s
+    `Tree` and `Var`: p0 pinned at the origin, |p1 - p0| = 1,
+    |p2 - p1| = 1 and p2 on the x axis, from the demo's start. Returns
+    (equations, start), `start` mapping each Var to (value, free)."""
+    pts = [(pkg.Var.new(), pkg.Var.new()) for _ in range(3)]
+    t = [(pkg.Tree.var(vx), pkg.Tree.var(vy)) for vx, vy in pts]
+
+    def dist2(a, b):
+        return (a[0] - b[0]).square() + (a[1] - b[1]).square()
+
+    eqs = [dist2(t[0], t[1]) - 1.0, dist2(t[1], t[2]) - 1.0, t[2][1]]
+    values = [(0.0, 0.0, False), (0.3, 1.2, True), (1.5, 0.4, True)]
+    start = {}
+    for (vx, vy), (x0, y0, free) in zip(pts, values):
+        start[vx] = (x0, free)
+        start[vy] = (y0, free)
+    return eqs, start
+
+
+def chain_system(pkg, n):
+    """A chain of n points in `pkg`'s `Tree` and `Var`: p0 fixed at the
+    origin, |p_{k+1} - p_k|^2 - 1 = 0 for k < n - 1 and
+    p_k.y - 0.5 sin(0.3 k) = 0 for k >= 1, from x_k = 0.9 k, y_k = 0:
+    2 (n - 1) equations over 2 (n - 1) free variables. Returns
+    (equations, start), `start` mapping each Var to (value, free)."""
+    pts = [(pkg.Var.new(), pkg.Var.new()) for _ in range(n)]
+    t = [(pkg.Tree.var(vx), pkg.Tree.var(vy)) for vx, vy in pts]
+    eqs = [
+        (t[k + 1][0] - t[k][0]).square() + (t[k + 1][1] - t[k][1]).square()
+        - 1.0
+        for k in range(n - 1)
+    ]
+    eqs += [t[k][1] - 0.5 * float(np.sin(0.3 * k)) for k in range(1, n)]
+    start = {}
+    for k, (vx, vy) in enumerate(pts):
+        start[vx] = (0.9 * k, k > 0)
+        start[vy] = (0.0, k > 0)
+    return eqs, start
 
 
 def seeded_action_codes(w1, w2, n, nf, rng, any_row=False):

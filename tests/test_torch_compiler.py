@@ -28,6 +28,7 @@ import fidget_tpu_torch.render.region
 import fidget_tpu_torch.script
 import fidget_tpu_torch.shape
 import fidget_tpu_torch.shapes
+import fidget_tpu_torch.solver
 
 
 def _circle(ctx):
@@ -181,6 +182,7 @@ DOC_MODULES = [
     fidget_tpu_torch.gui,
     fidget_tpu_torch.script,
     fidget_tpu_torch.shapes,
+    fidget_tpu_torch.solver,
 ]
 
 
@@ -206,8 +208,10 @@ def test_port_imports_no_jax():
         "fidget_tpu_torch.script, fidget_tpu_torch.render.effects, "
         "fidget_tpu_torch.render.compose, fidget_tpu_torch.cli, "
         "fidget_tpu_torch.viewer, fidget_tpu_torch.utils, "
-        "fidget_tpu_torch.compiler.bytecode, fidget_tpu_torch.serve\n"
-        "from fidget_tpu_torch import BoundShape, CancelToken, eval_script\n"
+        "fidget_tpu_torch.compiler.bytecode, fidget_tpu_torch.serve, "
+        "fidget_tpu_torch.solver, fidget_tpu_torch.parallel.sharding\n"
+        "from fidget_tpu_torch import BoundShape, CancelToken, eval_script, "
+        "solve\n"
         "fidget_tpu_torch.native.compile_vm('x var-x\\n')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'fidget_tpu' or m.startswith('fidget_tpu.')]\n"
@@ -224,7 +228,10 @@ def test_port_sources_name_no_jax():
     import pathlib
 
     pkg = pathlib.Path(fidget_tpu_torch.__file__).resolve().parent
-    for path in pkg.rglob("*.py"):
+    paths = list(pkg.rglob("*.py"))
+    for module in ("solver/__init__.py", "parallel/sharding.py"):
+        assert pkg / module in paths, module
+    for path in paths:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -236,6 +243,14 @@ def test_port_sources_name_no_jax():
             for n in names:
                 top = n.split(".")[0]
                 assert top not in ("jax", "jaxlib", "fidget_tpu"), (path, n)
+
+
+def test_public_api_covers_the_reference():
+    """Every name the reference exports, the port exports too."""
+    missing = set(ref.__all__) - set(port.__all__)
+    assert not missing, missing
+    for name in ref.__all__:
+        assert getattr(port, name) is not None
 
 
 def test_renderer_without_device_raises_without_card(monkeypatch):

@@ -1095,3 +1095,64 @@ def test_cli_render3d_ssao_effects_match_the_cpu(card, tmp_path, monkeypatch):
                       dims=[0]).numpy()
     d = np.abs(got.astype(int) - want.astype(int))
     assert (d <= 1).mean() >= 0.99 and d.max() <= 4
+
+
+def test_solve_on_card_matches_cpu(card):
+    """`solve` on the card (K3 residuals, K4 Jacobians) against the plain
+    versions on the CPU: the linkage and a 16-point chain."""
+    from fidget_tpu_torch import solver as S
+    from fidget_tpu_torch.scenes import chain_system, linkage_system
+
+    for eqs, start in (linkage_system(port), chain_system(port, 16)):
+        free = [v for v, (_, f) in start.items() if f]
+        fixed = [v for v, (_, f) in start.items() if not f]
+        params = {v: S.Parameter.Free(x) if f else S.Parameter.Fixed(x)
+                  for v, (x, f) in start.items()}
+        cuda.reset_launches()
+        got = S.solve(eqs, params)
+        assert cuda.LAUNCHES["interp_float"] and cuda.LAUNCHES["interp_grad"]
+        want = S.Solver(eqs, free, fixed, device="cpu").solve(params)
+        np.testing.assert_allclose([got[v] for v in free],
+                                   [want[v] for v in free], rtol=0, atol=1e-4)
+
+
+def test_sharded_world_of_one_on_card(card):
+    """The sharded frames in a world of 1 under NCCL equal the
+    single-device frames of their bindings, bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from fidget_tpu_torch.parallel import sharding as sh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port_no = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port_no}",
+                            rank=0, world_size=1)
+    try:
+        mesh = sh.make_mesh()
+        ctx = port.Context()
+        x, y = ctx.x(), ctx.y()
+        ring = port.lower(ctx, [ctx.sub(ctx.abs(ctx.sub(ctx.sqrt(ctx.add(
+            ctx.square(x), ctx.square(y))), 0.6)), 0.15)])
+        size = port.ImageSize(256, 256)
+        img = sh.render_tiles_sharded(ring, size, mesh)
+        want = port.PixelRenderer(ring, size, specialize=True).render()
+        assert torch.equal(img.distance, want.distance)
+        assert torch.equal(img.fill, want.fill)
+        img = sh.render_unrolled_sharded(ring, size, mesh)
+        want = port.PixelRenderer(ring, size).render_unrolled()
+        assert torch.equal(img.distance, want.distance)
+        assert torch.equal(img.fill, want.fill)
+        size3 = port.VoxelSize(128, 128, 128)
+        gyroid = gyroid_sphere(port)
+        img = sh.render_voxels_sharded(gyroid, size3, mesh, tile_size=32,
+                                       sub_size=16)
+        want = port.VoxelRenderer(gyroid, size3, tile_size=32,
+                                  sub_size=16).render()
+        assert torch.equal(img.depth, want.depth)
+        torch.testing.assert_close(img.normal, want.normal, rtol=0,
+                                   atol=1e-4)
+    finally:
+        dist.destroy_process_group()
