@@ -18,8 +18,9 @@ on the two kernels generated for the stand-in (U1 `unrolled_float`,
 U2 `unrolled_interval`); then the shape-parameter gradient of the 2D
 frames and the mesher (`build_mesh` at depth 8 on the sphere union and the
 gyroid sphere), on `BulkEvaluator`, and again on the compiled mesher
-(`eval="unrolled"`: two more kernels generated per tape, U1-P
-`unrolled_points` and U2-B `unrolled_interval_boxes`, and K4); last the
+(`eval="unrolled"`: more kernels generated per tape, U1-P
+`unrolled_points` and its edge search `unrolled_edges`, U2-B
+`level_active`, and K4); last the
 ports of the Pallas probes
 P2 and P3, each through its own probe (`fidget_tpu_torch.demos`); and
 last the application layer: the command line (`python -m
@@ -143,7 +144,14 @@ Phases (any failure exits non-zero and prints no result):
    over its 8-px tiles' boxes (a [2, 512] list with 400), at its two
    matrices and vars, distances, signs and proofs bit for bit (dead
    lanes included; on the transcendental tape a sign may differ only
-   where the plain distance is within 2e-4 of 0);
+   where the plain distance is within 2e-4 of 0); U1-P's edge search
+   over a random crossing list of a depth-7 lattice (4,096 slots, 3,000
+   live) at 16 samples x 4 rounds, and at 5 x 3 and 40 x 2 at every
+   fourth var pair, and U2-B on a level of random parents (2,048, 1,500
+   live, a tenth of the keys -1), under an oblique world -> model
+   matrix and the same scaled by 1e30, every output bit for bit (on the
+   transcendental tape a slot's brackets may differ only where the
+   plain search met a sample within 2e-4 of 0);
 7. 3D main path, bucketed (`specialize=False`): the gyroid sphere at
    512^3 (tile 64, subtile 16)
    under three views in normals mode and one heightmap frame, then the
@@ -219,19 +227,23 @@ Phases (any failure exits non-zero and prints no result):
    build of U1-P and U2-B (started with the run, after the compiled 3D
    build, so that the union's U1 program is not built twice) and a
    cached one; launch counts set to 0 before the two builds and read
-   after (U1-P, U2-B and K4, and no K1 or K3); each mesh held as in
-   phase 11; the depth-5 sphere and a depth-5 gyroid sphere under an
+   after (U1-P's sign and edge search, U2-B's levels and K4, and no K1
+   or K3); each mesh held as in phase 11 and equal, bit for bit, to the
+   same build on the dense glue (the edge rounds of U1-P "sign",
+   "distance" and K4 over all 12 x cs slots; U2-B over box planes
+   formed in torch ops); the depth-5 sphere and a depth-5 gyroid sphere under an
    oblique rotation (0.7 rad about (1, 2, 3)) built on the card equal to
    the CPU's builds (triangles equal, vertices within 1e-5; a vertex
    past that only on a float64 witness: the CPU build with its
    transcendentals correctly rounded moves it, and the card lies within
-   1e-5 + 4x that move); U1-P (both epilogues, every site: leaf corners,
-   edge samples, intersections, collapse lattices) and U2-B (levels) on
-   the inputs the depth-8 builds gave them, bit for bit against their
-   plain versions, with CUDA-event and profiler times and the bound over
-   the live lanes, and K4 at the fine stage's gradient shape; warm
-   builds of both eval modes by turns (host clock, synchronized, stages
-   by `_StageClock`) and the device's busy share of a compiled build;
+   1e-5 + 4x that move); U1-P (its sign at the leaf corners and the
+   collapse lattices, its edge search), U2-B (levels, and the box-plane
+   entry on the union's largest level) on the inputs a cached depth-8
+   build gave them, bit for bit against their plain versions, with
+   CUDA-event and profiler times and the bound over the live lanes, and
+   K4 at the fine stage's gradient shape; warm builds (host clock,
+   synchronized, stages by `_StageClock`; phase 11 times the interpreter's)
+   and the device's busy share of a compiled build;
 12. the interleave probe (P2, `demos/exp_interleave.py`): the
    two-stream kernel `interp_float2` against its plain version bit for
    bit on the reference's tapes at its shapes (128 instances of two
@@ -2321,8 +2333,8 @@ MESH_DEPTH_CPU = 5
 #: up to 0.12) and the gyroid sphere (radius 0.8) lie inside the cube
 #: and their meshes close
 MESH_VIEW = np.diag([1.1, 1.1, 1.1, 1.0])
-#: warm builds timed per scene
-MESH_REPS = 3
+#: warm builds timed per scene and eval mode
+MESH_REPS = 2
 #: instances of a captured bulk call held to the plain version: the
 #: plain version walks every instance's copy of the tape on the host,
 #: so it takes the first few (each instance depends on its own lanes
@@ -2794,11 +2806,19 @@ def phase_mesh(port, cuda, rows, depth=MESH_DEPTH, dev="cuda"):
                               name, args, kwargs, tape_copy=True))
 
 
-#: kernels of the compiled mesher's path: U1-P, U2-B and K4, and no
-#: interpreter kernel but K4
-KERNELS_MESH_UNROLLED = ("unrolled_points", "unrolled_interval_boxes",
-                         "interp_grad")
-MESHER_KERNELS = ("unrolled_points", "unrolled_interval_boxes")
+#: kernels of the compiled mesher's path: U1-P (the corner signs and the
+#: edge search), U2-B on the levels and K4, and no interpreter kernel but
+#: K4
+KERNELS_MESH_UNROLLED = ("unrolled_points", "unrolled_edges",
+                         "level_active", "interp_grad")
+MESHER_KERNELS = ("unrolled_points", "unrolled_edges", "level_active")
+#: operations of the edge search besides the tape's rows: forming a
+#: sample's model point (t: 3, the world point: 6, the matrix: 18), and
+#: a round's bracket update a slot (about 10)
+EDGE_POINT_OPS, EDGE_ROUND_OPS = 27, 10
+#: operations of forming one child box in `level_active` (the world box:
+#: 9, the model box's six sums of seven terms: 72)
+LEVEL_BOX_OPS = 81
 #: the oblique view of the card-against-CPU gyroid build: 0.7 rad about
 #: (1, 2, 3), whose coefficients mix signs
 OBLIQUE_AXIS, OBLIQUE_ANGLE = (1.0, 2.0, 3.0), 0.7
@@ -2841,12 +2861,25 @@ def _f64_transcendentals():
             setattr(torch, n, fn)
 
 
+def _glue_kernels(ev):
+    """The kernels the dense glue of the fine stage runs besides the path's
+    (`_old_glue`): U1-P "distance" (kept on the evaluator)."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+
+    ks = ev.__dict__.get("_old_glue_kernels")
+    if ks is None:
+        ks = ev._old_glue_kernels = {"distance": uc.PointsKernel(
+            ev.tape, ev.axis_of, ev.n_inputs, "distance")}
+    return ks
+
+
 def start_mesh_unrolled_build(port, after):
     """The compiled mesher's generated kernels for the two mesh scenes
-    (U1-P under both epilogues, U2-B), their nvcc steps started in a
-    thread of their own once `after` (the compiled 3D build, which
-    builds the union's program) has ended, so that no unit is built
-    twice. Returns a future of (steps, seconds)."""
+    (U1-P's sign epilogue and edge search, U2-B; and U1-P "distance" of
+    `_old_glue`), their nvcc steps started in a thread of their own once
+    `after` (the compiled 3D build, which builds the union's program)
+    has ended, so that no unit is built twice. Returns a future of
+    (steps, seconds)."""
     from fidget_tpu_torch import mesh as mesh_mod
     from fidget_tpu_torch.eval import unrolled_cuda as uc
     from fidget_tpu_torch.mesh import fused
@@ -2855,7 +2888,7 @@ def start_mesh_unrolled_build(port, after):
     for _, _, scene in _mesh_scenes(port):
         tape = scene.tape() if isinstance(scene, port.Shape) else scene
         ev = mesh_mod._get_evaluator(tape, torch.device("cuda"), True)
-        kernels += fused.fused_kernels(ev)
+        kernels += fused.fused_kernels(ev) + list(_glue_kernels(ev).values())
     for k in kernels:  # the units fixed on the calling thread
         k.unit()
 
@@ -2871,23 +2904,149 @@ def start_mesh_unrolled_build(port, after):
     return future
 
 
-def _mesher_bound(name, args, out):
-    """(bound_ms, bound_by, operations, bytes) of one U1-P / U2-B call,
-    over the live lanes of this call (a [rows, cols] list with `count`
-    live columns): U1-P one operation per tape row per point, moving
-    the three coordinates in and the distance or sign out; U2-B two (lo,
-    hi) per row per box, moving the six corners in and the two proofs
-    out; the params once."""
-    kern = args[0]
+def _glue_level_core(ev, keys, n_in, cvec, li, h_child, pos, neg, off3, vv,
+                     cout):
+    """mesh/fused.py's level core before `level_active`: the children's boxes
+    as six planes in torch ops, stacked and classified by U2-B
+    `unrolled_interval_boxes`, the keys encoded in torch ops."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+    from fidget_tpu_torch.mesh import fused
+
+    kid, mlo, mhi = uc.level_boxes(keys, h_child, pos, neg, off3)
+    full, empty = uc.unrolled_interval_boxes(fused._kernels(ev)["boxes"],
+                                             mlo, mhi, vv, n_in)
+    live = (torch.arange(keys.shape[0], device=keys.device) < n_in) & (
+        keys >= 0)
+    act = ~(full | empty) & live[None, :]
+    out, n_out = fused._compact_keys(act.T, kid.T, cout)
+    cvec[li] = n_out[0]
+    return out, n_out
+
+
+def _glue_edge_search(ev, cross, h, mat, vv, cs, rounds, samples, seeds):
+    """mesh/fused.py's edge search before `unrolled_edges`, over every (edge,
+    cell) slot of [12, cs]: `rounds` launches of U1-P "sign" over
+    [samples, 12, cs] with the brackets moved in torch ops between them,
+    U1-P "distance" at the intersections and K4 over all 12 x cs lanes.
+    The surface cells come from the crossing list's source (the cells
+    the chain compacted: `_old_glue` passes them on)."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+    from fidget_tpu_torch.mesh import fused
+    from fidget_tpu_torch.mesh.tables import EDGE_HI, EDGE_LO
+
+    surf_keys, mask, n_surf = (a[:cs] if a.numel() > 1 else a
+                               for a in ev._glue_cells)
+    dev = surf_keys.device
+    x, y, z = fused._dec(surf_keys)
+    lo_c = torch.as_tensor(EDGE_LO, device=dev)[:, None].expand(12, cs)
+    hi_c = torch.as_tensor(EDGE_HI, device=dev)[:, None].expand(12, cs)
+    lo_in = (mask[None, :] >> lo_c) & 1
+    start_c = torch.where(lo_in == 1, lo_c, hi_c).long()
+    end_c = torch.where(lo_in == 1, hi_c, lo_c).long()
+    coff = fused._corner_off(dev)
+
+    def corner_pos(c):
+        return tuple((v[None, :] + coff[c, k]).to(torch.float32) * h - 1.0
+                     for k, v in enumerate((x, y, z)))
+
+    sx, sy, sz = corner_pos(start_c)
+    ex, ey, ez = corner_pos(end_c)
+    dx, dy, dz = ex - sx, ey - sy, ez - sz
+    frac = ((torch.arange(samples, dtype=torch.float32, device=dev) + 1.0)
+            / (samples + 1.0))[:, None, None]
+    idx = torch.arange(samples, device=dev)[:, None, None]
+    ta = torch.zeros((12, cs), dtype=torch.float32, device=dev)
+    tb = torch.ones((12, cs), dtype=torch.float32, device=dev)
+    sign = fused._kernels(ev)["sign"]
+    for _ in range(rounds):
+        ts = ta[None] + (tb - ta)[None] * frac
+        inside = uc.unrolled_points(
+            sign, *fused._model_pts(mat, sx[None] + dx[None] * ts,
+                                    sy[None] + dy[None] * ts,
+                                    sz[None] + dz[None] * ts), vv, n_surf)
+        outside = ~inside
+        any_out = outside.any(dim=0)
+        F = torch.where(outside, idx, samples).amin(dim=0).to(torch.float32)
+        span = tb - ta
+        tbF = ta + span * (F + 1.0) / (samples + 1.0)
+        taF = ta + span * F / (samples + 1.0)
+        ts_last = ta + span * samples / (samples + 1.0)
+        new_tb = torch.where(any_out, tbF, tb)
+        ta = torch.where(any_out & (F > 0), taF,
+                         torch.where(any_out, ta, ts_last))
+        tb = new_tb
+    t = 0.5 * (ta + tb)
+    ip = (sx + dx * t, sy + dy * t, sz + dz * t)
+    mp = fused._model_pts(mat, *ip)
+    idist = uc.unrolled_points(_glue_kernels(ev)["distance"], *mp, vv, n_surf)
+    g = ev.eval_grad(*mp, vv, seeds=seeds)[0]
+    return (*ip, idist, *(g[1 + k].reshape(12, cs) for k in range(3)))
+
+
+@contextlib.contextmanager
+def _old_glue():
+    """The compiled mesher with the dense glue around the kernels: the
+    level cores on `_glue_level_core`, the edge search on
+    `_glue_edge_search` (the edge core's QEF part unchanged)."""
+    from fidget_tpu_torch.mesh import fused
+
+    saved = (fused.level_core, fused.edge_search, fused.edges_core)
+
+    def edges_core(ev, surf_keys, surf_mask, n_surf, *args, **kw):
+        ev._glue_cells = (surf_keys, surf_mask, n_surf)
+        return saved[2](ev, surf_keys, surf_mask, n_surf, *args, **kw)
+
+    fused.level_core = _glue_level_core
+    fused.edge_search = _glue_edge_search
+    fused.edges_core = edges_core
+    try:
+        yield
+    finally:
+        fused.level_core, fused.edge_search, fused.edges_core = saved
+
+
+def _mesher_live(name, args):
+    """The live lanes of one U1-P / U2-B call: points or boxes of a
+    [rows, cols] list with `count` live columns, slots of the crossing
+    list, children of the live parents."""
+    if name == "unrolled_edges":
+        return min(args[1].shape[0], int(args[4]))
+    if name == "level_active":
+        return 8 * min(args[1].shape[0], int(args[2]))
     first = args[1] if name == "unrolled_points" else args[1][0]
-    count = args[5 if name == "unrolled_points" else 4] if len(args) > (
-        5 if name == "unrolled_points" else 4) else None
+    i = 5 if name == "unrolled_points" else 4
+    count = args[i] if len(args) > i else None
     cols = first.shape[-1]
-    rows = first.numel() // cols
-    live = rows * (cols if count is None else min(cols, int(count)))
+    return first.numel() // cols * (cols if count is None
+                                    else min(cols, int(count)))
+
+
+def _mesher_bound(name, args, kwargs, out):
+    """(bound_ms, bound_by, operations, bytes) of one U1-P / U2-B call
+    over its live lanes (`_mesher_live`): U1-P one operation per tape
+    row per point, moving the three coordinates in and the distance or
+    sign out; U1-P's edge search, a slot's `rounds` x `samples` samples
+    and the distance, each the tape's rows and EDGE_POINT_OPS, with
+    EDGE_ROUND_OPS a round, moving the key, mask and slot in and its
+    EDGE_OUTS values out; U2-B two (lo, hi) per row per box, moving the
+    six corners in and the two proofs out (`level_active`: the parents'
+    keys in, LEVEL_BOX_OPS a child to form its box, the child's key and
+    flag out); the params once."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+
+    kern = args[0]
+    live = _mesher_live(name, args)
     if name == "unrolled_points":
         ops = live * len(kern.tapes[0])
         nbytes = live * (12 + out.element_size()) + args[4].nbytes
+    elif name == "unrolled_edges":
+        rows, S, R = len(kern.tapes[0]), kwargs["samples"], kwargs["rounds"]
+        ops = live * ((R * S + 1) * (rows + EDGE_POINT_OPS)
+                      + R * EDGE_ROUND_OPS)
+        nbytes = live * (12 + 4 * uc.EDGE_OUTS) + args[6].nbytes + 48
+    elif name == "level_active":
+        ops = live * (2 * len(kern.tape) + LEVEL_BOX_OPS)
+        nbytes = live // 8 * 4 + live * 5 + args[-1].nbytes + 84
     else:
         ops = 2 * live * len(kern.tape)
         nbytes = live * (24 + 2) + args[3].nbytes
@@ -2897,18 +3056,20 @@ def _mesher_bound(name, args, out):
     return max(t_bytes, t_ops), by, ops, nbytes
 
 
-def _measure_mesher(label, name, args):
+def _measure_mesher(label, name, args, kwargs=None):
     """One captured U1-P / U2-B call against its plain version on the
-    card (distances with max abs err 0, NaN where plain is NaN; signs
-    and proofs exactly), CUDA-event ms, profiler device ms, plain ms
-    and the bound."""
+    card (distances and the edge search's values with max abs err 0, NaN
+    where plain is NaN; signs, proofs, flags and keys exactly),
+    CUDA-event ms, profiler device ms, plain ms and the bound."""
     from fidget_tpu_torch.eval import unrolled_cuda as uc
 
+    kwargs = kwargs or {}
     fn = getattr(uc, name)
     plain = getattr(uc, name + "_plain")
-    got = fn(*args)
-    want, plain_ms = _time_plain(plain, args, {})
-    if name == "unrolled_points" and args[0].epilogue == "distance":
+    got = fn(*args, **kwargs)
+    want, plain_ms = _time_plain(plain, args, kwargs)
+    if name == "unrolled_edges" or (name == "unrolled_points"
+                                    and args[0].epilogue == "distance"):
         err = check(f"{name} ({label})", got, want, 0.0, 0.0)
     else:
         same = (torch.equal(got, want) if name == "unrolled_points"
@@ -2916,31 +3077,35 @@ def _measure_mesher(label, name, args):
         if not same:
             raise Failed(f"{name} ({label}) differs from its plain version")
         err = 0.0
-    ms = time_cuda(lambda: fn(*args), reps=20)
-    dms = device_ms(lambda: fn(*args), "fidget_" + name)
+    ms = time_cuda(lambda: fn(*args, **kwargs), reps=20)
+    symbol = {"level_active": "fidget_unrolled_level"}.get(name,
+                                                            "fidget_" + name)
+    dms = device_ms(lambda: fn(*args, **kwargs), symbol)
     bound_ms, by, ops, nbytes = _mesher_bound(
-        name, args, got if name == "unrolled_points" else None)
-    shape = tuple((args[1] if name == "unrolled_points" else args[1][0]).shape)
-    log(f"kernel {name} ({label}): {shape} lanes, {ops} operations over the "
-        f"live lanes, {nbytes} bytes; equal to plain (max abs err {err}), "
-        f"{ms:.4f} ms (CUDA events), device {dms} ms (profiler), plain "
-        f"{plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({by})")
+        name, args, kwargs, got if name == "unrolled_points" else None)
+    shape = tuple((args[1][0] if name == "unrolled_interval_boxes"
+                   else args[1]).shape)
+    log(f"kernel {name} ({label}): {shape} lanes, {_mesher_live(name, args)} "
+        f"live, {ops} operations over them, {nbytes} bytes; equal to plain "
+        f"(max abs err {err}), {ms:.4f} ms (CUDA events), device {dms} ms "
+        f"(profiler), plain {plain_ms:.1f} ms, bound {bound_ms:.5f} ms ({by}),"
+        f" slots {_slot_bound_ms(ops):.5f} ms")
     return dict(max_abs_err=err, ms=ms, device_ms=dms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=by, operations=ops, bytes=nbytes,
-                shape=list(shape))
+                slot_bound_ms=_slot_bound_ms(ops), shape=list(shape),
+                live=_mesher_live(name, args))
 
 
 def _mesher_site(name, args):
     """Where in the fine stage a U1-P / U2-B call comes from, by its
     kernel and list shape."""
-    if name == "unrolled_interval_boxes":
+    if name == "level_active":
         return "levels"
-    epi = args[0].epilogue
+    if name == "unrolled_edges":
+        return "edges"
+    if name == "unrolled_interval_boxes":
+        return "levels, box planes"
     rows = args[1].shape[0] if args[1].dim() == 2 else None
-    if epi == "distance":
-        return "intersections"
-    if args[1].dim() == 3:
-        return "edge samples"
     return {8: "leaf corners", 27: "lattice"}.get(rows, f"rows {rows}")
 
 
@@ -2948,27 +3113,29 @@ def _mesher_site(name, args):
 def _capture_mesher(tag, captured):
     """Records, per (scene tag, kernel, site), the call of U1-P / U2-B
     in mesh/fused.py with the most live lanes (its count read on the
-    host: a warm-up build only)."""
+    host: a warm-up build only), and the surface cells' count of the
+    build's edge core under (tag, "surface")."""
     from fidget_tpu_torch.mesh import fused
 
-    saved = {n: getattr(fused, n) for n in MESHER_KERNELS}
+    saved = {n: getattr(fused, n) for n in MESHER_KERNELS + ("edges_core",)}
 
     def recorder(name):
-        def call(*args):
-            first = args[1] if name == "unrolled_points" else args[1][0]
-            i = 5 if name == "unrolled_points" else 4
-            count = args[i] if len(args) > i else None
-            live = first.numel() // first.shape[-1] * (
-                first.shape[-1] if count is None
-                else min(first.shape[-1], int(count)))
+        def call(*args, **kwargs):
+            live = _mesher_live(name, args)
             key = (tag, name, _mesher_site(name, args))
-            if key not in captured or live > captured[key][1]:
-                captured[key] = (args, live)
-            return saved[name](*args)
+            if key not in captured or live > captured[key][2]:
+                captured[key] = (args, kwargs, live)
+            return saved[name](*args, **kwargs)
         return call
+
+    def edges_core(ev, surf_keys, surf_mask, n_surf, *args, **kw):
+        captured[(tag, "surface")] = int(n_surf)
+        return saved["edges_core"](ev, surf_keys, surf_mask, n_surf, *args,
+                                   **kw)
 
     for n in MESHER_KERNELS:
         setattr(fused, n, recorder(n))
+    fused.edges_core = edges_core
     try:
         yield
     finally:
@@ -2982,16 +3149,21 @@ def phase_mesh_unrolled(port, cuda, rows, built, depth=MESH_DEPTH,
     on phase 11's two scenes under MESH_VIEW: the cold build of the
     generated kernels (`start_mesh_unrolled_build`, beside the earlier
     phases) and a cached one; launch counts set to 0 before the two
-    builds and read after (U1-P, U2-B and K4 each launched; K1 and K3
-    never); each mesh held by `check_mesh`; a depth-5 sphere built on
-    the card equal to the CPU's build, and a depth-5 gyroid sphere under
-    an oblique rotation likewise (triangles equal, vertices within
-    1e-5); U1-P (both epilogues, every site) and U2-B on the inputs the
-    depth-8 builds gave them, bit for bit against their plain versions,
-    with time and bound (the `kernels` rows), and K4 at the fine stage's
-    gradient shape; then warm builds by turns against eval="interp"
-    (host clock, synchronized; stages by `_StageClock`) and the device's
-    busy share of one compiled build."""
+    builds and read after (U1-P's sign and edge search, U2-B on the
+    levels and K4 each launched; K1 and K3 never); each mesh held by
+    `check_mesh` and equal, vertices and triangles, to the same build
+    on the dense glue (`_old_glue`: the edge rounds over all 12 edges and U2-B over
+    box planes); a depth-5 sphere built on the card equal to the CPU's
+    build, and a depth-5 gyroid sphere under an oblique rotation
+    likewise (triangles equal, vertices within 1e-5); U1-P (its sign
+    epilogue at every site, its edge search) and U2-B (on the levels,
+    and over the union's largest level as box planes) on the inputs
+    the depth-8 builds gave them, bit for bit against their plain
+    versions, with time and bound (the `kernels` rows), and K4 at the
+    fine stage's gradient shape; then warm builds (host clock,
+    synchronized; stages by `_StageClock`; phase 11 times the same
+    builds under eval="interp") and the device's busy share of one
+    compiled build."""
     from fidget_tpu_torch import mesh as mesh_mod
     from fidget_tpu_torch.eval import bulk
     from fidget_tpu_torch.eval import unrolled_cuda as uc
@@ -3002,30 +3174,31 @@ def phase_mesh_unrolled(port, cuda, rows, built, depth=MESH_DEPTH,
     steps, cold_s = built.result()
     wait_s = time.perf_counter() - t_phase
     scenes = _mesh_scenes(port)
-    kernels = []
-    for _, _, scene in scenes:
+    kernels, spills = [], {}
+    for tag, _, scene in scenes:
         tape = scene.tape() if isinstance(scene, port.Shape) else scene
-        kernels += fused.fused_kernels(mesh_mod._get_evaluator(tape, dev,
-                                                               True))
+        for k in fused.fused_kernels(mesh_mod._get_evaluator(tape, dev,
+                                                             True)):
+            kernels.append(k)
+            name = f"{tag} {type(k).__name__} {getattr(k, 'epilogue', '')}"
+            lines, spills[name] = _ptxas_lines(k.unit())
+            log(f"mesh (unrolled) {name}: " + "; ".join(lines))
     t0 = time.perf_counter()
     again = uc.build_kernels(kernels)
     cached_s = time.perf_counter() - t0
     if again or not uc.built(kernels):
         raise Failed(f"mesher kernels not cached after a build: {again}")
-    spills = {}
-    for k in kernels:
-        lines, spill = _ptxas_lines(k.unit())
-        spills[f"{type(k).__name__} {getattr(k, 'epilogue', '')}"] = spill
     log(f"mesh (unrolled) build: {len(steps)} nvcc steps in {cold_s:.1f} s "
         f"cold (started beside the earlier phases; {wait_s:.1f} s waited "
         f"here), cached {cached_s:.3f} s; spill bytes {spills}")
 
     settings = port.MeshSettings(depth=depth, world_to_model=MESH_VIEW,
                                  device=dev, eval="unrolled")
-    interp = port.MeshSettings(depth=depth, world_to_model=MESH_VIEW,
-                               device=dev)
     captured, grads = {}, {}
-    for tag, label, scene in scenes:  # warm-up; its inputs feed the rows
+    for tag, label, scene in scenes:
+        # the first build settles the capacities; the second, a cached
+        # chain as the main path's, gives the rows their inputs
+        port.build_mesh(scene, settings)
         targets = [(bulk, "interp_grad",
                     lambda a, k, tag=tag: f"interp_grad@{tag}")]
         with _capture_mesher(tag, captured), capture_kernel_inputs(targets,
@@ -3051,6 +3224,18 @@ def phase_mesh_unrolled(port, cuda, rows, built, depth=MESH_DEPTH,
         tape = scene.tape() if isinstance(scene, port.Shape) else scene
         ev = mesh_mod._get_evaluator(tape, dev)
         check_mesh(f"{label} (unrolled)", m, ev, bx, MESH_VIEW)
+    with _old_glue():
+        for (_, label, scene), m in zip(scenes, meshes):
+            old = port.build_mesh(scene, settings)
+            if not (np.array_equal(old.triangles, m.triangles)
+                    and old.vertices.shape == m.vertices.shape
+                    and np.array_equal(old.vertices, m.vertices)):
+                raise Failed(f"the {label} mesh differs from the one of the "
+                             f"dense glue: triangles {m.triangles.shape} / "
+                             f"{old.triangles.shape}")
+            log(f"{label} (unrolled): mesh equal to the dense glue's "
+                f"({len(m.triangles)} triangles, {len(m.vertices)} vertices,"
+                f" bit for bit)")
 
     from fidget_tpu_torch.scenes import gyroid_sphere
 
@@ -3102,14 +3287,31 @@ def phase_mesh_unrolled(port, cuda, rows, built, depth=MESH_DEPTH,
             f"witness)")
 
     measured = {}
-    for key in sorted(captured):
+    calls = {k: v for k, v in captured.items() if len(k) == 3}
+    for key in sorted(calls):
         tag, name, site = key
-        measured[key] = _measure_mesher(f"{tag}, {site}", name,
-                                        captured[key][0])
-    for name, head in (("unrolled_points", ("union", "unrolled_points",
-                                            "edge samples")),
-                       ("unrolled_interval_boxes",
-                        ("union", "unrolled_interval_boxes", "levels"))):
+        args, kwargs, _ = calls[key]
+        measured[key] = _measure_mesher(f"{tag}, {site}", name, args, kwargs)
+        if name == "unrolled_edges":
+            # the same work counted as the dense rounds did, over all 12
+            # edges of every surface cell
+            n12 = 12 * captured[(tag, "surface")]
+            live = measured[key]["live"]
+            measured[key]["bound_all_12_edges_ms"] = measured[key][
+                "bound_ms"] * n12 / max(1, live)
+        if name == "level_active":
+            # U2-B's box-plane entry on the same boxes, formed in torch
+            kern, keys, n_in, h_child, pos, neg, off3, vv = args
+            _, mlo, mhi = uc.level_boxes(keys, h_child, pos, neg, off3)
+            measured[(tag, "unrolled_interval_boxes", "levels, box planes")] = (
+                _measure_mesher(f"{tag}, levels, box planes",
+                                "unrolled_interval_boxes",
+                                (kern, mlo, mhi, vv, n_in)))
+    heads = {"unrolled_points": "leaf corners", "unrolled_edges": "edges",
+             "level_active": "levels",
+             "unrolled_interval_boxes": "levels, box planes"}
+    for name, site in heads.items():
+        head = ("union", name, site)
         rows[name] = {
             "name": name, "route": "cuda", "source": UNROLLED_SOURCE,
             "replaces": UNROLLED_REPLACES, "launches": launches[name],
@@ -3129,32 +3331,27 @@ def phase_mesh_unrolled(port, cuda, rows, built, depth=MESH_DEPTH,
                               f"gradient shape", name, args, kwargs))
 
     for tag, label, scene in scenes:
-        totals = {"interp": [], "unrolled": []}
-        stages = {"interp": [], "unrolled": []}
-        for rnd in range(MESH_REPS):
-            order = (("interp", interp), ("unrolled", settings))
-            for mode, st in order if rnd % 2 == 0 else order[::-1]:
-                clock = mesh_mod._StageClock(True, dev, echo=False)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                port.build_mesh(scene, st, clock=clock)
-                torch.cuda.synchronize()
-                totals[mode].append((time.perf_counter() - t0) * 1e3)
-                stages[mode].append(_stage_table(clock.stages))
-        med = {k: float(np.median(v)) for k, v in totals.items()}
-        for mode in ("unrolled", "interp"):
-            k = int(np.argsort(totals[mode])[len(totals[mode]) // 2])
-            log(f"mesh build by turns, {label}, depth {depth}, {mode}: "
-                f"median {med[mode]:.1f} ms, min {min(totals[mode]):.1f} "
-                f"ms over {MESH_REPS} builds (host clock); stages of the "
-                f"median build (ms): " + ", ".join(
-                    f"{s} {ms:.1f}" for s, ms in stages[mode][k].items()))
+        totals, stages = [], []
+        for _ in range(MESH_REPS):
+            clock = mesh_mod._StageClock(True, dev, echo=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            port.build_mesh(scene, settings, clock=clock)
+            torch.cuda.synchronize()
+            totals.append((time.perf_counter() - t0) * 1e3)
+            stages.append(_stage_table(clock.stages))
+        med = float(np.median(totals))
+        k = int(np.argsort(totals)[len(totals) // 2])
+        log(f"mesh build, {label}, depth {depth}, unrolled: warm median "
+            f"{med:.1f} ms, min {min(totals):.1f} ms over {MESH_REPS} "
+            f"builds (host clock; phase 11 times eval=\"interp\"); stages "
+            f"of the median build (ms): " + ", ".join(
+                f"{s} {ms:.1f}" for s, ms in stages[k].items()))
         busy = _log_busy(f"{label} compiled build", _device_busy(
-            lambda: port.build_mesh(scene, settings), 1), med["unrolled"])
-        for name in MESHER_KERNELS:
+            lambda: port.build_mesh(scene, settings), 1), med)
+        for name in heads:
             rows[name].setdefault("builds", {})[tag] = {
-                "unrolled_ms": totals["unrolled"], "interp_ms":
-                totals["interp"], "unrolled_busy_ms": busy}
+                "unrolled_ms": totals, "unrolled_busy_ms": busy}
     log(f"phase 11b: {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -3587,13 +3784,16 @@ def _guard_kernels(pkg):
                    for name, t, tol in comb]
         intervals3 = [(name, uc.Interval3Kernel(t, axis, V))
                       for name, t, _ in comb]
-    points, boxes = [], []
+    points, boxes, edges = [], [], []
     if hasattr(uc, "PointsKernel"):
         points = [(name, uc.PointsKernel(t, axis, V, epi), tol)
                   for name, t, tol in comb for epi in uc.POINT_EPILOGUES]
         boxes = [(name, uc.BoxesKernel(t, axis, V)) for name, t, _ in comb]
+    if hasattr(uc, "EdgesKernel"):
+        edges = [(name, uc.EdgesKernel(t, axis, V), tol)
+                 for name, t, tol in comb]
     return (uc, op_tapes, comb, kinds, matrix, singles, intervals, voxels3,
-            intervals3, points, boxes)
+            intervals3, points, boxes, edges)
 
 
 def start_guard_build(pkg):
@@ -3604,11 +3804,12 @@ def start_guard_build(pkg):
     future of (kernels, steps, build seconds)."""
     guard = _guard_kernels(pkg)
     (uc, _, _, _, matrix, singles, intervals, voxels3, intervals3, points,
-     boxes) = guard
+     boxes, edges) = guard
     kernels = ([matrix] + [k for _, k, _ in singles]
                + [k for _, _, ks in intervals for k in ks]
                + [k for _, k, _ in voxels3] + [k for _, k in intervals3]
-               + [k for _, k, _ in points] + [k for _, k in boxes])
+               + [k for _, k, _ in points] + [k for _, k in boxes]
+               + [k for _, k, _ in edges])
 
     def build():
         t0 = time.perf_counter()
@@ -3638,7 +3839,7 @@ def phase_unrolled_guard(pkg, dev="cuda", label="tree", built=None):
     t_start = time.perf_counter()
     guard, steps, build_s = (built or start_guard_build(pkg)).result()
     (uc, op_tapes, comb, kinds, matrix, singles, intervals, voxels3,
-     intervals3, points, boxes) = guard
+     intervals3, points, boxes, edges) = guard
     n_t = GUARD_SIZE // UNROLLED_T0
     gx, gy = np.meshgrid(np.arange(n_t) * UNROLLED_T0,
                          np.arange(n_t) * UNROLLED_T0)
@@ -3699,6 +3900,7 @@ def phase_unrolled_guard(pkg, dev="cuda", label="tree", built=None):
     torch.cuda.synchronize()
     launches3 = _guard3d(uc, voxels3, intervals3, label, dev)
     launches3 += _guard_mesher(uc, points, boxes, label, dev)
+    launches3 += _guard_mesher_levels(uc, boxes, edges, label, dev)
     secs = time.perf_counter() - t_start
     log(f"unrolled guard ({label}): {P} op tapes in one U1 launch, "
         f"{len(singles)} combined tapes ({', '.join(n for n, _, _ in comb)}; "
@@ -3789,6 +3991,112 @@ def _guard_mesher(uc, points, boxes, label, dev):
         f"launches: distances, signs and proofs equal to plain "
         f"({witnessed} signs of the transcendental tape within its "
         f"tolerance of the surface)")
+    return launches
+
+
+#: the mesher guard's lattice (cells of a depth-GUARD_DEPTH octree), its
+#: crossing list and its parents: slots / parents, live among them
+GUARD_DEPTH = 7
+GUARD_SLOTS, GUARD_SLOTS_LIVE = 4096, 3000
+GUARD_PARENTS, GUARD_PARENTS_LIVE = 2048, 1500
+#: the edge search's (samples, rounds): the mesher's, and two that take
+#: a group of 8 lanes and two chunks of a warp's lanes
+GUARD_SEARCHES = ((16, 4), (5, 3), (40, 2))
+
+
+def _guard_world_matrices():
+    """World -> model [3, 4] matrices of the mesher guard: an oblique
+    rotation with an offset (coefficients of both signs), and the same
+    scaled by 1e30 (so that squares and products overflow)."""
+    m = _oblique()[:3].astype(np.float32)
+    m[:, 3] = (0.25, -0.125, 0.5)
+    wide = m.copy()
+    wide[:2] *= np.float32(1e30)
+    return m, wide
+
+
+def _guard_mesher_levels(uc, boxes, edges, label, dev):
+    """Phase 6e for the mesher's redesigned kernels on the combined
+    tapes: U1-P's edge search (`unrolled_edges`) over a random crossing
+    list of cells of a depth-GUARD_DEPTH lattice (random corner masks
+    and edges, dead slots past the live count) at each of
+    GUARD_SEARCHES (the first at every var pair, the others at every
+    fourth), and U2-B on a level (`level_active`) over random
+    parents (some keys -1, dead parents past the count), under both
+    `_guard_world_matrices`, with the vars of `_guard_pairs`, against
+    the plain versions: every output of the search exactly (NaN where
+    plain is NaN) but on the transcendental tape, where a slot's
+    brackets may differ only where the plain search met a sample within
+    its tolerance of 0 (the distance then within it); the flags and the
+    children's keys exactly. Returns the launches."""
+    if not edges:
+        return 0
+    rng = np.random.default_rng(16)
+    G, ks = 1 << GUARD_DEPTH, uc.LATTICE_KS
+
+    def keys(n, g):
+        c = rng.integers(0, g, (3, n))
+        return (c[0] * ks + c[1]) * ks + c[2]
+
+    i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)  # noqa: E731
+    key = i32(keys(GUARD_SLOTS, G))
+    mask = i32(rng.integers(1, 255, GUARD_SLOTS))
+    slot = i32(12 * rng.integers(0, 1 << 16, GUARD_SLOTS)
+               + rng.integers(0, 12, GUARD_SLOTS))
+    count = i32([GUARD_SLOTS_LIVE])
+    pk = keys(GUARD_PARENTS, G // 2)
+    pk[rng.random(GUARD_PARENTS) < 0.1] = -1
+    parents, n_in = i32(pk), i32([GUARD_PARENTS_LIVE])
+    launches, witnessed = 0, 0
+    for m, pairs in zip(_guard_world_matrices(), _guard_pairs()):
+        mat = torch.tensor(m, device=dev)
+        A = torch.tensor(m[:, :3], device=dev)
+        pos, neg = torch.clamp_min(A, 0.0), torch.clamp_max(A, 0.0)
+        off3 = mat[:, 3].contiguous()
+        for i, (a_val, b_val) in enumerate(pairs):
+            params = torch.tensor([0.0, 0.0, a_val, b_val],
+                                  dtype=torch.float32, device=dev)
+            at = f"at a={a_val}, b={b_val}"
+            for (name, k, tol), (_, kb) in zip(edges, boxes):
+                # the mesher's search at every pair, the others at every
+                # fourth
+                for samples, rounds in GUARD_SEARCHES[:1 if i % 4 else 3]:
+                    kw = dict(samples=samples, rounds=rounds)
+                    args = (k, key, mask, slot, count, mat, params, 2.0 / G)
+                    got = uc.unrolled_edges(*args, **kw)
+                    want, near = uc.unrolled_edges_plain(*args, margin=True,
+                                                         **kw)
+                    what = (f"unrolled guard ({label}) U1-P edges {name} "
+                            f"{samples} x {rounds} {at}")
+                    if tol == 0:
+                        check(what, got, want, 0.0, 0.0)
+                    else:
+                        same = ((got[:8] == want[:8])
+                                | (got[:8].isnan() & want[:8].isnan())).all(0)
+                        if not bool((same | (near <= tol)).all()):
+                            raise Failed(f"{what}: brackets differ from plain "
+                                         f"away from the surface")
+                        check(what, got[8][same], want[8][same], tol, tol)
+                        witnessed += int((~same).sum())
+                    launches += 1
+                got = uc.level_active(kb, parents, n_in, 1.0 / G, pos, neg,
+                                      off3, params)
+                want = uc.level_active_plain(kb, parents, n_in, 1.0 / G, pos,
+                                             neg, off3, params)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise Failed(f"unrolled guard ({label}) U2-B level "
+                                 f"{name} {at}: flags or keys differ from "
+                                 f"plain")
+                launches += 1
+    torch.cuda.synchronize()
+    log(f"unrolled guard ({label}) mesher levels and edges: U1-P's edge "
+        f"search ({GUARD_SLOTS} slots, {GUARD_SLOTS_LIVE} live, at (samples, "
+        f"rounds) {GUARD_SEARCHES[0]}, and {GUARD_SEARCHES[1:]} at every "
+        f"fourth var pair) and U2-B's levels ({GUARD_PARENTS} "
+        f"parents, {GUARD_PARENTS_LIVE} live) on the {len(edges)} combined "
+        f"tapes, two matrices, {launches} launches: equal to plain "
+        f"({witnessed} slots of the transcendental tape whose search met a "
+        f"sample within its tolerance of the surface)")
     return launches
 
 

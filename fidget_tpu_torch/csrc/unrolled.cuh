@@ -53,22 +53,44 @@
 //   expansion is as it was.
 // - U1-P `fidget_unrolled_points`: the mesher's points kernel (the
 //   counterpart of eval_tape_float_fast in fidget_tpu/mesh/fused.py's
-//   leaf, edge and merge cores), U1's programs behind a kernel unit of
+//   leaf and merge cores), U1's programs behind a kernel unit of
 //   its own (U_POINTS_KERNEL). A thread evaluates one model-space point
 //   of a flat list (the caller forms the points), with the epilogue
 //   fixed when the code is generated: the distance, or the sign d < 0.
-// - U2-B `fidget_unrolled_interval_boxes` under U_BOX: U2's schedule
-//   over explicit model-space boxes (the counterpart of
-//   eval_tape_interval_fast in fused.py's level core), proofs only. The
-//   boxes come as six planes [6][n] (x lo, x hi, y lo, y hi, z lo, z
-//   hi), which replace the tile corners and the matrix in the warp
-//   streams' arguments.
+// - U1-P `fidget_unrolled_edges` (U_EDGE_KERNEL): the mesher's edge
+//   search (fused.py's edge core) on a compacted list of crossing
+//   (cell, edge) slots. A group of lanes (the sample count rounded up to
+//   a power of two, at most a warp) owns one slot: it forms the edge's
+//   inside and outside corners from the cell's key and corner mask, and
+//   runs every round of the N-ary search with the brackets in
+//   registers, lane i evaluating sample i (i + 32 ... past a warp); a
+//   warp ballot gives the least outside sample. Then the intersection,
+//   its model point and the distance there. It replaces the edge core's
+//   rounds of eval_tape_float_fast over all 12 edges of every surface
+//   cell (fidget_tpu/mesh/fused.py): one launch a build instead of a
+//   launch a round with torch ops over [samples, 12, cells] between
+//   them, and only the edges that cross. Bound by issuing the program's
+//   rows, as U1: the samples of a slot run side by side, the brackets
+//   never leave registers.
+// - U2-B under U_BOX: U2's rows as ONE stream (the schedule at one
+//   warp: no hand-off, no barrier), one thread a box (the counterpart
+//   of eval_tape_interval_fast in fused.py's level core), proofs only.
+//   Two kernels share the stream: `fidget_unrolled_level` (U_LEVEL_KERNEL)
+//   decodes a parent cell's key, forms the world box of one of its 8
+//   children and the model box in the reference's positive / negative
+//   coefficient order, and writes the child's key and whether it stays
+//   active; `fidget_unrolled_interval_boxes` (U_BOX_KERNEL) reads
+//   explicit boxes as six planes [6][n] (x lo, x hi, y lo, y hi, z lo,
+//   z hi). With hundreds of thousands of boxes a level there is
+//   parallelism enough without splitting a box's rows over warps, so no
+//   hand-off or barrier is paid; bound by issuing the rows.
 //
-// Both mesher kernels read a live count from device memory, so that a
+// The mesher kernels read a live count from device memory, so that a
 // chain of levels never waits on the host: lane g of a [rows][cols]
-// list is live when g % cols < *count (every lane with no count). A
-// dead lane writes 0 (U1-P) or no proof (U2-B) and does no work; a
-// block of U2-B with no live box leaves at once.
+// list is live when g % cols < *count (every lane with no count; U1-P
+// edges: slot g < *count; U2-B levels: parent g / 8 < *count). A dead
+// lane writes 0 (U1-P) or no proof (U2-B) and does no work; a warp of
+// U1-P edges with no live slot leaves at once.
 //
 // What bounds them on the card: instruction issue and the latency of
 // dependent rows. A row is one to a few dozen instructions on
@@ -301,6 +323,154 @@ __device__ __forceinline__ void u_point_inputs(
     return (int)cudaGetLastError();                                           \
   }
 
+namespace fidget {
+//: rows of the edge search's output [U_EDGE_OUTS][cap]: the brackets ta,
+//: tb, the intersection's world x, y, z, its model x, y, z, the distance
+constexpr int U_EDGE_OUTS = 9;
+
+// fused.py's _model_pts: ((m0 x + m1 y) + m2 z) + m3, mat [3][4]
+__device__ __forceinline__ float u_model(const float* __restrict__ mat,
+                                         int r, float x, float y, float z) {
+  return mat[4 * r] * x + mat[4 * r + 1] * y + mat[4 * r + 2] * z +
+         mat[4 * r + 3];
+}
+
+// a / (samples + 1.0) as torch divides a tensor by a Python float on the
+// card: times the f32 reciprocal (ATen's div_true on a CPU scalar), the
+// same on the plain version there
+__device__ __forceinline__ float u_edge_div(float a, float s1) {
+  return a * (1.f / s1);
+}
+
+// The edge search of one crossing slot (module comment). `run(in)` is
+// the tape's program; edge_lo / edge_hi the edges' corners (mesh/
+// tables.py), ks the packed key's stride. The arithmetic is the plain
+// version's (unrolled_edges_plain, mesh/fused.py's dense rounds) op for
+// op, every product and sum rounded on its own (--fmad=false).
+template <int V, int AX, int AY, int AZ, class Run>
+__device__ __forceinline__ void u_edges(
+    const int32_t* __restrict__ key, const int32_t* __restrict__ mask,
+    const int32_t* __restrict__ slot, const int32_t* __restrict__ count,
+    const float* __restrict__ mat, const float* __restrict__ params,
+    const int* edge_lo, const int* edge_hi, int ks, float h, int samples,
+    int rounds, int group, float* __restrict__ out, int cap, Run run) {
+  const long long g = (long long)blockIdx.x * UBLOCK + threadIdx.x;
+  const int lane = threadIdx.x & (group - 1);
+  const int base = (threadIdx.x & 31) & ~(group - 1);
+  const long long q = g / group;
+  const long long q0 = (g - (threadIdx.x & 31)) / group;  // the warp's first
+  const int lim = min(__ldg(count), cap);
+  if (q0 >= lim) {  // the warp holds no live slot: zeros, and leave
+    if (lane == 0 && q < cap)
+      for (int k = 0; k < U_EDGE_OUTS; ++k) out[(size_t)k * cap + q] = 0.f;
+    return;
+  }
+  // a dead group beside live ones walks the warp's first slot for the
+  // ballots and writes zeros
+  const bool live = q < lim;
+  const int s = live ? (int)q : (int)q0;
+  const int kk = max(__ldg(key + s), 0);
+  const int m = __ldg(mask + s);
+  const int e = __ldg(slot + s) % 12;
+  const int x = kk / (ks * ks), y = (kk / ks) % ks, z = kk % ks;
+  const int lo = edge_lo[e], hi = edge_hi[e];
+  const bool lo_in = (m >> lo) & 1;
+  const int c0 = lo_in ? lo : hi, c1 = lo_in ? hi : lo;
+  const float sx = (float)(x + (c0 & 1)) * h - 1.f;
+  const float sy = (float)(y + ((c0 >> 1) & 1)) * h - 1.f;
+  const float sz = (float)(z + ((c0 >> 2) & 1)) * h - 1.f;
+  const float dx = ((float)(x + (c1 & 1)) * h - 1.f) - sx;
+  const float dy = ((float)(y + ((c1 >> 1) & 1)) * h - 1.f) - sy;
+  const float dz = ((float)(z + ((c1 >> 2) & 1)) * h - 1.f) - sz;
+  float in[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) in[i] = params[i];
+  auto at = [&](float t) {
+    const float px = sx + dx * t, py = sy + dy * t, pz = sz + dz * t;
+    if constexpr (AX >= 0) in[AX] = u_model(mat, 0, px, py, pz);
+    if constexpr (AY >= 0) in[AY] = u_model(mat, 1, px, py, pz);
+    if constexpr (AZ >= 0) in[AZ] = u_model(mat, 2, px, py, pz);
+  };
+  const float s1 = (float)samples + 1.f;
+  const unsigned gmask = group == 32 ? 0xffffffffu : (1u << group) - 1u;
+  float ta = 0.f, tb = 1.f;
+  for (int r = 0; r < rounds; ++r) {
+    const float span = tb - ta;
+    int F = samples;  // the least outside sample (samples: none)
+    for (int c = 0; c < samples; c += group) {  // uniform over the warp
+      const int k = c + lane;
+      bool outside = false;
+      if (k < samples) {
+        at(ta + span * u_edge_div((float)k + 1.f, s1));
+        outside = !(run(in) < 0.f);  // NaN is outside, as ~(d < 0)
+      }
+      const unsigned bits =
+          (__ballot_sync(0xffffffffu, outside) >> base) & gmask;
+      if (F == samples && bits) F = c + __ffs(bits) - 1;
+    }
+    const bool any_out = F < samples;
+    const float Ff = (float)F;
+    const float tbF = ta + u_edge_div(span * (Ff + 1.f), s1);
+    const float taF = ta + u_edge_div(span * Ff, s1);
+    const float ts_last = ta + u_edge_div(span * (float)samples, s1);
+    const float ntb = any_out ? tbF : tb;
+    ta = any_out ? (F > 0 ? taF : ta) : ts_last;
+    tb = ntb;
+  }
+  if (lane != 0 || q >= cap) return;
+  const float t = 0.5f * (ta + tb);
+  const float ipx = sx + dx * t, ipy = sy + dy * t, ipz = sz + dz * t;
+  const float mx = u_model(mat, 0, ipx, ipy, ipz);
+  const float my = u_model(mat, 1, ipx, ipy, ipz);
+  const float mz = u_model(mat, 2, ipx, ipy, ipz);
+  if constexpr (AX >= 0) in[AX] = mx;
+  if constexpr (AY >= 0) in[AY] = my;
+  if constexpr (AZ >= 0) in[AZ] = mz;
+  const float vals[U_EDGE_OUTS] = {ta, tb, ipx, ipy, ipz, mx, my, mz,
+                                   live ? run(in) : 0.f};
+#pragma unroll
+  for (int k = 0; k < U_EDGE_OUTS; ++k)
+    out[(size_t)k * cap + q] = live ? vals[k] : 0.f;
+}
+}  // namespace fidget
+
+// U1-P edges. The kernel's unit defines U_V / U_AX / U_AY / U_AZ and
+// `u_run(0, in)` (the one program) as U1's does, the edge tables
+// u_edge_lo / u_edge_hi [12] and the key stride U_KS, then expands
+// U_EDGE_KERNEL. Thread g is lane g % group of slot g / group of the
+// [cap] list (key, corner mask, slot = 12 cell + edge); out f32
+// [U_EDGE_OUTS][cap].
+#define U_EDGE_KERNEL                                                         \
+  extern "C" __global__ void __launch_bounds__(fidget::UBLOCK)                \
+      fidget_unrolled_edges(                                                  \
+          const int32_t* __restrict__ key, const int32_t* __restrict__ mask,  \
+          const int32_t* __restrict__ slot, const int32_t* __restrict__ count,\
+          const float* __restrict__ mat, const float* __restrict__ params,    \
+          float h, int samples, int rounds, int group,                        \
+          float* __restrict__ out, int cap) {                                 \
+    fidget::u_edges<U_V, U_AX, U_AY, U_AZ>(                                   \
+        key, mask, slot, count, mat, params, u_edge_lo, u_edge_hi, U_KS, h,   \
+        samples, rounds, group, out, cap,                                     \
+        [](const float* in) { return u_run(0, in); });                        \
+  }                                                                           \
+  extern "C" int fidget_unrolled_edges_launch(                                \
+      const int32_t* key, const int32_t* mask, const int32_t* slot,           \
+      const int32_t* count, const float* mat, const float* params, float h,   \
+      int samples, int rounds, int group, float* out, int cap,                \
+      void* stream) {                                                         \
+    const long long blocks =                                                  \
+        ((long long)cap * group + fidget::UBLOCK - 1) / fidget::UBLOCK;       \
+    if (samples <= 0 || rounds < 0 || group <= 0 || group > 32 ||             \
+        (group & (group - 1)) || blocks > 0x7fffffffLL)                       \
+      return (int)cudaErrorInvalidValue;                                      \
+    if (blocks > 0)                                                           \
+      fidget_unrolled_edges<<<(unsigned)blocks, fidget::UBLOCK, 0,            \
+                              (cudaStream_t)stream>>>(                        \
+          key, mask, slot, count, mat, params, h, samples, rounds, group,     \
+          out, cap);                                                          \
+    return (int)cudaGetLastError();                                           \
+  }
+
 // U1-3D. The kernel's unit defines U_V / U_AX / U_AY / U_AZ and
 // `u_run(0, in)` (the one program) as U1's does, then expands
 // U_VOXEL_KERNEL. Thread g owns column g % sub^2 (vy = c / sub, vx =
@@ -361,17 +531,17 @@ __device__ __forceinline__ void u_point_inputs(
 #endif
 namespace fidget {
 #if U_BOX
-// The box of one lane from the planes [6][n]: the var values, then the
-// axes' (lo, hi) written into the inputs AX / AY / AZ name.
+// The inputs of one model-space box: the var values, then the axes'
+// intervals written into the inputs AX / AY / AZ name.
 template <int V, int AX, int AY, int AZ>
-__device__ __forceinline__ void u_box_inputs(const float* __restrict__ box,
+__device__ __forceinline__ void u_box_inputs(Ival bx, Ival by, Ival bz,
                                              const float* __restrict__ p,
-                                             int n, int tile, Ival* in) {
+                                             Ival* in) {
 #pragma unroll
   for (int i = 0; i < V; ++i) in[i] = Ival{p[i], p[i]};
-  if constexpr (AX >= 0) in[AX] = Ival{box[tile], box[n + tile]};
-  if constexpr (AY >= 0) in[AY] = Ival{box[2 * n + tile], box[3 * n + tile]};
-  if constexpr (AZ >= 0) in[AZ] = Ival{box[4 * n + tile], box[5 * n + tile]};
+  if constexpr (AX >= 0) in[AX] = bx;
+  if constexpr (AY >= 0) in[AY] = by;
+  if constexpr (AZ >= 0) in[AZ] = bz;
 }
 #elif U_Z3
 // The box of one 3D tile through transform_intervals.
@@ -415,15 +585,23 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
 // column of the block's choice words (word j at wd[32 j]); `tile` is the
 // lane's tile (the last one for lanes past n, which compute and write
 // nothing).
-// (U2-B: the box planes, params and n in place of the corners, params
-// and T0.)
+// (U2-B: `Ival name(U_WARP_ARGS)`, the one stream of a box: its model
+// box and the var values in, the output's interval out.)
 #if U_BOX
 #define U_WARP_ARGS                                                        \
-  const float *__restrict__ box, const float *__restrict__ params, int nb, \
-      fidget::Ival *sh, uint32_t *wd, bool *__restrict__ rin,              \
-      bool *__restrict__ rout, int tile, bool live
-#define U_TILE_INPUTS                                                      \
-  u_box_inputs<U_V, U_AX, U_AY, U_AZ>(box, params, nb, tile, in)
+  fidget::Ival bx, fidget::Ival by, fidget::Ival bz,                       \
+      const float *__restrict__ params
+#define U_TILE_INPUTS u_box_inputs<U_V, U_AX, U_AY, U_AZ>(bx, by, bz, params, in)
+#define U_WARP_BEGIN(name)                                                 \
+  extern "C" __device__ __noinline__ fidget::Ival name(U_WARP_ARGS) {      \
+    using namespace fidget;                                                \
+    Ival in[U_V];                                                          \
+    U_TILE_INPUTS;                                                         \
+    Ival o_{0.f, 0.f};                                                     \
+    [[maybe_unused]] int c_ = 0;
+#define U_WARP_END                                                         \
+  return o_;                                                               \
+  }
 #else
 #define U_WARP_ARGS                                                        \
   const float *__restrict__ x0, const float *__restrict__ y0, U_Z0_PARAM   \
@@ -431,8 +609,6 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
       uint32_t *wd, bool *__restrict__ rin, bool *__restrict__ rout,       \
       int tile, bool live
 #define U_TILE_INPUTS u_tile_inputs(x0, y0, U_Z0_ARG params, T0, tile, in)
-#endif
-
 #define U_WARP_BEGIN(name)                                                 \
   extern "C" __device__ __noinline__ void name(U_WARP_ARGS) {              \
     using namespace fidget;                                                \
@@ -447,6 +623,7 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
     (void)live;
 
 #define U_WARP_END }
+#endif
 
 // A hand-off slot of the lane, and the barrier between stages. The warps
 // reach it from different functions, so it is the non-aligned
@@ -455,7 +632,10 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
 // aligned form) is not. Every warp passes the same number of them.
 #define U_SH(s) sh[32 * (s)]
 #define U_BAR() asm volatile("barrier.sync 0;" ::: "memory")
-// the proofs, from the output row's value
+// the proofs, from the output row's value (U2-B: the stream's result)
+#if U_BOX
+#define U_OUT(v) (o_ = (v))
+#else
 #define U_OUT(v)                                                           \
   do {                                                                     \
     if (live) {                                                            \
@@ -463,6 +643,7 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
       rout[tile] = (v).lo > 0.f;                                           \
     }                                                                      \
   } while (0)
+#endif
 
 // The choice epilogues: U_CHOICE(shift, code) after every choice row of
 // the warp, U_WORD(j) when the warp's next choice (or none) lies in
@@ -549,45 +730,100 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
     return (int)cudaGetLastError();                                           \
   }
 
-// U2-B's kernel unit declares the warp streams, defines `u_warps` as
-// U2's does (over U_BOX's arguments) and expands U_BOX_KERNEL with
-// U_SLOTS hand-off slots: proofs only, no choice words. Lane t of
-// block b is box b * 32 + t % 32 of the [rows][cols] list, live when
-// t % cols < *count; a dead box gets no proof (false, false).
+// U2-B's kernel unit declares its one stream `u_box(U_WARP_ARGS)`,
+// defines U_BLOCK (threads a block) and expands U_BOX_KERNEL: proofs
+// only, no choice words, one thread a box. U_BOX_KERNEL's lane t is box t
+// of the [rows][cols] list of planes, live when t % cols < *count; a dead
+// box gets no proof (false, false).
 #define U_BOX_KERNEL                                                          \
-  constexpr int u_shared_bytes = (U_SLOTS * 32) * (int)sizeof(fidget::Ival); \
-  extern "C" __global__ void __launch_bounds__(U_K * 32)                      \
+  extern "C" __global__ void __launch_bounds__(U_BLOCK)                       \
       fidget_unrolled_interval_boxes(                                         \
           const float* __restrict__ box, const float* __restrict__ params,    \
           const int32_t* __restrict__ count, int cols,                        \
           bool* __restrict__ rin, bool* __restrict__ rout, int n) {           \
     using namespace fidget;                                                   \
-    extern __shared__ __align__(16) unsigned char u_smem_[];                  \
-    Ival* sh_ = reinterpret_cast<Ival*>(u_smem_);                             \
-    const int l = threadIdx.x & 31;                                           \
-    const int w = threadIdx.x >> 5;                                           \
-    const int t = blockIdx.x * 32 + l;                                        \
+    const long long t = (long long)blockIdx.x * U_BLOCK + threadIdx.x;        \
+    if (t >= n) return;                                                       \
     const int lim = count ? __ldg(count) : cols;                              \
-    const bool live = t < n && t % cols < lim;                                \
-    if (w == 0 && t < n && !live) {                                           \
-      rin[t] = false;                                                         \
-      rout[t] = false;                                                        \
+    bool full = false, empty = false;                                         \
+    if ((int)(t % cols) < lim) {                                              \
+      const Ival r = u_box(Ival{box[t], box[n + t]},                          \
+                           Ival{box[2LL * n + t], box[3LL * n + t]},          \
+                           Ival{box[4LL * n + t], box[5LL * n + t]}, params); \
+      full = r.hi < 0.f;                                                      \
+      empty = r.lo > 0.f;                                                     \
     }                                                                         \
-    /* uniform over the block: every thread leaves, or none */                \
-    if (!__syncthreads_or(live)) return;                                      \
-    u_warps(w, box, params, n, sh_ + l, nullptr, rin, rout,                   \
-            t < n ? t : n - 1, live);                                         \
+    rin[t] = full;                                                            \
+    rout[t] = empty;                                                          \
   }                                                                           \
   extern "C" int fidget_unrolled_interval_boxes_launch(                       \
       const float* box, const float* params, const int32_t* count, int cols,  \
       bool* rin, bool* rout, int n, void* stream) {                           \
-    const int blocks = (n + 31) / 32;                                         \
+    const int blocks = (n + U_BLOCK - 1) / U_BLOCK;                           \
     if (cols <= 0) return (int)cudaErrorInvalidValue;                         \
-    FIDGET_SET_SMEM(fidget_unrolled_interval_boxes, u_shared_bytes);          \
     if (blocks > 0)                                                           \
-      fidget_unrolled_interval_boxes<<<blocks, U_K * 32, u_shared_bytes,      \
+      fidget_unrolled_interval_boxes<<<blocks, U_BLOCK, 0,                    \
                                        (cudaStream_t)stream>>>(               \
           box, params, count, cols, rin, rout, n);                            \
+    return (int)cudaGetLastError();                                           \
+  }
+
+// fused.py's level core on the parents' packed keys: thread g forms child
+// g % 8 (corner offset (c & 1, c >> 1 & 1, c >> 2 & 1)) of parent g / 8,
+// its world box [2 p + o] h_child - 1 + [0, h_child], and the model box
+// through pos / neg [3][3] (the matrix's positive and negative parts) and
+// off3 [3], lo = pos wlo + neg whi + off3 and hi = pos whi + neg wlo +
+// off3, summed left to right. A parent is live below *count with a key
+// >= 0; act [cin * 8] is true where a live parent's child is neither
+// full nor empty, kid [cin * 8] the child's packed key (a dead parent's
+// decoded as key 0).
+#define U_LEVEL_KERNEL                                                        \
+  extern "C" __global__ void __launch_bounds__(U_BLOCK)                       \
+      fidget_unrolled_level(                                                  \
+          const int32_t* __restrict__ keys, const int32_t* __restrict__ count,\
+          int cin, const float* __restrict__ pos,                             \
+          const float* __restrict__ neg, const float* __restrict__ off3,      \
+          const float* __restrict__ params, float hc,                         \
+          bool* __restrict__ act, int32_t* __restrict__ kid) {                \
+    using namespace fidget;                                                   \
+    const long long g = (long long)blockIdx.x * U_BLOCK + threadIdx.x;        \
+    if (g >= 8LL * cin) return;                                               \
+    const int p = (int)(g >> 3), c = (int)(g & 7);                            \
+    const int k = __ldg(keys + p);                                            \
+    const int kk = max(k, 0);                                                 \
+    const int cx = kk / (U_KS * U_KS) * 2 + (c & 1);                          \
+    const int cy = (kk / U_KS) % U_KS * 2 + ((c >> 1) & 1);                   \
+    const int cz = kk % U_KS * 2 + ((c >> 2) & 1);                            \
+    kid[g] = (cx * U_KS + cy) * U_KS + cz;                                    \
+    bool a = false;                                                           \
+    if (p < __ldg(count) && k >= 0) {                                         \
+      const float wl[3] = {(float)cx * hc - 1.f, (float)cy * hc - 1.f,        \
+                           (float)cz * hc - 1.f};                             \
+      const float wh[3] = {wl[0] + hc, wl[1] + hc, wl[2] + hc};               \
+      Ival b[3];                                                              \
+      _Pragma("unroll") for (int r = 0; r < 3; ++r) {                         \
+        const float* P = pos + 3 * r;                                         \
+        const float* N = neg + 3 * r;                                         \
+        b[r].lo = P[0] * wl[0] + P[1] * wl[1] + P[2] * wl[2] + N[0] * wh[0] + \
+                  N[1] * wh[1] + N[2] * wh[2] + off3[r];                      \
+        b[r].hi = P[0] * wh[0] + P[1] * wh[1] + P[2] * wh[2] + N[0] * wl[0] + \
+                  N[1] * wl[1] + N[2] * wl[2] + off3[r];                      \
+      }                                                                       \
+      const Ival o = u_box(b[0], b[1], b[2], params);                         \
+      a = !(o.hi < 0.f || o.lo > 0.f);                                        \
+    }                                                                         \
+    act[g] = a;                                                               \
+  }                                                                           \
+  extern "C" int fidget_unrolled_level_launch(                                \
+      const int32_t* keys, const int32_t* count, int cin, const float* pos,   \
+      const float* neg, const float* off3, const float* params, float hc,     \
+      bool* act, int32_t* kid, void* stream) {                                \
+    const long long blocks = (8LL * cin + U_BLOCK - 1) / U_BLOCK;             \
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;             \
+    if (blocks > 0)                                                           \
+      fidget_unrolled_level<<<(unsigned)blocks, U_BLOCK, 0,                   \
+                              (cudaStream_t)stream>>>(                        \
+          keys, count, cin, pos, neg, off3, params, hc, act, kid);            \
     return (int)cudaGetLastError();                                           \
   }
 #endif  // U_K

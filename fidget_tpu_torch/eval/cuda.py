@@ -228,6 +228,8 @@ KERNELS = {
     "unrolled_interval3": (None, "fidget_unrolled_interval3_launch"),
     "unrolled_points": (None, "fidget_unrolled_points_launch"),
     "unrolled_interval_boxes": (None, "fidget_unrolled_interval_boxes_launch"),
+    "unrolled_edges": (None, "fidget_unrolled_edges_launch"),
+    "level_active": (None, "fidget_unrolled_level_launch"),
     # the ports of the Pallas probes P2 and P3 (fidget_tpu_torch/demos/)
     "interp_float2": ("interleave", "fidget_interp_float2"),
     "grid_step": ("grid_step", "fidget_grid_step"),

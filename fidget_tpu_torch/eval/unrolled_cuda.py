@@ -34,14 +34,20 @@ and `eval_tape_interval_fast` in `fidget_tpu.mesh.fused`'s cores:
 
 - U1-P `unrolled_points` (`PointsKernel`): U1's program of the whole
   tape behind a kernel unit over a flat list of model-space points,
-  with the distance or the sign `d < 0` as its epilogue;
-- U2-B `unrolled_interval_boxes` (`BoxesKernel`): U2's schedule over
-  explicit model-space boxes, proofs only.
+  with the distance or the sign `d < 0` as its epilogue; and its edge
+  search `unrolled_edges` (`EdgesKernel`): the same program behind a
+  kernel unit in which a group of lanes walks every round of the N-ary
+  search of one crossing (cell, edge) slot with its brackets in
+  registers;
+- U2-B `level_active` (the level core: a thread decodes a parent's key
+  and forms one child's box) and `unrolled_interval_boxes` (explicit
+  model-space boxes), both `BoxesKernel`: the tape's interval rows as
+  one stream, one thread a box, proofs only.
 
-Both take the live count of a [rows, cols] list from device memory
-(lane g is live when g % cols < count), so that a chain of octree
-levels never waits on the host; a dead lane does no work and gets 0 or
-no proof, as the plain versions mask it.
+All take a live count from device memory (lane g of a [rows, cols]
+list is live when g % cols < count), so that a chain of octree levels
+never waits on the host; a dead lane does no work and gets 0 or no
+proof, as the plain versions mask it.
 
 The emitter writes one statement per tape row. U1's thread evaluates
 one pixel; every program, a launch of one program included, is a device
@@ -62,8 +68,9 @@ failed build or launch raises; nothing falls back to the plain versions
 on a CUDA tensor.
 
 `unrolled_float` / `unrolled_interval` / `unrolled_voxel_depth` /
-`unrolled_interval3` / `unrolled_points` / `unrolled_interval_boxes`
-dispatch on the device of their tensors: on the CPU
+`unrolled_interval3` / `unrolled_points` / `unrolled_edges` /
+`level_active` / `unrolled_interval_boxes` dispatch on the device of
+their tensors: on the CPU
 they run their `_plain` versions (eval/unrolled_fast.py's evaluators),
 which take tensors on any device, so the kernels can be held against
 them on the card. `cuda.LAUNCHES` counts each kernel under its own
@@ -118,6 +125,15 @@ INTERVAL_WARPS = 4
 INTERVAL_FLAGS = ("-maxrregcount=128",)
 #: params layout of both kernels: mat [4, 4], z, then the V input values
 PARAM_VARS = 17
+#: the mesher's packed lattice key: (x * KS + y) * KS + z, coordinates
+#: <= 1024 (depth <= 10) at any level
+LATTICE_KS = 1025
+#: rows of `unrolled_edges`' output: the brackets ta, tb, the
+#: intersection's world x, y, z, its model x, y, z and the distance there
+EDGE_OUTS = 9
+#: U2-B's threads a block and its units' nvcc flags (one thread a box)
+BOX_BLOCK = 128
+BOX_FLAGS = INTERVAL_FLAGS
 
 _UNARY = frozenset(int(o) for o in UNARY_TAPE_OPS)
 _BINARY = frozenset(int(o) for o in BINARY_TAPE_OPS)
@@ -505,31 +521,54 @@ def emit_interval_warp(sched: IntervalSchedule, w: int, V: int,
 
 def emit_interval_kernel(sched: IntervalSchedule, V: int, axis_of: dict,
                          epilogue: str, names: list, gw: bool,
-                         z3: bool = False, box: bool = False) -> str:
+                         z3: bool = False) -> str:
     """U2's kernel unit: warp w calls the stream names[w]; the blocks'
     choice words in a global scratch (gw) or in their shared memory
-    (`z3`: U2-3D, whose streams take the boxes' z0 too; `box`: U2-B,
-    whose streams take the box planes, under U_BOX_KERNEL)."""
+    (`z3`: U2-3D, whose streams take the boxes' z0 too)."""
     decls = "".join(f'extern "C" __device__ void {n}(U_WARP_ARGS);\n'
                     for n in names)
-    if box:
-        args = "box, params, nb, sh, wd, rin, rout, tile, live"
-    elif z3:
+    if z3:
         args = "x0, y0, z0, params, T0, sh, wd, rin, rout, tile, live"
     else:
         args = "x0, y0, params, T0, sh, wd, rin, rout, tile, live"
     cases = "".join(f"    case {w}: {n}({args}); break;\n"
                     for w, n in enumerate(names[:-1]))
     return (
-        f"{_interval_defines(V, axis_of, epilogue, sched.k, z3, box)}"
+        f"{_interval_defines(V, axis_of, epilogue, sched.k, z3)}"
         f"#define U_SLOTS {sched.n_slots}\n"
         f"#define U_CW {-(-sched.tape.choice_count // 16)}\n"
         f"#define U_GW {int(gw)}\n"
         f'#include "unrolled.cuh"\n{decls}'
         "static __device__ __forceinline__ void u_warps(int w, U_WARP_ARGS) {\n"
         f"  switch (w) {{\n{cases}    default: {names[-1]}({args});\n"
-        f"  }}\n}}\n{'U_BOX_KERNEL' if box else 'U_INTERVAL_KERNEL'}\n"
+        f"  }}\n}}\nU_INTERVAL_KERNEL\n"
     )
+
+
+def emit_box_kernel(name: str, V: int, axis_of: dict, block: int) -> str:
+    """U2-B's kernel unit: the stream `name` (one thread a box) behind
+    U_BOX_KERNEL (box planes) and U_LEVEL_KERNEL (a parent's children),
+    `block` threads a block."""
+    return (
+        f"{_interval_defines(V, axis_of, 'proofs', 1, box=True)}"
+        f"#define U_BLOCK {block}\n#define U_KS {LATTICE_KS}\n"
+        f'#include "unrolled.cuh"\n'
+        f'extern "C" __device__ fidget::Ival {name}(U_WARP_ARGS);\n'
+        f"#define u_box {name}\nU_BOX_KERNEL\nU_LEVEL_KERNEL\n"
+    )
+
+
+def emit_edge_tables() -> str:
+    """The edge search's tables (mesh/tables.py: each edge's corners) and
+    the key stride, for U_EDGE_KERNEL."""
+    from ..mesh.tables import EDGE_HI, EDGE_LO
+
+    def table(name, a):
+        return (f"static __constant__ int {name}[12] = "
+                f"{{{', '.join(str(int(v)) for v in a)}}};\n")
+
+    return (table("u_edge_lo", EDGE_LO) + table("u_edge_hi", EDGE_HI)
+            + f"#define U_KS {LATTICE_KS}\n")
 
 
 # ======================================================================
@@ -662,6 +701,12 @@ _ARGTYPES = {
     # box params count | cols | rin rout | n | stream
     "fidget_unrolled_interval_boxes_launch": [_P] * 3 + [_I] + [_P] * 2
     + [_I, _P],
+    # key mask slot count mat params | h | samples rounds group | out |
+    # cap | stream
+    "fidget_unrolled_edges_launch": [_P] * 6 + [_F] + [_I] * 3 + [_P, _I, _P],
+    # keys count | cin | pos neg off3 params | hc | act kid | stream
+    "fidget_unrolled_level_launch": [_P] * 2 + [_I] + [_P] * 4 + [_F]
+    + [_P] * 3,
 }
 
 
@@ -777,6 +822,23 @@ class PointsKernel(FloatKernel):
         return self._unit
 
 
+class EdgesKernel(FloatKernel):
+    """U1-P's edge search for one tape: U1's program unit (shared with
+    U1-P's) behind the edge kernel unit (U_EDGE_KERNEL)."""
+
+    def __init__(self, tape: Tape, axis_of: dict, V: int):
+        super().__init__([tape], axis_of, V)
+
+    def unit(self) -> _Unit:
+        if self._unit is None:
+            objects, names = self._programs()
+            source = emit_float_kernel(names, self.V, self.axis_of,
+                                       emit_edge_tables() + "U_EDGE_KERNEL")
+            key = cache_key("edges-kernel", source)
+            self._unit = _Unit(key, source, objects)
+        return self._unit
+
+
 class IntervalKernel:
     """U2 for one tape and one epilogue ("proofs", "capture",
     "violation"), its rows over INTERVAL_WARPS warps a group (fewer where
@@ -784,8 +846,6 @@ class IntervalKernel:
 
     #: whether the tiles are 3D boxes (U2-3D)
     Z3 = False
-    #: whether the lanes are explicit model-space boxes (U2-B)
-    BOX = False
 
     def __init__(self, tape: Tape, axis_of: dict, V: int, epilogue: str):
         if epilogue not in EPILOGUES:
@@ -830,18 +890,17 @@ class IntervalKernel:
             sched = self.schedule()
             args = (self.V, self.axis_of, self.epilogue)
             objects, names = [], []
-            variant = (self.Z3, self.BOX)
             for w in range(sched.k):
-                src = emit_interval_warp(sched, w, *args, "@", *variant)
+                src = emit_interval_warp(sched, w, *args, "@", self.Z3)
                 key = cache_key("interval-warp", _tape_digest(self.tape), src,
                                 INTERVAL_FLAGS)
                 name = f"fidget_uiw_{key}"
                 objects.append(_Object(
-                    key, emit_interval_warp(sched, w, *args, name, *variant),
+                    key, emit_interval_warp(sched, w, *args, name, self.Z3),
                     INTERVAL_FLAGS))
                 names.append(name)
             source = emit_interval_kernel(sched, *args, names,
-                                          self.words_global, *variant)
+                                          self.words_global, self.Z3)
             key = cache_key("interval-kernel", source, INTERVAL_FLAGS)
             self._unit = _Unit(key, source, objects, INTERVAL_FLAGS)
         return self._unit
@@ -857,15 +916,39 @@ class Interval3Kernel(IntervalKernel):
 
 
 class BoxesKernel(IntervalKernel):
-    """U2-B for one tape: U2's schedule and proofs over explicit
-    model-space boxes."""
+    """U2-B for one tape: the tape's interval rows as one stream (U2's
+    schedule at one warp: no hand-off and no barrier), one thread a box,
+    proofs only; `block` threads a block, `flags` the units' nvcc flags
+    (BOX_BLOCK, BOX_FLAGS by default)."""
 
-    BOX = True
     #: proofs only: no choice words anywhere
     words_global = False
 
-    def __init__(self, tape: Tape, axis_of: dict, V: int):
+    def __init__(self, tape: Tape, axis_of: dict, V: int, *,
+                 block: int | None = None, flags=None):
         super().__init__(tape, axis_of, V, "proofs")
+        self.block = BOX_BLOCK if block is None else int(block)
+        self.flags = BOX_FLAGS if flags is None else tuple(flags)
+
+    def schedule(self) -> IntervalSchedule:
+        if self._sched is None:
+            self._sched = IntervalSchedule(self.tape, 1)
+        return self._sched
+
+    def unit(self) -> _Unit:
+        if self._unit is None:
+            sched = self.schedule()
+            args = (self.V, self.axis_of, self.epilogue)
+            src = emit_interval_warp(sched, 0, *args, "@", box=True)
+            key = cache_key("box-stream", _tape_digest(self.tape), src,
+                            self.flags)
+            name = f"fidget_ubox_{key}"
+            obj = _Object(key, emit_interval_warp(sched, 0, *args, name,
+                                                  box=True), self.flags)
+            source = emit_box_kernel(name, self.V, self.axis_of, self.block)
+            key = cache_key("box-kernel", source, self.flags)
+            self._unit = _Unit(key, source, [obj], self.flags)
+        return self._unit
 
 
 def built(kernels) -> bool:
@@ -1217,12 +1300,12 @@ def unrolled_points_plain(kern: PointsKernel, x, y, z, params, count=None):
 
 
 def unrolled_interval_boxes(kern: BoxesKernel, lo, hi, params, count=None):
-    """U2-B over the model-space boxes [lo[0], hi[0]] x [lo[1], hi[1]] x
-    [lo[2], hi[2]] (f32 tensors of one shape, its last axis the
-    columns): (full, empty) bool of that shape, the proofs hi < 0 and
-    lo > 0 of the tape's output. `params` holds the V input values;
-    `count` (int32 [1]) the live columns: a dead box gets neither
-    proof."""
+    """U2-B over explicit model-space boxes [lo[0], hi[0]] x [lo[1],
+    hi[1]] x [lo[2], hi[2]] (f32 tensors of one shape, its last axis the
+    columns), on the kernel `level_active` runs: (full, empty) bool of
+    that shape, the proofs hi < 0 and lo > 0 of the tape's output.
+    `params` holds the V input values; `count` (int32 [1]) the live
+    columns: a dead box gets neither proof."""
     shape = lo[0].shape
     if any(a.shape != shape for a in (*lo, *hi)):
         raise ValueError("the box corners must be f32 tensors of one shape")
@@ -1269,3 +1352,238 @@ def unrolled_interval_boxes_plain(kern: BoxesKernel, lo, hi, params,
     live = _live_lanes(shape, count, lo[0].device)
     return ((torch.broadcast_to(his[0], shape) < 0.0) & live,
             (torch.broadcast_to(los[0], shape) > 0.0) & live)
+
+
+def edge_group(samples: int) -> int:
+    """Lanes of `unrolled_edges` a slot: the sample count rounded up to
+    a power of two, at most a warp (a warp's lanes then take samples
+    i, i + 32, ...)."""
+    return min(32, 1 << max(0, int(samples) - 1).bit_length())
+
+
+def _edge_args(key, mask, slot, count, mat, params, kern, samples, rounds):
+    cap = key.shape[0]
+    if any(a.shape != (cap,) or a.dtype != torch.int32
+           for a in (key, mask, slot)):
+        raise ValueError("key, mask and slot must be int32 [cap]")
+    _count_arg(count, cap)
+    if count is None:
+        raise ValueError("the crossing list needs its live count")
+    if mat.shape != (3, 4) or params.shape != (kern.V,):
+        raise ValueError(f"mat must be [3, 4] and params [{kern.V}]")
+    if samples < 1 or rounds < 0:
+        raise ValueError("samples >= 1 and rounds >= 0 expected")
+    return cap
+
+
+def unrolled_edges(kern: EdgesKernel, key, mask, slot, count, mat, params,
+                   h: float, *, samples: int, rounds: int):
+    """U1-P's edge search on a compacted list of crossing (cell, edge)
+    slots: `key` the cell's packed lattice key (LATTICE_KS), `mask` its
+    8-bit corner mask, `slot` 12 * cell + edge (the edge's index in
+    mesh/tables.py), int32 [cap] each, `count` (int32 [1]) the live
+    slots; `h` the cells' edge, `mat` [3, 4] the world -> model matrix,
+    `params` the V input values. Each live slot's edge runs from its
+    inside corner to its outside one through `rounds` rounds of
+    `samples` samples (mesh/fused.py's N-ary search). Returns f32
+    [EDGE_OUTS, cap]: ta, tb, the intersection's world x, y, z at the
+    brackets' midpoint, its model x, y, z and the distance there; 0 at
+    dead slots."""
+    cap = _edge_args(key, mask, slot, count, mat, params, kern, samples,
+                     rounds)
+    if params.device.type == "cpu":
+        return unrolled_edges_plain(kern, key, mask, slot, count, mat,
+                                    params, h, samples=samples, rounds=rounds)
+    mat = mat.contiguous()
+    cuda.check_cuda(key, mask, slot, count, mat, params)
+    out = torch.empty((EDGE_OUTS, cap), dtype=torch.float32,
+                      device=params.device)
+    lib = _load(kern.unit())
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.fidget_unrolled_edges_launch(
+        key.data_ptr(), mask.data_ptr(), slot.data_ptr(), count.data_ptr(),
+        mat.data_ptr(), params.data_ptr(), float(h), int(samples),
+        int(rounds), edge_group(samples), out.data_ptr(), cap, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of unrolled_edges failed with "
+                           f"error {err}")
+    cuda.LAUNCHES["unrolled_edges"] += 1
+    return out
+
+
+def _lattice(keys):
+    """Packed keys -> (x, y, z) lattice coordinates (a -1 padding key
+    decodes as 0)."""
+    k = torch.clamp_min(keys, 0)
+    ks = LATTICE_KS
+    return k // (ks * ks), (k // ks) % ks, k % ks
+
+
+def _model_pts(mat, wx, wy, wz):
+    """mesh/fused.py's world -> model transform, left to right."""
+    return tuple(
+        mat[r, 0] * wx + mat[r, 1] * wy + mat[r, 2] * wz + mat[r, 3]
+        for r in range(3)
+    )
+
+
+def unrolled_edges_plain(kern: EdgesKernel, key, mask, slot, count, mat,
+                         params, h: float, *, samples: int, rounds: int,
+                         margin: bool = False):
+    """Plain PyTorch version of `unrolled_edges` (same contract): the
+    dense rounds of mesh/fused.py's edge core over every slot of the
+    list, then the dead slots zeroed. With `margin`, also the least
+    |distance| of the samples each slot evaluated (f32 [cap]): how close
+    its search came to a sign that rounding decides."""
+    from ..mesh.tables import EDGE_HI, EDGE_LO
+
+    cap = _edge_args(key, mask, slot, count, mat, params, kern, samples,
+                     rounds)
+    dev = params.device
+    x, y, z = _lattice(key)
+    e = (slot % 12).long()
+    lo = torch.as_tensor(EDGE_LO, device=dev)[e]
+    hi = torch.as_tensor(EDGE_HI, device=dev)[e]
+    lo_in = (mask >> lo) & 1
+    start = torch.where(lo_in == 1, lo, hi)
+    end = torch.where(lo_in == 1, hi, lo)
+
+    def corner(c):
+        return tuple((v + ((c >> a) & 1)).to(torch.float32) * h - 1.0
+                     for a, v in enumerate((x, y, z)))
+
+    def dist(px, py, pz):
+        inputs = [params[i].expand(px.shape) for i in range(kern.V)]
+        for kind, a in zip("xyz", _model_pts(mat, px, py, pz)):
+            idx = kern.axis_of.get(kind)
+            if idx is not None:
+                inputs[idx] = a
+        return torch.broadcast_to(
+            eval_tape_float_fast(kern.tapes[0], inputs)[0], px.shape)
+
+    sx, sy, sz = corner(start)
+    ex, ey, ez = corner(end)
+    dx, dy, dz = ex - sx, ey - sy, ez - sz
+    frac = (
+        (torch.arange(samples, dtype=torch.float32, device=dev) + 1.0)
+        / (samples + 1.0)
+    )[:, None]
+    idx = torch.arange(samples, device=dev)[:, None]
+    ta = torch.zeros(cap, dtype=torch.float32, device=dev)
+    tb = torch.ones(cap, dtype=torch.float32, device=dev)
+    near = torch.full((cap,), math.inf, dtype=torch.float32, device=dev)
+    for _ in range(rounds):
+        ts = ta[None] + (tb - ta)[None] * frac  # [samples, cap]
+        d = dist(sx[None] + dx[None] * ts, sy[None] + dy[None] * ts,
+                 sz[None] + dz[None] * ts)
+        if margin:
+            near = torch.minimum(near, d.abs().amin(dim=0))
+        outside = ~(d < 0.0)
+        any_out = outside.any(dim=0)
+        # the first flip: the least index of an outside sample
+        F = torch.where(outside, idx, samples).amin(dim=0).to(torch.float32)
+        span = tb - ta
+        tbF = ta + span * (F + 1.0) / (samples + 1.0)
+        taF = ta + span * F / (samples + 1.0)
+        ts_last = ta + span * samples / (samples + 1.0)
+        new_tb = torch.where(any_out, tbF, tb)
+        ta = torch.where(any_out & (F > 0), taF,
+                         torch.where(any_out, ta, ts_last))
+        tb = new_tb
+    t = 0.5 * (ta + tb)
+    ip = (sx + dx * t, sy + dy * t, sz + dz * t)
+    mp = _model_pts(mat, *ip)
+    out = torch.stack([ta, tb, *ip, *mp, dist(*ip)])
+    live = _live_lanes((cap,), count, dev)
+    out = torch.where(live[None, :], out, torch.zeros_like(out))
+    if margin:
+        return out, torch.where(live, near, torch.zeros_like(near))
+    return out
+
+
+def _level_args(keys, n_in, pos, neg, off3, params, kern):
+    cin = keys.shape[0]
+    if keys.shape != (cin,) or keys.dtype != torch.int32:
+        raise ValueError("keys must be int32 [cin]")
+    _count_arg(n_in, max(cin, 1))
+    if n_in is None:
+        raise ValueError("the parents need their live count")
+    if pos.shape != (3, 3) or neg.shape != (3, 3) or off3.shape != (3,):
+        raise ValueError("pos, neg [3, 3] and off3 [3] expected")
+    if params.shape != (kern.V,):
+        raise ValueError(f"params must be [{kern.V}]")
+    return cin
+
+
+def level_active(kern: BoxesKernel, keys, n_in, h_child: float, pos, neg,
+                 off3, params):
+    """U2-B on one octree level (mesh/fused.py's level core): the 8
+    children of each parent in `keys` (int32 [cin] packed lattice keys,
+    -1 padding; `n_in` int32 [1] the live parents), each child c of
+    parent p the world box [2 p + o_c] h_child - 1 + [0, h_child] (o_c
+    the corner offset (c & 1, c >> 1 & 1, c >> 2 & 1)), in model space
+    through the world -> model matrix split by sign (pos, neg [3, 3],
+    off3 [3]). Returns (act bool [cin, 8]: the child of a live parent is
+    neither proven full nor empty; kid int32 [cin, 8]: its packed key)."""
+    cin = _level_args(keys, n_in, pos, neg, off3, params, kern)
+    if params.device.type == "cpu":
+        return level_active_plain(kern, keys, n_in, h_child, pos, neg, off3,
+                                  params)
+    pos, neg, off3 = (a.contiguous() for a in (pos, neg, off3))
+    cuda.check_cuda(keys, n_in, pos, neg, off3, params)
+    dev = params.device
+    act = torch.empty((cin, 8), dtype=torch.bool, device=dev)
+    kid = torch.empty((cin, 8), dtype=torch.int32, device=dev)
+    lib = _load(kern.unit())
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.fidget_unrolled_level_launch(
+        keys.data_ptr(), n_in.data_ptr(), cin, pos.data_ptr(),
+        neg.data_ptr(), off3.data_ptr(), params.data_ptr(), float(h_child),
+        act.data_ptr(), kid.data_ptr(), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of level_active failed with "
+                           f"error {err}")
+    cuda.LAUNCHES["level_active"] += 1
+    return act, kid
+
+
+def level_active_plain(kern: BoxesKernel, keys, n_in, h_child: float, pos,
+                       neg, off3, params):
+    """Plain PyTorch version of `level_active` (same contract): the
+    boxes formed in torch ops in the reference's positive / negative
+    coefficient order, then `unrolled_interval_boxes_plain`."""
+    cin = _level_args(keys, n_in, pos, neg, off3, params, kern)
+    kid, mlo, mhi = level_boxes(keys, h_child, pos, neg, off3)
+    full, empty = unrolled_interval_boxes_plain(kern, mlo, mhi, params, n_in)
+    live = (torch.arange(cin, device=keys.device) < n_in) & (keys >= 0)
+    act = ~(full | empty) & live[None, :]
+    return act.T.contiguous(), kid.T.contiguous()
+
+
+def level_boxes(keys, h_child: float, pos, neg, off3):
+    """The children of `level_active` in torch ops, child-major: (kid
+    int32 [8, cin], the model boxes' lo and hi corners, three f32 [8,
+    cin] each)."""
+    x, y, z = _lattice(keys)
+    off = torch.tensor([[(c >> a) & 1 for a in range(3)] for c in range(8)],
+                       dtype=torch.int32, device=keys.device)
+    cx = x[None, :] * 2 + off[:, 0, None]  # [8, cin]
+    cy = y[None, :] * 2 + off[:, 1, None]
+    cz = z[None, :] * 2 + off[:, 2, None]
+    wlo = tuple(c.to(torch.float32) * h_child - 1.0 for c in (cx, cy, cz))
+    whi = tuple(w + h_child for w in wlo)
+    mlo = tuple(
+        pos[r, 0] * wlo[0] + pos[r, 1] * wlo[1] + pos[r, 2] * wlo[2]
+        + neg[r, 0] * whi[0] + neg[r, 1] * whi[1] + neg[r, 2] * whi[2]
+        + off3[r]
+        for r in range(3)
+    )
+    mhi = tuple(
+        pos[r, 0] * whi[0] + pos[r, 1] * whi[1] + pos[r, 2] * whi[2]
+        + neg[r, 0] * wlo[0] + neg[r, 1] * wlo[1] + neg[r, 2] * wlo[2]
+        + off3[r]
+        for r in range(3)
+    )
+    return (cx * LATTICE_KS + cy) * LATTICE_KS + cz, mlo, mhi

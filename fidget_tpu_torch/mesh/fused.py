@@ -1,25 +1,30 @@
 """Device-resident octree fine stage for Settings(eval="unrolled").
 
 The counterpart of `fidget_tpu.mesh.fused`: the whole fine stage of a
-mesh build stays on the device, in torch ops around two kernels
-generated for the tape (eval/unrolled_cuda.py) and the gradient kernel:
+mesh build stays on the device, in torch ops around kernels generated
+for the tape (eval/unrolled_cuda.py) and the gradient kernel:
 
-- level cores: expand active cells x8, interval-classify the children
-  (exact box transform, formed in torch ops in the reference's
-  positive/negative coefficient order) with U2-B
-  `unrolled_interval_boxes`, and compact survivors on the device; only
-  a cell COUNT comes back per level, and none at all on a chain whose
-  capacity is cached (speculative mode: one count vector a chain);
+- level cores: U2-B `level_active` decodes each active cell's key,
+  forms its 8 children's boxes (the exact box transform, in the
+  reference's positive/negative coefficient order) and
+  interval-classifies them, one thread a child; survivors are compacted
+  on the device; only a cell COUNT comes back per level, and none at
+  all on a chain whose capacity is cached (speculative mode: one count
+  vector a chain);
 - leaf core: the sign of all 8 corners of each leaf cell with U1-P
   `unrolled_points` ("sign"), the 8-bit mask, and the compacted
-  surface cells;
-- edge core: for every (cell, edge) crossing slot, the N-ary bisection
-  search (U1-P "sign" a round), world-space gradients (one K4 launch
-  with world seeds, the tangents `jax.linearize` pushes through the
-  reference's `_model_pts`), QEF accumulation into per-(cell,
-  vertex-slot) sums, and the closed-form f32 QEF solve (mesh/qef.py).
+  surface cells; then the crossing list: the (cell, edge) slots whose
+  edge crosses the surface, compacted (`crossing_list`);
+- edge core: on the crossing list, the N-ary bisection search in one
+  launch (U1-P `unrolled_edges`: a group of lanes a slot, the brackets
+  in registers, the intersection and its distance), world-space
+  gradients there (one K4 launch with world seeds, the tangents
+  `jax.linearize` pushes through the reference's `_model_pts`), both
+  scattered back to the [12, cs] (edge, cell) layout, QEF accumulation
+  into per-(cell, vertex-slot) sums, and the closed-form f32 QEF solve
+  (mesh/qef.py).
 
-Both generated kernels read the live count from device memory, so a
+The generated kernels read the live count from device memory, so a
 chain of levels is enqueued without a host read; the plain versions
 (the CPU) compute every lane and mask it, as the reference's cores do.
 Capacities are power-of-two buckets, kept on the evaluator with its
@@ -41,49 +46,41 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..eval.unrolled_cuda import LATTICE_KS as _KS
 from ..eval.unrolled_cuda import (
     BoxesKernel,
+    EdgesKernel,
     PointsKernel,
+    _lattice as _dec,
+    _model_pts,
     build_kernels,
     built,
-    unrolled_interval_boxes,
+    level_active,
+    unrolled_edges,
     unrolled_points,
 )
 from ..render.config import check_cancel
 from .qef import qef_err_c, solve_qef_c
-from .tables import CELL_TO_EDGE_TO_VERT, EDGE_AXIS, EDGE_LO, VERT_COUNT
+from .tables import CELL_TO_EDGE_TO_VERT, VERT_COUNT
 
-#: packed lattice key stride: coords <= 1024 (depth <= 10) at any level
-_KS = 1025
+#: crossing edges of a cell by its corner mask
+_CROSSINGS = (CELL_TO_EDGE_TO_VERT >= 0).sum(axis=1)
 
 _CORNER_OFF = np.array(
     [[(c >> 0) & 1, (c >> 1) & 1, (c >> 2) & 1] for c in range(8)],
     np.int32,
 )
-_EDGE_HI = EDGE_LO + (1 << EDGE_AXIS)
 
 
-def _dec(keys):
-    """Packed i32 key -> (x, y, z) lattice coords (a -1 padding key
-    decodes as 0: floor division of a negative key would not)."""
-    k = torch.clamp_min(keys, 0)
-    return k // (_KS * _KS), (k // _KS) % _KS, k % _KS
-
-
-def _enc(x, y, z):
-    return (x * _KS + y) * _KS + z
-
-
-def _compact_keys(act, keys, cap, extra=None):
+def _compact_keys(act, keys, cap, *extra):
     """Stable device compaction of `keys[act]` (row-major order) into
-    a [cap] buffer (-1 padding). Returns (out, n_act) and, when
-    `extra` (same-shape i32) is given, the compacted extra payload;
-    n_act is an int32 [1] device tensor. Lanes past the capacity (and
-    culled ones) scatter to a spare slot past `cap`, which is dropped:
-    the counterpart of the reference's `mode="drop"`; a count past
-    `cap` takes the caller's overflow retry."""
+    a [cap] buffer (-1 padding). Returns (out, *extras, n_act): each
+    `extra` (same-shape i32) payload compacted alike (0 padding); n_act
+    is an int32 [1] device tensor. Lanes past the capacity (and culled
+    ones) scatter to a spare slot past `cap`, which is dropped: the
+    counterpart of the reference's `mode="drop"`; a count past `cap`
+    takes the caller's overflow retry."""
     act = act.reshape(-1)
-    keys = keys.reshape(-1)
     pos = torch.cumsum(act, 0, dtype=torch.int32) - 1
     dest = torch.where(act & (pos < cap), pos, cap).long()
 
@@ -93,16 +90,7 @@ def _compact_keys(act, keys, cap, extra=None):
         return out.scatter_(0, dest, vals.reshape(-1).to(torch.int32))[:cap]
 
     n_act = act.sum(dtype=torch.int32).reshape(1)
-    if extra is None:
-        return scatter(keys, -1), n_act
-    return scatter(keys, -1), scatter(extra, 0), n_act
-
-
-def _model_pts(mat, wx, wy, wz):
-    return tuple(
-        mat[r, 0] * wx + mat[r, 1] * wy + mat[r, 2] * wz + mat[r, 3]
-        for r in range(3)
-    )
+    return (scatter(keys, -1), *(scatter(x, 0) for x in extra), n_act)
 
 
 def _corner_off(device):
@@ -110,13 +98,13 @@ def _corner_off(device):
 
 
 def _kernels(ev) -> dict:
-    """The tape's generated kernels, kept on the evaluator: U1-P with
-    each epilogue and U2-B."""
+    """The tape's generated kernels, kept on the evaluator: U1-P's sign
+    epilogue and edge search, and U2-B."""
     ks = ev.__dict__.get("_fused_kernels")
     if ks is None:
         args = (ev.tape, ev.axis_of, ev.n_inputs)
         ks = {"sign": PointsKernel(*args, "sign"),
-              "distance": PointsKernel(*args, "distance"),
+              "edges": EdgesKernel(*args),
               "boxes": BoxesKernel(*args)}
         ev._fused_kernels = ks
     return ks
@@ -135,34 +123,10 @@ def level_core(ev, keys, n_in, cvec, li, h_child, pos, neg, off3, vv, cout):
     children's count), h_child the children's edge, pos / neg / off3
     the world -> model matrix split by sign, vv the input values.
     Returns (child_keys [cout] i32, n_out int32 [1])."""
-    dev = keys.device
-    cin = keys.shape[0]
-    x, y, z = _dec(keys)
-    off = _corner_off(dev)
-    cx = x[None, :] * 2 + off[:, 0, None]  # [8, cin]
-    cy = y[None, :] * 2 + off[:, 1, None]
-    cz = z[None, :] * 2 + off[:, 2, None]
-    wlo = tuple(c.to(torch.float32) * h_child - 1.0 for c in (cx, cy, cz))
-    whi = tuple(w + h_child for w in wlo)
-    mlo = tuple(
-        pos[r, 0] * wlo[0] + pos[r, 1] * wlo[1] + pos[r, 2] * wlo[2]
-        + neg[r, 0] * whi[0] + neg[r, 1] * whi[1] + neg[r, 2] * whi[2]
-        + off3[r]
-        for r in range(3)
-    )
-    mhi = tuple(
-        pos[r, 0] * whi[0] + pos[r, 1] * whi[1] + pos[r, 2] * whi[2]
-        + neg[r, 0] * wlo[0] + neg[r, 1] * wlo[1] + neg[r, 2] * wlo[2]
-        + off3[r]
-        for r in range(3)
-    )
-    full, empty = unrolled_interval_boxes(_kernels(ev)["boxes"], mlo, mhi,
-                                          vv, n_in)
-    live = (torch.arange(cin, device=dev) < n_in) & (keys >= 0)
-    act = ~(full | empty) & live[None, :]
-    kid = _enc(cx, cy, cz)
-    # parent-major flatten keeps spatial (row-major) order stable
-    out, n_out = _compact_keys(act.T, kid.T, cout)
+    act, kid = level_active(_kernels(ev)["boxes"], keys, n_in, h_child, pos,
+                            neg, off3, vv)
+    # parent-major order keeps spatial (row-major) order stable
+    out, n_out = _compact_keys(act, kid, cout)
     cvec[li] = n_out[0]
     return out, n_out
 
@@ -185,9 +149,30 @@ def leaf_core(ev, keys, n_leaf, cvec, li, h, mat, vv, cs):
     mask = (inside.to(torch.int32) << bits).sum(0, dtype=torch.int32)
     live = (torch.arange(cl, device=dev) < n_leaf) & (keys >= 0)
     surf = live & (mask != 0) & (mask != 255)
-    out_k, out_m, n_surf = _compact_keys(surf, keys, cs, extra=mask)
+    out_k, out_m, n_surf = _compact_keys(surf, keys, cs, mask)
     cvec[li] = n_surf[0]
     return out_k, out_m, n_surf
+
+
+def crossing_list(surf_keys, surf_mask, n_surf, ccap, cvec=None, li=None):
+    """Surface cells -> the compacted list of their crossing (cell,
+    edge) slots, cell-major: (key, mask, slot = 12 * cell + edge) int32
+    [ccap] each and the live count int32 [1] (cvec[li] is set to it
+    when a count vector is given). A surface cell crosses at most 12
+    edges."""
+    dev = surf_keys.device
+    c = surf_keys.shape[0]
+    lv_tab = torch.as_tensor(CELL_TO_EDGE_TO_VERT.astype(np.int32),
+                             device=dev)
+    live = (torch.arange(c, device=dev) < n_surf) & (surf_keys >= 0)
+    act = (lv_tab[surf_mask.long()] >= 0) & live[:, None]  # [c, 12]
+    slot = torch.arange(c * 12, dtype=torch.int32, device=dev)
+    key, mask, slot, n = _compact_keys(act, surf_keys[:, None].expand(c, 12),
+                                       ccap, surf_mask[:, None].expand(c, 12),
+                                       slot)
+    if cvec is not None:
+        cvec[li] = n[0]
+    return key, mask, slot, n
 
 
 def _slot_sums(vals, lv):
@@ -203,15 +188,43 @@ def _slot_sums(vals, lv):
     return acc
 
 
+def edge_search(ev, cross, h, mat, vv, cs, rounds, samples, seeds):
+    """The crossing list's edge search and gradients, scattered back to
+    the [12, cs] (edge, cell) layout (zeros where no edge crosses): the
+    intersection's world x, y, z, the distance there and the world
+    gradient's x, y, z, f32 [12, cs] each."""
+    ckey, cmask, cslot, ncross = cross
+    dev = ckey.device
+    found = unrolled_edges(_kernels(ev)["edges"], ckey, cmask, cslot, ncross,
+                           mat, vv, h, samples=samples, rounds=rounds)
+    # world gradients: one K4 launch over the list, model x's tangents
+    # seeded with row 0 of the matrix's linear part (y's row 1, z's row 2)
+    g = ev.eval_grad(*found[5:8], vv, seeds=seeds)[0]
+    # slot 12 j + e -> e * cs + j; dead slots to a spare past the end
+    live = torch.arange(ckey.shape[0], device=dev) < ncross
+    dest = torch.where(live, (cslot % 12) * cs + cslot // 12,
+                       12 * cs).long()
+
+    def dense(v):
+        out = torch.zeros(12 * cs + 1, dtype=torch.float32, device=dev)
+        return out.scatter_(0, dest, v)[:12 * cs].reshape(12, cs)
+
+    return (*(dense(found[k]) for k in (2, 3, 4, 8)),
+            *(dense(g[1 + k]) for k in range(3)))
+
+
 def edges_core(ev, surf_keys, surf_mask, n_surf, h, mat, vv, cs, rounds,
-               samples, seeds):
+               samples, seeds, cross=None):
     """Surface cells -> per-(cell, vertex-slot) QEF data.
 
-    Every (cell, edge) crossing slot runs the N-ary bisection and a
-    gradient evaluation densely ([12, cs] lanes, masked); results
-    reduce 12 -> 4 vertex slots through the CELL_TO_EDGE_TO_VERT table
-    with pure selects. `seeds` is the world -> model matrix's linear
-    part (K4's tangents).
+    `cross` is `crossing_list`'s (key, mask, slot, count) of the cells
+    (listed here, at 12 slots a cell, when not given). Every
+    crossing slot runs the N-ary bisection in one U1-P `unrolled_edges`
+    launch and a gradient evaluation (K4 over the list); both scatter
+    back to the [12, cs] (edge, cell) layout, zeros where no edge
+    crosses, and reduce 12 -> 4 vertex slots through the
+    CELL_TO_EDGE_TO_VERT table with pure selects. `seeds` is the world
+    -> model matrix's linear part (K4's tangents).
 
     Returns a dict of flat id-ordered arrays ((cs + ext) * 4 rows, ids
     4*cell + slot, pre-padded with the collapse extension region):
@@ -220,73 +233,22 @@ def edges_core(ev, surf_keys, surf_mask, n_surf, h, mat, vv, cs, rounds,
       vpos:  [*, 3] world positions (QEF-solved, cell-clamped)
       verr:  [*] residuals
       vorig: [*, 3] the frame origin (the cell's lo corner)
-    and idist [12, cs], the distance at each intersection (U1-P
-    "distance"; the primal of the reference's linearization)."""
+    and idist [12, cs], the distance at each crossing slot's
+    intersection (the primal of the reference's linearization; 0 where
+    no edge crosses)."""
     dev = surf_keys.device
-    ks = _kernels(ev)
     surf_keys = surf_keys[:cs]
     mask = surf_mask[:cs]
     x, y, z = _dec(surf_keys)
     lv_tab = torch.as_tensor(CELL_TO_EDGE_TO_VERT.astype(np.int32),
                              device=dev)
-    lo_tab = torch.as_tensor(EDGE_LO.astype(np.int32), device=dev)
-    hi_tab = torch.as_tensor(_EDGE_HI.astype(np.int32), device=dev)
-    coff = _corner_off(dev)
     lv = lv_tab[mask.long()].T  # [12, cs]
     crossing = (lv >= 0) & (surf_keys >= 0)[None, :]
-    lo_c = lo_tab[:, None].expand(12, cs)
-    hi_c = hi_tab[:, None].expand(12, cs)
-    lo_in = (mask[None, :] >> lo_c) & 1
-    start_c = torch.where(lo_in == 1, lo_c, hi_c).long()
-    end_c = torch.where(lo_in == 1, hi_c, lo_c).long()
 
-    def corner_pos(c):
-        return (
-            (x[None, :] + coff[c, 0]).to(torch.float32) * h - 1.0,
-            (y[None, :] + coff[c, 1]).to(torch.float32) * h - 1.0,
-            (z[None, :] + coff[c, 2]).to(torch.float32) * h - 1.0,
-        )
-
-    sx, sy, sz = corner_pos(start_c)  # [12, cs] world
-    ex, ey, ez = corner_pos(end_c)
-    dx, dy, dz = ex - sx, ey - sy, ez - sz
-
-    frac = (
-        (torch.arange(samples, dtype=torch.float32, device=dev) + 1.0)
-        / (samples + 1.0)
-    )[:, None, None]
-    idx = torch.arange(samples, device=dev)[:, None, None]
-    ta = torch.zeros((12, cs), dtype=torch.float32, device=dev)
-    tb = torch.ones((12, cs), dtype=torch.float32, device=dev)
-    for _ in range(rounds):
-        ts = ta[None] + (tb - ta)[None] * frac  # [S, 12, cs]
-        inside = unrolled_points(
-            ks["sign"], *_model_pts(mat, sx[None] + dx[None] * ts,
-                                    sy[None] + dy[None] * ts,
-                                    sz[None] + dz[None] * ts),
-            vv, n_surf)
-        outside = ~inside
-        any_out = outside.any(dim=0)
-        # the first flip: the least index of an outside sample (an exact
-        # rule on every device, as argmax's first maximum)
-        F = torch.where(outside, idx, samples).amin(dim=0).to(torch.float32)
-        span = tb - ta
-        tbF = ta + span * (F + 1.0) / (samples + 1.0)
-        taF = ta + span * F / (samples + 1.0)
-        ts_last = ta + span * samples / (samples + 1.0)
-        new_tb = torch.where(any_out, tbF, tb)
-        ta = torch.where(any_out & (F > 0), taF,
-                         torch.where(any_out, ta, ts_last))
-        tb = new_tb
-    t = 0.5 * (ta + tb)
-    ipx, ipy, ipz = sx + dx * t, sy + dy * t, sz + dz * t
-
-    # world gradients: one K4 launch, model x's tangents seeded with
-    # row 0 of the matrix's linear part (y's row 1, z's row 2)
-    mp = _model_pts(mat, ipx, ipy, ipz)
-    idist = unrolled_points(ks["distance"], *mp, vv, n_surf)
-    g = ev.eval_grad(*mp, vv, seeds=seeds)[0]
-    gx, gy, gz = (g[1 + k].reshape(12, cs) for k in range(3))
+    if cross is None:
+        cross = crossing_list(surf_keys, mask, n_surf, 12 * cs)
+    ipx, ipy, ipz, idist, gx, gy, gz = edge_search(
+        ev, cross, h, mat, vv, cs, rounds, samples, seeds)
     fin = torch.isfinite(gx) & torch.isfinite(gy) & torch.isfinite(gz)
     gn = torch.sqrt(gx * gx + gy * gy + gz * gz)
     w_ok = crossing & fin & (gn > 1e-20)
@@ -400,10 +362,10 @@ def fine_stage(ev, m, var_vec, depth, *, rounds, samples, cancel=None,
     )
 
     # speculative mode: once a capacity is cached for this (tape, depth),
-    # enqueue every level and the leaf pass WITHOUT reading the
-    # per-level counts; the host reads the count vector once at the end
-    # and falls back to the checked chain with a bigger bucket on
-    # overflow
+    # enqueue every level, the leaf pass and the crossing list WITHOUT
+    # reading the per-level counts; the host reads the count vector once
+    # at the end and falls back to the checked chain with a bigger bucket
+    # on overflow
     h = 2.0 / (1 << depth)
     speculative = ("cmax", depth) in cap_cache
 
@@ -413,7 +375,7 @@ def fine_stage(ev, m, var_vec, depth, *, rounds, samples, cancel=None,
         keys = _tensor(keys0, dev)
         n_in = _tensor(np.array([n_seed], np.int32), dev)
         n_lv = depth - d0
-        cvec = torch.zeros(n_lv + 1, dtype=torch.int32, device=dev)
+        cvec = torch.zeros(n_lv + 2, dtype=torch.int32, device=dev)
         for i, d in enumerate(range(d0, depth)):
             check_cancel(cancel)
             h_child = 2.0 / (1 << (d + 1))
@@ -431,24 +393,37 @@ def fine_stage(ev, m, var_vec, depth, *, rounds, samples, cancel=None,
         surf_keys, surf_mask, n_surf = leaf_core(ev, keys, n_in, cvec, n_lv,
                                                  h, mat, vv, cmax)
         if not checked:
+            # the cached bucket of the crossing list (the surface cells'
+            # crossing edges), counted into the same vector
+            ccap = cap_cache.get(("cross", depth), _bucket_pow2(12 * cmax))
+            cross = crossing_list(surf_keys, surf_mask, n_surf, ccap,
+                                  cvec, n_lv + 1)
             # one read for the whole chain (the count vector)
             cn = cvec.tolist()
-            if max(cn) > cmax:
-                return None, max(cn)
+            if max(cn[:-1]) > cmax:
+                return None, max(cn[:-1])
             if clock is not None:
                 clock.tick(
                     "classify chain (" +
-                    "/".join(str(c) for c in cn[:-1]) +
-                    f" active, {cn[-1]} surface)"
+                    "/".join(str(c) for c in cn[:-2]) +
+                    f" active, {cn[-2]} surface, {cn[-1]} crossing)"
                 )
-            if 0 in cn[:-1]:
+            if 0 in cn[:-2]:
                 return "empty", 0
-            ns_here = cn[-1]
+            ns_here = cn[-2]
+            if cn[-1] > ccap:  # only the list overflowed: list it again
+                cross = crossing_list(surf_keys, surf_mask, n_surf,
+                                      _bucket_pow2(cn[-1]), cvec, n_lv + 1)
         else:
             ns_here = int(n_surf)
             if clock is not None:
                 clock.tick(f"corner masks ({ns_here} surface)")
-        return (surf_keys, surf_mask, n_surf, ns_here), ns_here
+            # at most 12 crossing edges a surface cell: no overflow and
+            # no read, over the lanes of the [12, cs] layout
+            cross = crossing_list(surf_keys, surf_mask, n_surf,
+                                  12 * _bucket_half(ns_here, lo=1024), cvec,
+                                  n_lv + 1)
+        return (surf_keys, surf_mask, n_surf, cross, ns_here), ns_here
 
     while True:
         r, n = run_chain(cmax, checked=not speculative)
@@ -459,12 +434,11 @@ def fine_stage(ev, m, var_vec, depth, *, rounds, samples, cancel=None,
     cap_cache[("cmax", depth)] = cmax
     if r == "empty":
         return None
-    surf_keys, surf_mask, n_surf, ns = r
+    surf_keys, surf_mask, n_surf, cross, ns = r
     if ns == 0:
         return None
-    # right-size the surface worklist: the edge core is the most
-    # expensive stage of the build ([12, cs] dense bisection), so a
-    # half-step bucket (<= 33% padding) instead of cmax
+    # right-size the surface worklist: the edge core's [12, cs] layout
+    # (the QEF sums), a half-step bucket (<= 33% padding) instead of cmax
     cs_cap = min(cmax, max(
         cap_cache.get(("cs", depth), 0), _bucket_half(ns, lo=1024)
     ))
@@ -472,16 +446,20 @@ def fine_stage(ev, m, var_vec, depth, *, rounds, samples, cancel=None,
 
     check_cancel(cancel)
     res = edges_core(ev, surf_keys, surf_mask, n_surf, h, mat, vv, cs_cap,
-                     rounds, samples, mat[:, :3])
+                     rounds, samples, mat[:, :3], cross)
 
     # host copies of the cell list (needed for the walk either way)
     sk = surf_keys[:ns].cpu().numpy().astype(np.int64)
     mk = surf_mask[:ns].cpu().numpy().astype(np.int32)
+    # the crossing list's bucket for the next chain, counted on the host
+    n_cross = int(_CROSSINGS[mk].sum())
+    cap_cache[("cross", depth)] = max(cap_cache.get(("cross", depth), 0),
+                                      _bucket_pow2(n_cross))
     cells = np.stack(
         [sk // (_KS * _KS), (sk // _KS) % _KS, sk % _KS], axis=1
     )
     if clock is not None:
-        clock.tick(f"edge solve ({ns} cells)")
+        clock.tick(f"edge solve ({ns} cells, {n_cross} crossing edges)")
     return cells, mk, res, ns, cs_cap
 
 

@@ -1,8 +1,10 @@
-"""Render support types: cancellation.
+"""Render support types: cancellation, tile sizes, hints.
 
-Analog of fidget-core/src/render/config.rs:38-80. A frame is a short
+Analogs of fidget-core/src/render/{mod,config}.rs. A frame is a short
 sequence of kernel launches on one stream, so cancellation is polled
 before the frame is enqueued, as in `fidget_tpu.render.config`.
+`TileSizes` and `RenderHints` are the reference's, host code that no
+renderer reads: the renderers take their tile sizes as arguments.
 """
 
 from __future__ import annotations
@@ -40,3 +42,39 @@ def check_cancel(cancel: "CancelToken | None") -> None:
     """Raises RenderCancelled if `cancel` is set and fired."""
     if cancel is not None and cancel.is_cancelled():
         raise RenderCancelled()
+
+
+class TileSizes(list):
+    """Strictly-descending, divisible tile-size list (render/mod.rs:181-236)."""
+
+    def __init__(self, sizes):
+        sizes = [int(s) for s in sizes]
+        if not sizes:
+            raise ValueError("tile sizes must not be empty")
+        for a, b in zip(sizes, sizes[1:]):
+            if b >= a:
+                raise ValueError("tile sizes must be strictly descending")
+            if a % b:
+                raise ValueError("each tile size must divide the previous")
+        super().__init__(sizes)
+
+    def last(self) -> int:
+        return self[-1]
+
+
+class RenderHints:
+    """Backend tuning hints (render/mod.rs:258-274), the reference's
+    defaults: one 64-px root level in 2D, 64 then 16 in 3D."""
+
+    @staticmethod
+    def tile_sizes_2d() -> TileSizes:
+        return TileSizes([64])
+
+    @staticmethod
+    def tile_sizes_3d() -> TileSizes:
+        return TileSizes([64, 16])
+
+    @staticmethod
+    def simplify_tree_during_meshing(depth: int) -> bool:
+        # the mesher evaluates with the root tape, as the reference's
+        return False

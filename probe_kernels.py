@@ -77,6 +77,23 @@ instance of the two-stream kernel by class (`cuobjdump -sass`, the
 listing written to `<out>/<name>/interleave.sass`, where a row's path
 can be read), with its registers.
 
+    python3 probe_kernels.py --mesher [--variant NAME=DIR ...]
+
+instead works on the compiled mesher's kernels (mesh/fused.py, phase
+11b of `chip_smoke.py`): from warm depth-8 builds of the sphere union
+and the gyroid sphere under `chip_smoke.MESH_VIEW` it captures the
+inputs of the edge core and of every level core, then times by turns
+(`--rounds-unrolled` rounds, the order reversed every other round)
+this tree's and each checkout DIR's (the parent, its `fidget_tpu_torch`
+imported beside the tree's) edge core (the tree's with the crossing
+list it builds in the chain) and level cores on them by CUDA events,
+with the profiler's device time a kernel inside one call of each; then
+U2-B's level kernel of this tree at each (block, register cap) of
+BOX_VARIANTS on the union's and gyroid's largest level, with each
+variant's ptxas registers and spills (and the 7,203-op stand-in's);
+last, whole depth-8 builds of both scenes, each side in both eval
+modes, by turns (host clock, synchronized).
+
     python3 probe_kernels.py --unrolled-builds
 
 instead builds the kernels generated for the 2D stand-in
@@ -714,6 +731,220 @@ def interleave_probe(cs, port, cuda, opts):
     activate(port, cuda.CSRC)
 
 
+#: U2-B's (threads a block, nvcc flags) that `--mesher` times
+BOX_VARIANTS = [(block, (f"-maxrregcount={regs}",) if regs else ())
+                for block in (64, 128, 256) for regs in (64, 128, None)]
+
+
+def _device_split(fn, names):
+    """Device ms of one call of fn by kernel: each of `names` (matched
+    within the profiler's kernel names), the rest as "other"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {n: 0.0 for n in names}
+        out["other"] = 0.0
+        for e in prof.key_averages():
+            t = e.self_device_time_total / 1e3
+            if t <= 0:
+                continue
+            hit = next((n for n in names if n in e.key), "other")
+            out[hit] += t
+        if sum(out.values()) > 0:
+            return out
+    return None
+
+
+def mesher_probe(cs, port, others, opts):
+    """`--mesher` (see the module doc); `others` maps each checkout's
+    name to its package."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+    from fidget_tpu_torch.mesh import fused
+
+    dev = torch.device(getattr(opts, "device", "cuda"))
+    sides = {"tree": port, **others}
+
+    def settings(pkg, mode="unrolled"):
+        kw = {"eval": "unrolled"} if mode == "unrolled" else {}
+        return pkg.MeshSettings(depth=cs.MESH_DEPTH,
+                                world_to_model=cs.MESH_VIEW, device=dev, **kw)
+
+    scenes = {side: cs._mesh_scenes(pkg) for side, pkg in sides.items()}
+    evs = {}
+    for side, pkg in sides.items():
+        for tag, _, scene in scenes[side]:
+            t0 = time.perf_counter()
+            pkg.build_mesh(scene, settings(pkg))  # builds the kernels
+            pkg.build_mesh(scene, settings(pkg, "interp"))
+            tape = scene.tape() if isinstance(scene, pkg.Shape) else scene
+            evs[side, tag] = importlib.import_module(
+                pkg.__name__ + ".mesh")._get_evaluator(tape, dev, True)
+            print(f"mesher | {side} {tag}: first builds "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cap = {}
+    saved = (fused.edges_core, fused.level_core)
+    for tag, _, scene in scenes["tree"]:
+        cap[tag] = {"levels": []}
+
+        def rec_edges(*a, tag=tag):
+            cap[tag]["edges"] = a
+            return saved[0](*a)
+
+        def rec_level(*a, tag=tag):
+            cap[tag]["levels"].append(a)
+            return saved[1](*a)
+
+        fused.edges_core, fused.level_core = rec_edges, rec_level
+        try:
+            port.build_mesh(scene, settings(port))
+        finally:
+            fused.edges_core, fused.level_core = saved
+        ea = cap[tag]["edges"]
+        print(f"mesher | {tag}: {int(ea[3])} surface cells, cs {ea[7]}, "
+              f"{int(ea[11][3])} crossing slots of {ea[11][0].shape[0]}; "
+              f"levels live " + "/".join(str(int(a[2])) for a in
+                                          cap[tag]["levels"]), flush=True)
+
+    def edge_fn(side, tag):
+        pkg_fused = importlib.import_module(sides[side].__name__
+                                            + ".mesh.fused")
+        ev = evs[side, tag]
+        a = cap[tag]["edges"]
+        if side == "tree":
+            ccap = a[11][0].shape[0]
+            return lambda: pkg_fused.edges_core(
+                ev, *a[1:11], pkg_fused.crossing_list(a[1], a[2], a[3],
+                                                      ccap))
+        return lambda: pkg_fused.edges_core(ev, *a[1:11])
+
+    def level_fn(side, tag):
+        pkg_fused = importlib.import_module(sides[side].__name__
+                                            + ".mesh.fused")
+        ev = evs[side, tag]
+        return lambda: [pkg_fused.level_core(ev, *a[1:])
+                        for a in cap[tag]["levels"]]
+
+    names_e = ["fidget_unrolled_edges", "fidget_unrolled_points",
+               "interp_grad_kernel"]
+    names_l = ["fidget_unrolled_level", "fidget_unrolled_interval_boxes"]
+    for tag in cap:
+        for side in sides:
+            for what, fn, names in (("edge core", edge_fn(side, tag), names_e),
+                                    ("levels", level_fn(side, tag), names_l)):
+                split = _device_split(fn, names)
+                print(f"mesher | {tag} {what} | {side}: device ms a call "
+                      + (", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                         if split else "not recorded"), flush=True)
+        times = {(side, what): [] for side in sides
+                 for what in ("edge core", "levels")}
+        order = list(sides)
+        for rnd in range(opts.rounds_unrolled):
+            for side in (order if rnd % 2 == 0 else order[::-1]):
+                times[side, "edge core"].append(
+                    cs.time_cuda(edge_fn(side, tag), 5))
+                times[side, "levels"].append(
+                    cs.time_cuda(level_fn(side, tag), 5))
+        for (side, what), v in times.items():
+            print(f"mesher | {tag} {what} by turns | {side}: median "
+                  f"{np.median(v):.4f} ms, min {min(v):.4f} ms over "
+                  f"{len(v)} rounds (CUDA events, 5 calls each)", flush=True)
+
+    # U2-B variants on the largest level
+    ctx = port.Context()
+    from fidget_tpu_torch.scenes import standin_shape
+
+    standin = port.lower(ctx, [standin_shape(ctx)])
+    kinds = {v.kind: i for v, i in standin.var_map.items()}
+    variants = {}
+    for tag in cap:
+        ev = evs["tree", tag]
+        for block, flags in BOX_VARIANTS:
+            variants[tag, block, flags] = uc.BoxesKernel(
+                ev.tape, ev.axis_of, ev.n_inputs, block=block, flags=flags)
+    for block, flags in BOX_VARIANTS:
+        if block == uc.BOX_BLOCK:
+            variants["standin", block, flags] = uc.BoxesKernel(
+                standin, kinds, len(kinds), block=block, flags=flags)
+    t0 = time.perf_counter()
+    steps = uc.build_kernels(list(variants.values()))
+    print(f"mesher | U2-B variants: {len(steps)} nvcc steps in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+
+    def regs(k, symbol):
+        """The registers of `symbol` in k's linked library, its callees
+        included (cuobjdump -res-usage)."""
+        out = subprocess.run([tool, "-res-usage", str(k.unit().lib)],
+                             capture_output=True, text=True).stdout
+        lines = out.splitlines()
+        for i, line in enumerate(lines[:-1]):
+            if symbol in line:
+                return lines[i + 1].strip()
+        return "not found"
+
+    for key, k in variants.items():
+        lines, spill = cs._ptxas_lines(k.unit())
+        print(f"mesher | U2-B {key}: spill bytes {spill}; linked "
+              f"{regs(k, 'fidget_unrolled_level')}", flush=True)
+    for tag in cap:
+        k = fused._kernels(evs["tree", tag])["edges"]
+        print(f"mesher | U1-P edges {tag}: spill bytes "
+              f"{cs._ptxas_lines(k.unit())[1]}; linked "
+              f"{regs(k, 'fidget_unrolled_edges')}", flush=True)
+    for tag in cap:
+        a = max(cap[tag]["levels"], key=lambda a: int(a[2]))
+        kern0, keys, n_in, _, _, h_child, pos, neg, off3, vv, _ = (
+            None, *a[1:])
+        want = uc.level_active(fused._kernels(evs["tree", tag])["boxes"],
+                               keys, n_in, h_child, pos, neg, off3, vv)
+        ms = {key: [] for key in variants if key[0] == tag}
+        keys_v = list(ms)
+        for rnd in range(opts.rounds_unrolled):
+            for key in (keys_v if rnd % 2 == 0 else keys_v[::-1]):
+                fn = (lambda k=variants[key]: uc.level_active(
+                    k, keys, n_in, h_child, pos, neg, off3, vv))
+                if rnd == 0:
+                    got = fn()
+                    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                        print(f"mesher | U2-B {key} DIFFERS", flush=True)
+                ms[key].append(cs.time_cuda(fn, 20))
+        for key, v in ms.items():
+            print(f"mesher | U2-B level by turns | {tag}, {int(n_in) * 8} "
+                  f"boxes, block {key[1]}, flags {key[2]}: median "
+                  f"{np.median(v):.4f} ms, min {min(v):.4f}", flush=True)
+
+    # whole builds by turns
+    builds = {}
+    order = [(side, tag, mode) for side in sides for tag in cap
+             for mode in ("unrolled", "interp")]
+    for rnd in range(opts.rounds_unrolled):
+        for side, tag, mode in (order if rnd % 2 == 0 else order[::-1]):
+            pkg = sides[side]
+            scene = next(s for t, _, s in scenes[side] if t == tag)
+            clock = importlib.import_module(
+                pkg.__name__ + ".mesh")._StageClock(True, dev, echo=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pkg.build_mesh(scene, settings(pkg, mode), clock=clock)
+            torch.cuda.synchronize()
+            builds.setdefault((side, tag, mode), []).append(
+                ((time.perf_counter() - t0) * 1e3, cs._stage_table(
+                    clock.stages)))
+    for (side, tag, mode), runs in builds.items():
+        tot = [t for t, _ in runs]
+        k = int(np.argsort(tot)[len(tot) // 2])
+        print(f"mesher | build by turns | {tag} {mode} | {side}: median "
+              f"{np.median(tot):.1f} ms, min {min(tot):.1f} ms over "
+              f"{len(tot)}; stages of the median (ms): " + ", ".join(
+                  f"{s} {v:.1f}" for s, v in runs[k][1].items()), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variant", action="append", default=[])
@@ -726,6 +957,7 @@ def main() -> int:
     ap.add_argument("--guard", action="store_true")
     ap.add_argument("--interleave", action="store_true")
     ap.add_argument("--rounds-unrolled", type=int, default=5)
+    ap.add_argument("--mesher", action="store_true")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_kernels: no CUDA device", file=sys.stderr)
@@ -749,6 +981,15 @@ def main() -> int:
         return 0
     if opts.interleave:
         interleave_probe(cs, port, cuda, opts)
+        return 0
+    if opts.mesher:
+        others = {}
+        for spec in opts.variant:
+            vname, _, vdir = spec.partition("=")
+            others[vname] = load_package(ROOT / vdir,
+                                         "fidget_tpu_torch_" + vname)
+        cuda.build()
+        mesher_probe(cs, port, others, opts)
         return 0
     if opts.unrolled:
         others = {}

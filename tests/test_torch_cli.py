@@ -320,6 +320,7 @@ def test_pipeline_stats_equal():
     from fidget_tpu.render.render2d import PixelRenderer as RefRenderer
     from fidget_tpu.utils import pipeline_stats as ref_stats
     from fidget_tpu_torch.utils import pipeline_stats, timed
+    from test_torch_native import ref_native_compiler
 
     def circle(pkg):
         ctx = pkg.Context()
@@ -337,7 +338,7 @@ def test_pipeline_stats_equal():
     ctx = ref.Context()
     text = ctx.export(standin_shape(ctx, n=40, seed=3))
     view = np.array([[1.5, 0, 0.1], [0, 1.5, -0.2], [0, 0, 1]])
-    want = ref_stats(RefRenderer(ref.native.compile_vm(text),
+    want = ref_stats(RefRenderer(ref_native_compiler().compile_vm(text),
                                  ref.ImageSize(256, 256), interpret=True), view)
     got = pipeline_stats(port.PixelRenderer(
         port.native.compile_vm(text), port.ImageSize(256, 256),

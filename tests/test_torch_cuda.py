@@ -654,20 +654,48 @@ def test_build_mesh_on_card_matches_cpu(card):
 def test_unrolled_mesh_on_card_matches_cpu(card):
     """The compiled mesher (eval="unrolled") on the card: a depth-5 mesh
     of a 40-sphere union equal to the CPU's build (triangles equal,
-    vertices within 1e-5), through U1-P, U2-B and K4 and no K1 or K3;
-    then U1-P (both epilogues) and U2-B against their plain versions on
-    points and boxes with a live count."""
+    vertices within 1e-5), through U1-P (its sign and its edge search),
+    U2-B on the levels and K4 and no K1 or K3; then U1-P (both
+    epilogues) and U2-B against their plain versions on points and boxes
+    with a live count, and the edge search and a level on the build's
+    own crossing list and parents."""
     from fidget_tpu_torch.eval import unrolled_cuda as uc
 
     ctx = port.Context()
     tape = port.lower(ctx, [sphere_union_shape(ctx, n=40)])
+    from fidget_tpu_torch.mesh import fused
+
+    calls = {}
+    saved = {n: getattr(fused, n) for n in ("unrolled_edges", "level_active")}
+
+    def recorder(name):
+        def call(*args, **kw):
+            calls[name] = (args, kw)
+            return saved[name](*args, **kw)
+        return call
+
     cuda.reset_launches()
-    got = port.build_mesh(tape, port.MeshSettings(depth=5, eval="unrolled"))
+    try:
+        for n in saved:
+            setattr(fused, n, recorder(n))
+        got = port.build_mesh(tape, port.MeshSettings(depth=5,
+                                                      eval="unrolled"))
+    finally:
+        for n, f in saved.items():
+            setattr(fused, n, f)
     launched = dict(cuda.LAUNCHES)
     want = port.build_mesh(tape, port.MeshSettings(depth=5, device="cpu",
                                                    eval="unrolled"))
-    for k in ("unrolled_points", "unrolled_interval_boxes", "interp_grad"):
+    for k in ("unrolled_points", "unrolled_edges", "level_active",
+              "interp_grad"):
         assert launched[k] > 0, k
+    args, kw = calls["unrolled_edges"]
+    a = uc.unrolled_edges(*args, **kw)
+    b = uc.unrolled_edges_plain(*args, **kw)
+    assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+    args, kw = calls["level_active"]
+    assert all(torch.equal(x, y) for x, y in zip(
+        uc.level_active(*args, **kw), uc.level_active_plain(*args, **kw)))
     assert launched["interp_interval"] == launched["interp_float"] == 0
     assert len(got.triangles) > 1000
     np.testing.assert_array_equal(got.triangles, want.triangles)

@@ -2,7 +2,7 @@
 
 `build_mesh(Settings(eval="unrolled"))`: the device-resident fine stage
 (`fidget_tpu_torch.mesh.fused`, on the plain versions of U1-P
-`unrolled_points`, U2-B `unrolled_interval_boxes` and K4 here) against
+`unrolled_points` / `unrolled_edges`, U2-B `level_active` and K4 here) against
 the reference's `fidget_tpu.mesh.fused` with `Settings(interpret=True,
 eval="unrolled")`, stage by stage and as whole meshes, under three
 views: the identity, tests/test_mesh.py's scaled and offset camera, and
@@ -507,35 +507,50 @@ def test_boxes_plain_matches_reference(name):
 
 
 def test_mesher_kernels_units_and_keys():
-    """U1-P shares U1's (and U1-3D's) program object; its two epilogues
-    are two kernel units; U2-B has warp units of its own (U_BOX) behind
-    U_BOX_KERNEL, with U2's schedule and flags."""
+    """U1-P shares U1's (and U1-3D's) program object: its two epilogues
+    and its edge search are three kernel units; U2-B is one stream unit
+    of its own (U_BOX, U2's schedule at one warp: no hand-off slot, no
+    barrier) behind U_BOX_KERNEL and U_LEVEL_KERNEL, with BOX_FLAGS."""
     tape = sphere_tape(port)
     axis_of = _kinds(tape)
     u1 = uc.FloatKernel([tape], axis_of, 3).unit()
     v1 = uc.VoxelKernel(tape, axis_of, 3).unit()
     p_dist = uc.PointsKernel(tape, axis_of, 3).unit()
     p_sign = uc.PointsKernel(tape, axis_of, 3, "sign").unit()
+    edges = uc.EdgesKernel(tape, axis_of, 3).unit()
     keys = [o.key for o in u1.objects]
     assert [o.key for o in p_dist.objects] == keys
     assert [o.key for o in p_sign.objects] == [o.key for o in v1.objects]
+    assert [o.key for o in edges.objects] == keys
     assert "U_POINTS_KERNEL(0)" in p_dist.source
     assert "U_POINTS_KERNEL(1)" in p_sign.source
-    assert len({u1.key, v1.key, p_dist.key, p_sign.key}) == 4
+    assert edges.source.rstrip().endswith("U_EDGE_KERNEL")
+    assert len({u1.key, v1.key, p_dist.key, p_sign.key, edges.key}) == 5
     b = uc.BoxesKernel(tape, axis_of, 3)
-    assert b.epilogue == "proofs" and b.BOX and not b.Z3
+    assert b.epilogue == "proofs" and not b.Z3
+    assert b.schedule().k == 1 and b.schedule().n_slots == 0
+    assert b.schedule().n_stages == 1
     bu = b.unit()
-    assert "U_BOX_KERNEL" in bu.source and "#define U_BOX 1" in bu.source
-    assert "U_INTERVAL_KERNEL" not in bu.source
-    assert "box, params, nb" in bu.source
+    assert "U_BOX_KERNEL" in bu.source and "U_LEVEL_KERNEL" in bu.source
+    assert "#define U_BOX 1" in bu.source and "U_INTERVAL_KERNEL" not in bu.source
+    assert f"#define U_BLOCK {uc.BOX_BLOCK}" in bu.source
+    assert f"#define U_KS {fused._KS}" in bu.source
     i3 = uc.Interval3Kernel(tape, axis_of, 3).unit()
     i2 = uc.IntervalKernel(tape, axis_of, 3, "proofs").unit()
-    assert len(bu.objects) == len(i3.objects) == len(i2.objects)
-    for o, o3, o2 in zip(bu.objects, i3.objects, i2.objects):
-        assert "#define U_BOX 1" in o.source and "U_Z3" not in o.source
-        assert len({o.key, o3.key, o2.key}) == 3
-        assert o.flags == uc.INTERVAL_FLAGS
-    assert {"unrolled_points", "unrolled_interval_boxes"} <= set(cuda.KERNELS)
+    assert len(bu.objects) == 1
+    assert len(i3.objects) == len(i2.objects) == uc.INTERVAL_WARPS
+    (o,) = bu.objects
+    assert "#define U_BOX 1" in o.source and "#define U_K 1" in o.source
+    assert "U_Z3" not in o.source and "U_SH(" not in o.source
+    assert "U_BAR()" not in o.source and "U_OUT(" in o.source
+    assert o.flags == bu.flags == uc.BOX_FLAGS
+    assert o.key not in {x.key for x in i3.objects + i2.objects}
+    # another block or register cap is another unit
+    other = uc.BoxesKernel(tape, axis_of, 3, block=64,
+                           flags=("-maxrregcount=64",)).unit()
+    assert other.key != bu.key and other.objects[0].key != o.key
+    assert {"unrolled_points", "unrolled_interval_boxes", "unrolled_edges",
+            "level_active"} <= set(cuda.KERNELS)
     with pytest.raises(ValueError, match="epilogue"):
         uc.PointsKernel(tape, axis_of, 3, "depth")
     x = torch.zeros(4)
@@ -550,8 +565,9 @@ def test_fused_kernels_are_the_tapes():
     tape = sphere_tape(port)
     ev = port_evaluator(tape, torch.device("cpu"), True)
     ks = fused.fused_kernels(ev)
-    assert [type(k).__name__ for k in ks] == ["PointsKernel", "PointsKernel",
+    assert [type(k).__name__ for k in ks] == ["PointsKernel", "EdgesKernel",
                                               "BoxesKernel"]
+    assert ks[0].epilogue == "sign"
     assert fused.fused_kernels(ev)[0] is ks[0]
     assert ks[0].tapes[0] is tape and ks[1].tapes[0] is tape
     assert ks[2].tape is tape

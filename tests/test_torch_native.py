@@ -12,8 +12,10 @@ tapes. All exact. Unlike the reference, the port's compiler never
 returns None: a failed build raises.
 """
 
+import os
 import pathlib
 import subprocess
+import tempfile
 
 import numpy as np
 import pytest
@@ -108,6 +110,34 @@ SOURCES = {
 }
 
 
+def ref_native_compiler():
+    """`fidget_tpu.native` with its library loaded, built in a directory
+    of this process's own when no earlier load of the process succeeded.
+
+    The reference's loader builds through one temporary file in a shared
+    directory (`fidget_tpu/native/__init__.py:66-72`) and keeps a failed
+    first load for the life of the process (`_TRIED`): test workers that
+    build at once from an empty cache lose that race and get None. Here
+    the load runs with `FIDGET_TPU_CACHE` pointing at a directory named
+    after the worker and the process (set only around the load), and a
+    failed earlier load is tried again; the reference is not changed."""
+    if ref_native._LIB is None:
+        worker = os.environ.get("PYTEST_XDIST_WORKER", "main")
+        own = os.path.join(tempfile.gettempdir(),
+                           f"fidget_tpu_native_{worker}_{os.getpid()}")
+        saved = os.environ.get("FIDGET_TPU_CACHE")
+        os.environ["FIDGET_TPU_CACHE"] = own
+        ref_native._TRIED = False
+        try:
+            ref_native._load()
+        finally:
+            if saved is None:
+                os.environ.pop("FIDGET_TPU_CACHE", None)
+            else:
+                os.environ["FIDGET_TPU_CACHE"] = saved
+    return ref_native
+
+
 def _fields(t):
     return (
         [np.asarray(getattr(t, f)).tolist() for f in
@@ -124,7 +154,7 @@ def test_compile_vm_fields_exact(name, reg_limit):
     import fidget_tpu.core.tree  # noqa: F401 - `ref.core.tree` above
 
     text = SOURCES[name]()
-    want = ref_native.compile_vm(text, reg_limit)
+    want = ref_native_compiler().compile_vm(text, reg_limit)
     assert want is not None, "the reference's native compiler did not build"
     got = native.compile_vm(text, reg_limit)
     assert isinstance(got, port.Tape)
@@ -167,7 +197,7 @@ def test_standin_evaluates_as_the_python_lowering():
 def test_malformed_input_raises_the_same_error(text):
     reg_limit = 1 if text == "x var-x\no neg x\n" else 255
     with pytest.raises(Exception) as want:
-        ref_native.compile_vm(text, reg_limit)
+        ref_native_compiler().compile_vm(text, reg_limit)
     with pytest.raises(Exception) as got:
         native.compile_vm(text, reg_limit)
     assert type(got.value) is type(want.value) is ValueError
@@ -194,7 +224,7 @@ def test_failed_build_raises(tmp_path, monkeypatch):
 @pytest.mark.parametrize("name", sorted(SOURCES))
 def test_bytecode_words_and_bytes_equal(name):
     text = SOURCES[name]()
-    t_ref = ref_native.compile_vm(text)
+    t_ref = ref_native_compiler().compile_vm(text)
     t_port = native.compile_vm(text)
     w_ref = np.asarray(ref_bc.encode(t_ref))
     w_port = np.asarray(bc.encode(t_port))
