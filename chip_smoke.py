@@ -11,7 +11,7 @@ arena, two tile levels) and the 3D heightmap + normals renderer
 (`VoxelRenderer.render()` at 512^3 on the 28-op gyroid sphere, and at
 128^3 on a 3,303-op union of 300 spheres) under its bucketed, per-shape
 and compiled frames (the last on two more kernels generated per tape,
-U1-3D `unrolled_voxel_depth` and U2-3D `unrolled_interval3`), holding
+U1-3D `unrolled_voxel_fold` and U2-3D `unrolled_proofs3`), holding
 every frame against the numpy oracles; the per-shape compiled 2D path
 (`render_unrolled` with the union and the full leaf, `render_dense`)
 on the two kernels generated for the stand-in (U1 `unrolled_float`,
@@ -132,13 +132,22 @@ Phases (any failure exits non-zero and prints no result):
    exactly, capture and violation also with the words in global memory
    (a tape past `SHARED_LIMIT`'s route); at two matrices (one overflowing to infinities) with the
    vars taking every SPICY value and three denormals; then the 3D
-   variants on the combined tapes, built in the same batch: U1-3D over
-   every 8^3 subtile of a 64^3 volume and U2-3D over their boxes at
-   edges 8 and 32, at a perspective matrix and one overflowing to
-   infinities, the vars as before, U2-3D's proofs and U1-3D's depths bit
-   for bit (on the transcendental tape a depth column may differ only
-   where the plain distance of the voxel in question is within 2e-4 of
-   0); and the mesher's kernels on the combined tapes, built in the
+   variants on the combined tapes, built in the same batch: U1-3D's
+   explicit entry over every 8^3 subtile of a 64^3 volume and its frame
+   entry (`unrolled_voxel_fold`) on stratum worklists of that volume at
+   subtiles 8 and 16 (fewer active subtiles than slots; more, on a slab
+   with its first row at 32; none), both at every group of lanes a column
+   (1-16, up to the subtile's edge); U2-3D's explicit entry over the
+   subtiles' boxes at edges 8 and 32 and its frame entry
+   (`unrolled_proofs3`) over the volume's roots of 32 and 16 with their
+   subtiles of 8, at every layout the frames take (1 and 4 warps a
+   group, `proofs3_warps`; the frame entries at every other var pair,
+   which still take every value below), at a
+   perspective matrix and one overflowing to infinities, the vars as
+   before, U2-3D's proofs and U1-3D's depths and floors bit for bit (on
+   the transcendental tape a depth column may differ only where the
+   plain distance of the voxel in question is within 2e-4 of 0); and
+   the mesher's kernels on the combined tapes, built in the
    same batch: U1-P under both epilogues over the guard's 256^2 points
    in model space (a [4, 16384] list with 12,000 live columns) and U2-B
    over its 8-px tiles' boxes (a [2, 512] list with 400), at its two
@@ -181,14 +190,19 @@ Phases (any failure exits non-zero and prints no result):
    on the frames' inputs, all under the shape's op_order, against their
    plain versions;
 9b. the compiled 3D frames: the gyroid with `leaf="unrolled"` under
-   `proofs="interp"` (K1, K2, U1-3D, K4) and `"unrolled"` (U2-3D,
-   U1-3D, K4) over the same frames, and the sphere union at 128^3 with
-   both unrolled (depth exactly `render_brute`'s), launch counts from 0
-   for each mode; the generated kernels' cold build (started with the
-   run, beside the earlier phases) and cached build seconds; U1-3D and
-   U2-3D on the frames' inputs bit for bit against their plain
-   versions, with CUDA-event and profiler device times, the bound and
-   SASS floors; the bucketed, per-shape and compiled 512^3 frames in
+   `proofs="interp"` (K1, K2, U1-3D's frame entry `unrolled_voxel_fold`,
+   K4) and `"unrolled"` (U2-3D's frame entry `unrolled_proofs3` once a
+   frame, U1-3D's a stratum, K4) over the same frames, and the sphere
+   union at 128^3 with both unrolled (depth exactly `render_brute`'s),
+   launch counts from 0 for each mode; every one of these frames equal,
+   depth and normals bit for bit, to the same frame on the parent's glue
+   (`_old_glue3d`: U2-3D's explicit entry on the roots and a launch a
+   stratum, U1-3D's explicit entry and the fold in torch ops); the
+   generated kernels' cold build (started with the
+   run, beside the earlier phases) and cached build seconds; both frame
+   entries and the explicit ones on the frames' inputs bit for bit
+   against their plain versions, with CUDA-event and profiler device
+   times, the bound and SASS floors; the bucketed, per-shape and compiled 512^3 frames in
    turns (wall time, device busy share, device ops a frame), the two
    union frames likewise; then a `warmup="interp"` first frame of a
    shape whose kernels are not built, which must come from the bucketed
@@ -1912,18 +1926,70 @@ def phase_union3d(port, cuda, reps=10):
 # ----------------------------------------------------------------------
 # 3D per-shape and compiled frames
 
-UNROLLED3_KERNELS = ("unrolled_voxel_depth", "unrolled_interval3")
+#: the frame entries of U1-3D and U2-3D, which the compiled 3D frames
+#: launch, and their explicit entries (the same kernels; phase 6e, and
+#: the parent's glue in `_old_glue3d`)
+UNROLLED3_KERNELS = ("unrolled_voxel_fold", "unrolled_proofs3")
+UNROLLED3_EXPLICIT = {"unrolled_voxel_fold": "unrolled_voxel_depth",
+                      "unrolled_proofs3": "unrolled_interval3"}
 #: the Pallas probe whose whole-tape code the generated kernels port
 UNROLLED3_REPLACES = "demos/exp_unrolled_kernel.py:116"
 #: the compiled 3D modes and the kernels each must launch
 COMPILED3_MODES = {
     "unrolled leaf": (dict(leaf="unrolled"),
                       ("interp_interval", "liveness_codes",
-                       "unrolled_voxel_depth", "interp_grad")),
+                       "unrolled_voxel_fold", "interp_grad")),
     "unrolled leaf+proofs": (dict(leaf="unrolled", proofs="unrolled"),
-                             ("unrolled_interval3", "unrolled_voxel_depth",
+                             ("unrolled_proofs3", "unrolled_voxel_fold",
                               "interp_grad")),
 }
+
+
+@contextlib.contextmanager
+def _old_glue3d():
+    """The compiled 3D frame with the parent's glue around the kernels:
+    U2-3D's explicit entry on the roots, then on each stratum's subtiles
+    (their corners formed in torch ops, nearest stratum first), and U1-3D's
+    explicit entry on the decoded worklist with the candidates scattered
+    back and folded in torch ops (`fold_candidates`)."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+    from fidget_tpu_torch.render import render3d
+
+    saved = (render3d.unrolled_proofs3, render3d.unrolled_voxel_fold)
+
+    def proofs(kern, x0, y0, z0, params, ts, sub):
+        rf, re_ = uc.unrolled_interval3(kern, x0, y0, z0, params, ts)
+        sx0, sy0, sz0 = uc.subtile_corners(x0, y0, z0, ts, sub)
+        nt, m = sx0.shape
+        ntz = int(z0.max().item()) // ts + 1
+        parts = {}
+        for tz in range(ntz - 1, -1, -1):
+            rows = slice(tz * (nt // ntz), (tz + 1) * (nt // ntz))
+            parts[tz] = uc.unrolled_interval3(
+                kern, sx0[rows].reshape(-1), sy0[rows].reshape(-1),
+                sz0[rows].reshape(-1), params, sub)
+        sf = torch.cat([parts[tz][0] for tz in range(ntz)]).reshape(nt, m)
+        se = torch.cat([parts[tz][1] for tz in range(ntz)]).reshape(nt, m)
+        return (torch.cat([rf[:, None], sf], 1),
+                torch.cat([re_[:, None], se], 1))
+
+    def fold(kern, order, count, z_lo, params, floor, *, sub, nl,
+             y_base=0.0, group=None):
+        ny2, nx2 = floor.shape[0] // sub, floor.shape[1] // sub
+        valid, lz, gy, gx = uc.decode_worklist(order, count, ny2=ny2,
+                                               nx2=nx2)
+        bx, by, bz = uc.worklist_corners(lz, gy, gx, z_lo.reshape(()),
+                                         sub=sub, y_base=y_base)
+        dcand = uc.unrolled_voxel_depth(kern, bx, by, bz, valid, params,
+                                        sub=sub, group=1)
+        return floor.copy_(uc.fold_candidates(floor, dcand, order, valid,
+                                              nl=nl))
+
+    render3d.unrolled_proofs3, render3d.unrolled_voxel_fold = proofs, fold
+    try:
+        yield
+    finally:
+        render3d.unrolled_proofs3, render3d.unrolled_voxel_fold = saved
 
 
 def start_compiled3d_build(port, union_tape):
@@ -2070,53 +2136,110 @@ def phase_per_shape3d(port, cuda, render3d, simplify_device, brutes, rows):
     return r, sched
 
 
-def _unrolled3_bound(name, args, kwargs, out):
-    """(bound_ms, bound_by, operations, bytes) of one U1-3D / U2-3D call.
-    U1-3D: one operation per tape row per voxel this call's data makes a
-    thread evaluate (a column walks from the top down to its first voxel
-    inside, or all of it), moving the slots' corners and flags once, the
-    params and the depths; U2-3D: two (lo, hi) per row per box, moving the
-    corners, the params and the two flags."""
-    kern = args[0]
-    if name == "unrolled_voxel_depth":
-        _, bx, by, bz, valid, params = args
+def _walked(uc, kern, bx, by, bz, valid, params, sub, group=1):
+    """Voxels a column walk of U1-3D evaluates over live slots: down to
+    the first voxel inside, or the whole column, rounded up to `group`
+    voxels (from the depths of its explicit entry on the same slots)."""
+    d = uc.unrolled_voxel_depth(kern, bx, by, bz, valid, params, sub=sub,
+                                group=1).to(torch.int64)
+    top = (bz.to(torch.int64) + sub)[:, None, None]
+    walked = torch.where(d > 0, top - d + 1, sub)
+    walked = -(-walked // group) * group
+    return int((walked * valid[:, None, None]).sum())
+
+
+def _explicit3(name, args, kwargs):
+    """The explicit entry's calls on a captured frame entry's inputs:
+    U1-3D on the decoded worklist (its corners as the parent's glue formed
+    them), U2-3D on the roots and on the subtile boxes: {where: (args,
+    kwargs)}."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+
+    if name == "unrolled_voxel_fold":
+        kern, order, count, z_lo, params, floor = args
         sub = kwargs["sub"]
-        top = (bz.to(torch.int64) + sub)[:, None, None]
-        walked = torch.where(out > 0, top - out + 1, sub)
-        walked = int((walked * valid[:, None, None]).sum())
-        ops = walked * len(kern.tapes[0])
-        nbytes = bx.shape[0] * 13 + params.nbytes + out.nbytes
-        evals = ops
+        valid, lz, gy, gx = uc.decode_worklist(
+            order, count, ny2=floor.shape[0] // sub, nx2=floor.shape[1] // sub)
+        corners = uc.worklist_corners(lz, gy, gx, z_lo.reshape(()), sub=sub,
+                                      y_base=kwargs.get("y_base", 0.0))
+        return {"leaf": ((kern, *corners, valid, params), {"sub": sub})}
+    kern, x0, y0, z0, params, ts, sub = args
+    sx0, sy0, sz0 = (c.reshape(-1) for c in uc.subtile_corners(x0, y0, z0,
+                                                                ts, sub))
+    return {"roots": ((kern, x0, y0, z0, params, ts), {}),
+            "subtiles": ((kern, sx0, sy0, sz0, params, sub), {})}
+
+
+def _unrolled3_bound(name, args, kwargs, out):
+    """(bound_ms, bound_by, operations, bytes, evaluations) of one U1-3D /
+    U2-3D call. U1-3D: one operation per tape row per voxel this call's
+    data needs a column to evaluate (from the top down to its first
+    voxel inside, or all of it), moving the slots' corners and flags
+    (explicit) or worklist entries (frame entry) once, the params and
+    the depths; the evaluations are the voxels its groups of lanes
+    evaluate (rounded up to the group a column). U2-3D: two (lo, hi) per
+    row per box, moving the corners, the params and the two flags."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+
+    kern = args[0]
+    if name in ("unrolled_voxel_depth", "unrolled_voxel_fold"):
+        if name == "unrolled_voxel_fold":
+            (ex_args, ex_kw), = _explicit3(name, args, kwargs).values()
+            _, bx, by, bz, valid, params = ex_args
+            nbytes = int(valid.sum()) * (8 + 4 * kwargs["sub"] ** 2)
+        else:
+            _, bx, by, bz, valid, params = args
+            nbytes = bx.shape[0] * 13 + out.nbytes
+        sub = kwargs["sub"]
+        G = kwargs.get("group") or uc.voxel_group(bx.shape[0], sub)
+        ops = _walked(uc, kern, bx, by, bz, valid, params, sub) * len(
+            kern.tapes[0])
+        evals = _walked(uc, kern, bx, by, bz, valid, params, sub, G) * len(
+            kern.tapes[0])
+        nbytes += params.nbytes
     else:
         x0, params = args[1], args[4]
         n = x0.shape[0]
-        ops = 2 * n * len(kern.tape)
-        nbytes = n * 12 + params.nbytes + 2 * n
+        boxes = n
+        if name == "unrolled_proofs3":
+            boxes = n * (1 + (args[5] // args[6]) ** 3)
+        ops = 2 * boxes * len(kern.tape)
+        nbytes = n * 12 + params.nbytes + 2 * boxes
         evals = ops // 2
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops), by, ops, nbytes, evals
+    by_ = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by_, ops, nbytes, evals
+
+
+def _call3(name, args, kwargs):
+    """A call of U1-3D / U2-3D that leaves the captured inputs as they
+    were: the frame entry of U1-3D folds into a copy of the floor, made
+    once (folding again into the result changes nothing)."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+
+    fn = getattr(uc, name)
+    if name in ("unrolled_voxel_fold", "unrolled_voxel_fold_plain"):
+        floor = args[5].clone()
+        return lambda: fn(*args[:5], floor, **kwargs)
+    return lambda: fn(*args, **kwargs)
 
 
 def _measure_unrolled3(label, name, args, kwargs):
     """One captured U1-3D / U2-3D call against its plain version on the
-    card (depths, proofs bit for bit), CUDA-event ms, profiler device ms,
-    plain ms, the bound and the SASS floors."""
-    from fidget_tpu_torch.eval import unrolled_cuda as uc
-
-    fn = getattr(uc, name)
-    plain = getattr(uc, name + "_plain")
-    got = fn(*args, **kwargs)
-    want, plain_ms = _time_plain(plain, args, kwargs)
-    same = (torch.equal(got, want) if name == "unrolled_voxel_depth"
+    card (depths, floors, proofs bit for bit), CUDA-event ms, profiler
+    device ms, plain ms, the bound and the SASS floors."""
+    got = _call3(name, args, kwargs)()
+    want, plain_ms = _time_plain(_call3(name + "_plain", args, kwargs), (),
+                                 {})
+    same = (torch.equal(got, want) if isinstance(got, torch.Tensor)
             else all(torch.equal(g, w) for g, w in zip(got, want)))
     if not same:
         raise Failed(f"{name} ({label}) differs from its plain version")
-    ms = time_cuda(lambda: fn(*args, **kwargs), reps=20)
-    kernel_name = ("fidget_unrolled_voxel_depth" if name == "unrolled_voxel_depth"
+    ms = time_cuda(_call3(name, args, kwargs), reps=20)
+    kernel_name = ("fidget_unrolled_voxel_depth" if "voxel" in name
                    else "fidget_unrolled_interval")
-    dms = device_ms(lambda: fn(*args, **kwargs), kernel_name)
+    dms = device_ms(_call3(name, args, kwargs), kernel_name)
     bound_ms, by, ops, nbytes, evals = _unrolled3_bound(
         name, args, kwargs, got if name == "unrolled_voxel_depth" else None)
     floors = unrolled_floors(args[0], evals)
@@ -2124,12 +2247,24 @@ def _measure_unrolled3(label, name, args, kwargs):
           f"{floors['sass_per_row']:.2f} SASS instructions a row and lane, "
           f"issue floor {floors['issue_floor_ms']:.5f} ms, MUFU floor "
           f"{floors['mufu_floor_ms']:.5f} ms")
-    log(f"kernel {name} ({label}): {args[1].shape[0]} slots-or-boxes, {ops} "
-        f"operations, {nbytes} bytes; equal to plain, {ms:.4f} ms (CUDA "
-        f"events), device {dms} ms (profiler), plain {plain_ms:.1f} ms, "
-        f"bound {bound_ms:.5f} ms ({by}); {fl}")
+    group = ""
+    if "voxel" in name:
+        from fidget_tpu_torch.eval import unrolled_cuda as uc
+
+        G = kwargs.get("group") or uc.voxel_group(args[1].shape[0],
+                                                  kwargs["sub"])
+        group = f", group {G}"
+    # the slots of the work the kernel does: U1-3D's evaluations rounded
+    # up to its groups, U2-3D's two bounds a row and box
+    slots = _slot_bound_ms(evals if "voxel" in name else ops)
+    log(f"kernel {name} ({label}): {args[1].shape[0]} slots-or-roots"
+        f"{group}, {ops} operations ({evals} row-lane evaluations), "
+        f"{nbytes} bytes; equal to plain, {ms:.4f} ms (CUDA events), "
+        f"device {dms} ms (profiler), plain {plain_ms:.1f} ms, bound "
+        f"{bound_ms:.5f} ms ({by}), slots {slots:.5f} ms; {fl}")
     return dict(max_abs_err=0.0, ms=ms, device_ms=dms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=by, operations=ops, bytes=nbytes,
+                bound_ms=bound_ms, bound_by=by, slot_bound_ms=slots,
+                operations=ops, bytes=nbytes, evaluations=evals,
                 **(floors or {}))
 
 
@@ -2181,20 +2316,25 @@ def phase_compiled3d(port, cuda, render3d, r_bucketed, r_per_shape, brutes,
     def recorder(name):
         def call(*args, **kwargs):
             if current[0] is not None:
-                where = ("leaf" if name == "unrolled_voxel_depth"
-                         else f"edge {int(args[5])}")
+                if name == "unrolled_voxel_fold":
+                    # the heaviest stratum; the floor as it came in
+                    where, size = "leaf", int(args[2])
+                    kept = (*args[:5], args[5].clone())
+                else:
+                    where, size = f"roots {int(args[5])}", args[1].shape[0]
+                    kept = args
                 key = (current[0], name, where)
-                size = (int(args[4].sum()) if name == "unrolled_voxel_depth"
-                        else args[1].shape[0])
                 old = captured.get(key)
                 if old is None or size > old[2]:
-                    captured[key] = (args, kwargs, size)
+                    captured[key] = (kept, kwargs, size)
             return saved[name](*args, **kwargs)
         return call
 
-    totals = dict.fromkeys(UNROLLED3_KERNELS, 0)
+    totals = dict.fromkeys([*UNROLLED3_KERNELS, *UNROLLED3_EXPLICIT.values()],
+                           0)
     n_frames = 0
     schedules = {}
+    new_images = {}
     for n in UNROLLED3_KERNELS:
         setattr(render3d, n, recorder(n))
     try:
@@ -2215,9 +2355,10 @@ def phase_compiled3d(port, cuda, render3d, r_bucketed, r_per_shape, brutes,
                 f"{launches}")
             if set(launches) != set(expect):
                 raise Failed(f"compiled 3D {label} frames launched {launches}")
-            for k in UNROLLED3_KERNELS:
+            for k in totals:
                 totals[k] += launches.get(k, 0)
             n_frames += len(images)
+            new_images[label] = images
             for (view_label, view), img in zip(
                     VIEWS3 + [("heightmap", VIEWS3[0][1])], images):
                 key = view_label if view_label != "heightmap" else "identity"
@@ -2234,9 +2375,10 @@ def phase_compiled3d(port, cuda, render3d, r_bucketed, r_per_shape, brutes,
         launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
         if set(launches) != set(COMPILED3_MODES["unrolled leaf+proofs"][1]):
             raise Failed(f"compiled 3D union frame launched {launches}")
-        for k in UNROLLED3_KERNELS:
+        for k in totals:
             totals[k] += launches.get(k, 0)
         n_frames += 1
+        new_images["union"] = [img]
         log(f"compiled 3D union ({len(ru.tape)}-op tape, 128^3): launches "
             f"{launches}")
         check_frame3d(ru, img, None, union_brute, "compiled union", exact=True)
@@ -2245,11 +2387,43 @@ def phase_compiled3d(port, cuda, render3d, r_bucketed, r_per_shape, brutes,
         for n, f in saved.items():
             setattr(render3d, n, f)
 
+    # the same frames on the parent's glue: bit for bit
+    t0 = time.perf_counter()
+    with _old_glue3d():
+        for label, images in new_images.items():
+            r = renderers[label]
+            if label == "union":
+                old = [r.render()]
+                views = [("identity", None)]
+            else:
+                old = [r.render(view) for _, view in VIEWS3]
+                old.append(r.render(VIEWS3[0][1], mode="heightmap"))
+                views = VIEWS3 + [("heightmap", None)]
+            for (view_label, _), a, b in zip(views, images, old):
+                if not torch.equal(a.depth, b.depth) or (
+                        a.normal is not None
+                        and not torch.equal(a.normal, b.normal)):
+                    raise Failed(f"compiled 3D {label} {view_label}: the "
+                                 f"frame differs from the parent's glue's")
+    torch.cuda.synchronize()
+    log(f"compiled 3D frames equal to the same frames on the parent's glue "
+        f"(U2-3D's explicit entry on the roots and a launch a stratum, "
+        f"U1-3D's explicit entry, the fold in torch ops), depth and "
+        f"normals bit for bit: {sum(map(len, new_images.values()))} "
+        f"frames ({time.perf_counter() - t0:.1f} s)")
+
     measured = {}
     for (label, name, where), (args, kwargs, _) in sorted(
             captured.items(), key=lambda p: p[0]):
         measured[(label, name, where)] = _measure_unrolled3(
             f"{label}, {where}", name, args, kwargs)
+        if label == "unrolled leaf":  # the same kernels as leaf+proofs
+            continue
+        for ex_where, (ex_args, ex_kw) in _explicit3(name, args,
+                                                     kwargs).items():
+            ex = UNROLLED3_EXPLICIT[name]
+            measured[(label, ex, ex_where)] = _measure_unrolled3(
+                f"{label}, {ex_where}, explicit entry", ex, ex_args, ex_kw)
 
     view = VIEWS3[1][1]
     log(f"3D frames in turns at the {VIEWS3[1][0]} view, 512^3 gyroid:")
@@ -2298,10 +2472,10 @@ def phase_compiled3d(port, cuda, render3d, r_bucketed, r_per_shape, brutes,
     log(f"warm-up: first frame from the bucketed twin in {first_ms:.1f} ms "
         f"while the kernels built ({build_w:.1f} s), then the compiled frame")
 
-    for name in UNROLLED3_KERNELS:
-        head_key = (("unrolled leaf+proofs", name, "leaf")
-                    if name == "unrolled_voxel_depth" else
-                    ("unrolled leaf+proofs", name, "edge 16"))
+    heads = {"unrolled_voxel_fold": "leaf", "unrolled_proofs3": "roots 64",
+             "unrolled_voxel_depth": "leaf", "unrolled_interval3": "subtiles"}
+    for name, where in heads.items():
+        head_key = ("unrolled leaf+proofs", name, where)
         rows[name] = {
             "name": name, "route": "cuda", "source": UNROLLED_SOURCE,
             "replaces": UNROLLED3_REPLACES, "launches": totals[name],
@@ -2309,11 +2483,13 @@ def phase_compiled3d(port, cuda, render3d, r_bucketed, r_per_shape, brutes,
             **measured[head_key], "library_ms": None,
             "at": {", ".join(k[::2]): m for k, m in measured.items()
                    if k[1] == name and k != head_key},
-            "build": {"cold_s": build_s, "cached_s": cached,
-                      "spill_bytes": spills},
-            "frames": timing, "frames_union": timing_union,
-            "schedules": schedules,
         }
+        if name in UNROLLED3_KERNELS:
+            rows[name].update(
+                build={"cold_s": build_s, "cached_s": cached,
+                       "spill_bytes": spills},
+                frames=timing, frames_union=timing_union,
+                schedules=schedules)
 
 
 # ----------------------------------------------------------------------
@@ -3782,8 +3958,17 @@ def _guard_kernels(pkg):
     if hasattr(uc, "VoxelKernel"):
         voxels3 = [(name, uc.VoxelKernel(t, axis, V), tol)
                    for name, t, tol in comb]
-        intervals3 = [(name, uc.Interval3Kernel(t, axis, V))
-                      for name, t, _ in comb]
+        # U2-3D at every layout the frames can take, the rule's at the
+        # fewest and the most boxes (one kernel a tape where the package
+        # has a single one)
+        layouts = None
+        if hasattr(uc, "proofs3_warps"):
+            layouts = sorted({uc.proofs3_warps(1), uc.proofs3_warps(1 << 30)})
+        intervals3 = [
+            (name if layouts is None else f"{name} k={k}",
+             uc.Interval3Kernel(t, axis, V) if layouts is None
+             else uc.Interval3Kernel(t, axis, V, warps=k))
+            for name, t, _ in comb for k in (layouts or (None,))]
     points, boxes, edges = [], [], []
     if hasattr(uc, "PointsKernel"):
         points = [(name, uc.PointsKernel(t, axis, V, epi), tol)
@@ -4135,18 +4320,90 @@ def _voxel_distance(uc, kern, params, px, py, pz):
     return eval_tape_float_fast(kern.tapes[0], inputs)[0]
 
 
+def _depth_witness(uc, k, params, tol, got, want, bx, by, label,
+                   y_base=0.0):
+    """Holds U1-3D's depth columns `got` to plain's `want` ([n, sub, sub],
+    or a slab's floor [H, W] with bx / by None, its first row y_base):
+    bit for bit, or on a tape with a tolerance only where the plain
+    distance of the voxel the two disagree on lies within it of 0.
+    Returns the columns witnessed."""
+    bad = (got != want).nonzero()
+    if not len(bad):
+        return 0
+    z = torch.maximum(got, want)[tuple(bad.T)] - 1
+    if bx is None:
+        px, py = bad[:, 1].float(), bad[:, 0].float() + y_base
+    else:
+        slot, vy, vx = bad.T
+        px, py = bx[slot] + vx.float(), by[slot] + vy.float()
+    d = _voxel_distance(uc, k, params, px, py, z.float())
+    if tol == 0 or not bool((d.abs() <= tol).all()):
+        raise Failed(f"{label}: {len(bad)} depth columns differ from plain "
+                     f"(plain distances there {d[:4].tolist()})")
+    return len(bad)
+
+
+def _covering_pairs(pairs):
+    """The indices of every other var pair of `pairs` (`_guard_pairs`)
+    where those pairs still take every value that `pairs` takes (as a or
+    as b; all of them where they do not)."""
+    def values(ps):
+        return {repr(v) for p in ps for v in p}
+
+    half = range(0, len(pairs), 2)
+    if values(pairs[i] for i in half) == values(pairs):
+        return set(half)
+    return set(range(len(pairs)))
+
+
+def _guard_worklists(dev):
+    """Phase 6e's stratum worklists for U1-3D's frame entry over the 64^3
+    volume taken as one stratum of 64^3 roots: (label, sub, nl, order,
+    count, z_lo, y_base, floor) with fewer active subtiles than slots,
+    more than slots on a slab of the lower 32 rows (y_base 32), and
+    none, at subtile edges 8 and 16."""
+    from fidget_tpu_torch.render.render3d import _compact_stratum
+
+    out = []
+    rng = np.random.default_rng(17)
+    for sub in (GUARD3_SUB, 2 * GUARD3_SUB):
+        nl = GUARD3 // sub
+        for label, rows, over, share in (("below cap", GUARD3, 1.3, 0.3),
+                                         ("over cap, slab", GUARD3 // 2, 0.7,
+                                          0.3),
+                                         ("none", GUARD3, 1.0, 0.0)):
+            ny2, nx2 = rows // sub, GUARD3 // sub
+            act = torch.from_numpy(rng.random(nl * ny2 * nx2) < share).to(dev)
+            count = int(act.sum())
+            cap = max(8, int(max(count, 8) * over))
+            order = _compact_stratum(act, nl=nl, ny2=ny2, nx2=nx2,
+                                     cap_s=cap, decode=False)["order"]
+            floor = torch.from_numpy(rng.integers(
+                0, GUARD3 // 2, (rows, GUARD3)).astype(np.int32)).to(dev)
+            out.append((f"{label}, sub {sub}", sub, nl, order,
+                        act.sum(), torch.zeros(1, device=dev),
+                        float(GUARD3 - rows), floor))
+    return out
+
+
 def _guard3d(uc, voxels3, intervals3, label, dev):
-    """Phase 6e for the 3D variants: U1-3D over every 8^3 subtile of a
-    64^3 volume (every ninth slot invalid) and U2-3D over the same
-    subtiles' boxes at edges 8 and 32, on the combined tapes, at the two
+    """Phase 6e for the 3D variants on the combined tapes, at the two
     `_guard_matrices3` with the vars of `_guard_pairs`, against the plain
-    versions: U2-3D's proofs and U1-3D's depths bit for bit; on the
-    tape of transcendentals (tolerance 2e-4, as U1 there) a depth
-    column may differ only where the plain distance of the voxel the
-    two disagree on lies within that tolerance of 0. Returns the
+    versions: U1-3D's explicit entry over every 8^3 subtile of a 64^3
+    volume (every ninth slot invalid) and, where the package has them,
+    its frame entry on `_guard_worklists`, both at every lanes-a-column
+    group that fits the subtile; U2-3D's explicit entry over the same
+    subtiles' boxes at edges 8 and 32 and its frame entry over the
+    volume's roots of 32 and 16 with their subtiles of 8, at every layout
+    (`intervals3` holds one kernel a layout). Proofs, depths and floors
+    bit for bit; on the tape of transcendentals (tolerance 2e-4, as U1
+    there) a depth column may differ only where the plain distance of
+    the voxel in question lies within that tolerance of 0. Returns the
     launches."""
     if not voxels3:
         return 0
+    frame_entries = hasattr(uc, "unrolled_voxel_fold")
+    groups = getattr(uc, "VOXEL_GROUPS", (None,))
     sub = GUARD3_SUB
     g = np.arange(GUARD3 // sub) * sub
     gz, gy, gx = np.meshgrid(g, g, g, indexing="ij")
@@ -4154,50 +4411,101 @@ def _guard3d(uc, voxels3, intervals3, label, dev):
                                device=dev) for a in (gx, gy, gz))
     n = bx.shape[0]
     valid = torch.arange(n, device=dev) % 9 != 4
+    worklists = _guard_worklists(dev) if frame_entries else []
+    roots = {}
+    if frame_entries:
+        for ts in (4 * sub, 2 * sub):
+            t = np.arange(GUARD3 // ts) * ts
+            tz, ty, tx = np.meshgrid(t, t, t, indexing="ij")
+            roots[ts] = tuple(torch.tensor(a.reshape(-1), dtype=torch.float32,
+                                           device=dev) for a in (tx, ty, tz))
+    by_tape = {}
+    for name, k in intervals3:
+        by_tape.setdefault(id(k.tape), []).append((name, k))
     launches, witnessed, hit = 0, 0, 0
     for mat, pairs in zip(_guard_matrices3(), _guard_pairs()):
-        for a_val, b_val in pairs:
+        # the frame entries' own code (decoding, corners, groups, the
+        # fold) does not see the vars: they run at every other pair, which
+        # still takes every SPICY value and denormal at each matrix
+        framed = _covering_pairs(pairs)
+        for i, (a_val, b_val) in enumerate(pairs):
+            frame_pair = i in framed
             params = uc.params_tensor(
                 torch.tensor(mat, device=dev), torch.zeros((), device=dev),
                 torch.tensor([0.0, 0.0, a_val, b_val], dtype=torch.float32,
                              device=dev))
+            at = f"at a={a_val}, b={b_val}"
             for name, k, tol in voxels3:
-                got = uc.unrolled_voxel_depth(k, bx, by, bz, valid, params,
-                                              sub=sub)
                 want = uc.unrolled_voxel_depth_plain(k, bx, by, bz, valid,
                                                      params, sub=sub)
                 hit += int((want > 0).sum())
-                bad = (got != want).nonzero()
-                if len(bad):
-                    slot, vy, vx = bad.T
-                    z = torch.maximum(got, want)[slot, vy, vx] - 1
-                    d = _voxel_distance(uc, k, params, bx[slot] + vx.float(),
-                                        by[slot] + vy.float(), z.float())
-                    if tol == 0 or not bool((d.abs() <= tol).all()):
-                        raise Failed(
-                            f"unrolled guard ({label}) U1-3D {name} at "
-                            f"a={a_val}, b={b_val}: {len(bad)} depth columns "
-                            f"differ from plain (plain distances there "
-                            f"{d[:4].tolist()})")
-                    witnessed += len(bad)
-            for name, k in intervals3:
+                for G in groups:
+                    if G is not None and G > sub:
+                        continue
+                    kw = {} if G is None else {"group": G}
+                    got = uc.unrolled_voxel_depth(k, bx, by, bz, valid,
+                                                  params, sub=sub, **kw)
+                    witnessed += _depth_witness(
+                        uc, k, params, tol, got, want, bx, by,
+                        f"unrolled guard ({label}) U1-3D {name} group {G} "
+                        f"{at}")
+                    launches += 1
+                for wl, s_, nl, order, count, z_lo, y_base, floor in \
+                        (worklists if frame_pair else ()):
+                    want_f = uc.unrolled_voxel_fold_plain(
+                        k, order, count, z_lo, params, floor.clone(),
+                        sub=s_, nl=nl, y_base=y_base)
+                    for G in groups:
+                        if G > s_:
+                            continue
+                        got_f = uc.unrolled_voxel_fold(
+                            k, order, count, z_lo, params, floor.clone(),
+                            sub=s_, nl=nl, y_base=y_base, group=G)
+                        witnessed += _depth_witness(
+                            uc, k, params, tol, got_f, want_f, None, None,
+                            f"unrolled guard ({label}) U1-3D fold {name} "
+                            f"({wl}) group {G} {at}", y_base)
+                        launches += 1
+            for ks in by_tape.values():  # a tape's layouts, one plain
                 for edge in (sub, 4 * sub):
-                    got = uc.unrolled_interval3(k, bx, by, bz, params, edge)
-                    want = uc.unrolled_interval3_plain(k, bx, by, bz, params,
-                                                       edge)
-                    if not all(torch.equal(g_, w_) for g_, w_ in zip(got, want)):
-                        raise Failed(
-                            f"unrolled guard ({label}) U2-3D {name} edge "
-                            f"{edge} at a={a_val}, b={b_val}: proofs differ "
-                            f"from plain")
-            launches += len(voxels3) + 2 * len(intervals3)
+                    want = uc.unrolled_interval3_plain(ks[0][1], bx, by, bz,
+                                                       params, edge)
+                    for name, k in ks:
+                        got = uc.unrolled_interval3(k, bx, by, bz, params,
+                                                    edge)
+                        if not all(torch.equal(g_, w_)
+                                   for g_, w_ in zip(got, want)):
+                            raise Failed(
+                                f"unrolled guard ({label}) U2-3D {name} edge "
+                                f"{edge} {at}: proofs differ from plain")
+                        launches += 1
+                for ts, (x0, y0, z0) in (roots.items() if frame_pair
+                                         else ()):
+                    want = uc.unrolled_proofs3_plain(ks[0][1], x0, y0, z0,
+                                                     params, ts, sub)
+                    for name, k in ks:
+                        got = uc.unrolled_proofs3(k, x0, y0, z0, params, ts,
+                                                  sub)
+                        if not all(torch.equal(g_, w_)
+                                   for g_, w_ in zip(got, want)):
+                            raise Failed(
+                                f"unrolled guard ({label}) U2-3D frame entry "
+                                f"{name} roots {ts} {at}: proofs differ from "
+                                f"plain")
+                        launches += 1
     torch.cuda.synchronize()
-    log(f"unrolled guard ({label}) 3D: U1-3D and U2-3D (edges {sub}, "
-        f"{4 * sub}) on the {len(voxels3)} combined tapes over the "
-        f"{n} subtiles of {GUARD3}^3, perspective and overflowing "
-        f"matrices, {launches} launches: U2-3D proofs and U1-3D depths "
-        f"equal to plain ({hit} hit columns; {witnessed} columns of the "
-        f"transcendental tape within its tolerance of the surface)")
+    log(f"unrolled guard ({label}) 3D: U1-3D (explicit"
+        + (f" and frame entries at groups {groups}, {len(worklists)} "
+           f"worklists, the frame entries at every other var pair, which "
+           f"take every value" if frame_entries else "")
+        + f") and U2-3D (edges {sub}, {4 * sub}"
+        + (f"; frame entry over roots {sorted(roots)}" if roots else "")
+        + f"; {len(intervals3)} kernels: layouts a tape) on the "
+        f"{len(voxels3)} combined tapes over the {n} subtiles of "
+        f"{GUARD3}^3, perspective and overflowing matrices, {launches} "
+        f"launches: U2-3D proofs and U1-3D depths and floors equal to plain "
+        f"({hit} hit columns; {witnessed} columns of the transcendental tape "
+        f"within its tolerance of the surface)")
     return launches
 
 
@@ -4946,8 +5254,8 @@ SHARD_PATHS = {
     "render_unrolled_sharded": ("unrolled_interval", "unrolled_float"),
     "render_voxels_sharded interp": ("interp_interval", "liveness_codes",
                                      "interp_voxel_depth", "interp_grad"),
-    "render_voxels_sharded unrolled": ("unrolled_interval3",
-                                       "unrolled_voxel_depth", "interp_grad"),
+    "render_voxels_sharded unrolled": ("unrolled_proofs3",
+                                       "unrolled_voxel_fold", "interp_grad"),
     "render_sharded": ("unrolled_float",),
     "fit_step unrolled": ("unrolled_float", "interp_grad"),
     "fit_step interp": ("interp_float", "interp_grad"),

@@ -41,16 +41,29 @@
 //
 // - U1-3D `fidget_unrolled_voxel_depth`: the 3D renderer's unrolled leaf,
 //   U1's programs behind a kernel unit of its own (U_VOXEL_KERNEL). A
-//   thread owns one (vy, vx) column of a worklist slot's sub^3 subtile,
-//   forms its voxels from the slot's base corner, and walks vz from the
-//   top down, stopping at the first voxel inside (d < 0): its depth is
-//   bz + vz + 1, the max over the column of inside ? bz + vz + 1 : 0,
-//   with no reduction; 0 where nothing is inside or the slot is invalid.
+//   group of G lanes (1-16, chosen from the slot count so that the grid
+//   fills the card twice over) owns one (vy, vx) column of a worklist slot's sub^3
+//   subtile and walks vz from the top down G voxels at a time, lane i
+//   one voxel of each chunk; a ballot over the group finds the topmost
+//   voxel inside (d < 0), and the group stops at the first chunk that
+//   holds one: the depth bz + vz + 1, the max over the column of inside ?
+//   bz + vz + 1 : 0, with no reduction. Its frame entry reads the
+//   stratum's compacted worklist and live count from device memory,
+//   forms each slot's corner itself and folds the depth into the floor
+//   with atomicMax (no candidates tensor, no scatter); its explicit entry
+//   takes the corners as planes and writes [n][sub][sub] candidates. At
+//   the union's 128 slots one lane a column left most SMs with 1-2 blocks
+//   and a warp ran as long as its deepest walk; groups put G times the
+//   warps on the card and cut a column's dependent evaluations G-fold.
 // - U2-3D `fidget_unrolled_interval` under U_Z3: U2 over 3D boxes
-//   [x0, x0 + T0] x [y0, y0 + T0] x [z0, z0 + T0] (the renderer's root
-//   tiles and subtiles), proofs only. U_Z3 adds the z0 corners to the
-//   warp streams' and the kernel's arguments; without it (2D) every
-//   expansion is as it was.
+//   [x0, x0 + T0] x [y0, y0 + T0] x [z0, z0 + T0], proofs only. U_Z3 adds
+//   the z0 corners and the subtiles' edge and count to the warp streams'
+//   and the kernel's arguments; without it (2D) every expansion is as it
+//   was. Its frame entry proves a frame's root tiles and every subtile of
+//   them in one launch, forming each subtile's corner from its root's;
+//   its explicit entry takes each box's corner. The warps a group (k of
+//   the schedule; k = 1 is one thread a box, one stream, no barrier) are
+//   fixed when the code is generated, from the frame's box count.
 // - U1-P `fidget_unrolled_points`: the mesher's points kernel (the
 //   counterpart of eval_tape_float_fast in fidget_tpu/mesh/fused.py's
 //   leaf and merge cores), U1's programs behind a kernel unit of
@@ -471,52 +484,144 @@ __device__ __forceinline__ void u_edges(
     return (int)cudaGetLastError();                                           \
   }
 
+namespace fidget {
+// U1-3D's column walk (module comment). Lane `lane` of a group of `group`
+// lanes owns column c (vy = c / sub, vx = c % sub) of slot `slot`; the
+// slot's base corner comes from the explicit planes bx / by / bz under
+// `valid`, or, with a worklist (`order` non-null), from the compacted
+// subtile index order[slot] (lz, gy, gx slab-local, live below *count),
+// formed in the f32 order of render3d.py's `stratum_leaf`. Each chunk of
+// `group` voxels runs side by side, lane i at vz = sub - 1 - (chunk +
+// i); a ballot over the group gives the topmost voxel inside (d < 0), and
+// the group stops at the first chunk with one. The explicit entry writes
+// the column's depth (0: nothing inside, or a dead slot) to out[slot][c];
+// the worklist entry folds it into the slab's int32 floor [ny2 sub][nx2
+// sub] by atomicMax, the max of integers in any order.
+template <int V, int AX, int AY, int AZ, class Run>
+__device__ __forceinline__ void u_voxel(
+    const float* __restrict__ bx, const float* __restrict__ by,
+    const float* __restrict__ bz, const bool* __restrict__ valid,
+    const int64_t* __restrict__ order, const int64_t* __restrict__ count,
+    const float* __restrict__ z_lo, float y_base, int ny2, int nx2,
+    const float* __restrict__ params, int32_t* __restrict__ out, int n_slots,
+    int sub, int group, Run run) {
+  // 32-bit indices (the launcher checks that they fit) and a shift for
+  // the group, a power of two: a 64-bit division is a software routine
+  // of dozens of instructions, against a short program's few rows
+  const int cols = sub * sub;
+  const int g = blockIdx.x * UBLOCK + threadIdx.x;
+  const int lane = threadIdx.x & (group - 1);
+  const int base = (threadIdx.x & 31) & ~(group - 1);
+  const int q = g >> (__ffs(group) - 1);  // the column over all slots
+  const int total = n_slots * cols;
+  const int slot = min(q / cols, n_slots - 1);
+  const int c = q - slot * cols;
+  bool live = q < total;
+  float x0 = 0.f, y0 = 0.f, z0 = 0.f;
+  int gx = 0, gy = 0;
+  if (order != nullptr) {
+    live = live && slot < __ldg(count);
+    if (live) {
+      const int o = (int)__ldg(order + slot);
+      const int per = ny2 * nx2;
+      const int lz = o / per;
+      const int rem = o - lz * per;
+      gy = rem / nx2;
+      gx = rem - gy * nx2;
+      x0 = (float)(gx * sub);
+      y0 = (float)(gy * sub);
+      if (y_base != 0.f) y0 = y0 + y_base;
+      z0 = (float)(lz * sub) + __ldg(z_lo);
+    }
+  } else if (live && valid[slot]) {
+    x0 = bx[slot];
+    y0 = by[slot];
+    z0 = bz[slot];
+  } else {
+    live = false;
+  }
+  const int vy = c / sub, vx = c - vy * sub;
+  const float px = x0 + (float)vx, py = y0 + (float)vy;
+  const unsigned gmask = group == 32 ? 0xffffffffu : (1u << group) - 1u;
+  float in[V];
+  int d = 0;
+  bool done = !live;
+  for (int c0 = 0; c0 < sub; c0 += group) {
+    if (__all_sync(0xffffffffu, done)) break;  // uniform over the warp
+    const int vz = sub - 1 - (c0 + lane);
+    bool inside = false;
+    if (!done && vz >= 0) {
+      u_inputs<V, AX, AY, AZ, float>(params, px, py, z0 + (float)vz, in);
+      inside = run(in) < 0.f;
+    }
+    const unsigned bits =
+        (__ballot_sync(0xffffffffu, inside) >> base) & gmask;
+    if (!done && bits) {
+      d = (int)z0 + (sub - 1 - (c0 + __ffs(bits) - 1)) + 1;
+      done = true;
+    }
+  }
+  if (lane != 0 || q >= total) return;
+  if (order == nullptr)
+    out[q] = d;
+  else if (d > 0)
+    atomicMax(out + (gy * sub + vy) * (nx2 * sub) + gx * sub + vx, d);
+}
+}  // namespace fidget
+
 // U1-3D. The kernel's unit defines U_V / U_AX / U_AY / U_AZ and
 // `u_run(0, in)` (the one program) as U1's does, then expands
-// U_VOXEL_KERNEL. Thread g owns column g % sub^2 (vy = c / sub, vx =
-// c % sub) of slot g / sub^2, whose voxels lie at (bx + vx, by + vy,
-// bz + vz); out is int32 [n_slots][sub][sub].
+// U_VOXEL_KERNEL: thread g is lane g % group of column g / group over
+// the slots (`u_voxel`). Two entries launch it: the explicit planes
+// (`..._voxel_depth_launch`: out int32 [n_slots][sub][sub]) and the
+// stratum's worklist (`..._voxel_fold_launch`: order int64 [n_slots],
+// the live count int64 [1], the slab's z base f32 [1], out the floor).
 #define U_VOXEL_KERNEL                                                        \
   extern "C" __global__ void __launch_bounds__(fidget::UBLOCK)                \
       fidget_unrolled_voxel_depth(                                            \
           const float* __restrict__ bx, const float* __restrict__ by,         \
           const float* __restrict__ bz, const bool* __restrict__ valid,       \
-          const float* __restrict__ params, int32_t* __restrict__ out,        \
-          int n_slots, int sub) {                                             \
-    const int cols = sub * sub;                                               \
-    const long long g = (long long)blockIdx.x * fidget::UBLOCK + threadIdx.x; \
-    if (g >= (long long)n_slots * cols) return;                               \
-    const int slot = (int)(g / cols);                                         \
-    const int c = (int)(g - (long long)slot * cols);                          \
-    int d = 0;                                                                \
-    if (valid[slot]) {                                                        \
-      float in[U_V];                                                          \
-      const float px = bx[slot] + (float)(c % sub);                           \
-      const float py = by[slot] + (float)(c / sub);                           \
-      const float z0 = bz[slot];                                              \
-      for (int vz = sub - 1; vz >= 0; --vz) {                                 \
-        fidget::u_inputs<U_V, U_AX, U_AY, U_AZ, float>(params, px, py,        \
-                                                       z0 + (float)vz, in);   \
-        if (u_run(0, in) < 0.f) {                                             \
-          d = (int)z0 + vz + 1;                                               \
-          break;                                                              \
-        }                                                                     \
-      }                                                                       \
-    }                                                                         \
-    out[g] = d;                                                               \
+          const int64_t* __restrict__ order,                                  \
+          const int64_t* __restrict__ count, const float* __restrict__ z_lo,  \
+          float y_base, int ny2, int nx2, const float* __restrict__ params,   \
+          int32_t* __restrict__ out, int n_slots, int sub, int group) {       \
+    fidget::u_voxel<U_V, U_AX, U_AY, U_AZ>(                                   \
+        bx, by, bz, valid, order, count, z_lo, y_base, ny2, nx2, params, out, \
+        n_slots, sub, group, [](const float* in) { return u_run(0, in); });   \
   }                                                                           \
-  extern "C" int fidget_unrolled_voxel_depth_launch(                          \
+  static int u_voxel_launch(                                                  \
       const float* bx, const float* by, const float* bz, const bool* valid,   \
-      const float* params, int32_t* out, int n_slots, int sub,                \
-      void* stream) {                                                         \
-    const long long total = (long long)n_slots * sub * sub;                   \
+      const int64_t* order, const int64_t* count, const float* z_lo,          \
+      float y_base, int ny2, int nx2, const float* params, int32_t* out,      \
+      int n_slots, int sub, int group, void* stream) {                        \
+    const long long total = (long long)n_slots * sub * sub * group;           \
     const long long blocks = (total + fidget::UBLOCK - 1) / fidget::UBLOCK;   \
-    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;             \
+    if (sub <= 0 || group <= 0 || group > 32 || (group & (group - 1)) ||      \
+        blocks * fidget::UBLOCK > 0x7fffffffLL ||                             \
+        (long long)ny2 * nx2 * sub * sub > 0x7fffffffLL)                      \
+      return (int)cudaErrorInvalidValue;                                      \
     if (blocks > 0)                                                           \
       fidget_unrolled_voxel_depth<<<(unsigned)blocks, fidget::UBLOCK, 0,      \
                                     (cudaStream_t)stream>>>(                  \
-          bx, by, bz, valid, params, out, n_slots, sub);                      \
+          bx, by, bz, valid, order, count, z_lo, y_base, ny2, nx2, params,    \
+          out, n_slots, sub, group);                                          \
     return (int)cudaGetLastError();                                           \
+  }                                                                           \
+  extern "C" int fidget_unrolled_voxel_depth_launch(                          \
+      const float* bx, const float* by, const float* bz, const bool* valid,   \
+      const float* params, int32_t* out, int n_slots, int sub, int group,     \
+      void* stream) {                                                         \
+    return u_voxel_launch(bx, by, bz, valid, nullptr, nullptr, nullptr, 0.f,  \
+                          0, 1, params, out, n_slots, sub, group, stream);    \
+  }                                                                           \
+  extern "C" int fidget_unrolled_voxel_fold_launch(                           \
+      const int64_t* order, const int64_t* count, const float* z_lo,          \
+      float y_base, int ny2, int nx2, const float* params, int32_t* floor_,   \
+      int n_slots, int sub, int group, void* stream) {                        \
+    if (ny2 <= 0 || nx2 <= 0) return (int)cudaErrorInvalidValue;             \
+    return u_voxel_launch(nullptr, nullptr, nullptr, nullptr, order, count,   \
+                          z_lo, y_base, ny2, nx2, params, floor_, n_slots,    \
+                          sub, group, stream);                                \
   }
 
 // U2. Every unit of an interval kernel defines U_EPI, U_V, U_AX / U_AY /
@@ -544,15 +649,34 @@ __device__ __forceinline__ void u_box_inputs(Ival bx, Ival by, Ival bz,
   if constexpr (AZ >= 0) in[AZ] = bz;
 }
 #elif U_Z3
-// The box of one 3D tile through transform_intervals.
+// The box of one 3D tile through transform_intervals. With nl == 0 box
+// `tile` is [x0, x0 + T0] x [y0, y0 + T0] x [z0, z0 + T0] at its own
+// corners; else box `tile` is entry j of root t = tile / (1 + nl^3): the
+// root itself (j = 0, edge T0), or its subtile j - 1 in (lz, ly, lx)
+// row-major order (edge Ts), whose corner is the root's plus (lx, ly,
+// lz) Ts, the f32 sums of integers that render3d.py's tables give.
 __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
                                               const float* __restrict__ y0,
                                               const float* __restrict__ z0,
                                               const float* __restrict__ p,
-                                              float T0, int tile, Ival* in) {
-  u_inputs<U_V, U_AX, U_AY, U_AZ, Ival>(
-      p, Ival{x0[tile], x0[tile] + T0}, Ival{y0[tile], y0[tile] + T0},
-      Ival{z0[tile], z0[tile] + T0}, in);
+                                              float T0, float Ts, int nl,
+                                              int tile, Ival* in) {
+  int t = tile, j = 0;
+  if (nl > 0) {
+    const int m1 = nl * nl * nl + 1;
+    t = tile / m1;
+    j = tile - t * m1;
+  }
+  float ax = x0[t], ay = y0[t], az = z0[t], e = T0;
+  if (j > 0) {
+    const int k = j - 1;
+    ax = ax + (float)(k % nl) * Ts;
+    ay = ay + (float)((k / nl) % nl) * Ts;
+    az = az + (float)(k / (nl * nl)) * Ts;
+    e = Ts;
+  }
+  u_inputs<U_V, U_AX, U_AY, U_AZ, Ival>(p, Ival{ax, ax + e}, Ival{ay, ay + e},
+                                        Ival{az, az + e}, in);
 }
 #else
 // The box of one tile through transform_intervals.
@@ -568,15 +692,20 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
 #endif
 }  // namespace fidget
 
-// the z0 corners in the argument lists of U2-3D (nothing in 2D), and
-// the entry point of each
+// the z0 corners and the subtiles' edge and count (nl: subtiles a root
+// edge, 0 for explicit boxes) in the argument lists of U2-3D (nothing in
+// 2D), and the entry point of each
 #if U_Z3
 #define U_Z0_PARAM const float *__restrict__ z0,
 #define U_Z0_ARG z0,
+#define U_SUB_PARAM float Ts, int nl,
+#define U_SUB_ARG Ts, nl,
 #define U_ILAUNCH fidget_unrolled_interval3_launch
 #else
 #define U_Z0_PARAM
 #define U_Z0_ARG
+#define U_SUB_PARAM
+#define U_SUB_ARG
 #define U_ILAUNCH fidget_unrolled_interval_launch
 #endif
 
@@ -605,10 +734,11 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
 #else
 #define U_WARP_ARGS                                                        \
   const float *__restrict__ x0, const float *__restrict__ y0, U_Z0_PARAM   \
-      const float *__restrict__ params, float T0, fidget::Ival *sh,        \
-      uint32_t *wd, bool *__restrict__ rin, bool *__restrict__ rout,       \
-      int tile, bool live
-#define U_TILE_INPUTS u_tile_inputs(x0, y0, U_Z0_ARG params, T0, tile, in)
+      const float *__restrict__ params, float T0, U_SUB_PARAM              \
+      fidget::Ival *sh, uint32_t *wd, bool *__restrict__ rin,              \
+      bool *__restrict__ rout, int tile, bool live
+#define U_TILE_INPUTS                                                      \
+  u_tile_inputs(x0, y0, U_Z0_ARG params, T0, U_SUB_ARG tile, in)
 #define U_WARP_BEGIN(name)                                                 \
   extern "C" __device__ __noinline__ void name(U_WARP_ARGS) {              \
     using namespace fidget;                                                \
@@ -675,7 +805,7 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
       fidget_unrolled_interval(                                               \
           const float* __restrict__ x0, const float* __restrict__ y0,         \
           U_Z0_PARAM const float* __restrict__ params, float T0,              \
-          const int32_t* __restrict__ u, bool* __restrict__ rin,              \
+          U_SUB_PARAM const int32_t* __restrict__ u, bool* __restrict__ rin,  \
           bool* __restrict__ rout, int32_t* __restrict__ words,               \
           bool* __restrict__ viol, uint32_t* __restrict__ scratch, int n) {   \
     using namespace fidget;                                                   \
@@ -694,8 +824,8 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
       for (int i = threadIdx.x; i < U_CWS * 32; i += U_K * 32) wd_[i] = 0u;   \
       __syncthreads();                                                        \
     }                                                                         \
-    u_warps(w, x0, y0, U_Z0_ARG params, T0, sh_ + l, wd_ + l, rin, rout,      \
-            tile, live);                                                      \
+    u_warps(w, x0, y0, U_Z0_ARG params, T0, U_SUB_ARG sh_ + l, wd_ + l, rin,  \
+            rout, tile, live);                                                \
     if (U_CWS > 0) __syncthreads();                                           \
     if (U_EPI == 1 && live)                                                   \
       for (int j = w; j < U_CWS; j += U_K)                                    \
@@ -717,7 +847,7 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
   }                                                                           \
   extern "C" int U_ILAUNCH(                                                   \
       const float* x0, const float* y0, U_Z0_PARAM const float* params,       \
-      float T0,                                                               \
+      float T0, U_SUB_PARAM                                                   \
       const int32_t* u, bool* rin, bool* rout, int32_t* words, bool* viol,    \
       uint32_t* scratch, int n, void* stream) {                               \
     const int blocks = (n + 31) / 32;                                         \
@@ -725,8 +855,8 @@ __device__ __forceinline__ void u_tile_inputs(const float* __restrict__ x0,
     if (blocks > 0)                                                           \
       fidget_unrolled_interval<<<blocks, U_K * 32, u_shared_bytes,            \
                                  (cudaStream_t)stream>>>(                     \
-          x0, y0, U_Z0_ARG params, T0, u, rin, rout, words, viol, scratch,    \
-          n);                                                                 \
+          x0, y0, U_Z0_ARG params, T0, U_SUB_ARG u, rin, rout, words, viol,   \
+          scratch, n);                                                        \
     return (int)cudaGetLastError();                                           \
   }
 

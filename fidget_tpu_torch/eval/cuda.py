@@ -226,6 +226,8 @@ KERNELS = {
     "unrolled_interval": (None, "fidget_unrolled_interval_launch"),
     "unrolled_voxel_depth": (None, "fidget_unrolled_voxel_depth_launch"),
     "unrolled_interval3": (None, "fidget_unrolled_interval3_launch"),
+    "unrolled_voxel_fold": (None, "fidget_unrolled_voxel_fold_launch"),
+    "unrolled_proofs3": (None, "fidget_unrolled_interval3_launch"),
     "unrolled_points": (None, "fidget_unrolled_points_launch"),
     "unrolled_interval_boxes": (None, "fidget_unrolled_interval_boxes_launch"),
     "unrolled_edges": (None, "fidget_unrolled_edges_launch"),

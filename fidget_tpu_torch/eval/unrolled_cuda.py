@@ -21,12 +21,19 @@ proofs="unrolled")`) run two 3D variants of them, the counterparts of
 the unrolled `stratum_leaf` and of `_unrolled_interval3` in
 `fidget_tpu.render.render3d`:
 
-- U1-3D `unrolled_voxel_depth` (`VoxelKernel`): U1's program of the
-  whole tape behind a kernel unit of its own, over the voxels of a
-  worklist of subtiles, with a depth epilogue: a thread walks one
-  column from the top and stops at the first voxel inside;
-- U2-3D `unrolled_interval3` (`Interval3Kernel`): U2 over 3D boxes (a
-  z interval per tile instead of the 2D plane's fixed z), proofs only.
+- U1-3D (`VoxelKernel`): U1's program of the whole tape behind a kernel
+  unit of its own, over the voxels of a worklist of subtiles, with a
+  depth epilogue: a group of `voxel_group` lanes walks one column from
+  the top, a chunk of voxels at a time, and stops at the first chunk
+  with a voxel inside. Its frame entry `unrolled_voxel_fold` reads a
+  stratum's compacted worklist and count on the device and folds the
+  depths into the floor; `unrolled_voxel_depth` takes explicit corners
+  and returns the candidates;
+- U2-3D (`Interval3Kernel`): U2 over 3D boxes (a z interval per tile
+  instead of the 2D plane's fixed z), proofs only, at `proofs3_warps`
+  warps a group. Its frame entry `unrolled_proofs3` proves a frame's
+  root tiles and all their subtiles in one launch, forming the
+  subtiles' corners itself; `unrolled_interval3` takes explicit boxes.
 
 The mesher's compiled path (`build_mesh(Settings(eval="unrolled"))`,
 mesh/fused.py) runs two more, the counterparts of `eval_tape_float_fast`
@@ -68,9 +75,10 @@ failed build or launch raises; nothing falls back to the plain versions
 on a CUDA tensor.
 
 `unrolled_float` / `unrolled_interval` / `unrolled_voxel_depth` /
-`unrolled_interval3` / `unrolled_points` / `unrolled_edges` /
-`level_active` / `unrolled_interval_boxes` dispatch on the device of
-their tensors: on the CPU
+`unrolled_voxel_fold` / `unrolled_interval3` / `unrolled_proofs3` /
+`unrolled_points` / `unrolled_edges` / `level_active` /
+`unrolled_interval_boxes` dispatch on the device of their tensors: on
+the CPU
 they run their `_plain` versions (eval/unrolled_fast.py's evaluators),
 which take tensors on any device, so the kernels can be held against
 them on the card. `cuda.LAUNCHES` counts each kernel under its own
@@ -134,6 +142,21 @@ EDGE_OUTS = 9
 #: U2-B's threads a block and its units' nvcc flags (one thread a box)
 BOX_BLOCK = 128
 BOX_FLAGS = INTERVAL_FLAGS
+#: U2-3D's layouts, warps a group of 32 boxes: the ones measured
+#: (`probe_kernels.py --compiled3d`); `proofs3_warps` picks 1 or
+#: INTERVAL_WARPS
+PROOFS3_WARPS = (1, 4, 8, 16)
+#: U2-3D takes one thread a box from this many groups of 32 boxes on: a
+#: warp for each of the card's 528 schedulers (the gyroid's 1,040 groups
+#: ran 1.7x faster at one thread a box than at 4 warps a group, the
+#: union's 18 groups 2.6x slower: `PERF.md` §6)
+PROOFS3_ONE_THREAD_GROUPS = 132 * 4
+#: U1-3D's lanes a column (`voxel_group`), and the threads it aims for:
+#: twice the 2,048 resident on each of the card's 132 SMs (the union's
+#: 128 slots ran fastest at 16 lanes; the gyroid's strata of 640-1,024
+#: slots at 2 and 4 alike, both ahead of 1 and 8: `PERF.md` §6)
+VOXEL_GROUPS = (1, 2, 4, 8, 16)
+FILL_THREADS = 2 * 132 * 2048
 
 _UNARY = frozenset(int(o) for o in UNARY_TAPE_OPS)
 _BINARY = frozenset(int(o) for o in BINARY_TAPE_OPS)
@@ -528,7 +551,8 @@ def emit_interval_kernel(sched: IntervalSchedule, V: int, axis_of: dict,
     decls = "".join(f'extern "C" __device__ void {n}(U_WARP_ARGS);\n'
                     for n in names)
     if z3:
-        args = "x0, y0, z0, params, T0, sh, wd, rin, rout, tile, live"
+        args = ("x0, y0, z0, params, T0, Ts, nl, sh, wd, rin, rout, tile, "
+                "live")
     else:
         args = "x0, y0, params, T0, sh, wd, rin, rout, tile, live"
     cases = "".join(f"    case {w}: {n}({args}); break;\n"
@@ -692,10 +716,16 @@ _ARGTYPES = {
     "fidget_unrolled_float_launch": [_P] * 5 + [_I, _P] + [_I] * 3 + [_P],
     # x0 y0 params | T0 | u rin rout words viol scratch | n | stream
     "fidget_unrolled_interval_launch": [_P] * 3 + [_F] + [_P] * 6 + [_I, _P],
-    # bx by bz valid params out | n_slots sub | stream
-    "fidget_unrolled_voxel_depth_launch": [_P] * 6 + [_I] * 2 + [_P],
-    # x0 y0 z0 params | T0 | u rin rout words viol scratch | n | stream
-    "fidget_unrolled_interval3_launch": [_P] * 4 + [_F] + [_P] * 6 + [_I, _P],
+    # bx by bz valid params out | n_slots sub group | stream
+    "fidget_unrolled_voxel_depth_launch": [_P] * 6 + [_I] * 3 + [_P],
+    # order count z_lo | y_base | ny2 nx2 | params floor | n_slots sub
+    # group | stream
+    "fidget_unrolled_voxel_fold_launch": [_P] * 3 + [_F] + [_I] * 2
+    + [_P] * 2 + [_I] * 3 + [_P],
+    # x0 y0 z0 params | T0 Ts | nl | u rin rout words viol scratch | n |
+    # stream
+    "fidget_unrolled_interval3_launch": [_P] * 4 + [_F] * 2 + [_I]
+    + [_P] * 6 + [_I, _P],
     # x y z params count | cols | out | n | stream
     "fidget_unrolled_points_launch": [_P] * 5 + [_I, _P, _I, _P],
     # box params count | cols | rin rout | n | stream
@@ -907,12 +937,24 @@ class IntervalKernel:
 
 
 class Interval3Kernel(IntervalKernel):
-    """U2-3D for one tape: U2's schedule and proofs over 3D boxes."""
+    """U2-3D for one tape: U2's schedule and proofs over 3D boxes, at
+    `warps` warps a group of 32 boxes (fewer where the hand-offs pass
+    SLOT_BUDGET; 1: one thread a box, one stream, no barrier). The
+    renderer takes `proofs3_warps` of its frame's box count."""
 
     Z3 = True
 
-    def __init__(self, tape: Tape, axis_of: dict, V: int):
+    def __init__(self, tape: Tape, axis_of: dict, V: int, *,
+                 warps: int = INTERVAL_WARPS):
+        if warps not in PROOFS3_WARPS:
+            raise ValueError(f"warps must be one of {PROOFS3_WARPS}")
         super().__init__(tape, axis_of, V, "proofs")
+        self.warps = int(warps)
+
+    def schedule(self) -> IntervalSchedule:
+        if self._sched is None:
+            self._sched = schedule_interval(self.tape, self.warps)
+        return self._sched
 
 
 class BoxesKernel(IntervalKernel):
@@ -1113,20 +1155,51 @@ def unrolled_interval_plain(kern: IntervalKernel, x0, y0, params, T0,
     return his[0] < 0.0, los[0] > 0.0, extra
 
 
+def voxel_group(n_slots: int, sub: int) -> int:
+    """U1-3D's lanes a column for a launch of `n_slots` sub^3 slots: the
+    most of VOXEL_GROUPS (at most `sub`, a power of two that divides it)
+    whose threads, n_slots x sub^2 x G, still fit FILL_THREADS (1 where
+    one lane a column passes it already)."""
+    cols = max(1, int(n_slots) * int(sub) * int(sub))
+    fits = [G for G in VOXEL_GROUPS
+            if G <= sub and sub % G == 0 and cols * G <= FILL_THREADS]
+    return max(fits, default=1)
+
+
+def proofs3_warps(n_boxes: int) -> int:
+    """U2-3D's layout for a frame of `n_boxes` boxes (root tiles and
+    their subtiles), fixed when the kernel is generated: one thread a box
+    where the boxes give a warp to every scheduler of the card
+    (PROOFS3_ONE_THREAD_GROUPS groups of 32), else INTERVAL_WARPS warps a
+    group, so that few groups still spread over several warps (8 and 16
+    measured no faster on the union: more stages and hand-offs)."""
+    groups = -(-int(n_boxes) // 32)
+    return 1 if groups >= PROOFS3_ONE_THREAD_GROUPS else INTERVAL_WARPS
+
+
+def _group_arg(group, n_slots, sub):
+    G = voxel_group(n_slots, sub) if group is None else int(group)
+    if G not in VOXEL_GROUPS or G > sub or sub % G:
+        raise ValueError(f"group must be one of {VOXEL_GROUPS} dividing sub")
+    return G
+
+
 def unrolled_voxel_depth(kern: VoxelKernel, bx, by, bz, valid, params, *,
-                         sub: int):
-    """U1-3D: int32 [n, sub, sub] depth candidates of a worklist of sub^3
-    subtiles. Slot k's voxel (vz, vy, vx) lies at (bx[k] + vx, by[k] +
-    vy, bz[k] + vz) in screen space; a column's value is the max over vz
-    of `bz + vz + 1` where the tape's value there is < 0, else 0, and 0
-    on invalid slots. `params` is `params_tensor(mat, z, var_vec)` (z is
-    not read)."""
+                         sub: int, group: int | None = None):
+    """U1-3D's explicit entry: int32 [n, sub, sub] depth candidates of a
+    worklist of sub^3 subtiles. Slot k's voxel (vz, vy, vx) lies at
+    (bx[k] + vx, by[k] + vy, bz[k] + vz) in screen space; a column's
+    value is the max over vz of `bz + vz + 1` where the tape's value
+    there is < 0, else 0, and 0 on invalid slots. `params` is
+    `params_tensor(mat, z, var_vec)` (z is not read); `group` the lanes
+    a column (None: `voxel_group`)."""
     n = bx.shape[0]
     if by.shape != (n,) or bz.shape != (n,) or valid.shape != (n,) \
             or valid.dtype != torch.bool:
         raise ValueError("bx, by, bz f32 [n] and valid bool [n] expected")
     if params.shape != (PARAM_VARS + kern.V,):
         raise ValueError(f"params must be [{PARAM_VARS + kern.V}]")
+    G = _group_arg(group, n, sub)
     if params.device.type == "cpu":
         return unrolled_voxel_depth_plain(kern, bx, by, bz, valid, params,
                                           sub=sub)
@@ -1136,7 +1209,7 @@ def unrolled_voxel_depth(kern: VoxelKernel, bx, by, bz, valid, params, *,
     stream = torch.cuda.current_stream().cuda_stream
     err = lib.fidget_unrolled_voxel_depth_launch(
         bx.data_ptr(), by.data_ptr(), bz.data_ptr(), valid.data_ptr(),
-        params.data_ptr(), out.data_ptr(), n, sub, stream,
+        params.data_ptr(), out.data_ptr(), n, sub, G, stream,
     )
     if err != 0:
         raise RuntimeError(f"CUDA launch of unrolled_voxel_depth failed "
@@ -1172,6 +1245,115 @@ def unrolled_voxel_depth_plain(kern: VoxelKernel, bx, by, bz, valid, params,
     return torch.where(inside, top, torch.zeros_like(top)).amax(1)
 
 
+def decode_worklist(order, count, *, ny2: int, nx2: int):
+    """A stratum's compacted worklist (render3d.py `_compact_stratum`:
+    the int64 subtile indices, every active one first, `count` of them)
+    decoded: (valid, lz, gy, gx), slot k valid exactly when k < count,
+    (lz, gy, gx) its slab-local subtile (int64)."""
+    valid = torch.arange(order.shape[0], device=order.device) < count
+    rem = order % (ny2 * nx2)
+    return valid, order // (ny2 * nx2), rem // nx2, rem % nx2
+
+
+def worklist_corners(lz, gy, gx, z_lo, *, sub: int, y_base: float = 0.0):
+    """The screen-space base corners (bx, by, bz) f32 of decoded worklist
+    slots, in render3d.py's f32 order: gx sub, gy sub (+ y_base, the
+    slab's first global row, where it is not 0), lz sub + z_lo."""
+    f32 = torch.float32
+    by = (gy * sub).to(f32)
+    if y_base:
+        by = by + y_base
+    return (gx * sub).to(f32), by, (lz * sub).to(f32) + z_lo
+
+
+def fold_candidates(floor, dcand, order, valid, *, nl: int):
+    """A stratum's depth candidates [cap, sub, sub] scattered back through
+    the compaction's inverse and folded into the slab's floor [ny2 sub,
+    nx2 sub] by max (a new tensor); `nl` subtiles a root tile's edge."""
+    cap, sub = dcand.shape[0], dcand.shape[1]
+    H, W = floor.shape
+    ny2, nx2 = H // sub, W // sub
+    slots = torch.arange(cap, device=order.device)
+    slot_of = torch.full(
+        (nl * ny2 * nx2,), cap, dtype=torch.int64, device=order.device
+    ).scatter(0, order, torch.where(valid, slots, cap))
+    dcand_pad = torch.cat([dcand, dcand.new_zeros((1, sub, sub))])
+    slab_vox = (
+        dcand_pad[slot_of]
+        .reshape(nl, ny2, nx2, sub, sub)
+        .permute(0, 1, 3, 2, 4)
+        .reshape(nl, H, W)
+        .amax(0)
+    )
+    return torch.maximum(floor, slab_vox)
+
+
+def _fold_args(order, count, z_lo, params, floor, kern, sub):
+    if order.dim() != 1 or order.dtype != torch.int64:
+        raise ValueError("order must be int64 [cap]")
+    if count.numel() != 1 or count.dtype != torch.int64:
+        raise ValueError("count must be an int64 tensor of one element")
+    if z_lo.numel() != 1 or z_lo.dtype != torch.float32:
+        raise ValueError("z_lo must be an f32 tensor of one element")
+    if params.shape != (PARAM_VARS + kern.V,):
+        raise ValueError(f"params must be [{PARAM_VARS + kern.V}]")
+    if floor.dim() != 2 or floor.dtype != torch.int32 or \
+            floor.shape[0] % sub or floor.shape[1] % sub:
+        raise ValueError("floor must be int32 [ny2 sub, nx2 sub]")
+    return floor.shape[0] // sub, floor.shape[1] // sub
+
+
+def unrolled_voxel_fold(kern: VoxelKernel, order, count, z_lo, params,
+                        floor, *, sub: int, nl: int, y_base: float = 0.0,
+                        group: int | None = None):
+    """U1-3D's frame entry: one stratum's leaf, folded into its floor in
+    place. `order` (int64 [cap]) is the stratum's compacted worklist of
+    slab-local subtile indices (lz, gy, gx) row-major over [nl, ny2,
+    nx2], every active one first and `count` (int64, one element, on the
+    device) of them; slot k's subtile lies at screen corner (gx sub, gy
+    sub + y_base, lz sub + z_lo) (`z_lo` f32, one element: the stratum's
+    z base). Each column's depth (`unrolled_voxel_depth`) is folded into
+    `floor` (int32 [ny2 sub, nx2 sub], contiguous: the slab's rows) by
+    max at row gy sub + vy, column gx sub + vx. Returns `floor`."""
+    ny2, nx2 = _fold_args(order, count, z_lo, params, floor, kern, sub)
+    G = _group_arg(group, order.shape[0], sub)
+    if params.device.type == "cpu":
+        return unrolled_voxel_fold_plain(kern, order, count, z_lo, params,
+                                         floor, sub=sub, nl=nl,
+                                         y_base=y_base)
+    if not floor.is_contiguous() or not order.is_contiguous():
+        raise ValueError("floor and order must be contiguous")
+    cuda.check_cuda(order, count, z_lo, params, floor)
+    lib = _load(kern.unit())
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.fidget_unrolled_voxel_fold_launch(
+        order.data_ptr(), count.data_ptr(), z_lo.data_ptr(), float(y_base),
+        ny2, nx2, params.data_ptr(), floor.data_ptr(), order.shape[0], sub,
+        G, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of unrolled_voxel_fold failed "
+                           f"with error {err}")
+    cuda.LAUNCHES["unrolled_voxel_fold"] += 1
+    return floor
+
+
+def unrolled_voxel_fold_plain(kern: VoxelKernel, order, count, z_lo, params,
+                              floor, *, sub: int, nl: int,
+                              y_base: float = 0.0):
+    """Plain PyTorch version of `unrolled_voxel_fold` (same contract):
+    the worklist decoded, `unrolled_voxel_depth_plain` over its slots,
+    then `fold_candidates` (render3d.py's scatter through the
+    compaction's inverse), written into `floor`."""
+    ny2, nx2 = _fold_args(order, count, z_lo, params, floor, kern, sub)
+    valid, lz, gy, gx = decode_worklist(order, count, ny2=ny2, nx2=nx2)
+    bx, by, bz = worklist_corners(lz, gy, gx, z_lo.reshape(()), sub=sub,
+                                  y_base=y_base)
+    dcand = unrolled_voxel_depth_plain(kern, bx, by, bz, valid, params,
+                                       sub=sub)
+    return floor.copy_(fold_candidates(floor, dcand, order, valid, nl=nl))
+
+
 def interval3_bounds(kern: Interval3Kernel, x0, y0, z0, params, edge):
     """(lo, hi) f32 [n] of the tape over the boxes [x0, x0 + edge] x
     [y0, y0 + edge] x [z0, z0 + edge] through `transform_intervals`, by
@@ -1195,17 +1377,9 @@ def interval3_bounds(kern: Interval3Kernel, x0, y0, z0, params, edge):
     return los[0], his[0]
 
 
-def unrolled_interval3(kern: Interval3Kernel, x0, y0, z0, params, edge):
-    """U2-3D over the boxes [x0, x0 + edge] x [y0, y0 + edge] x [z0, z0 +
-    edge] (f32 [n] corners): (full, empty) bool [n], the proofs hi < 0
-    and lo > 0."""
-    n = x0.shape[0]
-    if y0.shape != (n,) or z0.shape != (n,):
-        raise ValueError("x0, y0, z0 must be f32 [n]")
-    if params.shape != (PARAM_VARS + kern.V,):
-        raise ValueError(f"params must be [{PARAM_VARS + kern.V}]")
-    if params.device.type == "cpu":
-        return unrolled_interval3_plain(kern, x0, y0, z0, params, edge)
+def _launch_interval3(kern, x0, y0, z0, params, T0, Ts, nl, n, name):
+    """Launches U2-3D over n boxes (nl = 0: explicit corners; else the
+    roots and their subtiles): (full, empty) bool [n]."""
     cuda.check_cuda(x0, y0, z0, params)
     dev = params.device
     full = torch.empty(n, dtype=torch.bool, device=dev)
@@ -1214,20 +1388,93 @@ def unrolled_interval3(kern: Interval3Kernel, x0, y0, z0, params, edge):
     stream = torch.cuda.current_stream().cuda_stream
     err = lib.fidget_unrolled_interval3_launch(
         x0.data_ptr(), y0.data_ptr(), z0.data_ptr(), params.data_ptr(),
-        float(edge), None, full.data_ptr(), empty.data_ptr(), None, None,
-        None, n, stream,
+        float(T0), float(Ts), int(nl), None, full.data_ptr(),
+        empty.data_ptr(), None, None, None, n, stream,
     )
     if err != 0:
-        raise RuntimeError(f"CUDA launch of unrolled_interval3 failed with "
-                           f"error {err}")
-    cuda.LAUNCHES["unrolled_interval3"] += 1
+        raise RuntimeError(f"CUDA launch of {name} failed with error {err}")
+    cuda.LAUNCHES[name] += 1
     return full, empty
+
+
+def _corner_args(kern, x0, y0, z0, params):
+    n = x0.shape[0]
+    if y0.shape != (n,) or z0.shape != (n,):
+        raise ValueError("x0, y0, z0 must be f32 [n]")
+    if params.shape != (PARAM_VARS + kern.V,):
+        raise ValueError(f"params must be [{PARAM_VARS + kern.V}]")
+    return n
+
+
+def unrolled_interval3(kern: Interval3Kernel, x0, y0, z0, params, edge):
+    """U2-3D's explicit entry, over the boxes [x0, x0 + edge] x [y0, y0 +
+    edge] x [z0, z0 + edge] (f32 [n] corners): (full, empty) bool [n],
+    the proofs hi < 0 and lo > 0."""
+    n = _corner_args(kern, x0, y0, z0, params)
+    if params.device.type == "cpu":
+        return unrolled_interval3_plain(kern, x0, y0, z0, params, edge)
+    return _launch_interval3(kern, x0, y0, z0, params, edge, 0.0, 0, n,
+                             "unrolled_interval3")
 
 
 def unrolled_interval3_plain(kern: Interval3Kernel, x0, y0, z0, params,
                              edge):
     """Plain PyTorch version of `unrolled_interval3` (same contract)."""
     lo, hi = interval3_bounds(kern, x0, y0, z0, params, edge)
+    return hi < 0.0, lo > 0.0
+
+
+def unrolled_proofs3(kern: Interval3Kernel, x0, y0, z0, params, ts: int,
+                     sub: int):
+    """U2-3D's frame entry: the proofs of a frame's root tiles and of
+    every subtile of them, in one launch. `x0`, `y0`, `z0` (f32 [nt]) are
+    the roots' corners, in (tz, ty, tx) order (a whole frame or a slab of
+    it); root t is [x0, x0 + ts] x ..., and its subtile j (of m = (ts /
+    sub)^3, (lz, ly, lx) row-major) lies at the root's corner plus (lx,
+    ly, lz) sub, with edge sub. Returns (full, empty), bool [nt, 1 + m]:
+    column 0 the root's proofs hi < 0 and lo > 0, column 1 + j subtile
+    j's."""
+    n = _corner_args(kern, x0, y0, z0, params)
+    if ts % sub:
+        raise ValueError("ts must be a multiple of sub")
+    nl = ts // sub
+    m1 = nl**3 + 1
+    if params.device.type == "cpu":
+        return unrolled_proofs3_plain(kern, x0, y0, z0, params, ts, sub)
+    full, empty = _launch_interval3(kern, x0, y0, z0, params, ts, sub, nl,
+                                    n * m1, "unrolled_proofs3")
+    return full.reshape(n, m1), empty.reshape(n, m1)
+
+
+def subtile_corners(x0, y0, z0, ts: int, sub: int):
+    """The corners of every subtile of the roots x0, y0, z0 (f32 [nt]),
+    f32 [nt, m] each, (lz, ly, lx) row-major: the root's corner plus the
+    f32 offsets (lx, ly, lz) sub, as render3d.py's `sub_dx` / `sub_dy` /
+    `sub_dz` tables add them."""
+    nl = ts // sub
+    k = torch.arange(nl**3, device=x0.device)
+    lx = ((k % nl) * sub).to(torch.float32)
+    ly = ((torch.div(k, nl, rounding_mode="floor") % nl) * sub).to(
+        torch.float32)
+    lz = (torch.div(k, nl * nl, rounding_mode="floor") * sub).to(
+        torch.float32)
+    return (x0[:, None] + lx[None, :], y0[:, None] + ly[None, :],
+            z0[:, None] + lz[None, :])
+
+
+def unrolled_proofs3_plain(kern: Interval3Kernel, x0, y0, z0, params,
+                           ts: int, sub: int):
+    """Plain PyTorch version of `unrolled_proofs3` (same contract):
+    `interval3_bounds` over the roots (edge ts) and over their subtiles'
+    boxes (`subtile_corners`, edge sub)."""
+    n = x0.shape[0]
+    rlo, rhi = interval3_bounds(kern, x0, y0, z0, params, ts)
+    sx0, sy0, sz0 = subtile_corners(x0, y0, z0, ts, sub)
+    m = sx0.shape[1]
+    slo, shi = interval3_bounds(kern, sx0.reshape(-1), sy0.reshape(-1),
+                                sz0.reshape(-1), params, sub)
+    lo = torch.cat([rlo.reshape(n, 1), slo.reshape(n, m)], dim=1)
+    hi = torch.cat([rhi.reshape(n, 1), shi.reshape(n, m)], dim=1)
     return hi < 0.0, lo > 0.0
 
 

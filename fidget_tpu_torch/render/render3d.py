@@ -38,14 +38,18 @@ Two tape bindings run this pipeline, as in 2D (render2d.py):
 - `_TracedBind` — `specialize=False`: the canonical bucket, the arena
   as data (Lcap, nf and choice words rounded up to the bucket).
 
-On the per-shape binding, `leaf="unrolled"` replaces steps 2d-2e by U1-3D
-(`unrolled_voxel_depth`): the whole tape, generated for this shape as
-straight-line CUDA, over the worklist's voxels, with no per-subtile
-tapes; `proofs="unrolled"` (which needs the unrolled leaf) replaces the
-interval passes of steps 1 and 2a by U2-3D (`unrolled_interval3`) and
-skips every simplification. Normals stay K4 over the whole tape under
-the shape's order in every mode (the reference takes three `jax.jvp`
-passes over its straight-line XLA there: forward duals either way).
+On the per-shape binding, `leaf="unrolled"` replaces steps 2d-2e and the
+fold by U1-3D (`unrolled_voxel_fold`): the whole tape, generated for this
+shape as straight-line CUDA, over the worklist's voxels, with no
+per-subtile tapes; it reads the stratum's compacted worklist and count
+on the device and folds each column's depth into the floor itself.
+`proofs="unrolled"` (which needs the unrolled leaf) replaces the
+interval passes of steps 1 and 2a by one launch of U2-3D a frame
+(`unrolled_proofs3`: the root tiles and every subtile of them; each
+stratum takes its part as a view) and skips every simplification.
+Normals stay K4 over the whole tape under the shape's order in every
+mode (the reference takes three `jax.jvp` passes over its straight-line
+XLA there: forward duals either way).
 `render(warmup="interp")` serves frames from a bucketed twin while the
 generated kernels build in the background (the build keys hash the
 tape's contents, so no tape is pinned against a recycled `id()`).
@@ -90,9 +94,12 @@ from ..eval.unrolled import eval_tape
 from ..eval.unrolled_cuda import (
     Interval3Kernel,
     VoxelKernel,
+    fold_candidates,
     params_tensor,
-    unrolled_interval3,
-    unrolled_voxel_depth,
+    proofs3_warps,
+    unrolled_proofs3,
+    unrolled_voxel_fold,
+    worklist_corners,
 )
 from ..shape import Shape, ShapeVars
 from .config import check_cancel
@@ -146,14 +153,17 @@ class _ConstBind3(_ConstBind):
         )
 
 
-def _compact_stratum(act_flat, *, nl, ny2, nx2, cap_s):
+def _compact_stratum(act_flat, *, nl, ny2, nx2, cap_s, decode=True):
     """Nearest-first stable compaction of a stratum's active flags into
-    a worklist of cap_s slots: the selection order, its validity mask
-    and the decoded (lz, gy, gx) slab-local subtile coordinates, all
-    int64 (gather indices)."""
+    a worklist of cap_s slots: the selection order (every active subtile
+    first), and unless `decode` is False its validity mask and the
+    decoded (lz, gy, gx) slab-local subtile coordinates, all int64
+    (gather indices). U1-3D's frame entry decodes the order itself."""
     lz_f = torch.arange(act_flat.shape[0], device=act_flat.device) // (ny2 * nx2)
     key = torch.where(act_flat, nl - lz_f, 1 << 30)
     order = torch.argsort(key, stable=True)[:cap_s]
+    if not decode:
+        return dict(order=order)
     rem = order % (ny2 * nx2)
     return dict(
         order=order,
@@ -310,10 +320,14 @@ class _Pipeline3:
             params = params_tensor(mat, mat.new_zeros(()), var_vec)
 
         # ---- stage 1: root interval pass (lanes = root tiles) ---------
+        # (under unrolled proofs: U2-3D proves the roots and every
+        # subtile of them in one launch, [nt, 1 + m], column 0 the roots;
+        # the subtiles' proofs need neither the floor nor the roots', and
+        # each stratum takes its part as a view)
         if unrolled_proofs:
-            root_full, root_empty = unrolled_interval3(
-                b.interval_kernel, x0, y0, z0, params, ts
-            )
+            proofs = unrolled_proofs3(b.interval_kernel, x0, y0, z0, params,
+                                      ts, self.sub)
+            root_full, root_empty = proofs[0][:, 0], proofs[1][:, 0]
             root_out = (root_full, root_empty, None)
         else:
             var_lo, var_hi = self.interval_vars(
@@ -355,38 +369,55 @@ class _Pipeline3:
             caps = [min(int(c), nsub_s) for c in strata_caps]
 
         def slab_of(a):
-            """[nt, ...] (tz, ty, tx)-major -> [ntz, ntxy, ...] with
-            stratum 0 = nearest (largest z)."""
-            return a.reshape((self.ntz, ntxy) + a.shape[1:]).flip(0)
+            """[nt, ...] (tz, ty, tx)-major -> [ntz, ntxy, ...] (tz-major:
+            stratum k, nearest first, is tz = ntz - 1 - k), a view."""
+            return a.reshape((self.ntz, ntxy) + a.shape[1:])
 
         xs = dict(
             x0=slab_of(x0), y0=slab_of(y0), z0=slab_of(z0),
             act=slab_of(root_active), full=slab_of(root_full),
         )
-        if not unrolled_proofs:
+        if unrolled_proofs:
+            xs.update(sub_full=slab_of(proofs[0][:, 1:]),
+                      sub_empty=slab_of(proofs[1][:, 1:]))
+        else:
             xs.update(
                 w1s=slab_of(w1s), w2s=slab_of(w2s), imms=slab_of(imms),
                 lens=slab_of(torch.where(root_active, lens, 0)),
             )
+        unrolled_leaf = getattr(b, "leaf", "interp") == "unrolled"
+        # a fresh tensor: no other aliases it (nor do the torch.maximum
+        # results that replace it in stratum_proofs), so U1-3D's frame
+        # entry may fold into it in place
         floor = torch.zeros((H, self.W), dtype=torch.int32, device=x0.device)
         counts = []
         for k, cap_s in enumerate(caps):
             check_cancel(cancel)
-            s = {key: v[k] for key, v in xs.items()}
+            s = {key: v[self.ntz - 1 - k] for key, v in xs.items()}
             floor, aux = self.stratum_proofs(b, st, floor, s, mat=mat,
-                                             var_vec=var_vec, nty=nty,
-                                             params=params)
+                                             var_vec=var_vec, nty=nty)
             hook("proofs")
             idx = _compact_stratum(
                 aux["act_flat"], nl=nl, ny2=ny2, nx2=self.nx2,
-                cap_s=cap_s,
+                cap_s=cap_s, decode=not unrolled_leaf,
             )
             hook("compact")
-            dcand = self.stratum_leaf(
-                b, st, s, aux, idx, mat=mat, var_vec=var_vec, cap_s=cap_s,
-                y_base=y_base, params=params, hook=hook,
-            )
-            floor = self.stratum_fold(floor, dcand, idx, nty=nty, cap_s=cap_s)
+            if unrolled_leaf:
+                # U1-3D reads the worklist and its count on the device and
+                # folds each column's depth into the floor (in place)
+                unrolled_voxel_fold(
+                    b.voxel_kernel, idx["order"], aux["n_active"],
+                    aux["z_lo"], params, floor, sub=self.sub, nl=nl,
+                    y_base=y_base,
+                )
+                hook("voxel")
+            else:
+                dcand = self.stratum_leaf(
+                    b, st, s, aux, idx, mat=mat, var_vec=var_vec,
+                    cap_s=cap_s, y_base=y_base, hook=hook,
+                )
+                floor = fold_candidates(floor, dcand, idx["order"],
+                                        idx["valid"], nl=nl)
             hook("fold")
             counts.append(aux["n_active"] if strata_caps is None
                           else (aux["n_active"] - cap_s).clamp(min=0))
@@ -398,10 +429,10 @@ class _Pipeline3:
         hook("normals")
         return floor, normal, n_active
 
-    def stratum_proofs(self, b, st, floor, s, *, mat, var_vec, nty,
-                       params=None):
+    def stratum_proofs(self, b, st, floor, s, *, mat, var_vec, nty):
         """Stratum stage A: root-full fold, subtile interval pass (K1 with
-        the slab's simplified tapes, or U2-3D under unrolled proofs),
+        the slab's simplified tapes; under unrolled proofs the stratum's
+        part of U2-3D's frame proofs, `s["sub_full"]` / `s["sub_empty"]`),
         proof-driven fulls and occlusion against the floor, over a
         stratum of `nty` tile rows. Returns (floor', aux) with the active
         flags, their count, the packed choices (None under unrolled
@@ -420,18 +451,13 @@ class _Pipeline3:
         floor = torch.maximum(floor, full_px)
 
         # subtile interval pass with the slab's simplified tapes
-        sx0 = x0s[:, None] + st["sub_dx"][None, :]   # [ntxy, m]
-        sy0 = y0s[:, None] + st["sub_dy"][None, :]
-        sz0 = z0s[:, None] + st["sub_dz"][None, :]
-        if getattr(b, "proofs", "interp") == "unrolled":
-            full, empty = unrolled_interval3(
-                b.interval_kernel, sx0.reshape(-1), sy0.reshape(-1),
-                sz0.reshape(-1), params, sub,
-            )
-            full = full.reshape(nty * ntx, m)
-            empty = empty.reshape(nty * ntx, m)
+        if "sub_full" in s:
+            full, empty = s["sub_full"], s["sub_empty"]   # [ntxy, m]
             choices1 = None
         else:
+            sx0 = x0s[:, None] + st["sub_dx"][None, :]   # [ntxy, m]
+            sy0 = y0s[:, None] + st["sub_dy"][None, :]
+            sz0 = z0s[:, None] + st["sub_dz"][None, :]
             var_lo1, var_hi1 = self.interval_vars(
                 b, im, mat, var_vec, (sx0, sx0 + sub), (sy0, sy0 + sub),
                 (sz0, sz0 + sub), self.s0s, (nty * ntx,),
@@ -455,7 +481,8 @@ class _Pipeline3:
         lz_col = torch.arange(nl, dtype=i32, device=floor.device)[:, None, None]
         sub_top = z_lo.to(i32) + lz_col * sub + sub
 
-        # proof-driven fulls at subtile granularity
+        # proof-driven fulls at subtile granularity (a new floor tensor,
+        # as above: nothing else aliases it)
         proof_sub = torch.where(to_dense(sub_full), sub_top, 0).amax(0)
         floor = torch.maximum(
             floor, proof_sub.repeat_interleave(sub, 0).repeat_interleave(sub, 1)
@@ -472,32 +499,19 @@ class _Pipeline3:
         return floor, aux
 
     def stratum_leaf(self, b, st, s, aux, idx, *, mat, var_vec, cap_s, hook,
-                     y_base, params=None):
-        """Stratum stage B: gather the worklist's parent tapes,
-        re-specialize them per subtile from the packed choices, and run
-        the voxel pass; under the unrolled leaf, U1-3D over the
-        worklist's voxels with the whole tape instead. The worklist's
-        rows are the slab's; `y_base` (a float) is the slab's first
-        global row. Returns depth candidates [cap_s, sub, sub]."""
+                     y_base):
+        """Stratum stage B (the interpreter leaf): gather the worklist's
+        parent tapes, re-specialize them per subtile from the packed
+        choices, and run the voxel pass. The worklist's rows are the
+        slab's; `y_base` (a float) is the slab's first global row.
+        Returns depth candidates [cap_s, sub, sub]."""
         sub, nl = self.sub, self.nl
-        i32, f32 = torch.int32, torch.float32
+        i32 = torch.int32
         lz, gy, gx, valid = idx["lz"], idx["gy"], idx["gx"], idx["valid"]
-        gy_sub = (gy * sub).to(f32)
-        if y_base:
-            gy_sub = gy_sub + y_base
-
-        if getattr(b, "leaf", "interp") == "unrolled":
-            dcand = unrolled_voxel_depth(
-                b.voxel_kernel, (gx * sub).to(f32), gy_sub,
-                (lz * sub).to(f32) + aux["z_lo"], valid, params, sub=sub,
-            )
-            hook("voxel")
-            return dcand
 
         # voxel coordinates of the worklist, (vz, vy, vx) row-major
-        bx = (gx * sub).to(f32)[:, None]
-        by = gy_sub[:, None]
-        bz = (lz * sub).to(f32)[:, None] + aux["z_lo"]
+        bx, by, bz = (c[:, None] for c in worklist_corners(
+            lz, gy, gx, aux["z_lo"], sub=sub, y_base=y_base))
         px = bx + st["vox_dx"][None, :]
         py = by + st["vox_dy"][None, :]
         pz = bz + st["vox_dz"][None, :]
@@ -539,27 +553,6 @@ class _Pipeline3:
             ).amax(1)
         hook("voxel")
         return dcand
-
-    def stratum_fold(self, floor, dcand, idx, *, nty, cap_s):
-        """Stratum stage C: scatter the worklist's depth candidates back
-        through the compaction inverse and fold the stratum's hits into
-        the floor (`nty` tile rows)."""
-        sub, nl, nx2 = self.sub, self.nl, self.nx2
-        ny2 = nty * nl
-        order, valid = idx["order"], idx["valid"]
-        slots = torch.arange(cap_s, device=order.device)
-        slot_of = torch.full(
-            (nl * ny2 * nx2,), cap_s, dtype=torch.int64, device=order.device
-        ).scatter(0, order, torch.where(valid, slots, cap_s))
-        dcand_pad = torch.cat([dcand, dcand.new_zeros((1, sub, sub))])
-        slab_vox = (
-            dcand_pad[slot_of]
-            .reshape(nl, ny2, nx2, sub, sub)
-            .permute(0, 1, 3, 2, 4)
-            .reshape(nl, nty * self.ts, self.W)
-            .amax(0)
-        )
-        return torch.maximum(floor, slab_vox)
 
     def normals_body(self, b, st, depth, matM, var_vec, *, y_base):
         """Per-pixel forward-gradient normals at the surface voxels
@@ -792,8 +785,11 @@ class VoxelRenderer:
 
     @functools.cached_property
     def _interval3_kernel(self) -> Interval3Kernel:
-        """U2-3D for this tape (the unrolled proofs)."""
-        return Interval3Kernel(self.tape, self.axis_of, self.n_inputs)
+        """U2-3D for this tape (the unrolled proofs), its layout fixed by
+        the frame's box count (roots and their subtiles)."""
+        g = self.geo
+        return Interval3Kernel(self.tape, self.axis_of, self.n_inputs,
+                               warps=proofs3_warps(g.nt * (1 + g.m)))
 
     def _generated_kernels(self) -> list:
         """The kernels generated for this tape that the frames run."""

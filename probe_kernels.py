@@ -94,6 +94,25 @@ variant's ptxas registers and spills (and the 7,203-op stand-in's);
 last, whole depth-8 builds of both scenes, each side in both eval
 modes, by turns (host clock, synchronized).
 
+    python3 probe_kernels.py --compiled3d [--variant NAME=DIR ...]
+
+instead works on the compiled 3D frame's kernels (U1-3D, U2-3D;
+`chip_smoke.py` phase 9b): for this tree and each checkout DIR (the
+parent, its `fidget_tpu_torch` imported beside the tree's) it builds the
+512^3 gyroid sphere's frames (bucketed, per-shape, unrolled leaf, leaf +
+proofs) and the 128^3 sphere union's compiled frame, captures the U1-3D
+and U2-3D calls of one frame of the compiled ones (this tree: one
+`unrolled_proofs3` and a `unrolled_voxel_fold` a stratum; the parent: 1
++ ntz `unrolled_interval3` and a `unrolled_voxel_depth` and
+`stratum_fold` a stratum) and times each side's U2-3D and U1-3D work of
+a frame by turns (CUDA events, `--rounds-unrolled` rounds) with the
+profiler's device time by kernel; then the tree's U2-3D at every layout
+of PROOFS3_WARPS (with ptxas spills and linked registers, also at the
+7,203-op stand-in's) and U1-3D at every group of VOXEL_GROUPS on the
+same inputs; last, whole frames of every side by turns (host clock,
+synchronized), equal to the tree's, with busy share and device ops a
+frame.
+
     python3 probe_kernels.py --unrolled-builds
 
 instead builds the kernels generated for the 2D stand-in
@@ -945,6 +964,257 @@ def mesher_probe(cs, port, others, opts):
                   f"{s} {v:.1f}" for s, v in runs[k][1].items()), flush=True)
 
 
+def _linked_regs(k, symbol):
+    """The registers of `symbol` in k's linked library, its callees
+    included (cuobjdump -res-usage)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-res-usage", str(k.unit().lib)],
+                         capture_output=True, text=True).stdout
+    lines = out.splitlines()
+    for i, line in enumerate(lines[:-1]):
+        if symbol in line:
+            return lines[i + 1].strip()
+    return "not found"
+
+
+def _by_turns(cs, fns, rounds, reps=5):
+    """CUDA-event ms of each of `fns` (label -> fn) over `rounds` rounds
+    by turns, the order reversed every other round: {label: [ms]}."""
+    times = {label: [] for label in fns}
+    order = list(fns)
+    for rnd in range(rounds):
+        for label in (order if rnd % 2 == 0 else order[::-1]):
+            times[label].append(cs.time_cuda(fns[label], reps))
+    return times
+
+
+def _print_turns(tag, times, unit="ms"):
+    for label, v in times.items():
+        print(f"compiled3d | {tag} by turns | {label}: median "
+              f"{np.median(v):.4f} {unit}, min {min(v):.4f} over {len(v)} "
+              f"rounds", flush=True)
+
+
+def compiled3d_probe(cs, port, others, opts):
+    """`--compiled3d` (see the module doc); `others` maps each checkout's
+    name to its package (the parent: per-stratum U2-3D launches and
+    U1-3D candidates with the fold in torch ops)."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+
+    sides = {"tree": port, **others}
+    view = cs.VIEWS3[1][1]
+    frames, kernels, rends = {}, {}, {}
+    for side, pkg in sides.items():
+        scenes = importlib.import_module(pkg.__name__ + ".scenes")
+        ctx = pkg.Context()
+        union = pkg.lower(ctx, [scenes.sphere_union_shape(ctx)])
+        big = pkg.VoxelSize(cs.SIZE3, cs.SIZE3, cs.SIZE3)
+        g = dict(tile_size=64, sub_size=16)
+        rs = {
+            "gyroid bucketed": pkg.VoxelRenderer(
+                scenes.gyroid_sphere(pkg), big, specialize=False, **g),
+            "gyroid per-shape": pkg.VoxelRenderer(scenes.gyroid_sphere(pkg),
+                                                  big, **g),
+            "gyroid unrolled leaf": pkg.VoxelRenderer(
+                scenes.gyroid_sphere(pkg), big, leaf="unrolled", **g),
+            "gyroid leaf+proofs": pkg.VoxelRenderer(
+                scenes.gyroid_sphere(pkg), big, leaf="unrolled",
+                proofs="unrolled", **g),
+            "union compiled": pkg.VoxelRenderer(
+                union, pkg.VoxelSize(128, 128, 128), tile_size=32,
+                sub_size=16, leaf="unrolled", proofs="unrolled"),
+        }
+        puc = importlib.import_module(pkg.__name__ + ".eval.unrolled_cuda")
+        ks = [k for r in rs.values() for k in r._generated_kernels()]
+        t0 = time.perf_counter()
+        puc.build_kernels(ks)
+        print(f"compiled3d | {side}: {len(ks)} generated kernels built in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for label, r in rs.items():
+            v = None if label.startswith("union") else view
+            r.render(v)
+            r.render(v)  # settled, with its strata schedule
+            frames[side, label] = (lambda r=r, v=v: r.render(v))
+        rends[side] = rs
+        kernels[side] = ks
+    torch.cuda.synchronize()
+
+    # one frame's U1-3D and U2-3D calls on each side
+    calls = {}
+    for side, pkg in sides.items():
+        r3d = importlib.import_module(pkg.__name__ + ".render.render3d")
+        new = hasattr(r3d, "unrolled_voxel_fold")
+        names = (("unrolled_proofs3", "unrolled_voxel_fold") if new
+                 else ("unrolled_interval3", "unrolled_voxel_depth"))
+        for label in ("gyroid leaf+proofs", "union compiled"):
+            rec = {n: [] for n in (*names, "stratum_fold")}
+            saved = {n: getattr(r3d, n) for n in names}
+            saved_fold = getattr(r3d._Pipeline3, "stratum_fold", None)
+
+            def wrap(n):
+                def call(*a, **kw):
+                    if n == "unrolled_voxel_fold":
+                        rec[n].append(((*a[:5], a[5].clone()), kw))
+                    else:
+                        rec[n].append((a, kw))
+                    return saved[n](*a, **kw)
+                return call
+
+            def fold(self, floor, dcand, idx, **kw):
+                rec["stratum_fold"].append((self, floor.clone(), idx, kw))
+                return saved_fold(self, floor, dcand, idx, **kw)
+
+            for n in names:
+                setattr(r3d, n, wrap(n))
+            if not new:
+                r3d._Pipeline3.stratum_fold = fold
+            try:
+                frames[side, label]()
+            finally:
+                for n, f in saved.items():
+                    setattr(r3d, n, f)
+                if not new:
+                    r3d._Pipeline3.stratum_fold = saved_fold
+            torch.cuda.synchronize()
+            calls[side, label] = (new, rec)
+            print(f"compiled3d | {side} {label}: "
+                  + ", ".join(f"{n} x{len(v)}" for n, v in rec.items()),
+                  flush=True)
+
+    def work(side, label, which):
+        """The U2-3D (`which` "proofs") or U1-3D ("leaf") work of one
+        frame on `side`, as its glue launches it."""
+        puc = importlib.import_module(sides[side].__name__
+                                      + ".eval.unrolled_cuda")
+        new, rec = calls[side, label]
+        if which == "proofs":
+            n = "unrolled_proofs3" if new else "unrolled_interval3"
+            fn = getattr(puc, n)
+            return lambda: [fn(*a, **kw) for a, kw in rec[n]]
+        if new:
+            return lambda: [puc.unrolled_voxel_fold(*a, **kw)
+                            for a, kw in rec["unrolled_voxel_fold"]]
+        pairs = list(zip(rec["unrolled_voxel_depth"], rec["stratum_fold"]))
+        return lambda: [
+            geo.stratum_fold(floor, puc.unrolled_voxel_depth(*a, **kw), idx,
+                             **fkw)
+            for (a, kw), (geo, floor, idx, fkw) in pairs]
+
+    names = ["fidget_unrolled_voxel_depth", "fidget_unrolled_interval"]
+    for label in ("gyroid leaf+proofs", "union compiled"):
+        for which in ("proofs", "leaf"):
+            fns = {side: work(side, label, which) for side in sides}
+            for side, fn in fns.items():
+                split = _device_split(fn, names)
+                print(f"compiled3d | {label} {which} | {side}: device ms a "
+                      f"frame's work: " + (", ".join(
+                          f"{k} {v:.4f}" for k, v in split.items())
+                          if split else "not recorded"), flush=True)
+            _print_turns(f"{label} {which}", _by_turns(
+                cs, fns, opts.rounds_unrolled))
+
+    # the layouts of U2-3D and the groups of U1-3D on the tree's inputs
+    ctx = port.Context()
+    from fidget_tpu_torch.scenes import standin_shape
+
+    standin = port.lower(ctx, [standin_shape(ctx)])
+    kinds = {v.kind: i for v, i in standin.var_map.items()}
+    variants = {}
+    for label in ("gyroid leaf+proofs", "union compiled"):
+        r = rends["tree"][label]
+        for k in uc.PROOFS3_WARPS:
+            variants[label, k] = uc.Interval3Kernel(r.tape, r.axis_of,
+                                                    r.n_inputs, warps=k)
+    for k in uc.PROOFS3_WARPS:
+        variants["stand-in", k] = uc.Interval3Kernel(standin, kinds,
+                                                     len(kinds), warps=k)
+    t0 = time.perf_counter()
+    steps = uc.build_kernels(list(variants.values()))
+    print(f"compiled3d | U2-3D layouts: {len(steps)} nvcc steps in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for key, k in variants.items():
+        spill = cs._ptxas_lines(k.unit())[1]
+        print(f"compiled3d | U2-3D {key[0]} k={key[1]} (schedule k "
+              f"{k.schedule().k}, {k.schedule().n_stages} stages, "
+              f"{k.schedule().n_slots} slots): spill bytes {spill}; linked "
+              f"{_linked_regs(k, 'fidget_unrolled_interval')}", flush=True)
+    for label in ("gyroid leaf+proofs", "union compiled"):
+        r = rends["tree"][label]
+        print(f"compiled3d | U1-3D {label}: spill bytes "
+              f"{cs._ptxas_lines(r._voxel_kernel.unit())[1]}; linked "
+              f"{_linked_regs(r._voxel_kernel, 'fidget_unrolled_voxel_depth')}",
+              flush=True)
+        _, rec = calls["tree", label]
+        (a, kw), = rec["unrolled_proofs3"]
+        want = uc.unrolled_proofs3(*a, **kw)
+        fns = {}
+        for k in uc.PROOFS3_WARPS:
+            kk = variants[label, k]
+            got = uc.unrolled_proofs3(kk, *a[1:], **kw)
+            same = all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
+            fn = (lambda kk=kk: uc.unrolled_proofs3(kk, *a[1:], **kw))
+            dms = cs.device_ms(fn, "fidget_unrolled_interval")
+            print(f"compiled3d | U2-3D {label} k={k}: "
+                  f"{'equal' if same else 'DIFFERS'}; device {dms} ms",
+                  flush=True)
+            fns[f"k={k}"] = fn
+        _print_turns(f"U2-3D layouts {label}", _by_turns(
+            cs, fns, opts.rounds_unrolled, reps=20))
+        folds = rec["unrolled_voxel_fold"]
+        sub = folds[0][1]["sub"]
+        want = [uc.unrolled_voxel_fold(*f[:5], f[5].clone(), **kw)
+                for f, kw in folds]
+        fns = {}
+        for G in uc.VOXEL_GROUPS:
+            if G > sub:
+                continue
+            got = [uc.unrolled_voxel_fold(*f[:5], f[5].clone(),
+                                          **{**kw, "group": G})
+                   for f, kw in folds]
+            same = all(torch.equal(g_, w_) for g_, w_ in zip(got, want))
+            fn = (lambda G=G: [uc.unrolled_voxel_fold(*f, **{**kw, "group": G})
+                               for f, kw in folds])
+            dms = cs.device_ms(fn, "fidget_unrolled_voxel_depth", reps=5)
+            caps = [f[1].shape[0] for f, _ in folds]
+            print(f"compiled3d | U1-3D {label} group {G} (rule: "
+                  f"{[uc.voxel_group(c, sub) for c in caps]} over caps "
+                  f"{caps}): {'equal' if same else 'DIFFERS'}; device "
+                  f"{dms} ms a launch", flush=True)
+            fns[f"G={G}"] = fn
+        _print_turns(f"U1-3D groups {label} (a frame's strata)", _by_turns(
+            cs, fns, opts.rounds_unrolled))
+
+    # whole frames by turns
+    labels = list(rends["tree"])
+    for label in labels:
+        if len(sides) > 1:
+            imgs = {side: frames[side, label]() for side in sides}
+            ref = imgs["tree"]
+            for side, img in imgs.items():
+                same = torch.equal(img.depth, ref.depth) and (
+                    img.normal is None or torch.equal(img.normal, ref.normal))
+                print(f"compiled3d | frame {label} | {side}: "
+                      f"{'equal to the tree' if same else 'DIFFERS'}",
+                      flush=True)
+    wall = {(side, label): [] for side in sides for label in labels}
+    order = [(side, label) for label in labels for side in sides]
+    for rnd in range(opts.rounds_unrolled):
+        for key in (order if rnd % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames[key]()
+            torch.cuda.synchronize()
+            wall[key].append((time.perf_counter() - t0) * 1e3)
+    for (side, label), v in wall.items():
+        busy = cs._device_busy(frames[side, label], 3)
+        extra = ("busy not recorded" if busy is None else
+                 f"busy {busy[0]:.3f} ms ({100 * busy[0] / np.median(v):.1f}%"
+                 f" of the median), {busy[2]:.0f} device ops a frame")
+        print(f"compiled3d | frame by turns | {label} | {side}: median "
+              f"{np.median(v):.3f} ms, min {min(v):.3f} over {len(v)} "
+              f"(host clock, synchronized); {extra}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variant", action="append", default=[])
@@ -958,6 +1228,7 @@ def main() -> int:
     ap.add_argument("--interleave", action="store_true")
     ap.add_argument("--rounds-unrolled", type=int, default=5)
     ap.add_argument("--mesher", action="store_true")
+    ap.add_argument("--compiled3d", action="store_true")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_kernels: no CUDA device", file=sys.stderr)
@@ -981,6 +1252,15 @@ def main() -> int:
         return 0
     if opts.interleave:
         interleave_probe(cs, port, cuda, opts)
+        return 0
+    if opts.compiled3d:
+        others = {}
+        for spec in opts.variant:
+            vname, _, vdir = spec.partition("=")
+            others[vname] = load_package(ROOT / vdir,
+                                         "fidget_tpu_torch_" + vname)
+        cuda.build()
+        compiled3d_probe(cs, port, others, opts)
         return 0
     if opts.mesher:
         others = {}

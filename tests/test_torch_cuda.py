@@ -796,9 +796,12 @@ def test_unrolled_kernels_match_plain(card, which, monkeypatch):
 def test_3d_unrolled_kernels_match_plain(card, which):
     """U2-3D (`unrolled_interval3`) on 3D boxes at two edges, under an
     affine and a perspective matrix, and U1-3D (`unrolled_voxel_depth`)
-    over a worklist of 16^3 subtiles with invalid slots, against their
-    plain versions on the card: proofs and depths bit for bit, each
-    launch counted under its own name."""
+    over a worklist of 16^3 subtiles with invalid slots, at every group
+    of lanes a column, against their plain versions on the card: proofs
+    and depths bit for bit, each launch counted under its own name; then
+    their frame entries: U2-3D's `unrolled_proofs3` over the roots of a
+    128^3 frame and their subtiles at each layout, U1-3D's
+    `unrolled_voxel_fold` on a stratum's worklist at every group."""
     from fidget_tpu_torch.eval import unrolled_cuda as uc
 
     if which == "gyroid":
@@ -833,14 +836,48 @@ def test_3d_unrolled_kernels_match_plain(card, which):
                                        .astype(np.float32)).to(card)
                       for _ in range(3))
         valid = torch.arange(n, device=card) % 7 != 3
-        got = uc.unrolled_voxel_depth(kv, bx, by, bz, valid, params, sub=sub)
         want = uc.unrolled_voxel_depth_plain(kv, bx, by, bz, valid, params,
                                              sub=sub)
-        assert torch.equal(got, want)
+        for G in uc.VOXEL_GROUPS:
+            got = uc.unrolled_voxel_depth(kv, bx, by, bz, valid, params,
+                                          sub=sub, group=G)
+            assert torch.equal(got, want)
         assert (got[~valid] == 0).all() and len(got.unique()) > 4
     torch.cuda.synchronize()
     assert cuda.LAUNCHES["unrolled_interval3"] == 4
-    assert cuda.LAUNCHES["unrolled_voxel_depth"] == 2
+    assert cuda.LAUNCHES["unrolled_voxel_depth"] == 2 * len(uc.VOXEL_GROUPS)
+
+    from fidget_tpu_torch.render import render3d
+
+    ts, sub = 32, 16
+    geo = render3d._geo3(128, 128, 128, ts, sub)
+    st = geo.statics(card)
+    roots = st["tile_x0"], st["tile_y0"], st["tile_z0"]
+    act = torch.from_numpy(rng.random(geo.nl * geo.ny2 * geo.nx2) < 0.4)
+    act = act.to(card)
+    order = render3d._compact_stratum(act, nl=geo.nl, ny2=geo.ny2,
+                                      nx2=geo.nx2, cap_s=160,
+                                      decode=False)["order"]
+    z_lo = torch.tensor([64.0], device=card)
+    floor = torch.from_numpy(rng.integers(0, 64, (128, 128)).astype(
+        np.int32)).to(card)
+    cuda.reset_launches()
+    want = uc.unrolled_proofs3_plain(k3, *roots, params, ts, sub)
+    for k in uc.PROOFS3_WARPS:
+        kk = uc.Interval3Kernel(tape, axis_of, V, warps=k)
+        got = uc.unrolled_proofs3(kk, *roots, params, ts, sub)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    want = uc.unrolled_voxel_fold_plain(kv, order, act.sum(), z_lo, params,
+                                        floor.clone(), sub=sub, nl=geo.nl)
+    assert not torch.equal(want, floor)
+    for G in uc.VOXEL_GROUPS:
+        got = uc.unrolled_voxel_fold(kv, order, act.sum(), z_lo, params,
+                                     floor.clone(), sub=sub, nl=geo.nl,
+                                     group=G)
+        assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["unrolled_proofs3"] == len(uc.PROOFS3_WARPS)
+    assert cuda.LAUNCHES["unrolled_voxel_fold"] == len(uc.VOXEL_GROUPS)
 
 
 @pytest.mark.cuda
@@ -858,9 +895,9 @@ def test_per_shape_and_compiled_voxel_render_on_card_match_brute(card):
         ({}, {"interp_interval", "liveness_codes", "interp_grad",
               "interp_voxel_depth"}),
         ({"leaf": "unrolled"}, {"interp_interval", "liveness_codes",
-                                "interp_grad", "unrolled_voxel_depth"}),
+                                "interp_grad", "unrolled_voxel_fold"}),
         ({"leaf": "unrolled", "proofs": "unrolled"},
-         {"unrolled_interval3", "interp_grad", "unrolled_voxel_depth"}),
+         {"unrolled_proofs3", "interp_grad", "unrolled_voxel_fold"}),
     ]
     for kw, kernels in modes:
         r = port.VoxelRenderer(tape, size, tile_size=32, sub_size=16, **kw)

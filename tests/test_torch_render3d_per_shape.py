@@ -280,8 +280,10 @@ def test_unrolled_modes_match_reference_and_brute(n, ts, sub, proofs):
 
 def test_unrolled_frames_run_the_generated_kernels(monkeypatch):
     """Under the unrolled leaf no subtile is re-specialized (K2 runs only
-    at the root); under unrolled proofs neither K1 nor K2 nor
-    `reconstruct` runs, and U2-3D serves the root and the subtiles."""
+    at the root) and U1-3D's frame entry (`unrolled_voxel_fold`) serves
+    each stratum once; under unrolled proofs neither K1 nor K2 nor
+    `reconstruct` runs, and U2-3D's frame entry (`unrolled_proofs3`)
+    serves the roots and every subtile in one call a frame."""
     seen = []
 
     def recorder(name, fn):
@@ -291,8 +293,8 @@ def test_unrolled_frames_run_the_generated_kernels(monkeypatch):
         return call
 
     names = ("interp_interval", "interp_voxel_depth", "interp_float",
-             "per_instance_codes", "reconstruct", "unrolled_voxel_depth",
-             "unrolled_interval3", "interp_grad")
+             "per_instance_codes", "reconstruct", "unrolled_voxel_fold",
+             "unrolled_proofs3", "interp_grad")
     for name in names:
         monkeypatch.setattr(render3d, name,
                             recorder(name, getattr(render3d, name)))
@@ -307,10 +309,11 @@ def test_unrolled_frames_run_the_generated_kernels(monkeypatch):
         seen.clear()
         pr.render(None)
         got[proofs] = set(seen)
-        assert seen.count("unrolled_voxel_depth") == pr.ntz
+        assert seen.count("unrolled_voxel_fold") == pr.ntz
+        assert seen.count("unrolled_proofs3") == (proofs == "unrolled")
     assert got["interp"] == {"interp_interval", "codes_per_tile",
-                             "unrolled_voxel_depth", "interp_grad"}
-    assert got["unrolled"] == {"unrolled_interval3", "unrolled_voxel_depth",
+                             "unrolled_voxel_fold", "interp_grad"}
+    assert got["unrolled"] == {"unrolled_proofs3", "unrolled_voxel_fold",
                                "interp_grad"}
 
 
