@@ -18,9 +18,9 @@ on the two kernels generated for the stand-in (U1 `unrolled_float`,
 U2 `unrolled_interval`); then the shape-parameter gradient of the 2D
 frames and the mesher (`build_mesh` at depth 8 on the sphere union and the
 gyroid sphere), on `BulkEvaluator`, and again on the compiled mesher
-(`eval="unrolled"`: more kernels generated per tape, U1-P
-`unrolled_points` and its edge search `unrolled_edges`, U2-B
-`level_active`, and K4); last the
+(`eval="unrolled"`: more kernels generated per tape, U1-P's sign
+table entries `leaf_masks` and `merge_topo` and its edge search
+`unrolled_edges`, U2-B `level_active`, and K4); last the
 ports of the Pallas probes
 P2 and P3, each through its own probe (`fidget_tpu_torch.demos`); and
 last the application layer: the command line (`python -m
@@ -241,20 +241,27 @@ Phases (any failure exits non-zero and prints no result):
    build of U1-P and U2-B (started with the run, after the compiled 3D
    build, so that the union's U1 program is not built twice) and a
    cached one; launch counts set to 0 before the two builds and read
-   after (U1-P's sign and edge search, U2-B's levels and K4, and no K1
-   or K3); each mesh held as in phase 11 and equal, bit for bit, to the
-   same build on the dense glue (the edge rounds of U1-P "sign",
-   "distance" and K4 over all 12 x cs slots; U2-B over box planes
-   formed in torch ops); the depth-5 sphere and a depth-5 gyroid sphere under an
+   after (U1-P's leaf and merge entries and edge search, U2-B's levels
+   and K4, and no K1 or K3); each mesh held as in phase 11 and equal,
+   bit for bit, to the same build on the dense glue (U1-P "sign" at
+   every (cell, corner) and (candidate, lattice point) pair with the
+   corners, lattices and topology test in torch ops; the edge rounds of
+   U1-P "sign", "distance" and K4 over all 12 x cs slots; U2-B over box
+   planes formed in torch ops); the depth-5 sphere and a depth-5 gyroid sphere under an
    oblique rotation (0.7 rad about (1, 2, 3)) built on the card equal to
    the CPU's builds (triangles equal, vertices within 1e-5; a vertex
    past that only on a float64 witness: the CPU build with its
    transcendentals correctly rounded moves it, and the card lies within
-   1e-5 + 4x that move); U1-P (its sign at the leaf corners and the
-   collapse lattices, its edge search), U2-B (levels, and the box-plane
-   entry on the union's largest level) on the inputs a cached depth-8
-   build gave them, bit for bit against their plain versions, with
-   CUDA-event and profiler times and the bound over the live lanes, and
+   1e-5 + 4x that move); U1-P (the leaf entry and the first collapse
+   round's merge entry, each from the sign table as the build left it:
+   masks, topo and the table's keys, signs and counts, and the table's
+   growths (`table_grow`) counted; its edge search; and its "sign"
+   kernel at the leaf corners as the dense glue forms them), U2-B (levels, and the box-plane entry
+   on the union's largest level) on the inputs a cached depth-8 build
+   gave them, bit for bit against their plain versions, with CUDA-event
+   and profiler times, the points evaluated against the points asked
+   for, and the bound over the live lanes (the table entries' two ways:
+   the points a pair and the distinct points evaluated), and
    K4 at the fine stage's gradient shape; warm builds (host clock,
    synchronized, stages by `_StageClock`; phase 11 times the interpreter's)
    and the device's busy share of a compiled build;
@@ -325,6 +332,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import functools
 import importlib
 import json
 import math
@@ -2982,12 +2990,18 @@ def phase_mesh(port, cuda, rows, depth=MESH_DEPTH, dev="cuda"):
                               name, args, kwargs, tape_copy=True))
 
 
-#: kernels of the compiled mesher's path: U1-P (the corner signs and the
-#: edge search), U2-B on the levels and K4, and no interpreter kernel but
-#: K4
-KERNELS_MESH_UNROLLED = ("unrolled_points", "unrolled_edges",
+#: kernels of the compiled mesher's path: U1-P (the sign table's leaf
+#: and merge entries, the edge search), U2-B on the levels and K4, and no
+#: interpreter kernel but K4
+KERNELS_MESH_UNROLLED = ("leaf_masks", "merge_topo", "unrolled_edges",
                          "level_active", "interp_grad")
-MESHER_KERNELS = ("unrolled_points", "unrolled_edges", "level_active")
+MESHER_KERNELS = ("leaf_masks", "merge_topo", "unrolled_edges",
+                  "level_active")
+#: the sign table's entries, and the kernels (profiler names) each
+#: launches besides the evaluation pass `fidget_unrolled_table_eval`
+TABLE_ENTRIES = {"leaf_masks": ("fidget_unrolled_leaf_",),
+                 "merge_topo": ("fidget_unrolled_merge_",
+                                "fidget_unrolled_table_grow")}
 #: operations of the edge search besides the tape's rows: forming a
 #: sample's model point (t: 3, the world point: 6, the matrix: 18), and
 #: a round's bracket update a slot (about 10)
@@ -3037,22 +3051,37 @@ def _f64_transcendentals():
             setattr(torch, n, fn)
 
 
+def _glue_sign(kern):
+    """U1-P "sign" for the tape of a sign-table kernel (the dense glue's
+    corners, lattices and edge rounds), kept on that kernel."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+
+    k = kern.__dict__.get("_glue_sign")
+    if k is None:
+        k = kern._glue_sign = uc.PointsKernel(kern.tapes[0], kern.axis_of,
+                                              kern.V, "sign")
+    return k
+
+
 def _glue_kernels(ev):
     """The kernels the dense glue of the fine stage runs besides the path's
-    (`_old_glue`): U1-P "distance" (kept on the evaluator)."""
+    (`_old_glue`): U1-P "distance" (kept on the evaluator) and "sign"."""
     from fidget_tpu_torch.eval import unrolled_cuda as uc
+    from fidget_tpu_torch.mesh import fused
 
     ks = ev.__dict__.get("_old_glue_kernels")
     if ks is None:
-        ks = ev._old_glue_kernels = {"distance": uc.PointsKernel(
-            ev.tape, ev.axis_of, ev.n_inputs, "distance")}
+        ks = ev._old_glue_kernels = {
+            "distance": uc.PointsKernel(ev.tape, ev.axis_of, ev.n_inputs,
+                                        "distance"),
+            "sign": _glue_sign(fused._kernels(ev)["table"])}
     return ks
 
 
 def start_mesh_unrolled_build(port, after):
     """The compiled mesher's generated kernels for the two mesh scenes
-    (U1-P's sign epilogue and edge search, U2-B; and U1-P "distance" of
-    `_old_glue`), their nvcc steps started in a thread of their own once
+    (U1-P's sign table and edge search, U2-B; and U1-P "distance" and
+    "sign" of `_old_glue`), their nvcc steps started in a thread of their own once
     `after` (the compiled 3D build, which builds the union's program)
     has ended, so that no unit is built twice. Returns a future of
     (steps, seconds)."""
@@ -3133,7 +3162,7 @@ def _glue_edge_search(ev, cross, h, mat, vv, cs, rounds, samples, seeds):
     idx = torch.arange(samples, device=dev)[:, None, None]
     ta = torch.zeros((12, cs), dtype=torch.float32, device=dev)
     tb = torch.ones((12, cs), dtype=torch.float32, device=dev)
-    sign = fused._kernels(ev)["sign"]
+    sign = _glue_kernels(ev)["sign"]
     for _ in range(rounds):
         ts = ta[None] + (tb - ta)[None] * frac
         inside = uc.unrolled_points(
@@ -3159,26 +3188,54 @@ def _glue_edge_search(ev, cross, h, mat, vv, cs, rounds, samples, seeds):
     return (*ip, idist, *(g[1 + k].reshape(12, cs) for k in range(3)))
 
 
+def _glue_leaf_masks(kern, keys, n_leaf, h, mat, params, table):
+    """mesh/fused.py's leaf core before the sign table: U1-P "sign" at
+    every (corner, cell) pair of `leaf_points`, the masks in torch ops."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+
+    _, pts = uc.leaf_points(keys, h, mat)
+    return uc.corner_masks(uc.unrolled_points(_glue_sign(kern), *pts, params,
+                                              n_leaf))
+
+
+def _glue_merge_topo(kern, pb3, ps, n_cand, h, mat, params, table):
+    """mesh/fused.py's collapse round before the sign table: U1-P "sign"
+    at every point of the [27, kcap] lattice and `topo_test` in torch ops
+    (a dead candidate's test runs and is not read)."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+
+    _, pts = uc.lattice_points(pb3, ps, h, mat)
+    return uc.topo_test(uc.unrolled_points(_glue_sign(kern), *pts, params))
+
+
 @contextlib.contextmanager
 def _old_glue():
     """The compiled mesher with the dense glue around the kernels: the
-    level cores on `_glue_level_core`, the edge search on
-    `_glue_edge_search` (the edge core's QEF part unchanged)."""
+    level cores on `_glue_level_core`, the leaf core's masks on
+    `_glue_leaf_masks`, the collapse rounds' test on `_glue_merge_topo`,
+    the edge search on `_glue_edge_search` (the edge core's QEF part
+    unchanged)."""
     from fidget_tpu_torch.mesh import fused
 
-    saved = (fused.level_core, fused.edge_search, fused.edges_core)
+    names = ("level_core", "edge_search", "edges_core", "leaf_masks",
+             "merge_topo")
+    saved = {n: getattr(fused, n) for n in names}
 
     def edges_core(ev, surf_keys, surf_mask, n_surf, *args, **kw):
         ev._glue_cells = (surf_keys, surf_mask, n_surf)
-        return saved[2](ev, surf_keys, surf_mask, n_surf, *args, **kw)
+        return saved["edges_core"](ev, surf_keys, surf_mask, n_surf, *args,
+                                   **kw)
 
     fused.level_core = _glue_level_core
     fused.edge_search = _glue_edge_search
     fused.edges_core = edges_core
+    fused.leaf_masks = _glue_leaf_masks
+    fused.merge_topo = _glue_merge_topo
     try:
         yield
     finally:
-        fused.level_core, fused.edge_search, fused.edges_core = saved
+        for n, f in saved.items():
+            setattr(fused, n, f)
 
 
 def _mesher_live(name, args):
@@ -3187,8 +3244,10 @@ def _mesher_live(name, args):
     list, children of the live parents."""
     if name == "unrolled_edges":
         return min(args[1].shape[0], int(args[4]))
-    if name == "level_active":
+    if name in ("level_active", "leaf_masks"):
         return 8 * min(args[1].shape[0], int(args[2]))
+    if name == "merge_topo":
+        return 27 * int(args[3])
     first = args[1] if name == "unrolled_points" else args[1][0]
     i = 5 if name == "unrolled_points" else 4
     count = args[i] if len(args) > i else None
@@ -3272,9 +3331,164 @@ def _measure_mesher(label, name, args, kwargs=None):
                 live=_mesher_live(name, args))
 
 
+def _time_fresh(make, fn, reps):
+    """Mean device ms a call of fn(make()) by CUDA events, `make` run
+    before each call outside the timed span and the card kept busy
+    (`torch.cuda._sleep`) while the host enqueues the call, so that the
+    events time the call's kernels and not its enqueue."""
+    fn(make())
+    total = 0.0
+    for _ in range(reps):
+        x = make()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        fn(x)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def _split_fresh(make, fn, names, reps=10):
+    """Device ms a call of fn(make()) by kernel, from the profiler: each
+    kernel whose name holds one of `names` (launched once a call), its
+    device time over the launches the session recorded (a session may
+    drop some); None when no session records one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    xs = [make() for _ in range(reps)]
+    fn(make())
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for x in xs:
+                fn(x)
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.self_device_time_total > 0 and any(n in e.key
+                                                    for n in names):
+                out[e.key] = e.self_device_time_total / 1e3 / e.count
+        if out:
+            return out
+        xs = [make() for _ in range(reps)]
+    return None
+
+
+def _table_bound(name, args, live, evaluated, out):
+    """(bound over the distinct points the table evaluated, bound over the
+    points a pair asks for (the reference's 8 a cell / 27 a candidate),
+    bound_by of the first, operations of each, bytes) of a sign-table
+    entry: a point one operation a tape row; bytes the cells' keys in and
+    the masks out (leaf), the candidates' corners in and the test out
+    (merge), and the params."""
+    kern = args[0]
+    rows = len(kern.tapes[0])
+    if name == "leaf_masks":
+        nbytes = live // 8 * 4 + out.numel() * 4
+    else:
+        nbytes = live // 27 * 12 + out.numel()
+    nbytes += args[-2].nbytes + 48
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    ops, ops_ref = evaluated * rows, live * rows
+    t_ops, t_ref = (o / F32_OPS_PER_S * 1e3 for o in (ops, ops_ref))
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), max(t_bytes, t_ref), by, ops, ops_ref, nbytes
+
+
+def _measure_table(label, name, args, kwargs=None):
+    """One captured sign-table entry (`leaf_masks`, `merge_topo`) against
+    its plain version on the card, the call on a copy of the table the
+    build held before it: masks or topo, the table's keys and signs and
+    its counts exactly, no insert refused; device ms a call by CUDA
+    events (the copy outside the timed span) and by the profiler (by
+    kernel), plain ms, the points evaluated against the points asked
+    for, and the bound two ways (`_table_bound`)."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
+
+    kwargs = kwargs or {}
+    i = next(k for k, a in enumerate(args) if isinstance(a, uc.SignTable))
+    before = args[i]
+    fn, plain_fn = getattr(uc, name), getattr(uc, name + "_plain")
+
+    def with_table(t):
+        a = list(args)
+        a[i] = t
+        return a
+
+    plain = uc.SignTable(0, before.device, plain=True)
+    plain.keys, plain.signs = before.entries()
+    plain.count = before.count.clone()
+    want, plain_ms = _time_plain(plain_fn, with_table(plain), kwargs)
+    live = _mesher_live(name, args)
+    table = before.clone()
+    got = fn(*with_table(table), **kwargs)
+    if not torch.equal(got, want):
+        raise Failed(f"{name} ({label}) differs from its plain version")
+    for x, y in zip(table.entries(), plain.entries()):
+        if not torch.equal(x, y):
+            raise Failed(f"{name} ({label}): the table's keys or signs "
+                         f"differ from the plain version's")
+    counts = table.count.tolist()
+    if counts[:2] != plain.count.tolist()[:2] or counts[2]:
+        raise Failed(f"{name} ({label}): table counts {counts}, plain "
+                     f"{plain.count.tolist()}")
+
+    def call(t):
+        return fn(*with_table(t), **kwargs)
+
+    ms = _time_fresh(before.clone, call, 20)
+    split = _split_fresh(before.clone, call,
+                         ("fidget_unrolled_table_eval", *TABLE_ENTRIES[name]))
+    dms = sum(split.values()) if split else None
+    evaluated = counts[0]
+    bound_ms, bound_ref, by, ops, ops_ref, nbytes = _table_bound(
+        name, args, live, evaluated, want)
+    # the issue floor of the points the table evaluated: the program's
+    # static SASS alone (the unit's other functions, the table passes,
+    # are not counted), a warp instruction a scheduler slot
+    prog = program_sass(args[0].unit().lib)
+    fl = None if prog is None or SM_CLOCK_HZ is None else dict(
+        sass_per_row=prog / len(args[0].tapes[0]),
+        issue_floor_ms=evaluated * prog / 32 / (SCHEDULERS * SM_CLOCK_HZ)
+        * 1e3)
+    log(f"kernel {name} ({label}): {live} points asked for, {evaluated} "
+        f"evaluated ({live / max(1, evaluated):.2f}x), table of "
+        f"{before.slots.numel()} slots holding {counts[1]} keys after "
+        f"({table.slots.numel()} slots); equal to plain (masks or topo, the "
+        f"table's keys, signs and counts); {ms:.4f} ms (CUDA events), device "
+        f"{dms} ms by kernel {split}; plain {plain_ms:.1f} ms; bound "
+        f"{bound_ms:.5f} ms ({by}) over the points evaluated ({ops} "
+        f"operations, {nbytes} bytes), {bound_ref:.5f} ms over the points "
+        f"asked for ({ops_ref} operations), slots {_slot_bound_ms(ops):.5f} "
+        f"ms; " + ("SASS not measured" if fl is None else
+                   f"the program's {prog} SASS ({fl['sass_per_row']:.3f} a "
+                   f"row), issue floor {fl['issue_floor_ms']:.5f} ms over the "
+                   f"points evaluated"))
+    return dict(max_abs_err=0.0, ms=ms, device_ms=dms, split=split,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                operations=ops, bytes=nbytes,
+                bound_points_asked_ms=bound_ref,
+                operations_points_asked=ops_ref,
+                slot_bound_ms=_slot_bound_ms(ops), live=live,
+                evaluated=evaluated, table_slots=before.slots.numel(),
+                keys_held=counts[1],
+                issue_floor_ms=None if fl is None else fl["issue_floor_ms"],
+                sass_per_row=None if fl is None else fl["sass_per_row"],
+                shape=list(args[1].shape))
+
+
 def _mesher_site(name, args):
     """Where in the fine stage a U1-P / U2-B call comes from, by its
     kernel and list shape."""
+    if name == "leaf_masks":
+        return "leaf"
+    if name == "merge_topo":
+        return "collapse round"
     if name == "level_active":
         return "levels"
     if name == "unrolled_edges":
@@ -3289,8 +3503,10 @@ def _mesher_site(name, args):
 def _capture_mesher(tag, captured):
     """Records, per (scene tag, kernel, site), the call of U1-P / U2-B
     in mesh/fused.py with the most live lanes (its count read on the
-    host: a warm-up build only), and the surface cells' count of the
-    build's edge core under (tag, "surface")."""
+    host: a warm-up build only; a sign table as it was before the call),
+    and the surface cells' count of the build's edge core under (tag,
+    "surface")."""
+    from fidget_tpu_torch.eval import unrolled_cuda as uc
     from fidget_tpu_torch.mesh import fused
 
     saved = {n: getattr(fused, n) for n in MESHER_KERNELS + ("edges_core",)}
@@ -3300,7 +3516,9 @@ def _capture_mesher(tag, captured):
             live = _mesher_live(name, args)
             key = (tag, name, _mesher_site(name, args))
             if key not in captured or live > captured[key][2]:
-                captured[key] = (args, kwargs, live)
+                captured[key] = (tuple(
+                    a.clone() if isinstance(a, uc.SignTable) else a
+                    for a in args), kwargs, live)
             return saved[name](*args, **kwargs)
         return call
 
@@ -3325,17 +3543,19 @@ def phase_mesh_unrolled(port, cuda, rows, built, depth=MESH_DEPTH,
     on phase 11's two scenes under MESH_VIEW: the cold build of the
     generated kernels (`start_mesh_unrolled_build`, beside the earlier
     phases) and a cached one; launch counts set to 0 before the two
-    builds and read after (U1-P's sign and edge search, U2-B on the
-    levels and K4 each launched; K1 and K3 never); each mesh held by
-    `check_mesh` and equal, vertices and triangles, to the same build
-    on the dense glue (`_old_glue`: the edge rounds over all 12 edges and U2-B over
-    box planes); a depth-5 sphere built on the card equal to the CPU's
-    build, and a depth-5 gyroid sphere under an oblique rotation
-    likewise (triangles equal, vertices within 1e-5); U1-P (its sign
-    epilogue at every site, its edge search) and U2-B (on the levels,
-    and over the union's largest level as box planes) on the inputs
-    the depth-8 builds gave them, bit for bit against their plain
-    versions, with time and bound (the `kernels` rows), and K4 at the
+    builds and read after (U1-P's leaf and merge entries and edge
+    search, U2-B on the levels and K4 each launched; K1 and K3 never);
+    each mesh held by `check_mesh` and equal, vertices and triangles, to
+    the same build on the dense glue (`_old_glue`: U1-P "sign" at every
+    corner and lattice point, the edge rounds over all 12 edges and U2-B
+    over box planes); a depth-5 sphere built on the card equal to the
+    CPU's build, and a depth-5 gyroid sphere under an oblique rotation
+    likewise (triangles equal, vertices within 1e-5); U1-P (the sign
+    table's entries (`_measure_table`), "sign" on the points the dense
+    glue forms for them, its edge search) and U2-B (on the levels, and
+    over the union's largest level as box planes) on the inputs the
+    depth-8 builds gave them, bit for bit against their plain versions,
+    with time and bound (the `kernels` rows), and K4 at the
     fine stage's gradient shape; then warm builds (host clock,
     synchronized; stages by `_StageClock`; phase 11 times the same
     builds under eval="interp") and the device's busy share of one
@@ -3467,6 +3687,23 @@ def phase_mesh_unrolled(port, cuda, rows, built, depth=MESH_DEPTH,
     for key in sorted(calls):
         tag, name, site = key
         args, kwargs, _ = calls[key]
+        if name in TABLE_ENTRIES:
+            measured[key] = _measure_table(f"{tag}, {site}", name, args,
+                                           kwargs)
+            # U1-P "sign" on the points the dense glue forms for the same
+            # call: every (corner, cell) or (candidate, lattice point) pair
+            sign = _glue_sign(args[0])
+            if name == "leaf_masks":
+                kern, keys, n_leaf, h, mat, vv, _ = args
+                glue = (sign, *uc.leaf_points(keys, h, mat)[1], vv, n_leaf)
+                gsite = "leaf corners, dense glue"
+            else:
+                kern, pb3, ps, n_cand, h, mat, vv, _ = args
+                glue = (sign, *uc.lattice_points(pb3, ps, h, mat)[1], vv)
+                gsite = "lattice, dense glue"
+            measured[(tag, "unrolled_points", gsite)] = _measure_mesher(
+                f"{tag}, {gsite}", "unrolled_points", glue)
+            continue
         measured[key] = _measure_mesher(f"{tag}, {site}", name, args, kwargs)
         if name == "unrolled_edges":
             # the same work counted as the dense rounds did, over all 12
@@ -3483,8 +3720,9 @@ def phase_mesh_unrolled(port, cuda, rows, built, depth=MESH_DEPTH,
                 _measure_mesher(f"{tag}, levels, box planes",
                                 "unrolled_interval_boxes",
                                 (kern, mlo, mhi, vv, n_in)))
-    heads = {"unrolled_points": "leaf corners", "unrolled_edges": "edges",
-             "level_active": "levels",
+    heads = {"leaf_masks": "leaf", "merge_topo": "collapse round",
+             "unrolled_points": "leaf corners, dense glue",
+             "unrolled_edges": "edges", "level_active": "levels",
              "unrolled_interval_boxes": "levels, box planes"}
     for name, site in heads.items():
         head = ("union", name, site)
@@ -3498,6 +3736,9 @@ def phase_mesh_unrolled(port, cuda, rows, built, depth=MESH_DEPTH,
             "build": {"steps": len(steps), "cold_s": cold_s,
                       "cached_s": cached_s, "spill_bytes": spills},
         }
+    # the table's growths between collapse rounds (SignTable.reserve),
+    # which merge_topo's rows time and hold with the table
+    rows["merge_topo"]["table_grow_launches"] = launches["table_grow"]
     for key in sorted(grads):
         name, tag = key.split("@")
         args, kwargs = grads[key]
@@ -3680,6 +3921,35 @@ def sass_counts(lib):
         cls = next((c for c, ops in SASS_CLASSES.items() if op in ops), "rest")
         counts[cls] += 1
     return counts
+
+
+@functools.lru_cache(maxsize=None)
+def program_sass(lib):
+    """Static SASS instructions (NOPs not counted) of the float programs
+    (`fidget_uprog_*`) in the library `lib`, or None where cuobjdump is
+    missing or fails; disassembled once a library."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        res = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                             text=True, timeout=300)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    if res.returncode != 0:
+        return None
+    total, inside = 0, False
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            inside = m.group(1).startswith("fidget_uprog_")
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[0-9T]+\s+)?"
+                      r"([A-Z0-9_]+)", line)
+        if inside and m and m.group(1) != "NOP":
+            total += 1
+    return total
 
 
 def unrolled_floors(kern, rows_lanes):

@@ -70,6 +70,21 @@
 //   its own (U_POINTS_KERNEL). A thread evaluates one model-space point
 //   of a flat list (the caller forms the points), with the epilogue
 //   fixed when the code is generated: the distance, or the sign d < 0.
+// - U1-P's sign table (U_TABLE_KERNEL), what the mesher's leaf and merge
+//   cores run: neighbouring leaf cells share corners (4x at the leaf)
+//   and neighbouring candidates share lattice points, most of them leaf
+//   corners (7x over a first collapse round), and one thread a point is
+//   bound by issuing the program's rows, so the time falls only with
+//   fewer evaluations. A build keeps one open-addressing table of
+//   leaf-lattice keys and their signs; an insert pass (one lane a
+//   (cell, corner) or (candidate, lattice point) pair, the key formed
+//   from the cell's key or the candidate's corner in the kernel) lists
+//   the keys the table lacked, an evaluation pass runs the program once
+//   a listed point, and a last pass forms the leaf's 8-bit masks (a
+//   ballot over 8 lanes a cell) or each candidate's 27-bit inside word
+//   and mesh/collapse.py's topology test. A point's sign depends on its
+//   key alone, so the result is that of evaluating every pair, bit for
+//   bit.
 // - U1-P `fidget_unrolled_edges` (U_EDGE_KERNEL): the mesher's edge
 //   search (fused.py's edge core) on a compacted list of crossing
 //   (cell, edge) slots. A group of lanes (the sample count rounded up to
@@ -481,6 +496,405 @@ __device__ __forceinline__ void u_edges(
                               (cudaStream_t)stream>>>(                        \
           key, mask, slot, count, mat, params, h, samples, rounds, group,     \
           out, cap);                                                          \
+    return (int)cudaGetLastError();                                           \
+  }
+
+namespace fidget {
+// The sign table of a mesh build (U_TABLE_KERNEL): open addressing with
+// linear probing over `slots` int32 [cap], cap a power of two; an entry is
+// a leaf-lattice key (x * KS + y) * KS + z, below 2^31, with the sign d < 0
+// of its world point in bit 31; -1 is empty. `count` int32 [3]: the points
+// the last pass evaluated (its list's length), the keys held, and inserts
+// a full table refused (the host sizes it at a load of at most 1/2, so
+// this stays 0; a probe never loops past the capacity).
+constexpr int32_t U_TAB_EMPTY = -1;
+constexpr int32_t U_TAB_KEY = 0x7fffffff;
+constexpr int32_t U_TAB_SIGN = INT32_MIN;
+//: blocks of the evaluation pass (a grid-stride loop over the list): twice
+//: the 2,048 threads resident on each of the card's 132 SMs
+constexpr unsigned U_TAB_EVAL_BLOCKS = 2 * 132 * 2048 / UBLOCK;
+
+// murmur3's finalizer: neighbouring keys land far apart
+__device__ __forceinline__ uint32_t u_tab_hash(int32_t key, uint32_t mask) {
+  uint32_t k = (uint32_t)key;
+  k ^= k >> 16;
+  k *= 0x85ebca6bu;
+  k ^= k >> 13;
+  k *= 0xc2b2ae35u;
+  k ^= k >> 16;
+  return k & mask;
+}
+
+// The slot of `key`, where `entry` (the key, or the key with its sign) is
+// written with atomicCAS when the table lacks it (`fresh`); -1 when the
+// table is full (counted in *refused). Within a pass a slot only turns from
+// empty to a key, so a stale read of an empty slot is settled by the CAS.
+__device__ __forceinline__ int u_tab_insert(int32_t* slots, uint32_t mask,
+                                            int32_t key, int32_t entry,
+                                            bool& fresh, int32_t* refused) {
+  uint32_t s = u_tab_hash(key, mask);
+  for (uint32_t i = 0; i <= mask; ++i) {
+    int32_t e = __ldcg(slots + s);
+    if (e == U_TAB_EMPTY) {
+      e = atomicCAS(slots + s, U_TAB_EMPTY, entry);
+      if (e == U_TAB_EMPTY) {
+        fresh = true;
+        return (int)s;
+      }
+    }
+    if ((e & U_TAB_KEY) == key) return (int)s;
+    s = (s + 1) & mask;
+  }
+  atomicAdd(refused, 1);
+  return -1;
+}
+
+// The entry of `key`, or U_TAB_EMPTY where the table lacks it
+__device__ __forceinline__ int32_t u_tab_find(const int32_t* slots,
+                                              uint32_t mask, int32_t key) {
+  uint32_t s = u_tab_hash(key, mask);
+  for (uint32_t i = 0; i <= mask; ++i) {
+    const int32_t e = __ldcg(slots + s);
+    if (e == U_TAB_EMPTY || (e & U_TAB_KEY) == key) return e;
+    s = (s + 1) & mask;
+  }
+  return U_TAB_EMPTY;
+}
+
+__device__ __forceinline__ bool u_tab_inside(int32_t e) {
+  return e < 0 && e != U_TAB_EMPTY;
+}
+
+// Appends the slots of the block's fresh keys to `list` at count[0] and
+// adds them to count[1]: one atomicAdd a block, not a lane (the passes
+// insert millions of keys into one list). Every thread of the block calls
+// it.
+__device__ __forceinline__ void u_tab_append(bool fresh, int slot,
+                                             int32_t* list, int32_t* count) {
+  __shared__ int warp_base[UBLOCK / 32];
+  __shared__ int block_base;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const unsigned m = __ballot_sync(0xffffffffu, fresh);
+  if (lane == 0) warp_base[w] = __popc(m);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int i = 0; i < UBLOCK / 32; ++i) {
+      const int c = warp_base[i];
+      warp_base[i] = total;
+      total += c;
+    }
+    block_base = total ? atomicAdd(count, total) : 0;
+    if (total) atomicAdd(count + 1, total);
+  }
+  __syncthreads();
+  if (fresh)
+    list[block_base + warp_base[w] + __popc(m & ((1u << lane) - 1u))] = slot;
+}
+
+// corner c (offset (c & 1, c >> 1 & 1, c >> 2 & 1), mesh/fused.py's
+// _CORNER_OFF) of the cell whose packed key is k
+__device__ __forceinline__ int32_t u_corner_key(int32_t k, int c, int ks) {
+  return k + (c & 1) * ks * ks + ((c >> 1) & 1) * ks + ((c >> 2) & 1);
+}
+
+// lattice point p (mesh/collapse.py's _LATTICE: x = p % 3, y = p / 3 % 3,
+// z = p / 9, in units of `half`) of candidate j, whose lo corner is
+// pb3[:, j] ([3][kcap])
+__device__ __forceinline__ int32_t u_lattice_key(const int32_t* pb3, int kcap,
+                                                 int j, int p, int half,
+                                                 int ks) {
+  const int x = __ldg(pb3 + j) + p % 3 * half;
+  const int y = __ldg(pb3 + kcap + j) + p / 3 % 3 * half;
+  const int z = __ldg(pb3 + 2 * kcap + j) + p / 9 * half;
+  return (x * ks + y) * ks + z;
+}
+
+// The evaluation pass: each listed slot's point, its world coordinates
+// k * h - 1 and model point through mat [3][4] (_model_pts' order), through
+// the tape; an inside point gets its sign bit. The list's length is
+// count[0], written by the pass's insert launch.
+template <int V, int AX, int AY, int AZ, class Run>
+__device__ __forceinline__ void u_tab_eval(
+    int32_t* __restrict__ slots, const int32_t* __restrict__ list,
+    const int32_t* __restrict__ count, const float* __restrict__ mat,
+    const float* __restrict__ params, float h, int ks, Run run) {
+  const int n = *count;
+  float in[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) in[i] = params[i];
+  for (int i = blockIdx.x * UBLOCK + threadIdx.x; i < n;
+       i += gridDim.x * UBLOCK) {
+    const int s = list[i];
+    const int32_t key = slots[s];
+    const int x = key / (ks * ks), y = key / ks % ks, z = key % ks;
+    const float wx = (float)x * h - 1.f;
+    const float wy = (float)y * h - 1.f;
+    const float wz = (float)z * h - 1.f;
+    if constexpr (AX >= 0) in[AX] = u_model(mat, 0, wx, wy, wz);
+    if constexpr (AY >= 0) in[AY] = u_model(mat, 1, wx, wy, wz);
+    if constexpr (AZ >= 0) in[AZ] = u_model(mat, 2, wx, wy, wz);
+    if (run(in) < 0.f) slots[s] = key | U_TAB_SIGN;
+  }
+}
+
+// The leaf entry's insert pass: thread g is corner g & 7 of cell g >> 3,
+// live below min(*n_leaf, cl) with a key >= 0. A block with no live cell
+// leaves at once (uniform over the block).
+__device__ __forceinline__ void u_leaf_insert(
+    const int32_t* __restrict__ keys, const int32_t* __restrict__ n_leaf,
+    int cl, int32_t* slots, uint32_t mask, int32_t* __restrict__ list,
+    int32_t* count, int ks) {
+  const int lim = min(__ldg(n_leaf), cl);
+  if ((int)(blockIdx.x * (UBLOCK / 8)) >= lim) return;
+  const int g = blockIdx.x * UBLOCK + threadIdx.x;
+  const int cell = g >> 3;
+  bool fresh = false;
+  int slot = -1;
+  if (cell < lim) {
+    const int32_t k = __ldg(keys + cell);
+    if (k >= 0) {
+      const int32_t key = u_corner_key(k, g & 7, ks);
+      slot = u_tab_insert(slots, mask, key, key, fresh, count + 2);
+    }
+  }
+  u_tab_append(fresh, slot, list, count);
+}
+
+// The leaf entry's masks: bit c of out[cell] is the sign of corner c, 0 at
+// a dead cell; 8 lanes a cell, one corner each, and a ballot (ahead of one
+// thread looking up all 8: PERF.md section 6).
+__device__ __forceinline__ void u_leaf_mask(
+    const int32_t* __restrict__ keys, const int32_t* __restrict__ n_leaf,
+    int cl, const int32_t* slots, uint32_t mask, int ks,
+    int32_t* __restrict__ out) {
+  const int lim = min(__ldg(n_leaf), cl);
+  const int g = blockIdx.x * UBLOCK + threadIdx.x;
+  const int cell = g >> 3;
+  bool inside = false;
+  if (cell < lim) {
+    const int32_t k = __ldg(keys + cell);
+    if (k >= 0)
+      inside =
+          u_tab_inside(u_tab_find(slots, mask, u_corner_key(k, g & 7, ks)));
+  }
+  const unsigned b =
+      (__ballot_sync(0xffffffffu, inside) >> (threadIdx.x & 24)) & 0xffu;
+  if ((g & 7) == 0 && cell < cl) out[cell] = (int32_t)b;
+}
+
+// The merge entry's insert pass: thread g is lattice point g % 27 of
+// candidate g / 27, live below n_cand.
+__device__ __forceinline__ void u_merge_insert(
+    const int32_t* __restrict__ pb3, int kcap, int n_cand, int half,
+    int32_t* slots, uint32_t mask, int32_t* __restrict__ list, int32_t* count,
+    int ks) {
+  const int g = blockIdx.x * UBLOCK + threadIdx.x;
+  const int j = g / 27;
+  bool fresh = false;
+  int slot = -1;
+  if (j < n_cand) {
+    const int32_t key = u_lattice_key(pb3, kcap, j, g - 27 * j, half, ks);
+    slot = u_tab_insert(slots, mask, key, key, fresh, count + 2);
+  }
+  u_tab_append(fresh, slot, list, count);
+}
+
+// mesh/collapse.py's topo_safe on one candidate's 27-bit inside word w
+// (bit p: lattice point p): the merged corner mask has one vertex
+// (vc1: a bit a mask), every edge midpoint carries an endpoint's sign,
+// every face midpoint a corner's and no face is ambiguous, the centre
+// carries a corner's. corner [8], edge [12][3] (mid, a, b), face [6][5]
+// (mid, 4 corners) are lattice indices.
+__device__ __forceinline__ bool u_topo_safe(uint32_t w, const int* corner,
+                                            const int* edge, const int* face,
+                                            const unsigned* vc1, int center) {
+  auto s = [w](int p) { return (w >> p) & 1u; };
+  int pm = 0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) pm |= (int)s(corner[c]) << c;
+  bool ok = (vc1[pm >> 5] >> (pm & 31)) & 1u;
+#pragma unroll
+  for (int e = 0; e < 12; ++e) {
+    const unsigned m = s(edge[3 * e]);
+    ok = ok && (m == s(edge[3 * e + 1]) || m == s(edge[3 * e + 2]));
+  }
+#pragma unroll
+  for (int f = 0; f < 6; ++f) {
+    const int* q = face + 5 * f;
+    const unsigned m = s(q[0]);
+    const unsigned c0 = s(q[1]), c1 = s(q[2]), c2 = s(q[3]), c3 = s(q[4]);
+    ok = ok && (m == c0 || m == c1 || m == c2 || m == c3) &&
+         !(c0 == c3 && c1 == c2 && c0 != c1);
+  }
+  bool hit = false;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) hit = hit || s(center) == s(corner[c]);
+  return ok && hit;
+}
+
+// The merge entry's test: candidate g's inside word from the table and
+// topo_safe of it (false past n_cand); a thread a candidate looks up all
+// 27 points (ahead of 32 lanes a candidate and a ballot: PERF.md section 6)
+__device__ __forceinline__ void u_merge_topo(
+    const int32_t* __restrict__ pb3, int kcap, int n_cand, int half,
+    const int32_t* slots, uint32_t mask, int ks, const int* corner,
+    const int* edge, const int* face, const unsigned* vc1, int center,
+    bool* __restrict__ topo) {
+  const int g = blockIdx.x * UBLOCK + threadIdx.x;
+  if (g >= kcap) return;
+  bool ok = false;
+  if (g < n_cand) {
+    uint32_t w = 0;
+    for (int p = 0; p < 27; ++p)
+      w |= (uint32_t)u_tab_inside(u_tab_find(
+               slots, mask, u_lattice_key(pb3, kcap, g, p, half, ks)))
+           << p;
+    ok = u_topo_safe(w, corner, edge, face, vc1, center);
+  }
+  topo[g] = ok;
+}
+
+// A larger table: every entry of `old` [old_cap], sign and all, into slots
+__device__ __forceinline__ void u_tab_grow(const int32_t* __restrict__ old,
+                                           int old_cap, int32_t* slots,
+                                           uint32_t mask, int32_t* refused) {
+  const int g = blockIdx.x * UBLOCK + threadIdx.x;
+  if (g >= old_cap) return;
+  const int32_t e = __ldg(old + g);
+  bool fresh = false;
+  if (e != U_TAB_EMPTY)
+    u_tab_insert(slots, mask, e & U_TAB_KEY, e, fresh, refused);
+}
+
+__host__ inline bool u_tab_cap_ok(int cap) {
+  return cap > 0 && (cap & (cap - 1)) == 0;
+}
+__host__ inline unsigned u_blocks(long long threads) {
+  return (unsigned)((threads + UBLOCK - 1) / UBLOCK);
+}
+}  // namespace fidget
+
+// U1-P's sign table. The kernel's unit defines U_V / U_AX / U_AY / U_AZ and
+// `u_run(0, in)` (the one program) as U1's does, the key stride U_KS, the
+// topology tables u_topo_corner [8], u_topo_edge [12 * 3], u_topo_face
+// [6 * 5], u_topo_vc1 [8] and U_TOPO_CENTER, then expands U_TABLE_KERNEL.
+// Two entries share the evaluation pass (one launch after each insert
+// pass, over the points the table lacked) and the table (slots [cap], list
+// [room for the pass's inserts], count [3]):
+// - `..._leaf_masks_launch`: keys [cl], n_leaf [1] -> the corner masks
+//   out int32 [cl] (insert, evaluate, masks);
+// - `..._merge_topo_launch`: pb3 [3][kcap], n_cand candidates, half ->
+//   topo bool [kcap] (insert, evaluate, test).
+// `..._table_grow_launch` rehashes a table into a larger one.
+#define U_TABLE_KERNEL                                                        \
+  extern "C" __global__ void __launch_bounds__(fidget::UBLOCK)                \
+      fidget_unrolled_table_eval(int32_t* __restrict__ slots,                 \
+                                 const int32_t* __restrict__ list,            \
+                                 const int32_t* __restrict__ count,           \
+                                 const float* __restrict__ mat,               \
+                                 const float* __restrict__ params, float h) { \
+    fidget::u_tab_eval<U_V, U_AX, U_AY, U_AZ>(                                \
+        slots, list, count, mat, params, h, U_KS,                             \
+        [](const float* in) { return u_run(0, in); });                        \
+  }                                                                           \
+  extern "C" __global__ void __launch_bounds__(fidget::UBLOCK)                \
+      fidget_unrolled_leaf_insert(const int32_t* keys, const int32_t* n_leaf, \
+                                  int cl, int32_t* slots, unsigned mask,      \
+                                  int32_t* list, int32_t* count) {            \
+    fidget::u_leaf_insert(keys, n_leaf, cl, slots, mask, list, count, U_KS);  \
+  }                                                                           \
+  extern "C" __global__ void __launch_bounds__(fidget::UBLOCK)                \
+      fidget_unrolled_leaf_mask(const int32_t* keys, const int32_t* n_leaf,   \
+                                int cl, const int32_t* slots, unsigned mask,  \
+                                int32_t* out) {                               \
+    fidget::u_leaf_mask(keys, n_leaf, cl, slots, mask, U_KS, out);            \
+  }                                                                           \
+  extern "C" __global__ void __launch_bounds__(fidget::UBLOCK)                \
+      fidget_unrolled_merge_insert(const int32_t* pb3, int kcap, int n_cand,  \
+                                   int half, int32_t* slots, unsigned mask,   \
+                                   int32_t* list, int32_t* count) {           \
+    fidget::u_merge_insert(pb3, kcap, n_cand, half, slots, mask, list, count, \
+                           U_KS);                                             \
+  }                                                                           \
+  extern "C" __global__ void __launch_bounds__(fidget::UBLOCK)                \
+      fidget_unrolled_merge_topo(const int32_t* pb3, int kcap, int n_cand,    \
+                                 int half, const int32_t* slots,              \
+                                 unsigned mask, bool* topo) {                 \
+    fidget::u_merge_topo(pb3, kcap, n_cand, half, slots, mask, U_KS,          \
+                         u_topo_corner, u_topo_edge, u_topo_face, u_topo_vc1, \
+                         U_TOPO_CENTER, topo);                                \
+  }                                                                           \
+  extern "C" __global__ void __launch_bounds__(fidget::UBLOCK)                \
+      fidget_unrolled_table_grow(const int32_t* old, int old_cap,             \
+                                 int32_t* slots, unsigned mask,               \
+                                 int32_t* count) {                            \
+    fidget::u_tab_grow(old, old_cap, slots, mask, count + 2);                 \
+  }                                                                           \
+  /* the evaluation pass over the points an insert pass of `inserts` */    \
+  /* lanes listed (count[0], set to 0 before the insert pass) */              \
+  static void u_tab_evaluate(long long inserts, int32_t* slots,               \
+                             const int32_t* list, const int32_t* count,       \
+                             const float* mat, const float* params, float h,  \
+                             cudaStream_t st) {                               \
+    const unsigned b = fidget::u_blocks(inserts);                             \
+    if (b > 0)                                                                \
+      fidget_unrolled_table_eval<<<b < fidget::U_TAB_EVAL_BLOCKS              \
+                                       ? b                                    \
+                                       : fidget::U_TAB_EVAL_BLOCKS,           \
+                                   fidget::UBLOCK, 0, st>>>(                  \
+          slots, list, count, mat, params, h);                                \
+  }                                                                           \
+  extern "C" int fidget_unrolled_leaf_masks_launch(                           \
+      const int32_t* keys, const int32_t* n_leaf, int cl, const float* mat,   \
+      const float* params, float h, int32_t* slots, int cap, int32_t* list,   \
+      int32_t* count, int32_t* out, void* stream) {                           \
+    const cudaStream_t st = (cudaStream_t)stream;                             \
+    if (cl < 0 || 8LL * cl > 0x7fffffffLL || !fidget::u_tab_cap_ok(cap))      \
+      return (int)cudaErrorInvalidValue;                                      \
+    const int err = (int)cudaMemsetAsync(count, 0, sizeof(int32_t), st);     \
+    if (err) return err;                                                      \
+    const unsigned b = fidget::u_blocks(8LL * cl);                            \
+    if (b > 0) {                                                              \
+      fidget_unrolled_leaf_insert<<<b, fidget::UBLOCK, 0, st>>>(              \
+          keys, n_leaf, cl, slots, (unsigned)(cap - 1), list, count);         \
+      u_tab_evaluate(8LL * cl, slots, list, count, mat, params, h, st);       \
+      fidget_unrolled_leaf_mask<<<b, fidget::UBLOCK, 0, st>>>(                \
+          keys, n_leaf, cl, slots, (unsigned)(cap - 1), out);                 \
+    }                                                                         \
+    return (int)cudaGetLastError();                                           \
+  }                                                                           \
+  extern "C" int fidget_unrolled_merge_topo_launch(                           \
+      const int32_t* pb3, int kcap, int n_cand, int half, const float* mat,   \
+      const float* params, float h, int32_t* slots, int cap, int32_t* list,   \
+      int32_t* count, bool* topo, void* stream) {                             \
+    const cudaStream_t st = (cudaStream_t)stream;                             \
+    if (kcap < 0 || n_cand < 0 || n_cand > kcap ||                            \
+        27LL * kcap > 0x7fffffffLL || !fidget::u_tab_cap_ok(cap))             \
+      return (int)cudaErrorInvalidValue;                                      \
+    const int err = (int)cudaMemsetAsync(count, 0, sizeof(int32_t), st);     \
+    if (err) return err;                                                      \
+    if (n_cand > 0) {                                                         \
+      fidget_unrolled_merge_insert<<<fidget::u_blocks(27LL * n_cand),         \
+                                     fidget::UBLOCK, 0, st>>>(                \
+          pb3, kcap, n_cand, half, slots, (unsigned)(cap - 1), list, count);  \
+      u_tab_evaluate(27LL * n_cand, slots, list, count, mat, params, h, st);  \
+    }                                                                         \
+    if (kcap > 0)                                                             \
+      fidget_unrolled_merge_topo<<<fidget::u_blocks(kcap), fidget::UBLOCK, 0, \
+                                   st>>>(pb3, kcap, n_cand, half, slots,      \
+                                         (unsigned)(cap - 1), topo);          \
+    return (int)cudaGetLastError();                                           \
+  }                                                                           \
+  extern "C" int fidget_unrolled_table_grow_launch(                           \
+      const int32_t* old, int old_cap, int32_t* slots, int cap,               \
+      int32_t* count, void* stream) {                                         \
+    if (old_cap < 0 || !fidget::u_tab_cap_ok(cap))                            \
+      return (int)cudaErrorInvalidValue;                                      \
+    if (old_cap > 0)                                                          \
+      fidget_unrolled_table_grow<<<fidget::u_blocks(old_cap), fidget::UBLOCK, \
+                                   0, (cudaStream_t)stream>>>(                \
+          old, old_cap, slots, (unsigned)(cap - 1), count);                   \
     return (int)cudaGetLastError();                                           \
   }
 

@@ -232,6 +232,9 @@ KERNELS = {
     "unrolled_interval_boxes": (None, "fidget_unrolled_interval_boxes_launch"),
     "unrolled_edges": (None, "fidget_unrolled_edges_launch"),
     "level_active": (None, "fidget_unrolled_level_launch"),
+    "leaf_masks": (None, "fidget_unrolled_leaf_masks_launch"),
+    "merge_topo": (None, "fidget_unrolled_merge_topo_launch"),
+    "table_grow": (None, "fidget_unrolled_table_grow_launch"),
     # the ports of the Pallas probes P2 and P3 (fidget_tpu_torch/demos/)
     "interp_float2": ("interleave", "fidget_interp_float2"),
     "grid_step": ("grid_step", "fidget_grid_step"),

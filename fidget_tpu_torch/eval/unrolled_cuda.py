@@ -41,7 +41,11 @@ and `eval_tape_interval_fast` in `fidget_tpu.mesh.fused`'s cores:
 
 - U1-P `unrolled_points` (`PointsKernel`): U1's program of the whole
   tape behind a kernel unit over a flat list of model-space points,
-  with the distance or the sign `d < 0` as its epilogue; and its edge
+  with the distance or the sign `d < 0` as its epilogue; its sign table
+  (`TableKernel`, `SignTable`): the leaf core's `leaf_masks` and the
+  collapse rounds' `merge_topo` form their points from keys on the
+  card, evaluate each distinct lattice point of a build once and form
+  the corner masks / the topology test there; and its edge
   search `unrolled_edges` (`EdgesKernel`): the same program behind a
   kernel unit in which a group of lanes walks every round of the N-ary
   search of one crossing (cell, edge) slot with its brackets in
@@ -76,7 +80,8 @@ on a CUDA tensor.
 
 `unrolled_float` / `unrolled_interval` / `unrolled_voxel_depth` /
 `unrolled_voxel_fold` / `unrolled_interval3` / `unrolled_proofs3` /
-`unrolled_points` / `unrolled_edges` / `level_active` /
+`unrolled_points` / `leaf_masks` / `merge_topo` /
+`unrolled_edges` / `level_active` /
 `unrolled_interval_boxes` dispatch on the device of their tensors: on
 the CPU
 they run their `_plain` versions (eval/unrolled_fast.py's evaluators),
@@ -595,6 +600,33 @@ def emit_edge_tables() -> str:
             + f"#define U_KS {LATTICE_KS}\n")
 
 
+def emit_table_defs() -> str:
+    """The sign table's constants for U_TABLE_KERNEL: the key stride and
+    mesh/collapse.py's topology test as lattice indices (the corners,
+    the 12 edge checks (mid, a, b), the 6 face checks (mid, 4 corners),
+    the centre) with the corner masks whose VERT_COUNT is 1 as a bit a
+    mask."""
+    from ..mesh.collapse import (_CENTER_LAT, _CORNER_LAT, _EDGE_CHECKS,
+                                 _FACE_CHECKS)
+    from ..mesh.tables import VERT_COUNT
+
+    def table(ctype, name, vals):
+        return (f"static __constant__ {ctype} {name}[{len(vals)}] = "
+                f"{{{', '.join(vals)}}};\n")
+
+    def ints(a):
+        return [str(int(v)) for v in np.asarray(a).reshape(-1)]
+
+    one = (np.asarray(VERT_COUNT) == 1).reshape(8, 32)
+    vc1 = [f"{sum(1 << b for b in np.nonzero(w)[0].tolist())}u" for w in one]
+    return (f"#define U_KS {LATTICE_KS}\n"
+            f"#define U_TOPO_CENTER {int(_CENTER_LAT)}\n"
+            + table("int", "u_topo_corner", ints(_CORNER_LAT))
+            + table("int", "u_topo_edge", ints(_EDGE_CHECKS))
+            + table("int", "u_topo_face", ints(_FACE_CHECKS))
+            + table("unsigned", "u_topo_vc1", vc1))
+
+
 # ======================================================================
 # building
 
@@ -737,6 +769,16 @@ _ARGTYPES = {
     # keys count | cin | pos neg off3 params | hc | act kid | stream
     "fidget_unrolled_level_launch": [_P] * 2 + [_I] + [_P] * 4 + [_F]
     + [_P] * 3,
+    # keys n_leaf | cl | mat params | h | slots | cap | list count | out
+    # stream
+    "fidget_unrolled_leaf_masks_launch": [_P] * 2 + [_I] + [_P] * 2 + [_F]
+    + [_P, _I] + [_P] * 4,
+    # pb3 | kcap n_cand half | mat params | h | slots | cap | list count |
+    # topo stream
+    "fidget_unrolled_merge_topo_launch": [_P] + [_I] * 3 + [_P] * 2 + [_F]
+    + [_P, _I] + [_P] * 4,
+    # old | old_cap | slots | cap | count stream
+    "fidget_unrolled_table_grow_launch": [_P, _I, _P, _I, _P, _P],
 }
 
 
@@ -865,6 +907,25 @@ class EdgesKernel(FloatKernel):
             source = emit_float_kernel(names, self.V, self.axis_of,
                                        emit_edge_tables() + "U_EDGE_KERNEL")
             key = cache_key("edges-kernel", source)
+            self._unit = _Unit(key, source, objects)
+        return self._unit
+
+
+class TableKernel(FloatKernel):
+    """U1-P's sign table for one tape: U1's program unit (shared with
+    U1-P's) behind the table kernel unit (U_TABLE_KERNEL: the insert,
+    evaluation, mask and topology passes of `leaf_masks` and
+    `merge_topo`)."""
+
+    def __init__(self, tape: Tape, axis_of: dict, V: int):
+        super().__init__([tape], axis_of, V)
+
+    def unit(self) -> _Unit:
+        if self._unit is None:
+            objects, names = self._programs()
+            source = emit_float_kernel(names, self.V, self.axis_of,
+                                       emit_table_defs() + "U_TABLE_KERNEL")
+            key = cache_key("table-kernel", source)
             self._unit = _Unit(key, source, objects)
         return self._unit
 
@@ -1530,16 +1591,22 @@ def unrolled_points(kern: PointsKernel, x, y, z, params, count=None):
     return out
 
 
-def unrolled_points_plain(kern: PointsKernel, x, y, z, params, count=None):
-    """Plain PyTorch version of `unrolled_points` (same contract): the
-    whole tape over every lane, then the dead lanes masked."""
+def _distance(kern: FloatKernel, x, y, z, params):
+    """The tape's f32 distance at model points x, y, z (one shape):
+    `eval_tape_float_fast` with the V input values from `params`."""
     inputs = [params[i].expand(x.shape) for i in range(kern.V)]
     for kind, a in (("x", x), ("y", y), ("z", z)):
         idx = kern.axis_of.get(kind)
         if idx is not None:
             inputs[idx] = a
-    d = torch.broadcast_to(eval_tape_float_fast(kern.tapes[0], inputs)[0],
-                           x.shape)
+    return torch.broadcast_to(eval_tape_float_fast(kern.tapes[0], inputs)[0],
+                              x.shape)
+
+
+def unrolled_points_plain(kern: PointsKernel, x, y, z, params, count=None):
+    """Plain PyTorch version of `unrolled_points` (same contract): the
+    whole tape over every lane, then the dead lanes masked."""
+    d = _distance(kern, x, y, z, params)
     live = _live_lanes(x.shape, count, x.device)
     if kern.epilogue == "sign":
         return (d < 0.0) & live
@@ -1701,13 +1768,7 @@ def unrolled_edges_plain(kern: EdgesKernel, key, mask, slot, count, mat,
                      for a, v in enumerate((x, y, z)))
 
     def dist(px, py, pz):
-        inputs = [params[i].expand(px.shape) for i in range(kern.V)]
-        for kind, a in zip("xyz", _model_pts(mat, px, py, pz)):
-            idx = kern.axis_of.get(kind)
-            if idx is not None:
-                inputs[idx] = a
-        return torch.broadcast_to(
-            eval_tape_float_fast(kern.tapes[0], inputs)[0], px.shape)
+        return _distance(kern, *_model_pts(mat, px, py, pz), params)
 
     sx, sy, sz = corner(start)
     ex, ey, ez = corner(end)
@@ -1834,3 +1895,298 @@ def level_boxes(keys, h_child: float, pos, neg, off3):
         for r in range(3)
     )
     return (cx * LATTICE_KS + cy) * LATTICE_KS + cz, mlo, mhi
+
+
+# ----------------------------------------------------------------------
+# U1-P's sign table: each lattice point of a mesh build evaluated once
+
+
+def _table_cap(inserts: int) -> int:
+    """Slots for `inserts` keys at a load of at most 1/2: a power of two,
+    at least 1024."""
+    return max(1024, 1 << max(0, 2 * int(inserts) - 1).bit_length())
+
+
+class SignTable:
+    """The sign table of one mesh build (mesh/fused.py): each leaf-lattice
+    point's key (x * KS + y) * KS + z with its sign d < 0, so that the
+    leaf core and every collapse round evaluate a point once. A point's
+    sign depends on its key alone, so the table gives the signs that the
+    evaluation of every (cell, corner) or (candidate, lattice point) pair
+    gives, bit for bit.
+
+    The kernels' table (`plain` False, the default on the card): `slots`
+    int32 [cap], open addressing with linear probing, -1 empty, the sign
+    in bit 31, cap a power of two sized from host-known bounds at a load
+    of at most 1/2: `bound` (host) bounds the keys held, and an entry
+    that could pass the load first grows the table (a rehash on the
+    card), so nothing is read back. The plain versions' table (`plain`
+    True, the default elsewhere): the keys held, sorted (`keys` int32),
+    and their `signs`. Either way `count` int32 [3] holds the points the
+    last pass evaluated (the keys it added), the keys held, and inserts a
+    full table refused (0)."""
+
+    def __init__(self, inserts: int, device, *, plain: bool | None = None):
+        dev = torch.device(device)
+        self.plain = dev.type != "cuda" if plain is None else bool(plain)
+        self.count = torch.zeros(3, dtype=torch.int32, device=dev)
+        self.bound = 0
+        if self.plain:
+            self.keys = torch.empty(0, dtype=torch.int32, device=dev)
+            self.signs = torch.empty(0, dtype=torch.bool, device=dev)
+        else:
+            self.slots = torch.full((_table_cap(inserts),), -1,
+                                    dtype=torch.int32, device=dev)
+
+    @property
+    def device(self):
+        return self.count.device
+
+    def reserve(self, kern: TableKernel, inserts: int):
+        """Room for `inserts` more keys: the kernels' table grows into
+        `_table_cap` of its new bound where that would pass a load of
+        1/2 (`table_grow`: every entry rehashed on the card)."""
+        self.bound += int(inserts)
+        if self.plain or 2 * self.bound <= self.slots.numel():
+            return
+        old = self.slots
+        self.slots = torch.full((_table_cap(self.bound),), -1,
+                                dtype=torch.int32, device=old.device)
+        lib = _load(kern.unit())
+        err = lib.fidget_unrolled_table_grow_launch(
+            old.data_ptr(), old.numel(), self.slots.data_ptr(),
+            self.slots.numel(), self.count.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"CUDA launch of table_grow failed with "
+                               f"error {err}")
+        cuda.LAUNCHES["table_grow"] += 1
+
+    def entries(self):
+        """(keys int32, signs bool): the keys held, sorted, and their
+        signs."""
+        if self.plain:
+            return self.keys, self.signs
+        e = self.slots[self.slots != -1]
+        keys, order = torch.sort(e & 0x7FFFFFFF)
+        return keys, (e < 0)[order]
+
+    def clone(self) -> "SignTable":
+        t = object.__new__(SignTable)
+        t.__dict__.update({k: v.clone() if isinstance(v, torch.Tensor)
+                           else v for k, v in self.__dict__.items()})
+        return t
+
+
+def _record(table: SignTable, keys, signs):
+    """The plain versions' insert: the keys (with their signs) that the
+    table lacks, added; count[0] = how many (the points a kernel pass
+    evaluates), count[1] = the keys held."""
+    u, inv = torch.unique(keys.reshape(-1), return_inverse=True)
+    us = torch.zeros(u.shape, dtype=torch.bool, device=u.device)
+    us[inv] = signs.reshape(-1)  # one key, one point, one sign
+    new = ~torch.isin(u, table.keys)
+    keys_all = torch.cat([table.keys, u[new].to(torch.int32)])
+    signs_all = torch.cat([table.signs, us[new]])
+    table.keys, order = torch.sort(keys_all)
+    table.signs = signs_all[order]
+    table.count[0] = new.sum()
+    table.count[1] = table.keys.numel()
+
+
+def _table_args(kern, table, mat, params):
+    if not isinstance(kern, TableKernel):
+        raise ValueError("the sign table's entries take a TableKernel")
+    if mat.shape != (3, 4) or params.shape != (kern.V,):
+        raise ValueError(f"mat must be [3, 4] and params [{kern.V}]")
+
+
+def _plain_table(table):
+    if not table.plain:
+        raise ValueError("the plain versions fill a plain table")
+
+
+def _launch_table(kern, name, table, inserts, *args):
+    """Launches `name`'s entry of the table unit: the entry's own
+    arguments, the table's slots, a list for `inserts` keys and the
+    counts, then the output `args[-1]`."""
+    if table.plain:
+        raise ValueError("the kernels fill a table of slots (plain=False)")
+    fn = getattr(_load(kern.unit()), f"fidget_unrolled_{name}_launch")
+    lst = torch.empty(max(1, inserts), dtype=torch.int32,
+                      device=table.device)
+    err = fn(*args[:-1], table.slots.data_ptr(), table.slots.numel(),
+             lst.data_ptr(), table.count.data_ptr(), args[-1],
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {name} failed with error {err}")
+    cuda.LAUNCHES[name] += 1
+
+
+def _pack(x, y, z):
+    return (x * LATTICE_KS + y) * LATTICE_KS + z
+
+
+def leaf_points(keys, h: float, mat):
+    """The 8 corners of each leaf cell of `keys` (int32 [cl] packed
+    lattice keys), corner c at offset (c & 1, c >> 1 & 1, c >> 2 & 1):
+    (their packed keys int32 [8, cl], their model points (x, y, z) [8,
+    cl] at world (k + o) h - 1 through `mat`), every (corner, cell) pair
+    as mesh/fused.py's leaf core formed them before the sign table."""
+    off = torch.tensor([[(c >> a) & 1 for a in range(3)] for c in range(8)],
+                       dtype=torch.int32, device=keys.device)
+    pts = [c[None, :] + off[:, a, None] for a, c in enumerate(_lattice(keys))]
+    world = (p.to(torch.float32) * h - 1.0 for p in pts)
+    return _pack(*pts), _model_pts(mat, *world)
+
+
+def lattice_points(pb3, ps: int, h: float, mat):
+    """The 27 lattice points pb3[:, j] + (x, y, z) * ps / 2 of each
+    candidate parent (mesh/collapse.py's `_LATTICE`; pb3 int32 [3, kcap]
+    on the fine lattice): (their packed keys int32 [27, kcap], their
+    model points (x, y, z) [27, kcap] through `mat`), as mesh/fused.py's
+    collapse round formed them before the sign table."""
+    from ..mesh.collapse import _LATTICE
+
+    lat = torch.as_tensor(_LATTICE.astype(np.int32), device=pb3.device)
+    half = int(ps) // 2
+    pts = [pb3[a][None, :] + lat[:, a, None] * half for a in range(3)]
+    world = (p.to(torch.float32) * h - 1.0 for p in pts)
+    return _pack(*pts), _model_pts(mat, *world)
+
+
+def corner_masks(inside):
+    """bool [8, n] -> int32 [n]: bit c the sign of row c."""
+    bits = torch.arange(8, dtype=torch.int32, device=inside.device)[:, None]
+    return (inside.to(torch.int32) << bits).sum(0, dtype=torch.int32)
+
+
+def topo_test(inside):
+    """mesh/collapse.py's `topo_safe` in torch ops on the signs of each
+    candidate's 27 lattice points (bool [27, kcap], lattice index first):
+    the merged corner mask has one vertex, every edge midpoint carries an
+    endpoint's sign, every face midpoint a corner's and no face is
+    ambiguous, the centre carries a corner's. Returns bool [kcap]."""
+    from ..mesh.collapse import (_CENTER_LAT, _CORNER_LAT, _EDGE_CHECKS,
+                                 _FACE_CHECKS)
+    from ..mesh.tables import VERT_COUNT
+
+    dev = inside.device
+    corner = inside[torch.as_tensor(_CORNER_LAT, device=dev)]  # [8, kcap]
+    vc_tab = torch.as_tensor(VERT_COUNT.astype(np.int32), device=dev)
+    topo = vc_tab[corner_masks(corner)] == 1
+    for mid, a, b in _EDGE_CHECKS:
+        topo &= (inside[mid] == inside[a]) | (inside[mid] == inside[b])
+    for row in _FACE_CHECKS:
+        mid, quad = int(row[0]), row[1:]
+        hit = torch.zeros_like(topo)
+        for q in quad:
+            hit |= inside[mid] == inside[int(q)]
+        topo &= hit
+        c0, c1, c2, c3 = (inside[int(q)] for q in quad)
+        topo &= ~((c0 == c3) & (c1 == c2) & (c0 != c1))
+    center_hit = torch.zeros_like(topo)
+    for c in range(8):
+        center_hit |= inside[int(_CENTER_LAT)] == corner[c]
+    return topo & center_hit
+
+
+def _leaf_args(keys, n_leaf, kern, table, mat, params):
+    cl = keys.shape[0]
+    if keys.shape != (cl,) or keys.dtype != torch.int32:
+        raise ValueError("keys must be int32 [cl]")
+    _count_arg(n_leaf, max(cl, 1))
+    if n_leaf is None:
+        raise ValueError("the leaf cells need their live count")
+    _table_args(kern, table, mat, params)
+    return cl
+
+
+def leaf_masks(kern: TableKernel, keys, n_leaf, h: float, mat, params,
+               table: SignTable):
+    """U1-P's leaf entry (mesh/fused.py's leaf core): the 8-bit corner
+    mask of each leaf cell in `keys` (int32 [cl] packed lattice keys, -1
+    padding; `n_leaf` int32 [1] the live cells), bit c the sign d < 0 of
+    corner c (offset (c & 1, c >> 1 & 1, c >> 2 & 1)) at world (k + o) h -
+    1 through the world -> model matrix `mat` [3, 4]; 0 at a dead cell.
+    Returns int32 [cl]. On the card each live cell's corners go into the
+    sign table, the points it lacked are evaluated once each (count[0]:
+    the distinct live corners of a fresh table), and 8 lanes a cell (a
+    corner each, a ballot) form the masks from it."""
+    cl = _leaf_args(keys, n_leaf, kern, table, mat, params)
+    if params.device.type == "cpu":
+        return leaf_masks_plain(kern, keys, n_leaf, h, mat, params, table)
+    mat = mat.contiguous()
+    cuda.check_cuda(keys, n_leaf, mat, params, table.count)
+    table.reserve(kern, 8 * cl)
+    out = torch.empty(cl, dtype=torch.int32, device=params.device)
+    _launch_table(kern, "leaf_masks", table, 8 * cl, keys.data_ptr(),
+                  n_leaf.data_ptr(), cl, mat.data_ptr(), params.data_ptr(),
+                  float(h), out.data_ptr())
+    return out
+
+
+def leaf_masks_plain(kern: TableKernel, keys, n_leaf, h: float, mat, params,
+                     table: SignTable):
+    """Plain PyTorch version of `leaf_masks` (same contract): the corners
+    of every cell (`leaf_points`), `unrolled_points_plain`'s sign at
+    every (corner, cell) pair, the masks; the table records the distinct
+    live corners."""
+    cl = _leaf_args(keys, n_leaf, kern, table, mat, params)
+    _plain_table(table)
+    ckeys, pts = leaf_points(keys, h, mat)
+    live = (torch.arange(cl, device=keys.device) < n_leaf) & (keys >= 0)
+    inside = (_distance(kern, *pts, params) < 0.0) & live[None, :]
+    _record(table, ckeys[:, live], inside[:, live])
+    return corner_masks(inside)
+
+
+def _merge_args(pb3, ps, n_cand, kern, table, mat, params):
+    kcap = pb3.shape[1] if pb3.dim() == 2 else -1
+    if pb3.shape != (3, kcap) or pb3.dtype != torch.int32:
+        raise ValueError("pb3 must be int32 [3, kcap]")
+    if not 0 <= int(n_cand) <= kcap or int(ps) < 2 or int(ps) % 2:
+        raise ValueError("0 <= n_cand <= kcap and an even ps expected")
+    _table_args(kern, table, mat, params)
+    return kcap
+
+
+def merge_topo(kern: TableKernel, pb3, ps: int, n_cand: int, h: float, mat,
+               params, table: SignTable):
+    """U1-P's merge entry (mesh/fused.py's collapse round): the topology
+    test of mesh/collapse.py's `topo_safe` for each candidate parent of
+    size `ps` whose lo corner is pb3[:, j] (int32 [3, kcap], fine lattice),
+    on the signs of its 27 lattice points pb3[:, j] + (x, y, z) * ps / 2
+    (`_LATTICE`); the first `n_cand` candidates are live. Returns bool
+    [kcap], False where dead. On the card each live candidate's points go
+    into the sign table, only the points it lacked are evaluated
+    (count[0]), and a thread a candidate forms its 27-bit inside word from
+    the table and tests it."""
+    kcap = _merge_args(pb3, ps, n_cand, kern, table, mat, params)
+    if params.device.type == "cpu":
+        return merge_topo_plain(kern, pb3, ps, n_cand, h, mat, params, table)
+    mat = mat.contiguous()
+    pb3 = pb3.contiguous()
+    cuda.check_cuda(pb3, mat, params, table.count)
+    table.reserve(kern, 27 * int(n_cand))
+    topo = torch.empty(kcap, dtype=torch.bool, device=params.device)
+    _launch_table(kern, "merge_topo", table, 27 * int(n_cand),
+                  pb3.data_ptr(), kcap, int(n_cand), int(ps) // 2,
+                  mat.data_ptr(), params.data_ptr(), float(h),
+                  topo.data_ptr())
+    return topo
+
+
+def merge_topo_plain(kern: TableKernel, pb3, ps: int, n_cand: int, h: float,
+                     mat, params, table: SignTable):
+    """Plain PyTorch version of `merge_topo` (same contract): the [27,
+    kcap] lattice (`lattice_points`), `unrolled_points_plain`'s signs
+    there and `topo_test`; the table records the distinct points of the
+    live candidates."""
+    kcap = _merge_args(pb3, ps, n_cand, kern, table, mat, params)
+    _plain_table(table)
+    keys, pts = lattice_points(pb3, ps, h, mat)
+    inside = _distance(kern, *pts, params) < 0.0
+    live = torch.arange(kcap, device=pb3.device) < int(n_cand)
+    _record(table, keys[:, live], inside[:, live])
+    return topo_test(inside) & live

@@ -11,10 +11,12 @@ for the tape (eval/unrolled_cuda.py) and the gradient kernel:
   on the device; only a cell COUNT comes back per level, and none at
   all on a chain whose capacity is cached (speculative mode: one count
   vector a chain);
-- leaf core: the sign of all 8 corners of each leaf cell with U1-P
-  `unrolled_points` ("sign"), the 8-bit mask, and the compacted
-  surface cells; then the crossing list: the (cell, edge) slots whose
-  edge crosses the surface, compacted (`crossing_list`);
+- leaf core: U1-P's leaf entry `leaf_masks` decodes each leaf cell's
+  key, forms its 8 corners and inserts them into the build's sign table
+  (`SignTable`, on the card), evaluates each distinct corner once and
+  forms the 8-bit masks; then the compacted surface cells and the
+  crossing list: the (cell, edge) slots whose edge crosses the surface,
+  compacted (`crossing_list`);
 - edge core: on the crossing list, the N-ary bisection search in one
   launch (U1-P `unrolled_edges`: a group of lanes a slot, the brackets
   in registers, the intersection and its distance), world-space
@@ -23,6 +25,12 @@ for the tape (eval/unrolled_cuda.py) and the gradient kernel:
   scattered back to the [12, cs] (edge, cell) layout, QEF accumulation
   into per-(cell, vertex-slot) sums, and the closed-form f32 QEF solve
   (mesh/qef.py).
+
+The collapse rounds (`merge_core`, against `DeviceVertexStore`) solve
+the merged QEFs in torch ops and run the topology test through U1-P's
+merge entry `merge_topo`, on the same sign table: a round evaluates
+only the lattice points that the leaf core and the rounds before it
+left out.
 
 The generated kernels read the live count from device memory, so a
 chain of levels is enqueued without a host read; the plain versions
@@ -50,14 +58,16 @@ from ..eval.unrolled_cuda import LATTICE_KS as _KS
 from ..eval.unrolled_cuda import (
     BoxesKernel,
     EdgesKernel,
-    PointsKernel,
+    SignTable,
+    TableKernel,
     _lattice as _dec,
     _model_pts,
     build_kernels,
     built,
+    leaf_masks,
     level_active,
+    merge_topo,
     unrolled_edges,
-    unrolled_points,
 )
 from ..render.config import check_cancel
 from .qef import qef_err_c, solve_qef_c
@@ -99,11 +109,11 @@ def _corner_off(device):
 
 def _kernels(ev) -> dict:
     """The tape's generated kernels, kept on the evaluator: U1-P's sign
-    epilogue and edge search, and U2-B."""
+    table and edge search, and U2-B."""
     ks = ev.__dict__.get("_fused_kernels")
     if ks is None:
         args = (ev.tape, ev.axis_of, ev.n_inputs)
-        ks = {"sign": PointsKernel(*args, "sign"),
+        ks = {"table": TableKernel(*args),
               "edges": EdgesKernel(*args),
               "boxes": BoxesKernel(*args)}
         ev._fused_kernels = ks
@@ -131,22 +141,18 @@ def level_core(ev, keys, n_in, cvec, li, h_child, pos, neg, off3, vv, cout):
     return out, n_out
 
 
-def leaf_core(ev, keys, n_leaf, cvec, li, h, mat, vv, cs):
-    """Leaf cells -> compacted surface cells with sign masks.
+def leaf_core(ev, keys, n_leaf, cvec, li, h, mat, vv, cs, table=None):
+    """Leaf cells -> compacted surface cells with sign masks, the
+    corners' signs through the build's sign table `table` (a table of
+    its own when none is given).
 
     Returns (surf_keys [cs], surf_mask [cs], n_surf int32 [1]); cvec[li]
     is set to n_surf."""
     dev = keys.device
     cl = keys.shape[0]
-    x, y, z = _dec(keys)
-    off = _corner_off(dev)
-    wx = (x[None, :] + off[:, 0, None]).to(torch.float32) * h - 1.0  # [8, cl]
-    wy = (y[None, :] + off[:, 1, None]).to(torch.float32) * h - 1.0
-    wz = (z[None, :] + off[:, 2, None]).to(torch.float32) * h - 1.0
-    mx, my, mz = _model_pts(mat, wx, wy, wz)
-    inside = unrolled_points(_kernels(ev)["sign"], mx, my, mz, vv, n_leaf)
-    bits = torch.arange(8, dtype=torch.int32, device=dev)[:, None]
-    mask = (inside.to(torch.int32) << bits).sum(0, dtype=torch.int32)
+    if table is None:
+        table = SignTable(8 * cl, dev)
+    mask = leaf_masks(_kernels(ev)["table"], keys, n_leaf, h, mat, vv, table)
     live = (torch.arange(cl, device=dev) < n_leaf) & (keys >= 0)
     surf = live & (mask != 0) & (mask != 255)
     out_k, out_m, n_surf = _compact_keys(surf, keys, cs, mask)
@@ -376,6 +382,9 @@ def fine_stage(ev, m, var_vec, depth, *, rounds, samples, cancel=None,
         n_in = _tensor(np.array([n_seed], np.int32), dev)
         n_lv = depth - d0
         cvec = torch.zeros(n_lv + 2, dtype=torch.int32, device=dev)
+        # the build's sign table, sized for the leaf pass's 8 inserts a
+        # cell (no count is read for it)
+        table = SignTable(8 * cmax, dev)
         for i, d in enumerate(range(d0, depth)):
             check_cancel(cancel)
             h_child = 2.0 / (1 << (d + 1))
@@ -391,7 +400,7 @@ def fine_stage(ev, m, var_vec, depth, *, rounds, samples, cancel=None,
                     return "empty", 0
             n_in = n_out
         surf_keys, surf_mask, n_surf = leaf_core(ev, keys, n_in, cvec, n_lv,
-                                                 h, mat, vv, cmax)
+                                                 h, mat, vv, cmax, table)
         if not checked:
             # the cached bucket of the crossing list (the surface cells'
             # crossing edges), counted into the same vector
@@ -410,11 +419,13 @@ def fine_stage(ev, m, var_vec, depth, *, rounds, samples, cancel=None,
                 )
             if 0 in cn[:-2]:
                 return "empty", 0
+            n_leaf = cn[-3]
             ns_here = cn[-2]
             if cn[-1] > ccap:  # only the list overflowed: list it again
                 cross = crossing_list(surf_keys, surf_mask, n_surf,
                                       _bucket_pow2(cn[-1]), cvec, n_lv + 1)
         else:
+            n_leaf = n
             ns_here = int(n_surf)
             if clock is not None:
                 clock.tick(f"corner masks ({ns_here} surface)")
@@ -423,7 +434,10 @@ def fine_stage(ev, m, var_vec, depth, *, rounds, samples, cancel=None,
             cross = crossing_list(surf_keys, surf_mask, n_surf,
                                   12 * _bucket_half(ns_here, lo=1024), cvec,
                                   n_lv + 1)
-        return (surf_keys, surf_mask, n_surf, cross, ns_here), ns_here
+        # the table holds at most the leaf cells' 8 corners each, which
+        # the count just read bounds more tightly than the bucket
+        table.bound = 8 * n_leaf
+        return (surf_keys, surf_mask, n_surf, cross, ns_here, table), ns_here
 
     while True:
         r, n = run_chain(cmax, checked=not speculative)
@@ -434,7 +448,7 @@ def fine_stage(ev, m, var_vec, depth, *, rounds, samples, cancel=None,
     cap_cache[("cmax", depth)] = cmax
     if r == "empty":
         return None
-    surf_keys, surf_mask, n_surf, cross, ns = r
+    surf_keys, surf_mask, n_surf, cross, ns, table = r
     if ns == 0:
         return None
     # right-size the surface worklist: the edge core's [12, cs] layout
@@ -447,6 +461,7 @@ def fine_stage(ev, m, var_vec, depth, *, rounds, samples, cancel=None,
     check_cancel(cancel)
     res = edges_core(ev, surf_keys, surf_mask, n_surf, h, mat, vv, cs_cap,
                      rounds, samples, mat[:, :3], cross)
+    res["table"] = table  # the collapse rounds' (DeviceVertexStore)
 
     # host copies of the cell list (needed for the walk either way)
     sk = surf_keys[:ns].cpu().numpy().astype(np.int64)
@@ -477,24 +492,17 @@ def _member_sum(a, kcap):
     return acc
 
 
-def merge_core(store, mvid, pb3, ps, kcap):
+def merge_core(store, mvid, pb3, ps, kcap, n_cand):
     """One collapse round on the device: merged QEF solve and 27-point
-    topology probe for kcap candidates, the store's arrays staying on
-    the device. mvid [kcap * 8] i32 is the dense member table (candidate
-    k's members at k*8..k*8+7, -1 padding), pb3 [3, kcap] i32 the
-    parents' lo corners (fine lattice), ps the parent size. Writes every
+    topology probe for kcap candidates (the first n_cand live), the
+    store's arrays staying on the device. mvid [kcap * 8] i32 is the
+    dense member table (candidate k's members at k*8..k*8+7, -1
+    padding), pb3 [3, kcap] i32 the parents' lo corners (fine lattice),
+    ps the parent size. Writes every
     candidate's merged QEF, position, residual and origin at the
     contiguous slab ext_base..ext_base+kcap; returns packed [kcap, 6]
     f32: topo, merged position xyz, merr, cerr + the f32 noise
     tolerance."""
-    from .collapse import (
-        _CENTER_LAT,
-        _CORNER_LAT,
-        _EDGE_CHECKS,
-        _FACE_CHECKS,
-        _LATTICE,
-    )
-
     dev = store.qef.device
     h = store.h
     valid = mvid >= 0
@@ -546,36 +554,10 @@ def merge_core(store, mvid, pb3, ps, kcap):
     # test can discount it (scales with the largest term)
     tol = 2.4e-7 * torch.abs(btb)
 
-    # 27-point sign lattice, lattice index on the first axis
-    lat = torch.as_tensor(_LATTICE.astype(np.int32), device=dev)
-    half = ps // 2
-    px = pb3[0][None, :] + lat[:, 0, None] * half  # [27, kcap]
-    py = pb3[1][None, :] + lat[:, 1, None] * half
-    pz = pb3[2][None, :] + lat[:, 2, None] * half
-    wx = px.to(torch.float32) * h - 1.0
-    wy = py.to(torch.float32) * h - 1.0
-    wz = pz.to(torch.float32) * h - 1.0
-    inside = unrolled_points(_kernels(store.ev)["sign"],
-                             *_model_pts(store.mat, wx, wy, wz), store.vv)
-    corner = inside[torch.as_tensor(_CORNER_LAT, device=dev)]  # [8, kcap]
-    bits = torch.arange(8, dtype=torch.int32, device=dev)[:, None]
-    pmask = (corner.to(torch.int32) << bits).sum(0)
-    vc_tab = torch.as_tensor(VERT_COUNT.astype(np.int32), device=dev)
-    topo = vc_tab[pmask] == 1
-    for mid, a, b in _EDGE_CHECKS:
-        topo &= (inside[mid] == inside[a]) | (inside[mid] == inside[b])
-    for row in _FACE_CHECKS:
-        mid, quad = int(row[0]), row[1:]
-        hit = torch.zeros_like(topo)
-        for q in quad:
-            hit |= inside[mid] == inside[int(q)]
-        topo &= hit
-        c0, c1, c2, c3 = (inside[int(q)] for q in quad)
-        topo &= ~((c0 == c3) & (c1 == c2) & (c0 != c1))
-    center_hit = torch.zeros_like(topo)
-    for c in range(8):
-        center_hit |= inside[int(_CENTER_LAT)] == corner[c]
-    topo &= center_hit
+    # the topology test on the 27-point sign lattice (U1-P's merge entry:
+    # only the points the build's sign table lacks are evaluated)
+    topo = merge_topo(_kernels(store.ev)["table"], pb3, ps, n_cand, h,
+                      store.mat, store.vv, store.table)
 
     # the ext region write is one contiguous slab
     base = store.ext_base
@@ -614,6 +596,11 @@ class DeviceVertexStore:
         self.verr = res["verr"]
         self.vorig = res["vorig"]
         self.ext_base = cs_cap * 4
+        # the build's sign table from the leaf core (any table serves: a
+        # point's sign depends on its key alone)
+        self.table = res.get("table")
+        if self.table is None:
+            self.table = SignTable(0, dev)
 
     def _ensure_ext(self, need):
         """Grows the extension region in slabs."""
@@ -645,7 +632,7 @@ class DeviceVertexStore:
         pb_p[:, :K] = pbase.T
         dev = self.qef.device
         packed = merge_core(self, _tensor(mv_p, dev),
-                            _tensor(pb_p, dev), int(ps), kcap)
+                            _tensor(pb_p, dev), int(ps), kcap, K)
         self._last = (self.ext_base, kcap)
         self.ext_base += kcap
         p = packed[:K].cpu().numpy().astype(np.float64)

@@ -87,7 +87,10 @@ inputs of the edge core and of every level core, then times by turns
 this tree's and each checkout DIR's (the parent, its `fidget_tpu_torch`
 imported beside the tree's) edge core (the tree's with the crossing
 list it builds in the chain) and level cores on them by CUDA events,
-with the profiler's device time a kernel inside one call of each; then
+with the profiler's device time a kernel inside one call of each; the
+leaf core and a build's collapse rounds likewise (`table_probe`: the
+tree's on U1-P's sign table, with device ms and device ops a call);
+then
 U2-B's level kernel of this tree at each (block, register cap) of
 BOX_VARIANTS on the union's and gyroid's largest level, with each
 variant's ptxas registers and spills (and the 7,203-op stand-in's);
@@ -874,6 +877,10 @@ def mesher_probe(cs, port, others, opts):
                   f"{np.median(v):.4f} ms, min {min(v):.4f} ms over "
                   f"{len(v)} rounds (CUDA events, 5 calls each)", flush=True)
 
+    # the leaf core and the collapse rounds (U1-P's sign table on the
+    # tree, the dense corners and lattices on a checkout), by turns
+    table_probe(cs, sides, scenes, settings, evs, opts)
+
     # U2-B variants on the largest level
     ctx = port.Context()
     from fidget_tpu_torch.scenes import standin_shape
@@ -962,6 +969,102 @@ def mesher_probe(cs, port, others, opts):
               f"{np.median(tot):.1f} ms, min {min(tot):.1f} ms over "
               f"{len(tot)}; stages of the median (ms): " + ", ".join(
                   f"{s} {v:.1f}" for s, v in runs[k][1].items()), flush=True)
+
+
+def table_probe(cs, sides, scenes, settings, evs, opts):
+    """`--mesher`'s leaf core and collapse rounds: the tree's leaf core
+    (`leaf_core` with a table of its own) and a build's collapse rounds
+    (`merge_core` round after round, from the table the leaf core left,
+    each round at its own slab) captured from a warm depth-8 build of
+    each scene, replayed on each side (a checkout's own `leaf_core` and
+    `merge_core` on the same inputs and store), by turns by CUDA events
+    (host clock of enqueue included: these cores are host-bound), and
+    once under the profiler: device ms a call, device ops a call, the
+    heaviest kernels."""
+    from fidget_tpu_torch.mesh import fused
+
+    port = sides["tree"]
+    caps = {}
+    saved = (fused.leaf_core, fused.merge_core)
+    for tag, _, scene in scenes["tree"]:
+        cap = caps[tag] = {"rounds": []}
+
+        def rec_leaf(*a, cap=cap):
+            cap["leaf"] = a[:9]
+            return saved[0](*a)
+
+        def rec_merge(store, mvid, pb3, ps, kcap, n_cand, cap=cap):
+            if not cap["rounds"]:
+                cap["table"] = store.table.clone()
+            cap["rounds"].append((store, mvid, pb3, ps, kcap, n_cand,
+                                  store.ext_base))
+            return saved[1](store, mvid, pb3, ps, kcap, n_cand)
+
+        fused.leaf_core, fused.merge_core = rec_leaf, rec_merge
+        try:
+            port.build_mesh(scene, settings(port))
+        finally:
+            fused.leaf_core, fused.merge_core = saved
+        rounds = cap["rounds"]
+        print(f"mesher | {tag}: leaf core over {int(cap['leaf'][2])} of "
+              f"{cap['leaf'][1].shape[0]} cells; {len(rounds)} collapse "
+              f"rounds of " + "/".join(str(r[5]) for r in rounds)
+              + " candidates", flush=True)
+
+    def leaf_fn(side, tag):
+        pkg_fused = importlib.import_module(sides[side].__name__
+                                            + ".mesh.fused")
+        a = caps[tag]["leaf"]
+        ev = evs[side, tag]
+        return lambda: pkg_fused.leaf_core(ev, *a[1:])
+
+    def rounds_fn(side, tag):
+        pkg_fused = importlib.import_module(sides[side].__name__
+                                            + ".mesh.fused")
+        rounds = caps[tag]["rounds"]
+        store = object.__new__(pkg_fused.DeviceVertexStore)
+        store.__dict__.update(rounds[0][0].__dict__)
+        store.ev = evs[side, tag]
+        table0 = caps[tag]["table"]
+
+        def run():
+            store.table = table0.clone()
+            for _, mvid, pb3, ps, kcap, n_cand, base in rounds:
+                store.ext_base = base
+                if side == "tree":
+                    pkg_fused.merge_core(store, mvid, pb3, ps, kcap, n_cand)
+                else:
+                    pkg_fused.merge_core(store, mvid, pb3, ps, kcap)
+        return run
+
+    for tag in caps:
+        fns = {}
+        for side in sides:
+            fns[f"leaf core | {side}"] = leaf_fn(side, tag)
+            fns[f"collapse rounds | {side}"] = rounds_fn(side, tag)
+        for label, fn in fns.items():
+            busy = cs._device_busy(fn, 3)
+            if busy is None:
+                print(f"mesher | {tag} {label}: no device time recorded",
+                      flush=True)
+                continue
+            ms, wall, ops, top = busy
+            print(f"mesher | {tag} {label}: device {ms:.4f} ms a call, "
+                  f"{ops:.1f} device ops a call, wall {wall:.3f} ms under "
+                  f"the profiler; heaviest "
+                  + ", ".join(f"{k} {t:.4f} ms x{c:.1f}" for k, t, c in top),
+                  flush=True)
+        times = _by_turns(cs, fns, opts.rounds_unrolled, reps=3)
+        for label, v in times.items():
+            print(f"mesher | {tag} {label} by turns: median "
+                  f"{np.median(v):.4f} ms, min {min(v):.4f} ms over "
+                  f"{len(v)} rounds (CUDA events, 3 calls each)", flush=True)
+    # the tree's table after each scene's leaf core and rounds
+    for tag in caps:
+        t = caps[tag]["table"]
+        print(f"mesher | {tag}: the table after the leaf core holds "
+              f"{int(t.count[1])} keys in {t.slots.numel()} slots",
+              flush=True)
 
 
 def _linked_regs(k, symbol):

@@ -654,11 +654,16 @@ def test_build_mesh_on_card_matches_cpu(card):
 def test_unrolled_mesh_on_card_matches_cpu(card):
     """The compiled mesher (eval="unrolled") on the card: a depth-5 mesh
     of a 40-sphere union equal to the CPU's build (triangles equal,
-    vertices within 1e-5), through U1-P (its sign and its edge search),
-    U2-B on the levels and K4 and no K1 or K3; then U1-P (both
-    epilogues) and U2-B against their plain versions on points and boxes
-    with a live count, and the edge search and a level on the build's
-    own crossing list and parents."""
+    vertices within 1e-5), through U1-P (the sign table's leaf and merge
+    entries, the edge search), U2-B on the levels and K4 and no K1 or K3;
+    then the leaf entry and the first collapse round's merge entry (each
+    from the table as the build left it before the call), the two again
+    on a key list with duplicates, padding and a live count below its
+    length (into a fresh table and into the build's), U1-P (both
+    epilogues) and U2-B against their plain versions bit for bit (masks,
+    topo, and the table's keys, signs and counts), on points and boxes
+    with a live count, and the edge search and a level on the build's own
+    crossing list and parents."""
     from fidget_tpu_torch.eval import unrolled_cuda as uc
 
     ctx = port.Context()
@@ -666,11 +671,15 @@ def test_unrolled_mesh_on_card_matches_cpu(card):
     from fidget_tpu_torch.mesh import fused
 
     calls = {}
-    saved = {n: getattr(fused, n) for n in ("unrolled_edges", "level_active")}
+    saved = {n: getattr(fused, n) for n in ("unrolled_edges", "level_active",
+                                            "leaf_masks", "merge_topo")}
 
     def recorder(name):
         def call(*args, **kw):
-            calls[name] = (args, kw)
+            if name not in calls:  # the table as it was before the call
+                tables = [a.clone() for a in args
+                          if isinstance(a, uc.SignTable)]
+                calls[name] = (args, kw, tables)
             return saved[name](*args, **kw)
         return call
 
@@ -686,17 +695,59 @@ def test_unrolled_mesh_on_card_matches_cpu(card):
     launched = dict(cuda.LAUNCHES)
     want = port.build_mesh(tape, port.MeshSettings(depth=5, device="cpu",
                                                    eval="unrolled"))
-    for k in ("unrolled_points", "unrolled_edges", "level_active",
+    for k in ("leaf_masks", "merge_topo", "unrolled_edges", "level_active",
               "interp_grad"):
         assert launched[k] > 0, k
-    args, kw = calls["unrolled_edges"]
+    assert launched["unrolled_points"] == 0
+    args, kw, _ = calls["unrolled_edges"]
     a = uc.unrolled_edges(*args, **kw)
     b = uc.unrolled_edges_plain(*args, **kw)
     assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
-    args, kw = calls["level_active"]
+    args, kw, _ = calls["level_active"]
     assert all(torch.equal(x, y) for x, y in zip(
         uc.level_active(*args, **kw), uc.level_active_plain(*args, **kw)))
     assert launched["interp_interval"] == launched["interp_float"] == 0
+
+    def plain_copy(table):
+        t = uc.SignTable(0, card, plain=True)
+        t.keys, t.signs = table.entries()
+        t.count = table.count.clone()
+        return t
+
+    def held(table, plain):
+        """The kernel's table holds the plain version's keys and signs."""
+        for x, y in zip(table.entries(), plain.entries()):
+            assert torch.equal(x, y)
+        assert table.count.tolist() == plain.count.tolist()
+
+    def both(name, args, table):
+        """`name` on the card on `table` and its plain version on a plain
+        copy of it: equal outputs, and the two tables hold the same."""
+        plain = plain_copy(table)
+        out = getattr(uc, name)(*args, table)
+        ref = getattr(uc, name + "_plain")(*args, plain)
+        assert torch.equal(out, ref), name
+        held(table, plain)
+        return out
+
+    for name in ("leaf_masks", "merge_topo"):
+        args, kw, (before,) = calls[name]
+        out = both(name, args[:-1], before)
+        assert 0 < int(before.count[0]) < int(out.numel()) * (
+            8 if name == "leaf_masks" else 27)
+    # a key list with duplicates, -1 padding and a live count below its
+    # length, into a fresh table and into the one the build left, then a
+    # collapse round on it: each distinct live point evaluated once
+    kern, keys, _, h, mat, vv, _ = calls["leaf_masks"][0]
+    ks = uc.LATTICE_KS
+    keys = keys[keys >= 0][::3]
+    keys = torch.cat([keys, keys[:50], keys[10:30] + ks,
+                      torch.full((20,), -1, dtype=torch.int32, device=card)])
+    keys = keys[torch.randperm(keys.numel(), device=card)]
+    live = torch.tensor([keys.numel() - 15], dtype=torch.int32, device=card)
+    for table in (uc.SignTable(8 * keys.numel(), card), before):
+        both("leaf_masks", (kern, keys, live, h, mat, vv), table)
+        both("merge_topo", calls["merge_topo"][0][:-1], table)
     assert len(got.triangles) > 1000
     np.testing.assert_array_equal(got.triangles, want.triangles)
     np.testing.assert_allclose(got.vertices, want.vertices, rtol=0, atol=1e-5)

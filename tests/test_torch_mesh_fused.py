@@ -8,7 +8,11 @@ eval="unrolled")`, stage by stage and as whole meshes, under three
 views: the identity, tests/test_mesh.py's scaled and offset camera, and
 an oblique rotation (0.7 rad about (1, 2, 3)) whose coefficients mix
 signs. Exact: the per-level counts, the compacted keys, the surface
-keys and masks, the collapse round's topology and the triangles.
+keys and masks, the collapse round's topology and the triangles; and
+U1-P's sign-table entries (`leaf_masks`, `merge_topo`, and the
+table's contract through them) on their plain versions: masks,
+topology, and a table that holds each distinct live point once with the
+reference's sign.
 Within tolerance: the edge core's QEF sums (rtol 1e-4, atol 1e-6) and
 positions (1e-5), and the vertices (1e-5). The reference's f32 runs
 through XLA on the CPU, which contracts a*b + c into one FMA and
@@ -203,6 +207,7 @@ class _Stages:
             self.levels.append(((np.asarray(rk), int(rn)),
                                 (pk.numpy().copy(), int(pn[0]))))
         self.h = h = 2.0 / G
+        self.leaf_in = (pk, pn)  # the leaf cells and their count
         rsk, rsm, rns, self.rcvec = ref_fused.leaf_core(
             self.rev, cmax, cmax)(rk, rn, rc, jnp.int32(n_lv),
                                   jnp.float32(h), jnp.asarray(self.mat),
@@ -274,14 +279,12 @@ def test_edges_core_matches_reference(stages, view):
     assert np.isfinite(d).all() and np.abs(d).max() < s.h
 
 
-@pytest.mark.parametrize("view", ["identity", "oblique"])
-def test_merge_round_matches_reference(stages, view):
-    """One collapse round of the device store against the reference's:
-    the first round's candidates of the port's own collapse, topology
-    exactly, merged positions within 1e-5, residuals within rtol 1e-4."""
+def _first_round(s):
+    """The first collapse round's arguments (member ids, segments, parent
+    corners, parent size) of the port's own collapse over a stage's
+    surface."""
     from fidget_tpu_torch.mesh.collapse import collapse_and_walk
 
-    s = stages(view)
     _, (psk, psm, _) = s.surf
     ns = s.ns
     sk = psk[:ns].astype(np.int64)
@@ -305,7 +308,16 @@ def test_merge_round_matches_reference(stages, view):
                       voff=np.arange(ns + 1, dtype=np.int64) * 4,
                       oci=oci, oei=oei, store=store)
     assert rounds
-    args = rounds[0]
+    return rounds[0]
+
+
+@pytest.mark.parametrize("view", ["identity", "oblique"])
+def test_merge_round_matches_reference(stages, view):
+    """One collapse round of the device store against the reference's:
+    the first round's candidates of the port's own collapse, topology
+    exactly, merged positions within 1e-5, residuals within rtol 1e-4."""
+    s = stages(view)
+    args = _first_round(s)
     fresh = {k: v.clone() for k, v in s.pres.items()}
     got = fused.DeviceVertexStore(s.pev, s.m, None, s.h, fresh, s.cs,
                                   DEPTH).merge_round(*args)
@@ -315,6 +327,182 @@ def test_merge_round_matches_reference(stages, view):
     np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-5)
     for g, w in zip(got[2:], want[2:]):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-6)
+
+
+def _ref_signs(s, keys):
+    """The reference's `eval_tape_float_fast` sign at packed lattice keys
+    (numpy int64): world k * h - 1 and the model point in f32, left to
+    right as both packages form them."""
+    ks = fused._KS
+    world = [(c.astype(np.float32) * np.float32(s.h) - np.float32(1.0))
+             for c in (keys // (ks * ks), keys // ks % ks, keys % ks)]
+    model = [s.mat[r, 0] * world[0] + s.mat[r, 1] * world[1]
+             + s.mat[r, 2] * world[2] + s.mat[r, 3] for r in range(3)]
+    d = ref_fast.eval_tape_float_fast(s.rtape, [jnp.asarray(m)
+                                                for m in model])[0]
+    return np.broadcast_to(np.asarray(d), keys.shape) < 0
+
+
+def _leaf_entry(s):
+    """The leaf entry on a stage's leaf cells with a fresh table: (masks,
+    the table)."""
+    kern = fused._kernels(s.pev)["table"]
+    keys, n = s.leaf_in
+    table = uc.SignTable(8 * keys.shape[0], "cpu")
+    mask = uc.leaf_masks(kern, keys, n, s.h, torch.from_numpy(s.mat),
+                         torch.zeros(s.pev.n_inputs), table)
+    return mask, table
+
+
+@pytest.mark.parametrize("view", sorted(VIEWS))
+def test_leaf_entry_matches_reference(stages, view):
+    """`leaf_masks` (its plain version here) on the leaf cells of the
+    chain: the compacted surface cells and masks equal the reference's
+    `leaf_core` exactly, dead cells get 0, and the table holds each
+    distinct live corner once with the reference's sign there
+    (count[0]: how many the kernel evaluates, against 8 a cell)."""
+    s = stages(view)
+    keys, n = s.leaf_in
+    mask, table = _leaf_entry(s)
+    cl = keys.shape[0]
+    live = (torch.arange(cl) < n) & (keys >= 0)
+    assert mask.dtype == torch.int32 and (mask[~live] == 0).all()
+    surf = live & (mask != 0) & (mask != 255)
+    sk, sm, ns = fused._compact_keys(surf, keys, s.cmax, mask)
+    (rsk, rsm, rns), _ = s.surf
+    assert int(ns[0]) == rns
+    np.testing.assert_array_equal(sk.numpy(), rsk)
+    np.testing.assert_array_equal(sm.numpy(), rsm)
+    lk = keys[live].numpy().astype(np.int64)
+    ks = fused._KS
+    corners = np.unique(lk[:, None] + (fused._CORNER_OFF
+                                       @ np.array([ks * ks, ks, 1]))[None])
+    tk, ts = table.entries()
+    np.testing.assert_array_equal(tk.numpy(), corners)
+    np.testing.assert_array_equal(ts.numpy(), _ref_signs(s, corners))
+    assert table.count.tolist() == [len(corners), len(corners), 0]
+    assert len(corners) < 8 * len(lk)  # neighbours share corners
+
+
+@pytest.mark.parametrize("view", ["identity", "oblique"])
+def test_merge_entry_matches_topo_safe(stages, view):
+    """`merge_topo` (its plain version here) on the first collapse
+    round's candidates, with the table the leaf entry filled: topo equals
+    `topo_safe` of the reference's signs at the 27 lattice points and the
+    reference's `merge_core`, False past the live candidates; the table
+    gains exactly the round's distinct lattice points that are no leaf
+    corner."""
+    from fidget_tpu_torch.mesh.collapse import _LATTICE, topo_safe
+
+    s = stages(view)
+    members, seg, pbase, ps = _first_round(s)
+    K = len(pbase)
+    kcap = fused._bucket_half(K)
+    pb3 = np.zeros((3, kcap), np.int32)
+    pb3[:, :K] = pbase.T
+    _, table = _leaf_entry(s)
+    leaf_keys = table.entries()[0].numpy().astype(np.int64)
+    topo = uc.merge_topo(fused._kernels(s.pev)["table"],
+                         torch.from_numpy(pb3), ps, K, s.h,
+                         torch.from_numpy(s.mat),
+                         torch.zeros(s.pev.n_inputs), table)
+    assert topo.shape == (kcap,) and not topo[K:].any()
+    ks = fused._KS
+    pts = pbase[:, None, :] + _LATTICE[None, :, :] * (ps // 2)  # [K, 27, 3]
+    lat = (pts[..., 0] * ks + pts[..., 1]) * ks + pts[..., 2]
+    inside = _ref_signs(s, lat)
+    np.testing.assert_array_equal(topo[:K].numpy(), topo_safe(inside))
+    want = ref_fused.DeviceVertexStore(s.rev, s.m, None, s.h, s.rres, s.cs,
+                                       DEPTH).merge_round(members, seg,
+                                                          pbase, ps)
+    np.testing.assert_array_equal(topo[:K].numpy(), want[0])
+    new = np.setdiff1d(np.unique(lat), leaf_keys)
+    assert int(table.count[0]) == len(new) < lat.size
+    tk, ts = table.entries()
+    np.testing.assert_array_equal(tk.numpy(),
+                                  np.union1d(leaf_keys, np.unique(lat)))
+    np.testing.assert_array_equal(ts.numpy(), _ref_signs(s, tk.numpy()))
+
+
+def test_sign_table_contract():
+    """The sign table's contract through the entries' plain versions:
+    leaf cells with duplicated keys, -1 padding and a live count below
+    the list's length record each distinct live corner once (count[0]:
+    the points the kernels evaluate) with `unrolled_points_plain`'s sign
+    there, and form every live cell's mask from those signs (dead cells
+    0); a collapse round on the same table adds only the lattice points
+    it lacked. The kernels' table decodes its slots (sign in bit 31) in
+    `entries`."""
+    from fidget_tpu_torch.mesh.collapse import _LATTICE
+
+    tape = sphere_tape(port)
+    kern = uc.TableKernel(tape, _kinds(tape), 3)
+    rng = np.random.default_rng(11)
+    ks = fused._KS
+    G = 1 << DEPTH
+    xyz = rng.integers(0, G - 1, (3, 300))
+    distinct = (xyz[0] * ks + xyz[1]) * ks + xyz[2]
+    keys = np.concatenate([distinct, distinct[:120], distinct[50:80]])
+    rng.shuffle(keys)
+    keys = np.concatenate([keys, np.full(40, -1)]).astype(np.int32)
+    keys[[3, 17]] = -1  # padding among the live keys too
+    count = 400  # of 470 keys
+    mat = torch.from_numpy(VIEWS["oblique"][0][:3].astype(np.float32))
+    params = torch.zeros(3)
+    h = 2.0 / G
+    table = uc.SignTable(0, "cpu")
+    mask = uc.leaf_masks(kern, torch.from_numpy(keys),
+                         torch.tensor([count], dtype=torch.int32), h, mat,
+                         params, table)
+    live = (np.arange(len(keys)) < count) & (keys >= 0)
+    corner_off = fused._CORNER_OFF @ np.array([ks * ks, ks, 1])
+    corners = keys[live, None].astype(np.int64) + corner_off[None]
+    want_keys = np.unique(corners)
+    assert len(want_keys) < corners.size  # duplicates and shared corners
+    assert table.count.tolist() == [len(want_keys), len(want_keys), 0]
+
+    def signs(k):
+        """`unrolled_points_plain`'s sign at packed keys k (int64)."""
+        x, y, z = uc._lattice(torch.from_numpy(k.astype(np.int32)))
+        world = [c.to(torch.float32) * h - 1.0 for c in (x, y, z)]
+        return uc.unrolled_points(
+            uc.PointsKernel(tape, _kinds(tape), 3, "sign"),
+            *uc._model_pts(mat, *world), params).numpy()
+
+    tk, ts = table.entries()
+    np.testing.assert_array_equal(tk.numpy(), want_keys)
+    np.testing.assert_array_equal(ts.numpy(), signs(want_keys))
+    assert ts.any() and not ts.all()
+    held = signs(corners.reshape(-1)).reshape(corners.shape)
+    np.testing.assert_array_equal(
+        mask.numpy()[live], (held << np.arange(8)[None]).sum(1))
+    assert (mask.numpy()[~live] == 0).all()
+    # a collapse round: only the lattice points the leaf left out are new
+    ps, n_cand, kcap = 2, 25, 32
+    pb3 = np.zeros((3, kcap), np.int32)
+    pb3[:, :n_cand] = xyz[:, :n_cand]
+    topo = uc.merge_topo(kern, torch.from_numpy(pb3), ps, n_cand, h, mat,
+                         params, table)
+    assert not topo[n_cand:].any()
+    lat = (xyz[:, :n_cand].T[:, None, :] + _LATTICE[None] * (ps // 2)).T
+    lat_keys = np.unique((lat[0] * ks + lat[1]) * ks + lat[2])
+    fresh = np.setdiff1d(lat_keys, want_keys)
+    assert 0 < int(table.count[0]) == len(fresh) < lat_keys.size
+    assert int(table.count[1]) == len(want_keys) + len(fresh)
+    tk, ts = table.entries()
+    np.testing.assert_array_equal(tk.numpy(), np.union1d(want_keys,
+                                                         lat_keys))
+    np.testing.assert_array_equal(ts.numpy(), signs(tk.numpy()))
+    # the slots of the kernels' table: -1 empty, the sign in bit 31
+    slots = uc.SignTable(300, "cpu", plain=False)
+    assert slots.slots.numel() == 1024 and (slots.slots == -1).all()
+    slots.slots[[5, 9, 700]] = torch.tensor(
+        [77, 12 | -(1 << 31), 40], dtype=torch.int32)
+    k, sg = slots.entries()
+    assert k.tolist() == [12, 40, 77] and sg.tolist() == [True, False, False]
+    slots.reserve(kern, 512)  # a load of 1/2: no growth
+    assert slots.slots.numel() == 1024 and slots.bound == 512
+    assert uc._table_cap(513) == 2048
 
 
 # ----------------------------------------------------------------------
@@ -565,9 +753,8 @@ def test_fused_kernels_are_the_tapes():
     tape = sphere_tape(port)
     ev = port_evaluator(tape, torch.device("cpu"), True)
     ks = fused.fused_kernels(ev)
-    assert [type(k).__name__ for k in ks] == ["PointsKernel", "EdgesKernel",
+    assert [type(k).__name__ for k in ks] == ["TableKernel", "EdgesKernel",
                                               "BoxesKernel"]
-    assert ks[0].epilogue == "sign"
     assert fused.fused_kernels(ev)[0] is ks[0]
     assert ks[0].tapes[0] is tape and ks[1].tapes[0] is tape
     assert ks[2].tape is tape
