@@ -2967,7 +2967,7 @@ def phase_mesh(port, cuda, rows, depth=MESH_DEPTH, dev="cuda"):
     for _, label, scene in scenes:
         totals, stages = [], []
         for _ in range(MESH_REPS):
-            clock = mesh_mod._StageClock(True, dev, echo=False)
+            clock = mesh_mod._StageClock(True, dev)
             t0 = time.perf_counter()
             port.build_mesh(scene, settings, clock=clock)
             torch.cuda.synchronize()
@@ -3750,7 +3750,7 @@ def phase_mesh_unrolled(port, cuda, rows, built, depth=MESH_DEPTH,
     for tag, label, scene in scenes:
         totals, stages = [], []
         for _ in range(MESH_REPS):
-            clock = mesh_mod._StageClock(True, dev, echo=False)
+            clock = mesh_mod._StageClock(True, dev)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             port.build_mesh(scene, settings, clock=clock)

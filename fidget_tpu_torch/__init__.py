@@ -19,28 +19,34 @@ residuals and Jacobians on the interpreter kernels, and
 `torch.distributed` process group. Entry points run on the card unless
 the caller passes `device="cpu"` (`--cpu` on the command line).
 
+`utils` records the spans and counters of the program (its import, the
+lowering, renderers' and kernels' set-up, each fitting step).
+
 This package imports neither JAX nor `fidget_tpu`.
 """
 
-from .compiler.lower import lower
-from .compiler.simplify import simplify
-from .compiler.tape import Tape, TapeOp
-from .core.context import Context
-from .core.ops import BinaryOp, UnaryOp
-from .core.tree import Tree, tree_max, tree_min
-from .core.var import Var, VarMap
-from .eval.bulk import BulkEvaluator
-from .mesh import Mesh, build_mesh
-from .mesh import Settings as MeshSettings
-from .render.config import CancelToken
-from .render.region import ImageSize, VoxelSize
-from .render.render2d import Image2D, PixelRenderer
-from .render.render2d import render as render2d
-from .render.render3d import Image3D, VoxelRenderer
-from .render.render3d import render as render3d
-from .script import eval_script
-from .shape import BoundShape, Shape, ShapeVars
-from .solver import solve
+from . import utils
+
+with utils.span("fidget.import"):
+    from .compiler.lower import lower
+    from .compiler.simplify import simplify
+    from .compiler.tape import Tape, TapeOp
+    from .core.context import Context
+    from .core.ops import BinaryOp, UnaryOp
+    from .core.tree import Tree, tree_max, tree_min
+    from .core.var import Var, VarMap
+    from .eval.bulk import BulkEvaluator
+    from .mesh import Mesh, build_mesh
+    from .mesh import Settings as MeshSettings
+    from .render.config import CancelToken
+    from .render.region import ImageSize, VoxelSize
+    from .render.render2d import Image2D, PixelRenderer
+    from .render.render2d import render as render2d
+    from .render.render3d import Image3D, VoxelRenderer
+    from .render.render3d import render as render3d
+    from .script import eval_script
+    from .shape import BoundShape, Shape, ShapeVars
+    from .solver import solve
 
 __version__ = "0.1.0"
 

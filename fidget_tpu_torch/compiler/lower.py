@@ -20,6 +20,7 @@ from ..core import context as C
 from ..core.context import Context
 from ..core.ops import BinaryOp, UnaryOp
 from ..core.var import VarMap
+from ..utils import span
 from .tape import IMM, BINARY_TAPE_OPS, CHOICE_TAPE_OPS, Tape, TapeOp
 
 _UNARY_TO_TAPE = {
@@ -149,6 +150,7 @@ class _Alloc:
         return r
 
 
+@span("fidget.lower")
 def lower(
     ctx: Context, roots: list[int], reg_limit: int = 255
 ) -> Tape:

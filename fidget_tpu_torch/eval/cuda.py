@@ -10,6 +10,9 @@ launch raises; nothing falls back to the plain PyTorch versions.
 `LAUNCHES` counts kernel launches by kernel name. A wrapper adds one
 where it launches its kernel and nowhere else, so a caller can reset
 the counts, run a frame, and see which kernels the frame went through.
+The sources' hash, the builds and the loads are spans of `utils`
+(`fidget.kernels.emit`, `.build`, `.load`), and the counters
+`kernels.built` (nvcc units compiled) and `kernels.loaded` count them.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import subprocess
 import threading
 
 import torch
+
+from ..utils import count, span
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent / "_build"
@@ -313,6 +318,7 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+@span("fidget.kernels.emit")
 def source_hash() -> str:
     h = hashlib.sha256()
     for p in sorted(CSRC.iterdir()):
@@ -343,6 +349,13 @@ def build() -> pathlib.Path:
     todo = [s for s in stems if not (out / f"lib{s}.so").exists()]
     if not todo:
         return out
+    with span("fidget.kernels.build"):
+        _compile(out, todo)
+    count("kernels.built", len(todo))
+    return out
+
+
+def _compile(out: pathlib.Path, todo: list) -> None:
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
@@ -367,14 +380,16 @@ def build() -> pathlib.Path:
             (out / f"{s}.log").read_text()[-4000:] for s in failed
         )
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
-    return out
 
 
 def _lib(stem: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(stem)
         if lib is None:
-            lib = ctypes.CDLL(str(build() / f"lib{stem}.so"))
+            path = build() / f"lib{stem}.so"
+            with span("fidget.kernels.load"):
+                lib = ctypes.CDLL(str(path))
+            count("kernels.loaded")
             for fn, argtypes in _ARGTYPES.items():
                 if hasattr(lib, fn):
                     getattr(lib, fn).argtypes = argtypes

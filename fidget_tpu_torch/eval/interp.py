@@ -53,6 +53,7 @@ import torch.autograd.forward_ad as fwAD
 
 from ..compiler.pack import IMM12
 from ..compiler.tape import CHOICE_TAPE_OPS, TapeOp
+from ..utils import count
 from . import cuda
 from .arith import FloatMode, GradMode, IntervalMode
 
@@ -217,7 +218,9 @@ class _FloatJacobian(torch.autograd.Function):
     """J [T, O, V, S0, 128] of `interp_float` in `vars_`, non-finite
     partials set to 0 (see `_FloatDiff`); a constant of the derivative
     rules. A Function of its own, so that under `torch.func` transforms
-    the kernels get the plain tensors the transform wraps."""
+    the kernels get the plain tensors the transform wraps. Counts the
+    tangent planes its passes evaluate, 3 a pass over every lane, padding
+    included (`jacobian.tangents_computed`)."""
 
     generate_vmap_rule = True
 
@@ -225,6 +228,8 @@ class _FloatJacobian(torch.autograd.Function):
     def forward(w1, w2, imm, lengths, vars_, cfg):
         nf, n_inputs, n_outputs, s0, order = cfg
         T = vars_.shape[0]
+        count("jacobian.tangents_computed",
+              -(-n_inputs // 3) * 3 * T * s0 * 128)
         cols = []
         for i0 in range(0, n_inputs, 3):
             kk = min(3, n_inputs - i0)

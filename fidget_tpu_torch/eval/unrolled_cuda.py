@@ -87,7 +87,10 @@ the CPU
 they run their `_plain` versions (eval/unrolled_fast.py's evaluators),
 which take tensors on any device, so the kernels can be held against
 them on the card. `cuda.LAUNCHES` counts each kernel under its own
-name.
+name. A kernel's source and key are emitted at its first `unit()`, a
+span of `utils` (`fidget.kernels.emit`), as are the builds
+(`fidget.kernels.build`, counted in `kernels.built`) and the loads
+(`fidget.kernels.load`, `kernels.loaded`).
 """
 
 from __future__ import annotations
@@ -113,6 +116,7 @@ from ..compiler.tape import (
     TapeOp,
 )
 from ..render.transform import transform_intervals, transform_points
+from ..utils import count, span
 from . import cuda
 from .arith import IntervalMode
 from .unrolled_fast import eval_tape_float_fast, eval_tape_interval_fast
@@ -691,15 +695,19 @@ def build(units) -> dict:
         for u in todo
     ]
     seconds = {}
-    _run(steps, seconds)
-    links = [
-        (u.key + ":link",
-         [nvcc, *cuda.NVCC_FLAGS, "-rdc=true", str(u.dir / "kernel.o"),
-          *(str(o.obj) for o in {o.key: o for o in u.objects}.values())],
-         u.lib, u.dir / "link.log")
-        for u in todo
-    ]
-    _run(links, seconds)
+    if not steps:
+        return seconds
+    with span("fidget.kernels.build"):
+        _run(steps, seconds)
+        links = [
+            (u.key + ":link",
+             [nvcc, *cuda.NVCC_FLAGS, "-rdc=true", str(u.dir / "kernel.o"),
+              *(str(o.obj) for o in {o.key: o for o in u.objects}.values())],
+             u.lib, u.dir / "link.log")
+            for u in todo
+        ]
+        _run(links, seconds)
+    count("kernels.built", len(steps))
     return seconds
 
 
@@ -788,7 +796,9 @@ def _load(unit: _Unit) -> ctypes.CDLL:
         if lib is None:
             if not unit.lib.exists():
                 build([unit])
-            lib = ctypes.CDLL(str(unit.lib))
+            with span("fidget.kernels.load"):
+                lib = ctypes.CDLL(str(unit.lib))
+            count("kernels.loaded")
             for fn, argtypes in _ARGTYPES.items():
                 if hasattr(lib, fn):
                     getattr(lib, fn).argtypes = argtypes
@@ -807,6 +817,9 @@ class FloatKernel:
     segment's first on. Each program is a unit of its own, so that a
     frame's programs compile in parallel; programs of at most
     SMALL_PROGRAM_ROWS rows, where there are several, share one."""
+
+    #: the unit's kind in its cache key
+    KIND = "float-kernel"
 
     def __init__(self, tapes: list, axis_of: dict, V: int):
         self.tapes = list(tapes)
@@ -846,35 +859,40 @@ class FloatKernel:
         return objects, names
 
     def unit(self) -> _Unit:
+        """The kernel's build unit, emitted at the first ask."""
         if self._unit is None:
-            objects, names = self._programs()
-            source = emit_float_kernel(names, self.V, self.axis_of)
-            key = cache_key("float-kernel", source)
-            self._unit = _Unit(key, source, objects)
+            with span("fidget.kernels.emit"):
+                objects, names = self._programs()
+                source = emit_float_kernel(names, self.V, self.axis_of,
+                                           self._macro())
+                self._unit = _Unit(cache_key(self.KIND, source), source,
+                                   objects)
         return self._unit
+
+    def _macro(self) -> str:
+        """The template's kernel macro (and what it needs defined)."""
+        return "U_FLOAT_KERNEL"
 
 
 class VoxelKernel(FloatKernel):
     """U1-3D for one tape: U1's program unit (shared with U1's of the
     same tape) behind the voxel-depth kernel unit."""
 
+    KIND = "voxel-kernel"
+
     def __init__(self, tape: Tape, axis_of: dict, V: int):
         super().__init__([tape], axis_of, V)
 
-    def unit(self) -> _Unit:
-        if self._unit is None:
-            objects, names = self._programs()
-            source = emit_float_kernel(names, self.V, self.axis_of,
-                                       "U_VOXEL_KERNEL")
-            key = cache_key("voxel-kernel", source)
-            self._unit = _Unit(key, source, objects)
-        return self._unit
+    def _macro(self) -> str:
+        return "U_VOXEL_KERNEL"
 
 
 class PointsKernel(FloatKernel):
     """U1-P for one tape: U1's program unit (shared with U1's and
     U1-3D's of the same tape) behind the points kernel unit, with the
     epilogue ("distance" or "sign") fixed when the code is generated."""
+
+    KIND = "points-kernel"
 
     def __init__(self, tape: Tape, axis_of: dict, V: int,
                  epilogue: str = "distance"):
@@ -883,32 +901,21 @@ class PointsKernel(FloatKernel):
         super().__init__([tape], axis_of, V)
         self.epilogue = epilogue
 
-    def unit(self) -> _Unit:
-        if self._unit is None:
-            objects, names = self._programs()
-            sign = int(self.epilogue == "sign")
-            source = emit_float_kernel(names, self.V, self.axis_of,
-                                       f"U_POINTS_KERNEL({sign})")
-            key = cache_key("points-kernel", source)
-            self._unit = _Unit(key, source, objects)
-        return self._unit
+    def _macro(self) -> str:
+        return f"U_POINTS_KERNEL({int(self.epilogue == 'sign')})"
 
 
 class EdgesKernel(FloatKernel):
     """U1-P's edge search for one tape: U1's program unit (shared with
     U1-P's) behind the edge kernel unit (U_EDGE_KERNEL)."""
 
+    KIND = "edges-kernel"
+
     def __init__(self, tape: Tape, axis_of: dict, V: int):
         super().__init__([tape], axis_of, V)
 
-    def unit(self) -> _Unit:
-        if self._unit is None:
-            objects, names = self._programs()
-            source = emit_float_kernel(names, self.V, self.axis_of,
-                                       emit_edge_tables() + "U_EDGE_KERNEL")
-            key = cache_key("edges-kernel", source)
-            self._unit = _Unit(key, source, objects)
-        return self._unit
+    def _macro(self) -> str:
+        return emit_edge_tables() + "U_EDGE_KERNEL"
 
 
 class TableKernel(FloatKernel):
@@ -917,17 +924,13 @@ class TableKernel(FloatKernel):
     evaluation, mask and topology passes of `leaf_masks` and
     `merge_topo`)."""
 
+    KIND = "table-kernel"
+
     def __init__(self, tape: Tape, axis_of: dict, V: int):
         super().__init__([tape], axis_of, V)
 
-    def unit(self) -> _Unit:
-        if self._unit is None:
-            objects, names = self._programs()
-            source = emit_float_kernel(names, self.V, self.axis_of,
-                                       emit_table_defs() + "U_TABLE_KERNEL")
-            key = cache_key("table-kernel", source)
-            self._unit = _Unit(key, source, objects)
-        return self._unit
+    def _macro(self) -> str:
+        return emit_table_defs() + "U_TABLE_KERNEL"
 
 
 class IntervalKernel:
@@ -977,24 +980,29 @@ class IntervalKernel:
         return self._shared_bytes(not self.words_global)
 
     def unit(self) -> _Unit:
+        """The kernel's build unit, emitted at the first ask."""
         if self._unit is None:
-            sched = self.schedule()
-            args = (self.V, self.axis_of, self.epilogue)
-            objects, names = [], []
-            for w in range(sched.k):
-                src = emit_interval_warp(sched, w, *args, "@", self.Z3)
-                key = cache_key("interval-warp", _tape_digest(self.tape), src,
-                                INTERVAL_FLAGS)
-                name = f"fidget_uiw_{key}"
-                objects.append(_Object(
-                    key, emit_interval_warp(sched, w, *args, name, self.Z3),
-                    INTERVAL_FLAGS))
-                names.append(name)
-            source = emit_interval_kernel(sched, *args, names,
-                                          self.words_global, self.Z3)
-            key = cache_key("interval-kernel", source, INTERVAL_FLAGS)
-            self._unit = _Unit(key, source, objects, INTERVAL_FLAGS)
+            with span("fidget.kernels.emit"):
+                self._unit = self._emit()
         return self._unit
+
+    def _emit(self) -> _Unit:
+        sched = self.schedule()
+        args = (self.V, self.axis_of, self.epilogue)
+        objects, names = [], []
+        for w in range(sched.k):
+            src = emit_interval_warp(sched, w, *args, "@", self.Z3)
+            key = cache_key("interval-warp", _tape_digest(self.tape), src,
+                            INTERVAL_FLAGS)
+            name = f"fidget_uiw_{key}"
+            objects.append(_Object(
+                key, emit_interval_warp(sched, w, *args, name, self.Z3),
+                INTERVAL_FLAGS))
+            names.append(name)
+        source = emit_interval_kernel(sched, *args, names,
+                                      self.words_global, self.Z3)
+        key = cache_key("interval-kernel", source, INTERVAL_FLAGS)
+        return _Unit(key, source, objects, INTERVAL_FLAGS)
 
 
 class Interval3Kernel(IntervalKernel):
@@ -1038,20 +1046,18 @@ class BoxesKernel(IntervalKernel):
             self._sched = IntervalSchedule(self.tape, 1)
         return self._sched
 
-    def unit(self) -> _Unit:
-        if self._unit is None:
-            sched = self.schedule()
-            args = (self.V, self.axis_of, self.epilogue)
-            src = emit_interval_warp(sched, 0, *args, "@", box=True)
-            key = cache_key("box-stream", _tape_digest(self.tape), src,
-                            self.flags)
-            name = f"fidget_ubox_{key}"
-            obj = _Object(key, emit_interval_warp(sched, 0, *args, name,
-                                                  box=True), self.flags)
-            source = emit_box_kernel(name, self.V, self.axis_of, self.block)
-            key = cache_key("box-kernel", source, self.flags)
-            self._unit = _Unit(key, source, [obj], self.flags)
-        return self._unit
+    def _emit(self) -> _Unit:
+        sched = self.schedule()
+        args = (self.V, self.axis_of, self.epilogue)
+        src = emit_interval_warp(sched, 0, *args, "@", box=True)
+        key = cache_key("box-stream", _tape_digest(self.tape), src,
+                        self.flags)
+        name = f"fidget_ubox_{key}"
+        obj = _Object(key, emit_interval_warp(sched, 0, *args, name,
+                                              box=True), self.flags)
+        source = emit_box_kernel(name, self.V, self.axis_of, self.block)
+        key = cache_key("box-kernel", source, self.flags)
+        return _Unit(key, source, [obj], self.flags)
 
 
 def built(kernels) -> bool:

@@ -77,19 +77,14 @@ __all__ = ["Mesh", "Settings", "build_mesh", "write_obj", "write_stl"]
 _EDGE_SAMPLES = 16  # octree.rs: 16 samples ...
 _EDGE_ROUNDS = 4  # ... x 4 rounds
 
-#: FIDGET_MESH_TIMING=1 prints per-stage wall times of every build
-_TIMING = os.environ.get("FIDGET_MESH_TIMING", "") not in ("", "0")
-
-
 class _StageClock:
     """Wall-clock stage attribution. When enabled, each `tick` waits for
-    the card (so a stage's kernels land in it), records (label, ms) in
-    `stages` and, with `echo`, prints it."""
+    the card (so a stage's kernels land in it) and records (label, ms)
+    in `stages`."""
 
-    def __init__(self, enabled=_TIMING, device=None, echo=True):
+    def __init__(self, enabled=False, device=None):
         self.enabled = enabled
         self.sync = device is not None and torch.device(device).type == "cuda"
-        self.echo = echo
         self.stages = []
         self.t = time.perf_counter()
 
@@ -101,8 +96,6 @@ class _StageClock:
         now = time.perf_counter()
         ms = (now - self.t) * 1e3
         self.stages.append((label, ms))
-        if self.echo:
-            print(f"  [mesh] {label}: {ms:.1f} ms")
         self.t = now
 
 

@@ -56,6 +56,7 @@ from ..render.unrolled2d import (
     state,
 )
 from ..shape import Shape
+from ..utils import count, span
 
 __all__ = [
     "RankMesh",
@@ -160,6 +161,7 @@ def _renderer(cls, tape, size, device, **opts):
             _RENDERERS.pop(next(iter(_RENDERERS)))
         r = cls(tape, size, device=device, **opts)
         _RENDERERS[key] = r
+        count("renderers.built")
     return r
 
 
@@ -201,7 +203,9 @@ def _interp_rows(r, d, R, mat, z, vec):
     instance whose lanes are the slab's pixels, padded with copies of
     the last real pixel as the reference pads them (zero padding can
     land on a kink, e.g. sqrt at the origin, where a partial is not
-    finite). f32 [R, W], differentiable in `vec`."""
+    finite). f32 [R, W], differentiable in `vec`. Counts the partials a
+    gradient keeps, the non-axis inputs at the real lanes
+    (`jacobian.tangents_kept`)."""
     W, dev = r.W, r.device
     K = R * W
     s0 = max(8, -(-K // 1024) * 8)  # ceil(K / 128) planes, up to 8n
@@ -209,10 +213,13 @@ def _interp_rows(r, d, R, mat, z, vec):
     rows = torch.arange(R, dtype=torch.float32, device=dev) + float(d * R)
     py, px = torch.meshgrid(rows, cols, indexing="ij")
     planes = [vec[i].expand(K) for i in range(r.n_inputs)]
+    n_axes = 0
     for kind, m in zip("xyz", transform_points(mat, px, py, z)):
         idx = r.axis_of.get(kind)
         if idx is not None:
             planes[idx] = torch.broadcast_to(m, (R, W)).reshape(K)
+            n_axes += 1
+    count("jacobian.tangents_kept", (r.n_inputs - n_axes) * K)
     pad = s0 * 128 - K
     flat = [torch.cat([p, p[-1:].expand(pad)]).reshape(s0, 128)
             for p in planes]
@@ -245,6 +252,7 @@ def render_sharded(
     return all_gather(mesh, _dense_rows(r, d, H // D, mat, zt, vec))
 
 
+@span("fidget.fit_step", request=True)
 def fit_step(
     tape,
     size: ImageSize,
@@ -271,6 +279,11 @@ def fit_step(
 
     `target` is the whole [H, W] image (numpy or a tensor). Returns
     (new_params, loss): floats, equal on every rank.
+
+    A step is a request of `utils`' recorder (`fidget.fit_step`), its
+    stages spans inside it: `fidget.fit.prep` (the renderer, its
+    kernels, the arguments), `.forward`, `.backward`, `.reduce` (and
+    `fidget.fit.wait` around each host read, which waits for the card).
     """
     H, W = size.height, size.width
     D, d = mesh.size, mesh.rank
@@ -279,24 +292,33 @@ def fit_step(
         raise ValueError(
             f"pipeline must be 'unrolled' or 'interp', not {pipeline!r}"
         )
-    r = _renderer(PixelRenderer, tape, size, mesh.device)
-    if pipeline == "unrolled":
-        ready(r, [state(r).float_full], "block")
-    R = H // D
-    dev = r.device
-    # the gradient is taken in the var vector, whose entries are the
-    # tape's inputs in the same order on every rank (each rank's `Var`s
-    # are its own objects, so their order is not)
-    vec = torch.tensor(r._var_vec(params), device=dev, requires_grad=True)
-    mat = torch.as_tensor(r._mat4(None), device=dev)
-    zt = torch.tensor(z, dtype=torch.float32, device=dev)
-    rows = _dense_rows if pipeline == "unrolled" else _interp_rows
-    dist_ = rows(r, d, R, mat, zt, vec)
-    tgt = torch.as_tensor(target, dtype=torch.float32)[d * R:(d + 1) * R]
-    local = ((dist_ - tgt.to(dev)) ** 2).sum() / (H * W)
-    (g,) = torch.autograd.grad(local, vec)
-    new = (vec.detach() - lr * all_reduce(mesh, g)).tolist()
-    loss = float(all_reduce(mesh, local.detach()))
+    with span("fidget.fit.prep"):
+        r = _renderer(PixelRenderer, tape, size, mesh.device)
+        if pipeline == "unrolled":
+            ready(r, [state(r).float_full], "block")
+        R = H // D
+        dev = r.device
+        # the gradient is taken in the var vector, whose entries are the
+        # tape's inputs in the same order on every rank (each rank's
+        # `Var`s are its own objects, so their order is not)
+        vec = torch.tensor(r._var_vec(params), device=dev,
+                           requires_grad=True)
+        mat = torch.as_tensor(r._mat4(None), device=dev)
+        zt = torch.tensor(z, dtype=torch.float32, device=dev)
+    with span("fidget.fit.forward"):
+        rows = _dense_rows if pipeline == "unrolled" else _interp_rows
+        dist_ = rows(r, d, R, mat, zt, vec)
+        tgt = torch.as_tensor(target, dtype=torch.float32)[d * R:(d + 1) * R]
+        local = ((dist_ - tgt.to(dev)) ** 2).sum() / (H * W)
+    with span("fidget.fit.backward"):
+        (g,) = torch.autograd.grad(local, vec)
+    with span("fidget.fit.reduce"):
+        step = vec.detach() - lr * all_reduce(mesh, g)
+        with span("fidget.fit.wait"):
+            new = step.tolist()
+        total = all_reduce(mesh, local.detach())
+        with span("fidget.fit.wait"):
+            loss = float(total)
     idx = r.tape.var_map
     return {
         v: new[idx[v]] if v in idx else float(np.float32(params[v]))

@@ -69,6 +69,7 @@ from ..eval.simplify_device import (
 )
 from ..eval.unrolled import eval_tape
 from ..shape import Shape, ShapeVars
+from ..utils import span
 from .config import check_cancel
 from .region import ImageSize, compose2, mat3_to_mat4
 from .transform import transform_intervals, transform_points
@@ -472,6 +473,7 @@ class PixelRenderer:
         no card. Pass "cpu" to run the plain PyTorch versions.
     """
 
+    @span("fidget.renderer.init")
     def __init__(
         self,
         tape: Tape | Shape,

@@ -102,6 +102,7 @@ from ..eval.unrolled_cuda import (
     worklist_corners,
 )
 from ..shape import Shape, ShapeVars
+from ..utils import span
 from .config import check_cancel
 from .region import VoxelSize
 from .render2d import _ceil_to, _ConstBind, _pad_plane, _TracedBind
@@ -646,6 +647,7 @@ class VoxelRenderer:
     has its own blocks) are not taken.
     """
 
+    @span("fidget.renderer.init")
     def __init__(
         self,
         tape: Tape | Shape,

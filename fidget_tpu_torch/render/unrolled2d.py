@@ -51,6 +51,7 @@ from ..eval.unrolled_cuda import (
     unrolled_float,
     unrolled_interval,
 )
+from ..utils import count
 from .config import check_cancel
 from .transform import transform_intervals, transform_points
 
@@ -244,7 +245,9 @@ class _UnrolledLeaf(torch.autograd.Function):
 
 def _leaf_jacobian(var_vec, mat, z, cx0, cy0, valid, cfg):
     """J [n, pp, V] of the leaf's distances in the var vector, 0 on
-    invalid slots and in the axis columns."""
+    invalid slots and in the axis columns. Counts the partials that it
+    keeps, the non-axis columns at the valid slots' pixels
+    (`jacobian.tangents_kept`)."""
     _, _, tw, pp, st = cfg
     w1, w2, imm, lens = st.r._arena
     V = var_vec.shape[0]
@@ -261,6 +264,8 @@ def _leaf_jacobian(var_vec, mat, z, cx0, cy0, valid, cfg):
         if idx is not None:
             planes[idx] = torch.broadcast_to(m, (n, pp))
             keep[idx] = 0.0
+    n_axes = sum(k in st.r.axis_of for k in ("x", "y", "z"))
+    count("jacobian.tangents_kept", valid, per=(V - n_axes) * pp)
     lanes = n * pp
     s0 = max(1, -(-lanes // 128))
     planes = torch.stack([p.reshape(-1) for p in planes])
