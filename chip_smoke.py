@@ -211,16 +211,18 @@ Phases (any failure exits non-zero and prints no result):
 10. gradient: the parametrized 7,207-op stand-in (`param_standin_shape`,
    two shape Vars, V = 4) at 1024^2, bucketed, pixel_perfect; loss
    sum(img^2) / N^2 reversed through `_frame` with backward() (K3
-   primal, two K4 passes for the Jacobian), held to `torch.func.jacfwd`
-   (rtol 1e-5, atol 1e-6) and to central differences (h = 1e-2; rtol
-   2e-2, atol 1e-3); without pixel_perfect, on the zoomed-out view,
-   proven fills have a zero or NaN tangent (`torch.func.jvp`); forward
-   and step times, the step's launches and device busy time, and K3 and
-   K4 on the step's inputs against their plain versions; then the same
-   loss through the dense frame (`_dense`) and the pixel_perfect
-   unrolled frame (`_frame_unrolled`, K1 cull), whose leaf is U1 and
-   whose Jacobian comes from K4: reverse mode held to `_frame`'s
-   gradient on the same tape and vector (rtol 1e-4; every pixel is
+   primal, two K4 passes for the Jacobian, of 4 planes and 2), held to
+   `torch.func.jacfwd` (rtol 1e-5, atol 1e-6) and to central
+   differences (h = 1e-2; rtol 2e-2, atol 1e-3); without pixel_perfect,
+   on the zoomed-out view, proven fills have a zero or NaN tangent
+   (`torch.func.jvp`); forward and step times, the step's launches and
+   device busy time, and K3 and K4 at each of its widths on the step's
+   inputs against their plain versions; then the same loss through the
+   dense frame (`_dense`) and the pixel_perfect unrolled frame
+   (`_frame_unrolled`, K1 cull), whose leaf is U1 and whose Jacobian is
+   one K4 launch of 3 planes (the two shape parameters), held to its
+   plain version: reverse mode held to `_frame`'s gradient on the same
+   tape and vector (rtol 1e-4; every pixel is
    evaluated in all three), exactly 0 at the axis entries, which the
    transform overwrites, and to `torch.func.jacfwd` (rtol 1e-5, atol
    1e-6) and central differences (h = 1e-2; rtol 2e-2, atol 1e-5);
@@ -322,7 +324,7 @@ Phases (any failure exits non-zero and prints no result):
    in a world of 2 gloo ranks sharing the card (spawned processes,
    killed at a timeout), each rank's results equal to the world of 1's
    and the post-cull deal even; every path's kernels launched in each
-   world.
+   world, a fit step's K4 once (unrolled) or twice (interp).
 
 The last two lines of standard output are the `kernels` JSON line and
 the device JSON line.
@@ -1095,14 +1097,14 @@ def _bound(name, args, kwargs, out, lanes=None):
     the float32 rate, counting only the work this call's data needs, and
     beside it the scheduler-slot bound of those operations. A tape step
     counts one operation per real lane per value plane (float: 1,
-    interval: 2, liveness: 1, grad: 4; the voxel pass one per voxel
-    plus one per voxel of a live instance for its depth epilogue). Tape
-    words count up to each instance's length; per-lane inputs count
-    only for instances that have a tape (length > 0); inputs and
-    outputs count only the `lanes` real lanes of an instance (the root
-    and subtile passes pad theirs to a multiple of 128; None: every
-    lane is real), and the voxel pass's output only its sub^2 depth
-    columns. The coded leaf is counted by `_bound_coded`."""
+    interval: 2, liveness: 1, grad: its dual's planes, 2 to 4; the voxel
+    pass one per voxel plus one per voxel of a live instance for its
+    depth epilogue). Tape words count up to each instance's length;
+    per-lane inputs count only for instances that have a tape (length >
+    0); inputs and outputs count only the `lanes` real lanes of an
+    instance (the root and subtile passes pad theirs to a multiple of
+    128; None: every lane is real), and the voxel pass's output only its
+    sub^2 depth columns. The coded leaf is counted by `_bound_coded`."""
     if name == "interp_float_coded":
         return _bound_coded(args, out)
     liveness = name == "liveness_codes"
@@ -1126,7 +1128,7 @@ def _bound(name, args, kwargs, out, lanes=None):
         ops = steps * (B if shared else 1) * real
     elif name == "interp_grad":
         out_bytes = out.nbytes * frac
-        ops = 4 * steps * real
+        ops = planes.shape[2] * steps * real
     elif name == "interp_voxel_depth":
         out_bytes = B * kwargs["sub"] ** 2 * out.element_size()
         ops = steps * width + n_live * width
@@ -1249,20 +1251,28 @@ def measure_kernel(name, args, kwargs, lanes=None):
         row["chain_bound_ms"] = _chain_bound_ms(args)
         log(f"  serial-chain bound {row['chain_bound_ms']:.5f} ms")
     if name in KERNEL_INFO:
-        from fidget_tpu_torch.eval import cuda
-
-        cw = shape[1] if name == "liveness_codes" else kwargs.get("c_words", 0)
-        g = cuda.launch_geometry(
-            name, nf=kwargs["nf"], lanes=shape[-2] * 128, T=shape[0], cw=cw,
-            sub=kwargs.get("sub", 0),
-        )
-        row["geometry"] = {
-            "lanes_per_thread": g.r, "smem_bytes": g.smem, "blocks": g.blocks,
-            "regs_shared": g.regs_shared, "choices_shared": g.choices_shared,
-            "mask_words": g.mask_words,
-        }
-        log(f"  geometry: {row['geometry']}")
+        row["geometry"] = _geometry(name, shape, kwargs)
     return row
+
+
+def _geometry(name, shape, kwargs):
+    """The launch geometry of a call whose per-lane inputs have `shape`
+    (K4: of its dual's planes), logged."""
+    from fidget_tpu_torch.eval import cuda
+
+    cw = shape[1] if name == "liveness_codes" else kwargs.get("c_words", 0)
+    tangents = shape[2] - 1 if name == "interp_grad" else 3
+    g = cuda.launch_geometry(
+        name, nf=kwargs["nf"], lanes=shape[-2] * 128, T=shape[0], cw=cw,
+        sub=kwargs.get("sub", 0), tangents=tangents,
+    )
+    geometry = {
+        "lanes_per_thread": g.r, "smem_bytes": g.smem, "blocks": g.blocks,
+        "regs_shared": g.regs_shared, "choices_shared": g.choices_shared,
+        "mask_words": g.mask_words,
+    }
+    log(f"  geometry: {geometry}")
+    return geometry
 
 
 def _chain_bound_ms(args):
@@ -2598,7 +2608,9 @@ def phase_grad(port, cuda, rows, size=SIZE, reps=5, dev="cuda"):
     pixel_perfect, proven fills get a zero or NaN tangent
     (`torch.func.jvp`). Times the forward frame and the forward +
     backward step; records K3 and K4 launches of the step and holds both
-    kernels to their plain versions on its inputs."""
+    kernels to their plain versions on its inputs, K4 at each width the
+    step takes: its Jacobian in the four inputs is a pass of 4 planes
+    and one of 2."""
     dev = torch.device(dev)
     tape, shift, grow = _param_standin(port)
     r = port.PixelRenderer(tape, port.ImageSize(size, size), device=dev)
@@ -2621,9 +2633,13 @@ def phase_grad(port, cuda, rows, size=SIZE, reps=5, dev="cuda"):
 
     captured = {}
     targets = [(render2d, "interp_float", lambda a, k: "interp_float"),
-               (interp, "interp_grad", lambda a, k: "interp_grad")]
+               (interp, "interp_grad", _k4_key)]
     with capture_kernel_inputs(targets, captured):
         step()  # warm-up; its inputs feed the kernel rows
+    keys = ("interp_float", "interp_grad@P4", "interp_grad@P2")
+    if sorted(captured) != sorted(keys):
+        raise Failed(f"the gradient step called {sorted(captured)}, not "
+                     f"{sorted(keys)}")
     torch.cuda.synchronize()
     cuda.reset_launches()
     g_rev = step()
@@ -2689,14 +2705,25 @@ def phase_grad(port, cuda, rows, size=SIZE, reps=5, dev="cuda"):
         f"({step_ms[1]:.3f} min), host clock, synchronized, {reps} warm "
         f"runs")
     busy = _log_busy("gradient step", _device_busy(step, reps), step_ms[0])
-    for name in ("interp_float", "interp_grad"):
-        args, kwargs = captured[name]
-        rows[name]["at_gradient"] = {
+    for key in keys:
+        name, _, planes = key.partition("@")
+        args, kwargs = captured[key]
+        row = {
             "launches": launches[name], "forward_ms": fwd_ms[0],
             "step_ms": step_ms[0], "step_device_busy_ms": busy,
-            **_measure_sliced(f"{name} in the gradient step", name, args,
+            **_measure_sliced(f"{key} in the gradient step", name, args,
                               kwargs),
         }
+        if planes:
+            row["geometry"] = _geometry(name, tuple(args[4].shape), kwargs)
+            rows[name].setdefault("at_gradient", {})[planes] = row
+        else:
+            rows[name]["at_gradient"] = row
+
+
+def _k4_key(args, kwargs):
+    """A K4 call's capture key: its dual's planes."""
+    return f"interp_grad@P{args[4].shape[2]}"
 
 
 def _mesh_scenes(port):
@@ -4904,7 +4931,7 @@ def phase_unrolled(r, cuda, std_images, brutes, build, rows):
         }
 
 
-def phase_grad_unrolled(rp, vars_, N=SIZE, reps=5):
+def phase_grad_unrolled(rp, vars_, rows, N=SIZE, reps=5):
     """The shape-parameter gradient through the per-shape compiled
     frames of the parametrized stand-in: `_dense` and the pixel_perfect
     full-leaf unrolled frame (`_frame_unrolled`, K1 cull); loss
@@ -4914,7 +4941,12 @@ def phase_grad_unrolled(rp, vars_, N=SIZE, reps=5):
     the var vector, which the transform overwrites, and held to
     `torch.func.jacfwd` (rtol 1e-5, atol 1e-6) and central differences
     (h = 1e-2; rtol 2e-2, atol 1e-5, against gradients of 3e-4 to
-    6e-3); forward + backward step times."""
+    6e-3); forward + backward step times. Each step's Jacobian is one K4
+    launch of 3 planes (the value and the two shape parameters' tangents;
+    the axis inputs are not differentiated), held to the plain version
+    on the unrolled frame's inputs."""
+    from fidget_tpu_torch.eval import cuda, interp
+
     dev = rp.device
     mat = rp._mat4(None)
     vec0 = rp._var_vec(vars_)
@@ -4940,8 +4972,18 @@ def phase_grad_unrolled(rp, vars_, N=SIZE, reps=5):
             loss(v).backward()
             return v.grad
 
-        step()
+        captured = {}
+        with capture_kernel_inputs([(interp, "interp_grad", _k4_key)],
+                                   captured):
+            step()
+        torch.cuda.synchronize()
+        cuda.reset_launches()
         g_rev = step().double().cpu().numpy()
+        torch.cuda.synchronize()
+        k4 = cuda.LAUNCHES["interp_grad"]
+        if k4 != 1 or list(captured) != ["interp_grad@P3"]:
+            raise Failed(f"{label}: a step launched K4 {k4} times, widths "
+                         f"{list(captured)}, not once at 3 planes")
         g_fwd = torch.func.jacfwd(loss)(torch.tensor(vec0, device=dev))
         g_fwd = g_fwd.double().cpu().numpy()
         if np.any(g_rev[axes]):
@@ -4968,7 +5010,17 @@ def phase_grad_unrolled(rp, vars_, N=SIZE, reps=5):
         log(f"gradient through the {label} frame: reverse {g_rev.tolist()} "
             f"(_frame's {g_ref.tolist()}, axis entries {axes} exactly 0), "
             f"jacfwd {g_fwd.tolist()}, central differences {fd.tolist()}; "
-            f"step {step_ms[0]:.3f} ms median ({step_ms[1]:.3f} min)")
+            f"step {step_ms[0]:.3f} ms median ({step_ms[1]:.3f} min), one "
+            f"K4 launch of 3 planes")
+        if label == "unrolled":
+            args, kwargs = captured["interp_grad@P3"]
+            rows["interp_grad"]["at_unrolled_gradient"] = {"P3": {
+                "launches": k4, "step_ms": step_ms[0],
+                **_measure_sliced("interp_grad@P3 in the unrolled gradient "
+                                  "step", "interp_grad", args, kwargs),
+                "geometry": _geometry("interp_grad", tuple(args[4].shape),
+                                      kwargs),
+            }}
 
 
 def _same_or_nan(got, want):
@@ -5545,12 +5597,21 @@ def _residual_bound(x):
 
 
 def _check_launches(label, launches):
+    """Every path launched its kernels; a fit step's Jacobian in the
+    stand-in's four inputs launched K4 once (unrolled: the two shape
+    parameters, 3 planes) or twice (interp: every input, 4 planes and
+    2)."""
     for path, want in SHARD_PATHS.items():
         if path not in launches:
             continue
         missing = [k for k in want if not launches[path].get(k)]
         if missing:
             raise Failed(f"{label}: {path} never launched {missing}")
+    for path, want in (("fit_step unrolled", 1), ("fit_step interp", 2)):
+        k4 = launches.get(path, {}).get("interp_grad", want)
+        if k4 != want:
+            raise Failed(f"{label}: {path} launched K4 {k4} times, not "
+                         f"{want}")
 
 
 def phase_solve(port, cuda):
@@ -6000,7 +6061,8 @@ def main() -> int:
                      union_brute, compiled3, rows)
 
     phase_grad(port, cuda, rows)
-    phase_grad_unrolled(rp, {shift: GRAD_PARAMS[0], grow: GRAD_PARAMS[1]})
+    phase_grad_unrolled(rp, {shift: GRAD_PARAMS[0], grow: GRAD_PARAMS[1]},
+                        rows)
     phase_mesh(port, cuda, rows)
     phase_mesh_unrolled(port, cuda, rows, mesh_built)
 

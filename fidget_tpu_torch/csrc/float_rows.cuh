@@ -6,8 +6,9 @@
 // (ops.cuh `stage_row`), one 16-byte broadcast row and its immediate at
 // a time. The loop is written once, over two parameters:
 //   - a value mode: what a lane holds and how an op computes it,
-//     `Floats<R>` (one float) or `Duals<R>` (the four planes v, dx, dy,
-//     dz of forward-mode duals, each plane its own register file);
+//     `Floats<R>` (one float) or `Duals<R, P>` (P planes of forward-mode
+//     duals, the value v and the tangents dx, dy, dz up to P, each plane
+//     its own register file);
 //   - an output sink: what an OUTPUT row does with its `a` operand,
 //     `StoreOutput` (write it to the output planes) or `KeepOutput`
 //     (keep it in registers, as the voxel pass does with the distance).
@@ -83,14 +84,18 @@ struct Floats {
   }
 };
 
-// Grad mode: four register files, plane k `pstride` bytes after plane
-// 0; a row's operand offsets address plane 0. An immediate reads as
-// (imm, 0, 0, 0). Input and output i hold their four planes at
-// (4 i + k) * lanes.
-template <int R>
+// Grad mode: P register files (the value and its first P - 1 tangents,
+// 2 <= P <= 4), plane k `pstride` bytes after plane 0; a row's operand
+// offsets address plane 0. An immediate reads as (imm, 0, ...). Input
+// and output i hold their P planes at (P i + k) * lanes. An op runs the
+// full four-plane `Dual` rule with the missing tangents 0 and keeps the
+// first P planes, so every kept plane is the same expression at every
+// P, and the compiler drops the discarded ones.
+template <int R, int P>
 struct Duals {
+  static_assert(P >= 2 && P <= 4, "a dual holds the value and 1-3 tangents");
   struct Val {
-    Pack<R> p[4];
+    Pack<R> p[P];
   };
   int pstride;
 
@@ -99,65 +104,64 @@ struct Duals {
     Val r;
     if (off >= 0) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) r.p[k] = load_pack<R>(regs + off + k * pstride);
+      for (int k = 0; k < P; ++k) r.p[k] = load_pack<R>(regs + off + k * pstride);
     } else {
       r.p[0] = splat<R>(iv);
 #pragma unroll
-      for (int k = 1; k < 4; ++k) r.p[k] = splat<R>(0.f);
+      for (int k = 1; k < P; ++k) r.p[k] = splat<R>(0.f);
     }
     return r;
   }
   __device__ __forceinline__ void store(unsigned char* regs, int off,
                                         const Val& v) const {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) store_pack<R>(regs + off + k * pstride, v.p[k]);
+    for (int k = 0; k < P; ++k) store_pack<R>(regs + off + k * pstride, v.p[k]);
   }
   __device__ __forceinline__ Val input(const float* tvars, int pay,
                                        int lanes) const {
     Val r;
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      r.p[k] = load_pack<R>(tvars + (size_t)(4 * pay + k) * lanes);
+    for (int k = 0; k < P; ++k)
+      r.p[k] = load_pack<R>(tvars + (size_t)(P * pay + k) * lanes);
     return r;
   }
   __device__ __forceinline__ void output(float* tout, int pay, int lanes,
                                          const Val& v) const {
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      store_pack<R>(tout + (size_t)(4 * pay + k) * lanes, v.p[k]);
+    for (int k = 0; k < P; ++k)
+      store_pack<R>(tout + (size_t)(P * pay + k) * lanes, v.p[k]);
   }
   __device__ __forceinline__ void clear(float* tout, int o, int lanes) const {
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      store_pack<R>(tout + (size_t)(4 * o + k) * lanes, splat<R>(0.f));
+    for (int k = 0; k < P; ++k)
+      store_pack<R>(tout + (size_t)(P * o + k) * lanes, splat<R>(0.f));
+  }
+  // lane i of `a` as a four-plane dual, the planes past P read as 0
+  __device__ __forceinline__ static Dual lane(const Val& a, int i) {
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < P; ++k) d[k] = a.p[k].v[i];
+    return Dual{d[0], d[1], d[2], d[3]};
+  }
+  // the first P planes of `d` into lane i of `r`
+  __device__ __forceinline__ static void keep(Val& r, int i, const Dual& d) {
+    const float e[4] = {d.v, d.dx, d.dy, d.dz};
+#pragma unroll
+    for (int k = 0; k < P; ++k) r.p[k].v[i] = e[k];
   }
   template <int OP>
   __device__ __forceinline__ static Val unary(const Val& a) {
     Val r;
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const Dual d = g_unary(
-          OP, Dual{a.p[0].v[i], a.p[1].v[i], a.p[2].v[i], a.p[3].v[i]});
-      r.p[0].v[i] = d.v;
-      r.p[1].v[i] = d.dx;
-      r.p[2].v[i] = d.dy;
-      r.p[3].v[i] = d.dz;
-    }
+    for (int i = 0; i < R; ++i) keep(r, i, g_unary(OP, lane(a, i)));
     return r;
   }
   template <int OP>
   __device__ __forceinline__ static Val binary(const Val& a, const Val& b) {
     Val r;
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const Dual d = g_binary(
-          OP, Dual{a.p[0].v[i], a.p[1].v[i], a.p[2].v[i], a.p[3].v[i]},
-          Dual{b.p[0].v[i], b.p[1].v[i], b.p[2].v[i], b.p[3].v[i]});
-      r.p[0].v[i] = d.v;
-      r.p[1].v[i] = d.dx;
-      r.p[2].v[i] = d.dy;
-      r.p[3].v[i] = d.dz;
-    }
+    for (int i = 0; i < R; ++i)
+      keep(r, i, g_binary(OP, lane(a, i), lane(b, i)));
     return r;
   }
 };

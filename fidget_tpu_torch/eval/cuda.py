@@ -53,7 +53,8 @@ TAPE_CHUNK = 256
 #: against 0.7194 ms)
 INTERLEAVE_CHUNK = 128
 #: lanes a thread K4 and K5 may take, most first (a dual row of K4
-#: moves four planes through shared memory, four times K3's bytes)
+#: moves 1 + tangents planes through shared memory, up to four times
+#: K3's bytes; K4 is built for these two alone)
 GRAD_LANES = (2, 1)
 VOXEL_LANES = (4, 2, 1)
 #: passes over its columns a K5 block makes at least: the block stages
@@ -86,7 +87,7 @@ class Geometry:
       K2: 1).
     chunk: tape rows per ring buffer.
     smem: bytes of dynamic shared memory of a block.
-    regs_shared: the register file (K4: the four files; K2: the
+    regs_shared: the register file (K4: its 1 + tangents files; K2: the
       liveness bits) lies in registers or shared memory; else the
       wrapper allocates a global scratch.
     choices_shared: K1's choice words accumulate in shared memory (else
@@ -110,7 +111,8 @@ class Geometry:
 
 @functools.lru_cache(maxsize=None)
 def launch_geometry(kernel: str, *, nf: int, lanes: int, T: int,
-                    cw: int = 0, sub: int = 0, r: int = 0) -> Geometry:
+                    cw: int = 0, sub: int = 0, r: int = 0,
+                    tangents: int = 3) -> Geometry:
     """The launch geometry of `interp_float` (K3), `interp_float_coded`
     (K6), `interp_grad` (K4), `interp_voxel_depth` (K5, over sub^3 lanes
     of `sub`^2 columns), `interp_interval` (K1), `liveness_codes` (K2)
@@ -123,7 +125,8 @@ def launch_geometry(kernel: str, *, nf: int, lanes: int, T: int,
     K3, K4, K5, K6 and P2 take the most lanes a thread (K4: of GRAD_LANES;
     K5: of VOXEL_LANES with a column layout, `_voxel_cols`; else 4, 2,
     1) that divide the lanes into whole blocks and whose register file
-    (`[nf][BLOCK * r]` floats, K4 four of them; K5 with BLOCK * r ints
+    (`[nf][BLOCK * r]` floats, K4 one for the value and one for each of
+    its `tangents`, 1 to 3; K5 with BLOCK * r ints
     more to fold the slices of a pass) leaves room for two blocks an SM,
     or for one where the grid has no more blocks than the card has SMs;
     failing that the most that fit one block; and the global scratch
@@ -177,7 +180,9 @@ def launch_geometry(kernel: str, *, nf: int, lanes: int, T: int,
             raise ValueError(f"{r} lanes a thread do not divide {lanes}")
         blocks = lambda r: 2 * T * (lanes // (BLOCK * r))
     elif kernel == "interp_grad":
-        planes = 4
+        if not 1 <= tangents <= 3:
+            raise ValueError(f"K4 carries 1 to 3 tangents, not {tangents}")
+        planes = 1 + tangents
         rs = [r for r in GRAD_LANES if lanes % (BLOCK * r) == 0]
     elif kernel == "interp_voxel_depth":
         if (sub * sub) % BLOCK or lanes != sub**3:
@@ -264,9 +269,9 @@ _ARGTYPES = {
     # w1s w2s lengths choices codes scratch order | B Tt L nf CW lanes
     # chunk mask_words choices_shared smem
     "fidget_liveness_codes": [_P] * 7 + [_I] * 10 + [_P],
-    # w1 w2 imm lengths vars out scratch order | T L nf V O lanes r chunk
-    # smem
-    "fidget_interp_grad": [_P] * 8 + [_I] * 9 + [_P],
+    # w1 w2 imm lengths vars out scratch order | T L nf V O lanes r planes
+    # chunk smem
+    "fidget_interp_grad": [_P] * 8 + [_I] * 10 + [_P],
     # w1 w2 imm lengths vars out scratch order | T L nf V sub pp_out r cols
     # chunk smem
     "fidget_interp_voxel_depth": [_P] * 8 + [_I] * 10 + [_P],

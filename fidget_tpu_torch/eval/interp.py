@@ -7,8 +7,8 @@ The counterparts of `fidget_tpu.eval.pallas_interp.interp_float`,
 `interp_interval`, `interp_grad`, `interp_voxel_depth` and
 `interp_float_coded`, with the same packed arenas (compiler/pack.py)
 and the same lane layout: inputs and outputs are `[T, V, S0, 128]`
-planes (`[T, V, 4, S0, 128]` dual planes in grad mode), one packed
-tape per instance t (K6: one tape for all).
+planes (`[T, V, P, S0, 128]` dual planes in grad mode, P = 2 to 4),
+one packed tape per instance t (K6: one tape for all).
 
 Each public function dispatches on the device of its tensors alone:
 on CUDA it launches the hand-written kernel (csrc/interp_float.cu,
@@ -171,11 +171,12 @@ class _FloatDiff(torch.autograd.Function):
     """`interp_float` with its derivative in `vars_`.
 
     The primal is K3 (the plain version on the CPU). The Jacobian
-    J[t, o, i] comes from ceil(V/3) passes of the dual-number kernel K4
-    (`interp_grad_plain` on the CPU), each seeding one-hot tangents on
-    three inputs, with the same `op_order`; partials that are not
-    finite (sqrt, abs and recip at their kinks) read as 0, so that a
-    kink cannot poison every parameter through a zero tangent.
+    J[t, o, i] comes from `_FloatJacobian` in every input: ceil(V/3)
+    passes of the dual-number kernel K4 (`interp_grad_plain` on the
+    CPU), each seeding one-hot tangents on up to three inputs, with the
+    same `op_order`; partials that are not finite (sqrt, abs and recip
+    at their kinks) read as 0, so that a kink cannot poison every
+    parameter through a zero tangent.
     `backward` contracts the incoming gradient with J, `jvp` contracts
     J with the tangent. The CPU takes the same route, never autograd
     of the plain version's own ops, so both devices differentiate
@@ -218,31 +219,43 @@ class _FloatJacobian(torch.autograd.Function):
     """J [T, O, V, S0, 128] of `interp_float` in `vars_`, non-finite
     partials set to 0 (see `_FloatDiff`); a constant of the derivative
     rules. A Function of its own, so that under `torch.func` transforms
-    the kernels get the plain tensors the transform wraps. Counts the
-    tangent planes its passes evaluate, 3 a pass over every lane, padding
+    the kernels get the plain tensors the transform wraps.
+
+    `cfg` is (nf, n_inputs, n_outputs, s0, op_order[, wanted]): `wanted`
+    names the inputs to differentiate in, every input by default. They
+    are seeded three to a pass, in the order given, and each K4 pass
+    carries only the tangents it seeds (duals of 1 + seeds planes); the
+    columns of the other inputs are 0, not computed. Counts the tangent
+    planes its passes evaluate, the seeded ones over every lane, padding
     included (`jacobian.tangents_computed`)."""
 
     generate_vmap_rule = True
 
     @staticmethod
     def forward(w1, w2, imm, lengths, vars_, cfg):
-        nf, n_inputs, n_outputs, s0, order = cfg
+        nf, n_inputs, n_outputs, s0, order = cfg[:5]
+        wanted = tuple(cfg[5]) if len(cfg) > 5 else tuple(range(n_inputs))
         T = vars_.shape[0]
-        count("jacobian.tangents_computed",
-              -(-n_inputs // 3) * 3 * T * s0 * 128)
-        cols = []
-        for i0 in range(0, n_inputs, 3):
-            kk = min(3, n_inputs - i0)
-            duals = vars_.new_zeros((T, n_inputs, 4, s0, 128))
+        count("jacobian.tangents_computed", len(wanted) * T * s0 * 128)
+        # columns by input, stacked at the end: an index tensor would
+        # copy from the host and wait for the card
+        cols = [None] * n_inputs
+        for i0 in range(0, len(wanted), 3):
+            seeds = wanted[i0:i0 + 3]
+            duals = vars_.new_zeros((T, n_inputs, 1 + len(seeds), s0, 128))
             duals[:, :, 0] = vars_
-            for c in range(kk):
-                duals[:, i0 + c, 1 + c] = 1.0
+            for c, i in enumerate(seeds):
+                duals[:, i, 1 + c] = 1.0
             g = interp_grad(
                 w1, w2, imm, lengths, duals, nf=nf, n_inputs=n_inputs,
                 n_outputs=n_outputs, s0=s0, op_order=order,
             )
-            cols.append(g[:, :, 1:1 + kk])
-        J = torch.cat(cols, dim=2)
+            for c, i in enumerate(seeds):
+                cols[i] = g[:, :, 1 + c]
+        if any(c is None for c in cols):
+            zero = vars_.new_zeros((T, n_outputs, s0, 128))
+            cols = [zero if c is None else c for c in cols]
+        J = torch.stack(cols, dim=2)
         return torch.where(torch.isfinite(J), J, torch.zeros_like(J))
 
     @staticmethod
@@ -490,17 +503,22 @@ def interp_grad(
     """Evaluates packed tapes with forward-mode duals.
 
     Args:
-      vars_: [T, V, 4, S0, 128] f32 dual planes (v, dx, dy, dz).
+      vars_: [T, V, P, S0, 128] f32 dual planes: the value v and the
+        first P - 1 (1 to 3) of the tangents dx, dy, dz. Each plane is
+        computed as in the four-plane run, so the planes of a narrower
+        run equal that run's first P planes bit for bit.
       op_order: the opcode renumbering the arena was packed with; None
         for the canonical order.
     Returns:
-      [T, O, 4, S0, 128] f32 dual outputs; 0 where the tape wrote none.
+      [T, O, P, S0, 128] f32 dual outputs; 0 where the tape wrote none.
     """
     T, L = _check_arena(w1, w2, imm, lengths)
-    if vars_.shape != (T, n_inputs, 4, s0, 128) or vars_.dtype != torch.float32:
+    P = vars_.shape[2] if vars_.dim() == 5 else 0
+    if (not 2 <= P <= 4 or vars_.shape != (T, n_inputs, P, s0, 128)
+            or vars_.dtype != torch.float32):
         raise ValueError(
-            f"dual planes must be f32 [{T}, {n_inputs}, 4, {s0}, 128], got "
-            f"{vars_.dtype} {tuple(vars_.shape)}"
+            f"dual planes must be f32 [{T}, {n_inputs}, 2 to 4, {s0}, 128], "
+            f"got {vars_.dtype} {tuple(vars_.shape)}"
         )
     if vars_.device.type == "cpu":
         return interp_grad_plain(
@@ -510,24 +528,48 @@ def interp_grad(
     cuda.check_cuda(w1, w2, imm, lengths, vars_)
     dev = vars_.device
     lanes = s0 * 128
-    out = torch.empty((T, n_outputs, 4, s0, 128), dtype=torch.float32, device=dev)
-    g = cuda.launch_geometry("interp_grad", nf=nf, lanes=lanes, T=T)
+    g = cuda.launch_geometry("interp_grad", nf=nf, lanes=lanes, T=T,
+                             tangents=P - 1)
     scratch = None
     if not g.regs_shared:
-        scratch = _scratch((T, 4, nf, lanes), dev)
+        if P < 4:  # the global scratch is built for four planes alone
+            return _as_four_planes(
+                interp_grad, w1, w2, imm, lengths, vars_, nf=nf,
+                n_inputs=n_inputs, n_outputs=n_outputs, s0=s0,
+                op_order=op_order,
+            )
+        scratch = _scratch((T, P, nf, lanes), dev)
+    out = torch.empty((T, n_outputs, P, s0, 128), dtype=torch.float32, device=dev)
     cuda.launch(
         "interp_grad", w1, w2, imm, lengths, vars_, out, scratch,
         cuda.order_table(op_order, dev),
-        T, L, nf, n_inputs, n_outputs, lanes, g.r, g.chunk, g.smem,
+        T, L, nf, n_inputs, n_outputs, lanes, g.r, P, g.chunk, g.smem,
     )
     return out
+
+
+def _as_four_planes(fn, w1, w2, imm, lengths, vars_, **kw):
+    """`fn` (`interp_grad` or its plain version) on duals of P < 4
+    planes, run as four with the missing tangents 0: the first P planes
+    of that run are the narrow run's, float for float."""
+    P = vars_.shape[2]
+    pad = vars_.new_zeros(vars_.shape[:2] + (4 - P,) + vars_.shape[3:])
+    return fn(w1, w2, imm, lengths, torch.cat([vars_, pad], dim=2),
+              **kw)[:, :, :P].contiguous()
 
 
 def interp_grad_plain(
     w1, w2, imm, lengths, vars_, *, nf: int, n_inputs: int, n_outputs: int,
     s0: int, op_order: tuple | None = None,
 ):
-    """Plain PyTorch version of `interp_grad` (same contract)."""
+    """Plain PyTorch version of `interp_grad` (same contract): GradMode
+    walks four planes, the missing tangents 0, and the first P are
+    returned."""
+    if vars_.shape[2] < 4:
+        return _as_four_planes(
+            interp_grad_plain, w1, w2, imm, lengths, vars_, nf=nf,
+            n_inputs=n_inputs, n_outputs=n_outputs, s0=s0, op_order=op_order,
+        )
     T, L = w1.shape
     dev = vars_.device
     gm = GradMode(torch)

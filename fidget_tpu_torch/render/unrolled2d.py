@@ -206,8 +206,9 @@ def _leaf(kern, seg, tw, pp, cx0, cy0, valid, mat, z, var_vec, st):
 class _UnrolledLeaf(torch.autograd.Function):
     """U1 over a worklist, with its derivative in the var vector: the
     Jacobian of the full tape at the same pixels from `_FloatJacobian`
-    (K4 passes, non-finite partials 0), zero on invalid slots and in the
-    axis entries, which the transform overwrites. A union
+    (K4 passes in the non-axis inputs alone, non-finite partials 0),
+    zero on invalid slots and in the axis entries, which the transform
+    overwrites. A union
     program equals the full tape on every pixel it serves (its tiles'
     traces are subsets of its union), so one Jacobian serves every
     segment."""
@@ -245,9 +246,9 @@ class _UnrolledLeaf(torch.autograd.Function):
 
 def _leaf_jacobian(var_vec, mat, z, cx0, cy0, valid, cfg):
     """J [n, pp, V] of the leaf's distances in the var vector, 0 on
-    invalid slots and in the axis columns. Counts the partials that it
-    keeps, the non-axis columns at the valid slots' pixels
-    (`jacobian.tangents_kept`)."""
+    invalid slots and in the axis columns, which K4 does not compute.
+    Counts the partials that it keeps, the non-axis columns at the valid
+    slots' pixels (`jacobian.tangents_kept`)."""
     _, _, tw, pp, st = cfg
     w1, w2, imm, lens = st.r._arena
     V = var_vec.shape[0]
@@ -258,14 +259,14 @@ def _leaf_jacobian(var_vec, mat, z, cx0, cy0, valid, cfg):
     planes = [var_vec[i].expand(n, pp) for i in range(V)]
     # the transform overwrites the axis entries of the var vector, so
     # the frame does not depend on them: their columns are 0
-    keep = torch.ones(V, dtype=torch.float32, device=var_vec.device)
+    axes = set()
     for kind, m in zip(("x", "y", "z"), transform_points(mat, px, py, z)):
         idx = st.r.axis_of.get(kind)
         if idx is not None:
             planes[idx] = torch.broadcast_to(m, (n, pp))
-            keep[idx] = 0.0
-    n_axes = sum(k in st.r.axis_of for k in ("x", "y", "z"))
-    count("jacobian.tangents_kept", valid, per=(V - n_axes) * pp)
+            axes.add(idx)
+    wanted = tuple(i for i in range(V) if i not in axes)
+    count("jacobian.tangents_kept", valid, per=len(wanted) * pp)
     lanes = n * pp
     s0 = max(1, -(-lanes // 128))
     planes = torch.stack([p.reshape(-1) for p in planes])
@@ -273,9 +274,9 @@ def _leaf_jacobian(var_vec, mat, z, cx0, cy0, valid, cfg):
         [planes, planes.new_zeros((V, s0 * 128 - lanes))], dim=1
     ).reshape(1, V, s0, 128)
     J = _FloatJacobian.apply(w1, w2, imm, lens, planes,
-                             (st.r._nf_regs, V, 1, s0, None))
+                             (st.r._nf_regs, V, 1, s0, None, wanted))
     J = J.reshape(V, s0 * 128)[:, :lanes].T.reshape(n, pp, V)
-    return J * valid[:, None, None] * keep
+    return J * valid[:, None, None]
 
 
 def _assemble(dist_c, slot_of, fill_tile, n0x, n0y, T0):

@@ -274,6 +274,40 @@ def test_adversarial_grad_matches_plain(card, s0, nf_pad):
     assert (got[A["names"].index("len0")] == 0).all()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("tangents", [1, 2])
+@pytest.mark.parametrize("s0,nf_pad", GRAD_CASES)
+def test_narrow_grad_equals_the_four_plane_kernel(card, tangents, s0, nf_pad):
+    """K4 at 2 and 3 planes a dual on the adversarial tapes: bit for bit
+    the first 1 + tangents planes of the four-plane kernel's result and
+    the narrow plain version, at two lanes and one lane a thread with
+    shared register files, and at two with the global scratch, where the
+    narrow dual runs as four planes (one launch)."""
+    A = adversarial_arena(cuda.TAPE_CHUNK)
+    arena = [torch.from_numpy(A[k]).to(card)
+             for k in ("w1", "w2", "imm", "lengths")]
+    T = len(A["names"])
+    nf = max(A["nf"], nf_pad)
+    P = 1 + tangents
+    g = cuda.launch_geometry("interp_grad", nf=nf, lanes=s0 * 128, T=T,
+                             tangents=tangents)
+    assert (g.r, g.regs_shared) == (1 if s0 == 1 else 2, nf_pad == 0)
+    rng = np.random.default_rng(9)
+    duals = torch.from_numpy(rng.uniform(
+        -1.5, 1.5, size=(T, 2, 4, s0, 128)).astype(np.float32)).to(card)
+    kw = dict(nf=nf, n_inputs=2, n_outputs=2, s0=s0)
+    full = interp_grad(*arena, duals, **kw)
+    narrow = duals[:, :, :P].contiguous()
+    cuda.reset_launches()
+    got = interp_grad(*arena, narrow, **kw)
+    assert cuda.LAUNCHES["interp_grad"] == 1
+    assert got.shape == (T, 2, P, s0, 128)
+    want = full[:, :, :P].contiguous()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    plain = interp_grad_plain(*arena, narrow, **kw)
+    assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
+
+
 #: (sub, nf_pad) of K5 on the adversarial tapes: four lanes a thread at
 #: sub 16 and 32 (4 and 32 blocks a subtile), one lane a thread (nf 256)
 #: and the global scratch (nf 512)
@@ -1230,6 +1264,112 @@ def test_solve_on_card_matches_cpu(card):
         want = S.Solver(eqs, free, fixed, device="cpu").solve(params)
         np.testing.assert_allclose([got[v] for v in free],
                                    [want[v] for v in free], rtol=0, atol=1e-4)
+
+
+def _param_standin(n):
+    """The parametrized stand-in at n circles (x, y, shift, grow), with
+    its two Vars."""
+    from fidget_tpu_torch.scenes import param_standin_shape
+
+    ctx = port.Context()
+    shift, grow = port.Var.new(), port.Var.new()
+    tape = port.lower(ctx, [param_standin_shape(
+        ctx, ctx.input(shift), ctx.input(grow), n=n)])
+    return tape, shift, grow
+
+
+@pytest.mark.cuda
+def test_fit_backward_waits_for_nothing(card):
+    """The fit's backward through U1's leaf (its Jacobian in one K4
+    pass) only queues work: no call in it waits for the card, under
+    CUDA's sync debug mode. A copy from the host inside it would stall
+    the step's launches behind K4."""
+    from fidget_tpu_torch.parallel import sharding as sh
+    from fidget_tpu_torch.render.unrolled2d import ready, state
+
+    tape, shift, grow = _param_standin(40)
+    r = sh._renderer(port.PixelRenderer, tape, port.ImageSize(256, 256), card)
+    ready(r, [state(r).float_full], "block")
+    vec = torch.tensor(r._var_vec({shift: 0.013, grow: -0.004}),
+                       device=card, requires_grad=True)
+    mat = torch.as_tensor(r._mat4(None), device=card)
+    z = torch.zeros((), device=card)
+    loss = (sh._dense_rows(r, 0, 256, mat, z, vec) ** 2).sum()
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (g,) = torch.autograd.grad(loss, vec)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cuda.LAUNCHES["interp_grad"] == 1
+    assert torch.isfinite(g).all() and g.abs().max() > 0
+
+
+@pytest.mark.cuda
+def test_fit_step_takes_one_narrow_jacobian_pass(card, monkeypatch):
+    """A 256^2 `fit_step` through U1 on a 40-circle parametrized
+    stand-in (x, y, shift, grow): K4 once a step, in the two shape
+    parameters alone, and the gradient it reduces equals, bit for bit,
+    that of the Jacobian in every input (passes of 3 tangents and 1,
+    then the axis columns zeroed), which the step took before."""
+    import socket
+
+    import torch.distributed as dist
+
+    from fidget_tpu_torch.parallel import sharding as sh
+    from fidget_tpu_torch.render import unrolled2d
+
+    tape, shift, grow = _param_standin(40)
+    size = port.ImageSize(256, 256)
+    params = {shift: 0.013, grow: -0.004}
+    target = torch.from_numpy(np.random.default_rng(3).uniform(
+        -0.2, 0.2, size=(256, 256)).astype(np.float32))
+    reduced = []
+    all_reduce = sh.all_reduce
+
+    def record(mesh, t):
+        reduced.append(t.detach().clone())
+        return all_reduce(mesh, t)
+
+    jacobian = unrolled2d._FloatJacobian
+
+    class EveryInput:
+        @staticmethod
+        def apply(*args):
+            *tensors, cfg = args
+            J = jacobian.apply(*tensors, cfg[:5])
+            keep = torch.zeros(cfg[1], dtype=J.dtype, device=J.device)
+            keep[list(cfg[5])] = 1.0
+            return J * keep[:, None, None]
+
+    monkeypatch.setattr(sh, "all_reduce", record)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port_no = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port_no}",
+                            rank=0, world_size=1)
+    try:
+        mesh = sh.make_mesh()
+        steps, grads = [], []
+        for every in (False, True):
+            if every:
+                monkeypatch.setattr(unrolled2d, "_FloatJacobian", EveryInput)
+            reduced.clear()
+            cuda.reset_launches()
+            steps.append(sh.fit_step(tape, size, mesh, params, target))
+            torch.cuda.synchronize()
+            assert cuda.LAUNCHES["interp_grad"] == (2 if every else 1)
+            grads.append(reduced[0])
+    finally:
+        dist.destroy_process_group()
+    (new, loss), (old, old_loss) = steps
+    kept = [tape.var_map[shift], tape.var_map[grow]]
+    g, g_old = grads[0][kept], grads[1][kept]
+    assert g.abs().min() > 0
+    assert torch.equal(g.view(torch.int32), g_old.view(torch.int32))
+    assert torch.equal(grads[0], grads[1])  # the axis entries 0 in both
+    assert new == old and loss == old_loss
 
 
 def test_sharded_world_of_one_on_card(card):

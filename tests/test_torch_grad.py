@@ -213,6 +213,47 @@ def test_float_diff_under_torch_func(circle):
     assert float(jf[i]) == -1.0
 
 
+#: inputs `_FloatJacobian` differentiates in, over the circle's four:
+#: one pass of 1, 2 and 3 tangents, then passes of 3 and 1 in reverse
+#: order
+WANTED = [(2,), (3, 0), (1, 3, 2), (3, 2, 1, 0)]
+
+
+@pytest.mark.parametrize("wanted", WANTED, ids=str)
+def test_float_jacobian_in_wanted_inputs(circle, wanted):
+    """The Jacobian in some of the inputs, seeded in the order given,
+    each K4 pass as wide as the tangents it seeds: its columns equal the
+    full Jacobian's bit for bit (the circle's centre, whose partials are
+    not finite, 0 in both), the other columns are 0, and the tangents it
+    computes are the seeded ones."""
+    from fidget_tpu_torch import utils
+
+    rtape, ptape, cx, rv = circle
+    rng = np.random.default_rng(13)
+    pts = rng.uniform(-1, 1, size=(1, 4, S0, 128)).astype(np.float32)
+    ix, iy = rtape.var_map[RefVar.X], rtape.var_map[RefVar.Y]
+    pts[0, rtape.var_map[cx]] = 0.1
+    pts[0, rtape.var_map[rv]] = 0.5
+    pts[0, ix, 0, :4] = 0.1  # the centre (0.1, 0)
+    pts[0, iy, 0, :4] = 0.0
+    arena = _arena_t(pack_tapes([ptape]))
+    v = torch.from_numpy(pts)
+    cfg = (ptape.reg_count, 4, 1, S0, None)
+    full = interp._FloatJacobian.apply(*arena, v, cfg)
+    utils.reset()
+    got = interp._FloatJacobian.apply(*arena, v, cfg + (wanted,))
+    computed = utils.snapshot()["counters"]["jacobian.tangents_computed"]
+    utils.reset()
+    assert computed == len(wanted) * S0 * 128
+    cols = list(wanted)
+    others = [i for i in range(4) if i not in wanted]
+    assert got.shape == full.shape == (1, 1, 4, S0, 128)
+    assert torch.equal(got[:, :, cols].view(torch.int32),
+                       full[:, :, cols].view(torch.int32))
+    assert (got[:, :, others] == 0).all()
+    assert (full[:, :, cols] != 0).any() and (full[:, :, cols] == 0).any()
+
+
 # ----------------------------------------------------------------------
 # the 2D frame: mirrors of tests/test_grad_parity.py
 

@@ -34,6 +34,7 @@ from fidget_tpu_torch.eval import cuda
 from fidget_tpu_torch.eval.arith import GradMode
 from fidget_tpu_torch.eval.interp import (
     interp_grad,
+    interp_grad_plain,
     interp_interval,
     interp_voxel_depth,
 )
@@ -157,6 +158,39 @@ def test_k4_lane_chunks_agree(packed_pair):
         for k in (0, 4)
     ]
     torch.testing.assert_close(full, torch.cat(halves, dim=3), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("tangents", [1, 2])
+def test_k4_narrow_duals_equal_the_first_planes(packed_pair, tangents):
+    """Duals of 1 + tangents planes give the first 1 + tangents planes
+    of the four-plane run, bit for bit: no plane reads another's
+    tangents. The wrapper on the CPU takes the same route."""
+    pp, _ = packed_pair
+    duals = _grad_planes(REF_TAPES, 3)
+    kw = dict(nf=pp.nf, n_inputs=V3, n_outputs=1, s0=S0)
+    P = 1 + tangents
+    full = interp_grad_plain(*_arena(pp), torch.from_numpy(duals), **kw)
+    narrow = torch.from_numpy(duals[:, :, :P].copy())
+    got = interp_grad_plain(*_arena(pp), narrow, **kw)
+    assert got.shape == (len(REF_TAPES), 1, P, S0, 128)
+    want = full[:, :, :P].contiguous()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(
+        interp_grad(*_arena(pp), narrow, **kw), got)
+    assert np.abs(got[:, :, 1:].numpy()).max() > 0
+
+
+@pytest.mark.parametrize("tangents", [0, 4])
+def test_k4_rejects_tangents_outside_one_to_three(packed_pair, tangents):
+    """Duals of 1 + tangents planes, 2 to 4, and nothing else."""
+    pp, _ = packed_pair
+    duals = torch.zeros((len(REF_TAPES), V3, 1 + tangents, S0, 128))
+    with pytest.raises(ValueError, match="2 to 4"):
+        interp_grad(*_arena(pp), duals, nf=pp.nf, n_inputs=V3, n_outputs=1,
+                    s0=S0)
+    with pytest.raises(ValueError, match="1 to 3 tangents"):
+        cuda.launch_geometry("interp_grad", nf=pp.nf, lanes=S0 * 128,
+                             T=len(REF_TAPES), tangents=tangents)
 
 
 def test_k4_zero_length_writes_zero(packed_pair):

@@ -257,6 +257,28 @@ def test_main_path_geometry_k4_k5():
     assert 8 * (k5.smem + cuda.SMEM_BLOCK_RESERVED) <= cuda.SMEM_SM
 
 
+#: (tangents, smem, blocks an SM) of K4 at the fitting step's shape:
+#: the stand-in's 14 registers over 2048^2 lanes, one instance
+FIT_K4 = [(1, 42032, 5), (2, 56368, 4), (3, 70704, 3)]
+
+
+@pytest.mark.parametrize("tangents,smem,per_sm", FIT_K4)
+def test_fit_jacobian_geometry(tangents, smem, per_sm):
+    """K4's register files follow its planes, 1 + tangents: the fit's
+    pass in the two shape parameters (2 tangents) takes 56,368 B a block
+    where four planes take 70,704 B, so four blocks share an SM, not
+    three; two lanes a thread and the grid stay."""
+    g = cuda.launch_geometry("interp_grad", nf=14, lanes=2048 * 2048, T=1,
+                             tangents=tangents)
+    assert (g.r, g.regs_shared, g.blocks) == (2, True, 16384)
+    assert g.smem == smem == (cuda.tape_ring_bytes(g.chunk)
+                              + (1 + tangents) * 14 * 256 * 4)
+    assert cuda.SMEM_SM // (g.smem + cuda.SMEM_BLOCK_RESERVED) == per_sm
+    if tangents == 3:
+        assert g == cuda.launch_geometry("interp_grad", nf=14,
+                                         lanes=2048 * 2048, T=1)
+
+
 def test_launch_geometry_rejects_bad_subtiles():
     with pytest.raises(ValueError, match="sub"):
         cuda.launch_geometry("interp_voxel_depth", nf=6, lanes=512, T=1,

@@ -194,9 +194,13 @@ def test_spans_share_the_profilers_clock(rec):
 
 @pytest.mark.parametrize("pipeline", ["unrolled", "interp"])
 def test_fit_step_records_a_request_and_its_counts(rec, mesh, pipeline):
-    """One step at 64^2: two K4 passes of three tangent planes over its
-    4,096 lanes, of which the two shape parameters' columns reach the
-    gradient; a second step with the same tape builds no renderer."""
+    """One step at 64^2 over its 4,096 lanes: the unrolled leaf seeds
+    the two shape parameters alone, one K4 pass of two tangents, all of
+    them kept; the interpreter differentiates in all four inputs, passes
+    of three tangents and one, of which the shape parameters' columns
+    reach the gradient. A second step with the same tape builds no
+    renderer."""
+    computed = {"unrolled": 2, "interp": 3 + 1}[pipeline] * N * N
     tape, shift, grow = _circle()
     size = port.ImageSize(N, N)
     target = torch.zeros(N, N)
@@ -206,7 +210,7 @@ def test_fit_step_records_a_request_and_its_counts(rec, mesh, pipeline):
     snap = utils.snapshot()
     c = snap["counters"]
     assert c["renderers.built"] == 1
-    assert c["jacobian.tangents_computed"] == 2 * 3 * N * N
+    assert c["jacobian.tangents_computed"] == computed
     assert c["jacobian.tangents_kept"] == 2 * N * N
     (step,) = _by_name(snap["spans"], "fidget.fit_step")
     assert step.request == step.id and step.parent == 0
@@ -222,7 +226,7 @@ def test_fit_step_records_a_request_and_its_counts(rec, mesh, pipeline):
     sh.fit_step(tape, size, mesh, params, target, pipeline=pipeline)
     c = utils.snapshot()["counters"]
     assert c["renderers.built"] == 1
-    assert c["jacobian.tangents_computed"] == 2 * 2 * 3 * N * N
+    assert c["jacobian.tangents_computed"] == 2 * computed
     assert c["jacobian.tangents_kept"] == 2 * 2 * N * N
     requests = {s.request for s in utils.snapshot()["spans"]
                 if s.name.startswith("fidget.fit")}
@@ -231,13 +235,14 @@ def test_fit_step_records_a_request_and_its_counts(rec, mesh, pipeline):
 
 def test_interp_rows_count_real_lanes_and_all_computed(rec, mesh):
     """At 48 x 40 the interpreter's lanes are padded to 2,048: K4
-    computes the padding, the gradient keeps the 1,920 real lanes."""
+    computes the padding in passes of three tangents and one, the
+    gradient keeps the 1,920 real lanes."""
     tape, shift, grow = _circle()
     size = port.ImageSize(48, 40)
     sh.fit_step(tape, size, mesh, {shift: 0.1, grow: 0.0},
                 torch.zeros(40, 48), pipeline="interp")
     c = utils.snapshot()["counters"]
-    assert c["jacobian.tangents_computed"] == 2 * 3 * 2048
+    assert c["jacobian.tangents_computed"] == (3 + 1) * 2048
     assert c["jacobian.tangents_kept"] == 2 * 48 * 40
 
 
